@@ -1,0 +1,313 @@
+// Fused Runge-Kutta stage kernels for Hopper (sm_90a): K1 and K2 of the
+// port, the two kernels of every adaptive trial on the flat-state path.
+//
+// K1 rk_stage_increment replaces the TPU kernel
+//   src/repro/kernels/rk_stage.py::rk_stage_increment_pallas (_incr_kernel):
+//   out = z + h * sum_j a_j k_j, zero weights skipped, f32 accumulation,
+//   output in z's dtype.
+// K2 rk_stage_combine_err replaces the TPU kernel
+//   src/repro/kernels/rk_stage.py::rk_stage_combine_err_pallas
+//   (_combine_err_kernel):
+//   zn = z + h * sum_i b_i k_i, err = h * sum_i e_i k_i (stored only when
+//   asked for), and one partial sum per block of
+//   (err / (atol + rtol * max(|z|, |zn|)))^2.
+//
+// Both are bounded by bytes, not operations: each element costs a few
+// flops against 4 (f32) or 2 (bf16) bytes per array touched. At the NODE18
+// block's state (N = 8*512*768 = 3,145,728 f32 values, 12.6 MB):
+//   K1 with one stage (HeunEuler) reads 2N and writes N values: 37.7 MB;
+//   K2 for HeunEuler without err reads 3N and writes N: 50.3 MB;
+//   K2 for Dopri5 reads 8N and writes N: 113 MB.
+// The design therefore only has to stream: a grid-stride loop over
+// 16-byte vectors (4 f32 or 8 bf16 per thread per load) when N is a
+// multiple of the vector width and every base pointer is 16-byte aligned,
+// else one element per thread per load. The ragged tail is masked by the
+// loop bound; nothing is padded or copied.
+//
+// Rounding: the accumulation follows the Pallas body exactly
+// (acc = 0; acc = acc + a_j*k_j for ascending j, skipping a_j == 0; then
+// out = z + h*acc), with __fmul_rn/__fadd_rn so that nvcc does not contract
+// the pairs into FMAs. z_next and err are then bitwise equal to the plain
+// PyTorch versions in rk_stage.py on the same inputs.
+//
+// h is read from device memory, so a solve never copies the stepsize to
+// the host. The tableau row is a by-value argument (at most 7 weights and a
+// count); a zero weight is skipped by a branch that is uniform across the
+// grid. K2's norm is reduced per block into partials[blockIdx.x] in a fixed
+// order, without atomics, so the accept decision is the same run to run;
+// the caller sums the partials.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define RK_MAX_STAGES 7
+#define RK_THREADS 256
+
+struct RkRow {
+  float w[RK_MAX_STAGES];
+  int n;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// V values of T starting at p, widened to f32 (one 16-byte load if V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         float (&x)[V]) {
+  if constexpr (V == 1) {
+    x[0] = to_f32(p[0]);
+  } else {
+    static_assert(sizeof(T) * V == 16, "vector loads are 16 bytes");
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = to_f32(e[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p,
+                                          const float (&x)[V]) {
+  if constexpr (V == 1) {
+    p[0] = from_f32<T>(x[0]);
+  } else {
+    alignas(16) T e[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_f32<T>(x[i]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(e);
+  }
+}
+
+// V f32 values; 16-byte stores when V is a multiple of 4.
+template <int V>
+__device__ __forceinline__ void store_f32(float* __restrict__ p,
+                                          const float (&x)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = x[i];
+  }
+}
+
+// K1: out = z + h * sum_j a_j k_j over k of shape (a.n, n).
+template <typename T, int V>
+__global__ void __launch_bounds__(RK_THREADS)
+    rk_stage_increment_kernel(const T* __restrict__ z,
+                              const T* __restrict__ k,
+                              const float* __restrict__ h,
+                              T* __restrict__ out, long long n, RkRow a) {
+  const float hv = __ldg(h);
+  const long long units = n / V;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < units; u += stride) {
+    const long long off = u * V;
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < RK_MAX_STAGES; ++j) {
+      if (j < a.n && a.w[j] != 0.0f) {
+        float kj[V];
+        load_vec<T, V>(k + (long long)j * n + off, kj);
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.w[j], kj[i]));
+      }
+    }
+    float zv[V];
+    load_vec<T, V>(z + off, zv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) zv[i] = __fadd_rn(zv[i], __fmul_rn(hv, acc[i]));
+    store_vec<T, V>(out + off, zv);
+  }
+}
+
+// K2: zn, optional err, and one partial norm sum per block.
+template <typename T, int V, bool WITH_ERR>
+__global__ void __launch_bounds__(RK_THREADS)
+    rk_stage_combine_err_kernel(const T* __restrict__ z,
+                                const T* __restrict__ k,
+                                const float* __restrict__ h,
+                                T* __restrict__ zn_out,
+                                float* __restrict__ err_out,
+                                float* __restrict__ partials, long long n,
+                                RkRow b, RkRow e, float rtol, float atol) {
+  const float hv = __ldg(h);
+  const long long units = n / V;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float sq = 0.0f;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < units; u += stride) {
+    const long long off = u * V;
+    float acc[V], er[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      acc[i] = 0.0f;
+      er[i] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < RK_MAX_STAGES; ++j) {
+      const bool use_b = j < b.n && b.w[j] != 0.0f;
+      const bool use_e = j < b.n && e.w[j] != 0.0f;
+      if (use_b || use_e) {
+        float kj[V];
+        load_vec<T, V>(k + (long long)j * n + off, kj);
+        if (use_b) {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(b.w[j], kj[i]));
+        }
+        if (use_e) {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            er[i] = __fadd_rn(er[i], __fmul_rn(e.w[j], kj[i]));
+        }
+      }
+    }
+    float zv[V], zn[V];
+    load_vec<T, V>(z + off, zv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      zn[i] = __fadd_rn(zv[i], __fmul_rn(hv, acc[i]));
+      er[i] = __fmul_rn(hv, er[i]);
+    }
+    store_vec<T, V>(zn_out + off, zn);
+    if constexpr (WITH_ERR) store_f32<V>(err_out + off, er);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float scale = __fadd_rn(
+          atol, __fmul_rn(rtol, fmaxf(fabsf(zv[i]), fabsf(zn[i]))));
+      const float r = __fdiv_rn(er[i], scale);
+      sq = __fadd_rn(sq, __fmul_rn(r, r));
+    }
+  }
+  // fixed-order block reduction: warp shuffles, then the first warp
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, o);
+  __shared__ float warp_sums[RK_THREADS / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = sq;
+  __syncthreads();
+  if (warp == 0) {
+    sq = lane < RK_THREADS / 32 ? warp_sums[lane] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sq += __shfl_down_sync(0xffffffffu, sq, o);
+    if (lane == 0) partials[blockIdx.x] = sq;
+  }
+}
+
+template <typename T, int V>
+static void launch_increment(const void* z, const void* k, const void* h,
+                             void* out, long long n, const RkRow& a,
+                             int n_blocks, cudaStream_t st) {
+  rk_stage_increment_kernel<T, V><<<n_blocks, RK_THREADS, 0, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(k),
+      static_cast<const float*>(h), static_cast<T*>(out), n, a);
+}
+
+template <typename T, int V>
+static void launch_combine_err(const void* z, const void* k, const void* h,
+                               void* zn, float* err, float* partials,
+                               long long n, const RkRow& b, const RkRow& e,
+                               float rtol, float atol, int n_blocks,
+                               cudaStream_t st) {
+  if (err != nullptr) {
+    rk_stage_combine_err_kernel<T, V, true><<<n_blocks, RK_THREADS, 0, st>>>(
+        static_cast<const T*>(z), static_cast<const T*>(k),
+        static_cast<const float*>(h), static_cast<T*>(zn), err, partials, n,
+        b, e, rtol, atol);
+  } else {
+    rk_stage_combine_err_kernel<T, V, false><<<n_blocks, RK_THREADS, 0, st>>>(
+        static_cast<const T*>(z), static_cast<const T*>(k),
+        static_cast<const float*>(h), static_cast<T*>(zn), nullptr, partials,
+        n, b, e, rtol, atol);
+  }
+}
+
+// ---------------------------------------------------------------- C ABI
+// dtype: 0 = float32, 1 = bfloat16. vec: 1 = 16-byte vectors (the caller
+// has checked N % width == 0 and 16-byte alignment), 0 = one element per
+// load. n_blocks: the grid, chosen by the caller (it sizes `partials`).
+// Each returns cudaGetLastError() after the launch.
+
+extern "C" int rk_threads_per_block(void) { return RK_THREADS; }
+
+extern "C" int rk_max_stages(void) { return RK_MAX_STAGES; }
+
+extern "C" const char* rk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int rk_stage_increment(const void* z, const void* k,
+                                  const void* h, void* out, long long n,
+                                  const RkRow* a, int dtype, int vec,
+                                  int n_blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->n < 0 || a->n > RK_MAX_STAGES || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (vec) launch_increment<float, 4>(z, k, h, out, n, *a, n_blocks, st);
+    else launch_increment<float, 1>(z, k, h, out, n, *a, n_blocks, st);
+  } else if (dtype == 1) {
+    if (vec)
+      launch_increment<__nv_bfloat16, 8>(z, k, h, out, n, *a, n_blocks, st);
+    else
+      launch_increment<__nv_bfloat16, 1>(z, k, h, out, n, *a, n_blocks, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rk_stage_combine_err(const void* z, const void* k,
+                                    const void* h, void* zn, void* err,
+                                    void* partials, long long n,
+                                    const RkRow* b, const RkRow* e,
+                                    float rtol, float atol, int dtype,
+                                    int vec, int n_blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b->n < 0 || b->n > RK_MAX_STAGES || e->n != b->n || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* errp = static_cast<float*>(err);
+  float* part = static_cast<float*>(partials);
+  if (dtype == 0) {
+    if (vec)
+      launch_combine_err<float, 4>(z, k, h, zn, errp, part, n, *b, *e, rtol,
+                                   atol, n_blocks, st);
+    else
+      launch_combine_err<float, 1>(z, k, h, zn, errp, part, n, *b, *e, rtol,
+                                   atol, n_blocks, st);
+  } else if (dtype == 1) {
+    if (vec)
+      launch_combine_err<__nv_bfloat16, 8>(z, k, h, zn, errp, part, n, *b,
+                                           *e, rtol, atol, n_blocks, st);
+    else
+      launch_combine_err<__nv_bfloat16, 1>(z, k, h, zn, errp, part, n, *b,
+                                           *e, rtol, atol, n_blocks, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,103 @@
+"""Differentiable dispatch over the RK stage kernels.
+
+The counterpart of ``repro/kernels/ops.py``'s ``rk_stage_increment`` and
+``rk_stage_combine_err``: each is a ``torch.autograd.Function`` whose
+forward launches the kernel (CUDA tensor) or runs its plain version (CPU
+tensor), and whose backward recomputes the plain version under
+``enable_grad`` and returns its vector-Jacobian product — as the JAX
+package's custom_vjp backward takes ``jax.vjp`` of the jnp twin. The
+tableau weights and tolerances are constants and get no gradient.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from . import rk_stage
+
+
+def _vjp(fn: Callable, inputs: Tuple[torch.Tensor, ...], needs, cots):
+    """Gradients of ``fn(*inputs)`` against ``cots`` for the inputs whose
+    ``needs`` flag is set (None for the others)."""
+    with torch.enable_grad():
+        xs = tuple(x.detach().requires_grad_(bool(nd))
+                   for x, nd in zip(inputs, needs))
+        outs = fn(*xs)
+        pairs = [(o, c) for o, c in zip(outs, cots)
+                 if o is not None and c is not None and o.requires_grad]
+        wrt = [x for x in xs if x.requires_grad]
+        if not pairs or not wrt:
+            return tuple(None for _ in xs)
+        grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                         wrt, [c for _, c in pairs],
+                                         allow_unused=True))
+    return tuple(next(grads) if x.requires_grad else None for x in xs)
+
+
+class _Increment(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, k, h, a):
+        ctx.a = a
+        ctx.save_for_backward(z, k, h)
+        return rk_stage.rk_stage_increment(z, k, h, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, k, h = ctx.saved_tensors
+        grads = _vjp(
+            lambda z_, k_, h_: (rk_stage.increment_plain(z_, k_, h_, ctx.a),),
+            (z, k, h), ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
+
+
+class _CombineErr(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, k, h, b, e, rtol, atol, with_err):
+        ctx.consts = (b, e, rtol, atol, with_err)
+        ctx.save_for_backward(z, k, h)
+        zn, err, partials = rk_stage.rk_stage_combine_err(
+            z, k, h, b, e, rtol, atol, with_err=with_err)
+        sq = partials.sum()
+        return (zn, err, sq) if with_err else (zn, sq)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        z, k, h = ctx.saved_tensors
+        b, e, rtol, atol, with_err = ctx.consts
+
+        def plain(z_, k_, h_):
+            zn, err, sq = rk_stage.combine_err_plain(
+                z_, k_, h_, b, e, rtol, atol, with_err)
+            sq = sq.reshape(())
+            return (zn, err, sq) if with_err else (zn, sq)
+
+        grads = _vjp(plain, (z, k, h), ctx.needs_input_grad[:3], gs)
+        return (*grads, None, None, None, None, None)
+
+
+def rk_stage_increment(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                       a: Sequence[float]) -> torch.Tensor:
+    """Stage argument z + h * sum_j a_j k_j (K1); differentiable."""
+    return _Increment.apply(z, k, h, tuple(float(w) for w in a))
+
+
+def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                         b: Sequence[float], e: Sequence[float], rtol: float,
+                         atol: float, *, with_err: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                    torch.Tensor]:
+    """Combine + scalar sum of squared scaled errors (K2); differentiable.
+
+    Returns (z_next, err, sq_sum); sqrt(sq_sum / N) is ``error_ratio``.
+    ``with_err=False`` skips the (N,) err store and returns None in the
+    err slot.
+    """
+    out = _CombineErr.apply(z, k, h, tuple(float(w) for w in b),
+                            tuple(float(w) for w in e), float(rtol),
+                            float(atol), bool(with_err))
+    if with_err:
+        return out
+    zn, sq = out
+    return zn, None, sq

@@ -1,0 +1,93 @@
+"""Model / run configuration dataclasses of the port.
+
+``ModelConfig`` is a copy of ``repro/models/config.py``'s (one per
+architecture in ``repro_torch.configs``). ``RunConfig`` keeps what this
+slice reads: the compute dtype of the matmuls and the NODE block config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.node_block import NodeConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm
+    n_layers: int
+    d_model: int
+    vocab: int
+    # attention
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    window: int = 0             # sliding-window size (0 = full attention)
+    # ffn
+    d_ff: int = 0
+    act: str = "silu"
+    mlp_bias: bool = False
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-6
+    parallel_block: bool = False  # command-r style: attn+ffn from same norm
+    tie_embeddings: bool = False
+    # moe
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0           # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # hybrid (recurrentgemma): repeating block pattern
+    pattern: Tuple[str, ...] = ()      # e.g. ("rec", "rec", "attn")
+    d_rnn: int = 0              # RG-LRU width (0 -> d_model)
+    conv_width: int = 4
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    ssm_ngroups: int = 1
+    # frontend stub
+    frontend: str = "none"      # none | vlm | audio
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def d_inner(self) -> int:  # ssm inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def resolved_d_rnn(self) -> int:
+        return self.d_rnn or self.d_model
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        """Reduced config of the same family (smoke tests)."""
+        return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """How a model runs: ``compute_dtype`` is what ``dense`` casts its
+    operands to (bf16 by default, as in the reference); ``node`` turns the
+    residual blocks into ODE blocks."""
+    compute_dtype: torch.dtype = torch.bfloat16
+    node: NodeConfig = NodeConfig()       # continuous-depth (the paper)
+
+    def with_(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

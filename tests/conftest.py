@@ -28,6 +28,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device / subprocess suites (still part "
         "of tier-1; deselect with -m 'not slow' for a quick pass)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels "
+        "have no CPU mode); skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,260 @@
+"""The port's adaptive solve against the reference, and the api surface.
+
+The same numpy inputs go through ``repro`` (JAX on the CPU, Pallas in
+interpret mode) and ``repro_torch`` (CPU, the kernels' plain versions).
+Counters, status and eval-time landings must be equal; values use a
+tolerance. The port evaluates each step op by op, bitwise like the
+reference's *eager* ``rk_step``; the reference's jitted loop lets XLA
+fuse the stage sums, which rounds differently. Where the embedded error
+estimate sits well above f32 rounding — the tolerances of ``PROBLEMS``
+— that moves the accepted grid by at most 2.6e-5 relative, so grids are
+held to rtol=1e-4 and outputs to rtol=1e-5, atol=1e-6
+(``tests/torch_parity_report.py`` measures all of these). Tighter solves, where the estimate is rounding noise, are
+held to their counters and outputs only (``test_rounding_dominated_
+solve``; ROADMAP queue 3). Bitwise pins are only between two paths
+inside the port, where the reference pins the same pair (fused vs
+plain-tensor forward; descending vs negated ascending).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import integrate as jint
+from repro.core import odeint as jodeint
+from repro.core import stepper as jstep
+from repro.core.controller import ControllerConfig as JCfg
+from repro.core.tableaus import get_tableau as jtab
+from repro.kernels import ops as jops
+from repro_torch.core import integrate as tint
+from repro_torch.core import odeint as todeint
+from repro_torch.core import odeint_final as todeint_final
+from repro_torch.core import stepper as tstep
+from repro_torch.core.controller import ControllerConfig as TCfg
+from repro_torch.core.tableaus import get_tableau as ttab
+
+
+@pytest.fixture(autouse=True)
+def _interpret_kernels():
+    jops.set_interpret(True)
+    yield
+    jops.set_interpret(None)
+
+
+def _w(seed=0, d=6, scale=0.4):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((d, d)) * scale).astype(np.float32), \
+        rng.standard_normal(d).astype(np.float32)
+
+
+def _mlp_j(t, z, w):
+    return jnp.tanh(w @ z) * (0.6 + 0.4 * jnp.cos(t))
+
+
+def _mlp_t(t, z, w):
+    return torch.tanh(w @ z) * (0.6 + 0.4 * torch.cos(t))
+
+
+def _lin_j(t, z, k):
+    return k * z
+
+
+def _lin_t(t, z, k):
+    return k * z
+
+
+PROBLEMS = {
+    # name: (jax field, torch field, z0, args, ts, solver, tol)
+    "linear": (_lin_j, _lin_t, np.float32(1.5), np.float32(-2.0),
+               [0.0, 0.5, 2.0], "dopri5", 1e-3),
+    "mlp_dopri5": (_mlp_j, _mlp_t, _w()[1], _w()[0], [0.0, 0.5, 1.0],
+                   "dopri5", 1e-4),
+    "mlp_heun": (_mlp_j, _mlp_t, _w()[1], _w()[0], [0.0, 1.0],
+                 "heun_euler", 1e-3),
+    "mlp_bosh3": (_mlp_j, _mlp_t, _w()[1], _w()[0], [0.0, 1.0], "bosh3",
+                  1e-3),
+}
+
+
+def _solve_both(name, use_pallas):
+    fj, ft, z0, a, ts, solver, tol = PROBLEMS[name]
+    ts = np.asarray(ts, np.float32)
+    cfg_kw = dict(max_steps=64, max_trials=12)
+    # reference: the engine itself, to read the accepted grid
+    f, zj, _, up = jstep.maybe_flatten(fj, jnp.asarray(z0), use_pallas)
+    ys_j, ck_j, st_j = jint.adaptive_while_solve(
+        jtab(solver), f, zj, jnp.asarray(ts), (jnp.asarray(a),), tol, tol,
+        JCfg(**cfg_kw), use_pallas=up)
+    f, zt, _, up = tstep.maybe_flatten(ft, torch.tensor(z0), use_pallas)
+    ys_t, ck_t, st_t = tint.adaptive_while_solve(
+        ttab(solver), f, zt, torch.tensor(ts), (torch.tensor(a),), tol, tol,
+        TCfg(**cfg_kw), use_pallas=up)
+    return (ys_j, ck_j, st_j), (ys_t, ck_t, st_t)
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_forward_matches_reference(name, use_pallas):
+    (ys_j, ck_j, st_j), (ys_t, ck_t, st_t) = _solve_both(name, use_pallas)
+    for field in ("n_steps", "n_trials", "nfe", "status", "overflow"):
+        assert int(getattr(st_t, field)) == int(getattr(st_j, field)), field
+    n = int(st_j.n_steps)
+    assert ck_t.n == n
+    np.testing.assert_allclose(ys_t.numpy().reshape(ys_j.shape),
+                               np.asarray(ys_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ck_t.t[:n].numpy(), np.asarray(ck_j.t[:n]),
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(ck_t.h[:n].numpy(), np.asarray(ck_j.h[:n]),
+                               rtol=1e-4)
+    np.testing.assert_array_equal(ck_t.out_idx[:n].numpy(),
+                                  np.asarray(ck_j.out_idx[:n]))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_rounding_dominated_solve(use_pallas):
+    """Dopri5 at rtol=atol=1e-6 on dz/dt = -2z (the toy gradient's
+    setting): the error estimate is within ~10x of f32 rounding, so the
+    grid follows rounding noise (port vs jitted reference: up to 3.2% in
+    h, ``tests/torch_parity_report.py``). Counters and outputs still
+    agree."""
+    fj, ft, z0, a, ts, solver, _ = PROBLEMS["linear"]
+    kw = dict(solver=solver, rtol=1e-6, atol=1e-6, max_steps=64,
+              use_pallas=use_pallas)
+    ys_j, st_j = jodeint(fj, jnp.asarray(z0), jnp.asarray(ts, jnp.float32),
+                         (jnp.asarray(a),), **kw)
+    ys_t, st_t = todeint(ft, torch.tensor(z0), ts, (torch.tensor(a),), **kw)
+    for field in ("n_steps", "n_trials", "nfe", "status", "overflow"):
+        assert int(getattr(st_t, field)) == int(getattr(st_j, field)), field
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_descending_ts_matches_reference_and_negated_ascending(use_pallas):
+    """Mirrors the aca cases of test_time_handling.py:93-174: descending
+    ts is bitwise the hand-negated ascending solve inside the port, and
+    agrees with the reference's descending solve."""
+    w, z0 = _w()
+    ts_desc = np.linspace(1.0, 0.0, 5).astype(np.float32)
+    kw = dict(solver="dopri5", rtol=1e-6, atol=1e-6, max_steps=128,
+              use_pallas=use_pallas)
+    ys_d, st_d = todeint(_mlp_t, torch.tensor(z0), torch.tensor(ts_desc),
+                         (torch.tensor(w),), **kw)
+    ys_n, st_n = todeint(lambda s, z, ww: -_mlp_t(-s, z, ww),
+                         torch.tensor(z0), -torch.tensor(ts_desc),
+                         (torch.tensor(w),), **kw)
+    assert torch.equal(ys_d, ys_n)
+    assert int(st_d.n_steps) == int(st_n.n_steps)
+    ys_j, st_j = jodeint(_mlp_j, jnp.asarray(z0), jnp.asarray(ts_desc),
+                         (jnp.asarray(w),), grad_method="aca", **kw)
+    assert int(st_d.n_steps) == int(st_j.n_steps)
+    assert int(st_d.nfe) == int(st_j.nfe)
+    np.testing.assert_allclose(ys_d.numpy(), np.asarray(ys_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_odeint_final_reverse_window():
+    zT, stats = todeint_final(lambda t, z: -z, torch.tensor(1.0), 1.0, 0.0,
+                              solver="dopri5", rtol=1e-7, atol=1e-7)
+    assert abs(float(zT) - np.e) < 1e-4
+    assert not bool(stats.overflow)
+
+
+@pytest.mark.parametrize("solver", ["heun_euler", "bosh3", "dopri5"])
+def test_fused_forward_is_bitwise_the_plain_tensor_forward(solver):
+    """In-port pin (the reference pins the same pair): the fused flat
+    path's z_next, step by step and over a whole solve, is bitwise the
+    plain-tensor path's."""
+    w, z0 = _w(1, 8)
+    tab = ttab(solver)
+    args = (torch.tensor(w),)
+    z = torch.tensor(z0)
+    t, h = torch.tensor(0.1), torch.tensor(0.05)
+    r_plain = tstep.rk_step(tab, _mlp_t, t, z, h, args)
+    r_fused = tstep.rk_step(tab, _mlp_t, t, z, h, args, use_pallas=True,
+                            err_scale=(1e-5, 1e-5))
+    assert torch.equal(r_plain.z_next, r_fused.z_next)
+    assert torch.equal(r_plain.k_last, r_fused.k_last)
+    ratio = tstep.error_ratio(r_plain.err, z, r_plain.z_next, 1e-5, 1e-5)
+    assert torch.equal(ratio, r_fused.err_ratio)
+    kw = dict(solver=solver, rtol=1e-5, atol=1e-5, max_steps=64)
+    ys0, st0 = todeint(_mlp_t, z, [0.0, 0.5, 1.0], args, **kw)
+    ys1, st1 = todeint(_mlp_t, z, [0.0, 0.5, 1.0], args, use_pallas=True,
+                       **kw)
+    assert torch.equal(ys0, ys1)
+    assert int(st0.n_trials) == int(st1.n_trials)
+
+
+def test_state_of_any_shape_keeps_its_shape():
+    z0 = torch.tensor(np.random.default_rng(2).standard_normal((2, 3, 4)),
+                      dtype=torch.float32)
+    for up in (False, True):
+        ys, st = todeint(lambda t, z: -z, z0, [0.0, 1.0], use_pallas=up,
+                         solver="bosh3", rtol=1e-6, atol=1e-6)
+        assert ys.shape == (2, 2, 3, 4)
+        np.testing.assert_allclose(ys[-1].numpy(), z0.numpy() * np.exp(-1),
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("kw,slice_", [
+    (dict(batch_axis=0), "slice C"),
+    (dict(mesh=object()), "slice I"),
+    (dict(checkpoint_segments="auto"), "slice D"),
+    (dict(interpolate_ts=True), "slice D"),
+    (dict(grad_method="adjoint"), "slice B"),
+    (dict(grad_method="naive"), "slice B"),
+    (dict(grad_method="mali"), "slice F"),
+    (dict(solver="alf"), "slice F"),
+    (dict(solver="rk4"), "slice B"),
+    (dict(solver="euler"), "slice B"),
+    (dict(rtol=torch.tensor([1e-3, 1e-4])), "slice H"),
+    (dict(on_failure="raise"), "slice E"),
+])
+def test_later_slice_options_raise_named_errors(kw, slice_):
+    with pytest.raises(ValueError, match=slice_):
+        todeint(lambda t, z: -z, torch.ones(3), [0.0, 1.0], **kw)
+
+
+def test_invalid_inputs_raise():
+    with pytest.raises(ValueError, match="strictly monotone"):
+        todeint(lambda t, z: -z, torch.tensor(1.0), [0.0, 1.0, 1.0])
+    with pytest.raises(ValueError, match="at least 2 times"):
+        todeint(lambda t, z: -z, torch.tensor(1.0), [0.0])
+    with pytest.raises(ValueError, match="slice A"):
+        todeint(lambda t, z: z, {"a": torch.ones(2)}, [0.0, 1.0])
+    with pytest.raises(ValueError, match="grad_method"):
+        todeint(lambda t, z: -z, torch.ones(2), [0.0, 1.0],
+                grad_method="nope")
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_nonfinite_field_freezes_with_status():
+    """guard_nonfinite: a field that blows up at t > 0.5 freezes the solve
+    at its last good state with NONFINITE_STATE, as in the reference."""
+    def f_t(t, z):
+        return torch.where(t > 0.5, torch.full_like(z, float("nan")), -z)
+
+    def f_j(t, z):
+        return jnp.where(t > 0.5, jnp.full_like(z, jnp.nan), -z)
+
+    ys_t, st_t = todeint(f_t, torch.ones(3), [0.0, 0.25, 1.0],
+                         solver="dopri5", rtol=1e-6, atol=1e-6)
+    ys_j, st_j = jodeint(f_j, jnp.ones(3), jnp.array([0.0, 0.25, 1.0]),
+                         solver="dopri5", rtol=1e-6, atol=1e-6)
+    assert int(st_t.status) == int(st_j.status) == \
+        tint.SolveStatus.NONFINITE_STATE
+    assert bool(st_t.overflow) and bool(st_j.overflow)
+    # the counters are not compared: how many trials shrink into the wall
+    # at t = 0.5 depends on where, to the ulp, each trial lands against it
+    assert torch.isfinite(ys_t).all()
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-5)
+    assert tint.SolveStatus.describe(st_t.status) == "NONFINITE_STATE"
