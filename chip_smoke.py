@@ -23,8 +23,29 @@ printing one JSON line (``"phase": ...``):
                       NODE_TRAIN's solver on the full checkpoint buffer,
                       three SGD steps through the fused kernels; then the
                       fused path against the plain path at the same width.
-5. the ``kernels`` summary line, the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+5. ``kernels_batched`` — K3, K4 and K5 against their plain versions on the
+                      card at (8, 393,216) and (8, 393,218) (the serving
+                      state [z, t_off, delta], whose rows start unaligned),
+                      f32 and bf16, HeunEuler and Dopri5 rows: z_next
+                      bitwise, per-row norms within a relative tolerance,
+                      h = 0 rows bitwise, K5 at K4's tolerance bitwise
+                      K4; times beside the byte bound, the plain version
+                      and ``torch.baddbmm``.
+6. ``serve_node18``  — ``NodeServeEngine`` over the node18 block's residual
+                      branch at full width: 8 slots, HeunEuler, 16 seeded
+                      requests with per-request tolerances and Poisson
+                      arrivals; every request against a one-shot solo
+                      solve, and one request alone against the mix, bit
+                      for bit.
+7. ``node18_batched`` — the node18 block with NodeConfig(batch_axis=0) on x
+                      (8, 512, 768): every sample on its own grid, two SGD
+                      steps; then fused against plain at the same width.
+8. the ``kernels`` summary line (K1-K5), the card's name and power limit,
+   and the last line ``{"ok": true, "device": {...}}``.
+
+Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
+node18_batched for K3/K4) runs with the launch counts set to 0 just
+before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -48,6 +69,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 NODE18_SHAPE = (8, 512, 768)
 RAGGED_N = 1_000_003
+# per-sample rows of the batched paths: one (512, 768) sample, and the
+# serving state [z, t_off, delta] two values wider
+BATCH_ROWS = NODE18_SHAPE[0]
+ROW_N = NODE18_SHAPE[1] * NODE18_SHAPE[2]
+SERVE_ROW_N = ROW_N + 2
+SERVE_REQUESTS = 16
 
 # paper Fig. 6, ACA column: the reference's fused path on the CPU
 # (rel err, n_steps, n_trials, nfe) at dopri5, rtol=atol=1e-5
@@ -69,6 +96,15 @@ NORM_RTOL = 1e-5
 # order moves the error ratio, hence h, by ulps; z(1) and the ACA
 # gradients follow by the same order
 NODE_RTOL = 1e-4
+# per-row norms of K4/K5 (block partials summed per row) against the plain
+# version's one torch.sum per row over N terms
+ROW_NORM_RTOL = 1e-6
+
+K1_K2 = ("rk_stage_increment", "rk_stage_combine_err")
+SERVE_KERNELS = ("rk_stage_increment_batched",
+                 "rk_stage_combine_err_batched_rowtol")
+BATCHED_KERNELS = ("rk_stage_increment_batched",
+                   "rk_stage_combine_err_batched")
 
 
 def emit(obj) -> None:
@@ -284,27 +320,28 @@ def phase_toy_gradient(torch):
               f"reference {(ref_steps, ref_trials, ref_nfe)}")
         check(err <= 2 * ref_err + 1e-6,
               f"toy k={k} T={t_end}: rel err {err} > 2 x {ref_err} + 1e-6")
-    launches = dict(rk_stage.launches)
+    launches = {k: rk_stage.launches[k] for k in K1_K2}
     check(all(v > 0 for v in launches.values()),
-          f"toy solves did not launch every kernel: {launches}")
+          f"toy solves did not launch K1 and K2: {launches}")
     emit({"phase": "toy_gradient", "ok": True, "cases": rows,
           "launches": launches})
 
 
-def phase_node18(torch, seed: int):
+def _node18_train(torch, seed: int, ncfg, n_train: int, kernels,
+                  phase: str):
+    """The node18 block at full width under ``ncfg``: ``n_train`` SGD
+    steps (the main path, launch counts set to 0 before it and read after
+    it; ``kernels`` must each launch), then the fused path against the
+    plain path at the same width. Returns (launches, step rows)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import node18_cifar
     from repro_torch.kernels import rk_stage
     from repro_torch.models.config import RunConfig
-    from repro_torch.models.transformer import (
-        TransformerBlock,
-        full_buffer,
-        node_block,
-    )
-    import dataclasses
+    from repro_torch.models.transformer import TransformerBlock, node_block
 
-    ncfg = full_buffer(node18_cifar.NODE_TRAIN)
     rcfg = RunConfig(compute_dtype=torch.float32, node=ncfg)
     block = TransformerBlock(node18_cifar.CONFIG, rcfg, seed=seed,
                              device="cuda")
@@ -314,7 +351,7 @@ def phase_node18(torch, seed: int):
     steps = []
     torch.cuda.synchronize()
     rk_stage.reset_launches()              # the main path starts here
-    for step in range(3):
+    for step in range(n_train):
         before = dict(rk_stage.launches)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -328,23 +365,24 @@ def phase_node18(torch, seed: int):
         step_s = time.perf_counter() - t0
         grads_finite = all(bool(torch.isfinite(p.grad).all())
                            for p in block.parameters())
+        # per-row lists under batch_axis, numbers for the solo solve
         row = {"step": step, "loss": float(loss.detach()),
-               "n_steps": int(st.n_steps), "n_trials": int(st.n_trials),
-               "nfe": int(st.nfe), "status": int(st.status),
-               "k1_launches": rk_stage.launches["rk_stage_increment"]
-               - before["rk_stage_increment"],
-               "k2_launches": rk_stage.launches["rk_stage_combine_err"]
-               - before["rk_stage_combine_err"],
+               "n_steps": st.n_steps.tolist(),
+               "n_trials": st.n_trials.tolist(), "nfe": st.nfe.tolist(),
+               "status": st.status.tolist(),
+               "launches": {k: rk_stage.launches[k] - before[k]
+                            for k in kernels},
                "step_ms": 1e3 * step_s,
                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
         steps.append(row)
-        emit({"phase": "node18_step", **row})
+        emit({"phase": f"{phase}_step", **row})
         check(math.isfinite(row["loss"]) and grads_finite,
-              f"node18 step {step}: non-finite loss or gradients")
-        check(row["status"] == 0, f"node18 step {step}: status {row}")
+              f"{phase} step {step}: non-finite loss or gradients")
+        check(not any(st.status.reshape(-1).tolist()),
+              f"{phase} step {step}: status {row['status']}")
     launches = dict(rk_stage.launches)     # the main path ends here
-    check(all(v > 0 for v in launches.values()),
-          f"the node18 steps did not launch every kernel: {launches}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"the {phase} steps did not launch {kernels}: {launches}")
 
     # fused (kernels) against plain (tensor ops) at the same width
     results = {}
@@ -355,7 +393,7 @@ def phase_node18(torch, seed: int):
         xg = x.clone().requires_grad_()
         zT, st = node_block(block, xg, cfg)
         torch.mean(zT ** 2).backward()
-        results[up] = (zT.detach(), int(st.n_steps), xg.grad,
+        results[up] = (zT.detach(), st.n_steps.tolist(), xg.grad,
                        {n: p.grad.clone() for n, p in
                         block.named_parameters()})
     (z1, s1, gx1, gp1), (z0, s0, gx0, gp0) = results[True], results[False]
@@ -367,18 +405,307 @@ def phase_node18(torch, seed: int):
     rels.update({n: rel(gp1[n], gp0[n]) for n in gp0})
     finite = all(bool(torch.isfinite(t).all())
                  for t in [z1, z0, gx1, gx0, *gp1.values(), *gp0.values()])
-    emit({"phase": "node18_block", "ok": True,
+    emit({"phase": phase, "ok": True,
           "shape": list(NODE18_SHAPE), "d_model": node18_cifar.CONFIG.d_model,
           "n_heads": node18_cifar.CONFIG.n_heads,
-          "d_ff": node18_cifar.CONFIG.d_ff, "solver": ncfg.solver,
-          "rtol": ncfg.rtol, "atol": ncfg.atol, "launches": launches,
+          "d_ff": node18_cifar.CONFIG.d_ff, "batch_axis": ncfg.batch_axis,
+          "solver": ncfg.solver, "rtol": ncfg.rtol, "atol": ncfg.atol,
+          "launches": {k: launches[k] for k in launches if launches[k]},
           "fused_vs_plain": {"n_steps": [s1, s0], "max_rel": rels,
                              "rtol": NODE_RTOL, "finite": finite}})
-    check(s1 == s0, f"node18 fused vs plain n_steps {s1} != {s0}")
-    check(finite, "node18 fused vs plain: non-finite values")
+    check(s1 == s0, f"{phase} fused vs plain n_steps {s1} != {s0}")
+    check(finite, f"{phase} fused vs plain: non-finite values")
     bad = {k: v for k, v in rels.items() if not v <= NODE_RTOL}
-    check(not bad, f"node18 fused vs plain beyond {NODE_RTOL}: {bad}")
+    check(not bad, f"{phase} fused vs plain beyond {NODE_RTOL}: {bad}")
     return launches, steps
+
+
+def phase_node18(torch, seed: int):
+    from repro_torch.configs import node18_cifar
+    from repro_torch.models.transformer import full_buffer
+    return _node18_train(torch, seed, full_buffer(node18_cifar.NODE_TRAIN),
+                         3, K1_K2, "node18_block")
+
+
+def phase_kernels_batched(torch, seed: int):
+    from repro_torch.core.tableaus import DOPRI5, HEUN_EULER
+    from repro_torch.kernels import rk_stage
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    worst = {"rk_stage_increment_batched": 0.0,
+             "rk_stage_combine_err_batched": 0.0,
+             "rk_stage_combine_err_batched_rowtol": 0.0}
+    B, frozen = BATCH_ROWS, 3
+    rt = torch.logspace(-2, -4, B, device="cuda")
+    at = 0.1 * rt
+    cases = []
+
+    def norms_close(part, sq_plain, what):
+        sq = part.sum(dim=-1)
+        bad = (sq - sq_plain).abs() > ROW_NORM_RTOL * sq_plain.abs()
+        check(not bool(bad.any()),
+              f"{what}: per-row norms {sq.tolist()} vs plain "
+              f"{sq_plain.tolist()}")
+
+    for n in (ROW_N, SERVE_ROW_N):
+        for dtype in (torch.float32, torch.bfloat16):
+            z = torch.randn(B, n, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(7, B, n, generator=gen, device="cuda").to(dtype)
+            h = torch.linspace(0.01, 0.08, B, device="cuda")
+            h[frozen] = 0.0                      # a frozen row
+            rows = [("heun_euler", i, HEUN_EULER.a[i])
+                    for i in range(1, HEUN_EULER.stages)]
+            rows.append(("heun_euler", HEUN_EULER.stages, HEUN_EULER.b))
+            rows += [("dopri5", i, DOPRI5.a[i])
+                     for i in range(1, DOPRI5.stages)]
+            rows.append(("dopri5", DOPRI5.stages, DOPRI5.b))
+            tag = f"n={n} {dtype}"
+            for tab, i, a in rows:
+                kk = k[:i].contiguous()
+                out = rk_stage.rk_stage_increment_batched(z, kk, h, a)
+                ref = rk_stage.increment_batched_plain(z, kk, h, a)
+                torch.cuda.synchronize()
+                diff = float((out.float() - ref.float()).abs().max())
+                worst["rk_stage_increment_batched"] = max(
+                    worst["rk_stage_increment_batched"], diff)
+                check(torch.equal(out, ref),
+                      f"K3 {tab} row {i} {tag}: not bitwise equal to the "
+                      f"plain version (max |diff| {diff})")
+                check(torch.equal(out[frozen], z[frozen]),
+                      f"K3 {tab} row {i} {tag}: the h = 0 row moved")
+            for tab in (HEUN_EULER, DOPRI5):
+                kk = k[:tab.stages].contiguous()
+                args = (z, kk, h, tab.b, tab.b_err)
+                zn4, p4 = rk_stage.rk_stage_combine_err_batched(
+                    *args, 1e-2, 1e-2)
+                zp, sqp = rk_stage.combine_err_batched_plain(
+                    *args, 1e-2, 1e-2)
+                torch.cuda.synchronize()
+                diff = float((zn4.float() - zp.float()).abs().max())
+                worst["rk_stage_combine_err_batched"] = max(
+                    worst["rk_stage_combine_err_batched"], diff)
+                check(torch.equal(zn4, zp),
+                      f"K4 {tab.name} {tag}: z_next not bitwise equal "
+                      f"(max |diff| {diff})")
+                norms_close(p4, sqp, f"K4 {tab.name} {tag}")
+                check(torch.equal(zn4[frozen], z[frozen])
+                      and float(p4[frozen].abs().sum()) == 0.0,
+                      f"K4 {tab.name} {tag}: the h = 0 row moved")
+                zn5, p5 = rk_stage.rk_stage_combine_err_batched_rowtol(
+                    *args, torch.full((B,), 1e-2, device="cuda"),
+                    torch.full((B,), 1e-2, device="cuda"))
+                torch.cuda.synchronize()
+                check(torch.equal(zn5, zn4) and torch.equal(p5, p4),
+                      f"K5 {tab.name} {tag}: at K4's tolerance not bitwise "
+                      "K4")
+                zn5, p5 = rk_stage.rk_stage_combine_err_batched_rowtol(
+                    *args, rt, at)
+                zp, sqp = rk_stage.combine_err_batched_plain(*args, rt, at)
+                torch.cuda.synchronize()
+                diff = float((zn5.float() - zp.float()).abs().max())
+                worst["rk_stage_combine_err_batched_rowtol"] = max(
+                    worst["rk_stage_combine_err_batched_rowtol"], diff)
+                check(torch.equal(zn5, zp),
+                      f"K5 {tab.name} {tag}: z_next not bitwise equal "
+                      f"(max |diff| {diff})")
+                norms_close(p5, sqp, f"K5 {tab.name} {tag}")
+            cases.append({"rows": B, "n": n,
+                          "dtype": str(dtype).replace("torch.", ""),
+                          "k3_rows": len(rows), "bitwise": True,
+                          "frozen_row_bitwise": True,
+                          "k5_equal_tol_is_k4": True})
+    emit({"phase": "kernels_batched", "ok": True, "cases": cases,
+          "max_abs_err": worst, "row_norm_rtol": ROW_NORM_RTOL})
+
+    # times at the batched paths' shapes, f32: (8, 393,216) is the
+    # batch_axis=0 block state, (8, 393,218) the serving state
+    timings = {}
+    for n in (ROW_N, SERVE_ROW_N):
+        z = torch.randn(B, n, generator=gen, device="cuda")
+        k = torch.randn(7, B, n, generator=gen, device="cuda")
+        h = torch.linspace(0.01, 0.08, B, device="cuda")
+
+        def k3_entry(label, a, rows_k):
+            kk = k[:rows_k].contiguous()
+            used = used_rows([a[:rows_k]])
+            hw = (h[:, None] * torch.tensor(a[:rows_k], device="cuda"))[
+                :, None]                                    # (B, 1, j)
+            kt, zb = kk.permute(1, 0, 2), z[:, None]        # (B, j, n)
+            timings[f"{label}_{n}"] = {
+                "n": n,
+                "ms": time_ms(torch, lambda: rk_stage.
+                              rk_stage_increment_batched(z, kk, h, a)),
+                "plain_ms": time_ms(torch, lambda: rk_stage.
+                                    increment_batched_plain(z, kk, h, a)),
+                "library_ms": time_ms(torch, lambda: torch.baddbmm(
+                    zb, hw, kt)),
+                "bytes": 4 * B * n * (len(used) + 2) + 4 * B,
+                "flops": 2 * B * n * (len(used) + 1),
+            }
+
+        def comb_entry(label, tab, row_tol):
+            kk = k[:tab.stages].contiguous()
+            used = used_rows([tab.b, tab.b_err])
+            tols = (rt, at) if row_tol else (1e-2, 1e-2)
+            fn = rk_stage.rk_stage_combine_err_batched_rowtol if row_tol \
+                else rk_stage.rk_stage_combine_err_batched
+            timings[f"{label}_{n}"] = {
+                "n": n,
+                "ms": time_ms(torch, lambda: fn(z, kk, h, tab.b, tab.b_err,
+                                                *tols)),
+                "plain_ms": time_ms(torch, lambda: rk_stage.
+                                    combine_err_batched_plain(
+                                        z, kk, h, tab.b, tab.b_err, *tols)),
+                "library_ms": None,
+                "bytes": 4 * B * n * (len(used) + 2)
+                + 4 * B * (3 if row_tol else 1),
+                "flops": B * n * (4 * len(used) + 12),
+            }
+
+        k3_entry("k3_heun_stage", HEUN_EULER.a[1], 1)   # every trial
+        k3_entry("k3_heun_b", HEUN_EULER.b, 2)          # ACA replay
+        k3_entry("k3_dopri5_b", DOPRI5.b, 7)
+        comb_entry("k4_heun", HEUN_EULER, False)
+        comb_entry("k4_dopri5", DOPRI5, False)
+        comb_entry("k5_heun", HEUN_EULER, True)
+        comb_entry("k5_dopri5", DOPRI5, True)
+    for t in timings.values():
+        t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
+                                  t["flops"] / F32_FLOP_PER_S)
+        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["flops"] / F32_FLOP_PER_S else "operations")
+        t["achieved_GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
+    emit({"phase": "kernel_times_batched", "ok": True, "rows": B,
+          "dtype": "float32", "timings": timings})
+    return worst, timings
+
+
+def _parity_bound(res, req, ref_max: float) -> float:
+    """The reference's chunked-serving parity bound (docs/serving.md)."""
+    return (res.n_chunks + 1) * (req.atol + req.rtol * max(1.0, ref_max))
+
+
+def phase_serve_node18(torch, seed: int):
+    import numpy as np
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.core import odeint
+    from repro_torch.kernels import rk_stage
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import TransformerBlock, branch_fn
+    from repro_torch.serve import (
+        NodeEngineConfig,
+        NodeRequest,
+        NodeServeEngine,
+    )
+
+    block = TransformerBlock(node18_cifar.CONFIG,
+                             RunConfig(compute_dtype=torch.float32),
+                             seed=seed, device="cuda")
+    params = {n: p.detach() for n, p in block.named_parameters()}
+    sample = (1,) + NODE18_SHAPE[1:]
+
+    def field(t, z, p):
+        # one request's flat (512*768,) state as a batch of one sample
+        return branch_fn(block, p, z.reshape(sample)).reshape(-1)
+
+    ecfg = NodeEngineConfig(slots=BATCH_ROWS, solver="heun_euler",
+                            chunk_dt=0.5, max_steps=64, use_pallas=True)
+    engine = NodeServeEngine(field, ROW_N, (params,), ecfg, device="cuda")
+    rng = np.random.default_rng(seed + 2)
+    arrivals = np.cumsum(rng.exponential(2.0, SERVE_REQUESTS))
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        tol = float(rng.choice([1e-2, 1e-3]))
+        reqs.append(NodeRequest(
+            z0=rng.standard_normal(ROW_N).astype(np.float32), t0=0.0,
+            t1=float(rng.choice([0.5, 1.0])), rtol=tol, atol=tol))
+    for i, req in enumerate(reqs):
+        engine.submit(req, arrival=float(arrivals[i]))
+
+    rounds = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rk_stage.reset_launches()              # the main path starts here
+    t_start = time.perf_counter()
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = engine.step()
+        torch.cuda.synchronize()
+        if not more:
+            break
+        row = {"round": engine.round - 1, "live": engine.occupancy_log[-1],
+               "max_trials": engine.trials_log[-1],
+               "wall_ms": 1e3 * (time.perf_counter() - t0)}
+        rounds.append(row)
+        emit({"phase": "serve_round", **row})
+    wall_s = time.perf_counter() - t_start
+    launches = dict(rk_stage.launches)     # the main path ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    results = [engine.results[i] for i in sorted(engine.results)]
+    check(len(results) == SERVE_REQUESTS,
+          f"serve: {len(results)} of {SERVE_REQUESTS} requests delivered")
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"serve: the rounds did not launch K3 and K5: {launches}")
+
+    per_req = []
+    with torch.no_grad():
+        for res, req in zip(results, reqs):
+            ys, st = odeint(field, torch.from_numpy(req.z0).cuda(),
+                            [0.0, req.t1], (params,), solver="heun_euler",
+                            rtol=req.rtol, atol=req.atol, max_steps=256,
+                            use_pallas=True)
+            ref = ys[-1].cpu().numpy()
+            err = float(np.abs(res.z_final - ref).max())
+            bound = _parity_bound(res, req, float(np.abs(ref).max()))
+            per_req.append({"id": res.req_id, "t1": req.t1, "tol": req.rtol,
+                            "status": res.status, "ok": res.ok,
+                            "n_chunks": res.n_chunks,
+                            "n_trials": res.n_trials,
+                            "latency_sim": res.latency,
+                            "solo_n_trials": int(st.n_trials),
+                            "parity_err": err, "parity_bound": bound})
+
+    # QoS isolation: the request that shared its admission round with the
+    # most rows, served again alone
+    admitted = {rid: rd for rd, _, rid in engine.admission_log}
+    victim = max(sorted(admitted),
+                 key=lambda rid: engine.occupancy_log[admitted[rid]])
+    rows_in_mix = engine.occupancy_log[admitted[victim]]
+    mixed = engine.results[victim]
+    engine.reset()
+    engine.submit(reqs[victim], arrival=float(arrivals[victim]))
+    alone = engine.run()[0]
+    qos = {"request": victim, "rows_in_mix": rows_in_mix,
+           "bitwise": bool(np.array_equal(alone.z_final, mixed.z_final)),
+           "n_trials": [alone.n_trials, mixed.n_trials],
+           "max_abs_diff": float(np.abs(alone.z_final
+                                        - mixed.z_final).max())}
+    emit({"phase": "serve_node18", "ok": True,
+          "d_model": node18_cifar.CONFIG.d_model, "slots": ecfg.slots,
+          "solver": ecfg.solver, "chunk_dt": ecfg.chunk_dt,
+          "state_row": ROW_N + 2, "requests": per_req, "rounds": len(rounds),
+          "wall_s": wall_s, "round_ms": [r["wall_ms"] for r in rounds],
+          "launches": {k: launches[k] for k in launches if launches[k]},
+          "peak_mem_GB": peak, "qos_isolation": qos})
+    check(all(r["ok"] for r in per_req),
+          f"serve: requests not OK: {[r for r in per_req if not r['ok']]}")
+    far = [r for r in per_req if not r["parity_err"] <= r["parity_bound"]]
+    check(not far, f"serve: beyond the parity bound: {far}")
+    check(qos["bitwise"] and alone.n_trials == mixed.n_trials,
+          f"serve: QoS isolation broken, alone vs mix: {qos}")
+    return launches, rounds
+
+
+def phase_node18_batched(torch, seed: int):
+    import dataclasses
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.models.transformer import full_buffer
+    ncfg = dataclasses.replace(full_buffer(node18_cifar.NODE_TRAIN),
+                               batch_axis=0)
+    return _node18_train(torch, seed, ncfg, 2, BATCHED_KERNELS,
+                         "node18_batched")
 
 
 # -------------------------------------------------------------------- main
@@ -412,16 +739,45 @@ def main(argv=None) -> int:
         phase_toy_gradient(torch)
         phase = "node18_block"
         launches, _ = phase_node18(torch, args.seed)
+        phase = "kernels_batched"
+        worst_b, timings_b = phase_kernels_batched(torch, args.seed)
+        phase = "serve_node18"
+        serve_launches, _ = phase_serve_node18(torch, args.seed)
+        phase = "node18_batched"
+        batched_launches, _ = phase_node18_batched(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
         raise
 
+    # launches: K1/K2 from the node18 block steps, K3 from the serve rounds
+    # and the batched block steps, K4 from the batched block steps, K5 from
+    # the serve rounds; times at each path's shape (K3 and K5 at the
+    # serving row, K4 at the batched block row)
+    worst.update(worst_b)
+    batch_launch = {
+        "rk_stage_increment_batched":
+        serve_launches["rk_stage_increment_batched"]
+        + batched_launches["rk_stage_increment_batched"],
+        "rk_stage_combine_err_batched":
+        batched_launches["rk_stage_combine_err_batched"],
+        "rk_stage_combine_err_batched_rowtol":
+        serve_launches["rk_stage_combine_err_batched_rowtol"],
+    }
+    launches = {**{k: launches[k] for k in K1_K2}, **batch_launch}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
          timings["k1_heun_stage"]),
         ("rk_stage_combine_err", "src/repro/kernels/rk_stage.py:269",
          timings["k2_heun"]),
+        ("rk_stage_increment_batched", "src/repro/kernels/rk_stage.py:357",
+         timings_b[f"k3_heun_stage_{SERVE_ROW_N}"]),
+        ("rk_stage_combine_err_batched",
+         "src/repro/kernels/rk_stage.py:419",
+         timings_b[f"k4_heun_{ROW_N}"]),
+        ("rk_stage_combine_err_batched_rowtol",
+         "src/repro/kernels/rk_stage.py:499",
+         timings_b[f"k5_heun_{SERVE_ROW_N}"]),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,4 +1,4 @@
-"""The ``odeint`` front door of the port (slice A: solo, adaptive, ACA).
+"""The ``odeint`` front door of the port (adaptive ACA, solo or batched).
 
 Port of ``repro/core/api.py::odeint`` / ``odeint_final`` for one state
 tensor::
@@ -13,6 +13,15 @@ problem); ``ys[k] = z(ts[k])`` with ``ys[0] = z0``. The solve runs on
 ``z0``'s device; ``ts`` moves there. Gradients flow to ``z0`` and to the
 floating tensors of ``args`` through the ACA backward sweep.
 
+``batch_axis=a`` solves every slice of ``z0`` along axis ``a`` as its own
+problem (``f`` is the per-sample field), each on its own adaptive grid;
+``ys[k]`` keeps the batch at axis ``a`` and ``stats`` fields are (B,).
+There ``rtol``/``atol`` may be (B,) arrays, one tolerance per row, and
+``h0`` a (B,) array::
+
+    ys, stats = odeint(f, z0, ts, args, batch_axis=0,
+                       rtol=torch.tensor([1e-3, 1e-5]), atol=1e-6)
+
 Options of later slices keep the reference's signature and raise a
 ``ValueError`` naming the slice (ROADMAP queue 1) that brings them.
 """
@@ -21,11 +30,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .controller import ControllerConfig
 from .integrate import SolveStats
-from .odeint_aca import odeint_aca
+from .odeint_aca import odeint_aca, odeint_aca_batched
 from .tableaus import Tableau, get_tableau
 
 GRAD_METHODS = ("aca",)
@@ -91,12 +101,13 @@ def odeint(
     ``stats.overflow`` is set when the solve runs out before the last
     eval time) and ``max_trials`` the stepsize search per step.
     ``use_pallas=True`` flattens the state once per solve and runs every
-    trial's stage sums and error norm through kernels K1 and K2 (their
-    plain versions for a CPU state). ``h0`` overrides the initial-stepsize
-    heuristic. ``stats.status`` carries a ``SolveStatus`` code
+    trial's stage sums and error norm through kernels K1 and K2, or K3
+    and K4/K5 under ``batch_axis`` (their plain versions for a CPU
+    state). ``h0`` overrides the initial-stepsize heuristic.
+    ``stats.status`` carries a ``SolveStatus`` code
     (``on_failure="status"``). ``steps_per_interval`` and
     ``trial_budget`` belong to the fixed-grid and naive methods and are
-    not read by this slice.
+    not read yet.
     """
     if grad_method == "adjoint" or grad_method == "naive":
         raise _later(f"grad_method={grad_method!r}", "slice B")
@@ -106,29 +117,26 @@ def odeint(
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
     if on_failure != "status":
         raise _later(f"on_failure={on_failure!r}", "slice E")
-    if batch_axis is not None:
-        raise _later("batch_axis (per-sample batched solving)", "slice C")
-    if mesh is not None or shard_rules is not None:
-        raise _later("mesh / shard_rules (sharded solving)", "slice I")
-    if checkpoint_segments is not None:
-        raise _later("checkpoint_segments (segmented ACA)", "slice D")
-    if interpolate_ts:
-        raise _later("interpolate_ts (dense output)", "slice D")
-    if not (isinstance(rtol, (int, float)) and isinstance(atol, (int, float))):
-        raise _later("array rtol/atol (per-element tolerances)", "slice H")
     if solver is None:
         solver = "dopri5"
     if isinstance(solver, str) and solver.lower().replace("-", "_") == "alf":
         raise _later("solver='alf' (the reversible pair integrator)",
                      "slice F")
     tab = get_tableau(solver) if isinstance(solver, str) else solver
-    if not tab.adaptive:
-        raise _later(f"fixed-grid solver {tab.name!r}", "slice B")
     if not isinstance(z0, torch.Tensor):
         raise ValueError(
             f"z0 must be one torch.Tensor; got {type(z0).__name__}. Pytree "
             "(nested) states are not ported yet: they come with the "
             "remainder of slice A (ROADMAP queue 1)")
+    rtol, atol = _tolerances(rtol, atol, batch_axis, mesh, tab, z0.device)
+    if mesh is not None or shard_rules is not None:
+        raise _later("mesh / shard_rules (sharded solving)", "slice I")
+    if checkpoint_segments is not None:
+        raise _later("checkpoint_segments (segmented ACA)", "slice D")
+    if interpolate_ts:
+        raise _later("interpolate_ts (dense output)", "slice D")
+    if not tab.adaptive:
+        raise _later(f"fixed-grid solver {tab.name!r}", "slice B")
 
     ts = torch.as_tensor(ts, device=z0.device)
     if not ts.is_floating_point():
@@ -142,9 +150,79 @@ def odeint(
     cfg = ControllerConfig(max_steps=max_steps, max_trials=max_trials)
     if h0 is not None:
         h0 = torch.as_tensor(h0, dtype=ts.dtype, device=z0.device)
-    return odeint_aca(f, z0, ts, args, solver=tab, rtol=float(rtol),
-                      atol=float(atol), cfg=cfg, h0=h0,
-                      use_pallas=use_pallas)
+    if batch_axis is not None:
+        return _odeint_batched(f, z0, ts, args, tab=tab,
+                               batch_axis=batch_axis, rtol=rtol, atol=atol,
+                               cfg=cfg, h0=h0, use_pallas=use_pallas)
+    return odeint_aca(f, z0, ts, args, solver=tab, rtol=rtol, atol=atol,
+                      cfg=cfg, h0=h0, use_pallas=use_pallas)
+
+
+def _tolerances(rtol, atol, batch_axis, mesh, tab: Tableau, device):
+    """Floats, or (under ``batch_axis``) rank-1 f32 tensors on ``device``
+    when either tolerance is an array: one tolerance per batch row. Raises
+    the reference's named errors for array tolerances elsewhere."""
+    if _rank(rtol) == 0 and _rank(atol) == 0:
+        return float(rtol), float(atol)
+    if batch_axis is None:
+        raise ValueError(
+            "array rtol/atol are *per-element* tolerances and require "
+            "batch_axis: each entry pairs with one batch row's stepsize "
+            "controller — pass batch_axis=a, or a scalar tolerance for a "
+            "single-sample solve")
+    if mesh is not None:
+        raise ValueError(
+            "per-element rtol/atol do not compose with mesh: the (B,) "
+            "tolerance rows would have to be sharded with the batch; drop "
+            "mesh or use a scalar tolerance")
+    if not tab.adaptive:
+        raise ValueError(
+            f"per-element rtol/atol require an adaptive solver (got "
+            f"{tab.name!r}): fixed grids have no error control to point a "
+            "tolerance at — use steps_per_interval instead")
+    rtol, atol = (torch.as_tensor(x, dtype=torch.float32, device=device)
+                  for x in (rtol, atol))
+    if rtol.dim() > 1 or atol.dim() > 1:
+        raise ValueError(
+            "per-element rtol/atol must be rank-1 (one tolerance per batch "
+            f"row); got shapes {tuple(rtol.shape)} / {tuple(atol.shape)}")
+    return rtol, atol
+
+
+def _rank(x) -> int:
+    return x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+
+
+def _odeint_batched(f: Callable, z0: torch.Tensor, ts: torch.Tensor,
+                    args: Any, *, tab: Tableau, batch_axis: int, rtol, atol,
+                    cfg: ControllerConfig, h0: Optional[torch.Tensor],
+                    use_pallas: bool) -> Tuple[torch.Tensor, SolveStats]:
+    """``odeint(..., batch_axis=a)``: moves the batch to axis 0, solves
+    every row on its own grid (``odeint_aca_batched``) and moves the batch
+    back in ``ys``, where it sits one axis deeper under the time axis."""
+    if z0.dim() == 0:
+        raise ValueError(
+            f"batch_axis={batch_axis} requires the state to carry a batch "
+            "dimension, but it is rank-0 (a scalar has no axis to batch "
+            "over)")
+    ax = batch_axis % z0.dim()
+    B = z0.shape[ax]
+    for name, tol in (("rtol", rtol), ("atol", atol)):
+        if isinstance(tol, torch.Tensor) and tol.dim() == 1 \
+                and tol.shape[0] not in (1, B):
+            raise ValueError(
+                f"per-element {name} must carry one entry per batch row "
+                f"(B={B}) or a single broadcastable entry; got shape "
+                f"{tuple(tol.shape)}")
+    if h0 is not None and h0.dim() > 0 and tuple(h0.shape) not in ((1,),
+                                                                   (B,)):
+        raise ValueError(
+            f"a per-row h0 must have shape ({B},); got {tuple(h0.shape)}")
+    z0 = z0.movedim(ax, 0)
+    ys, stats = odeint_aca_batched(f, z0, ts, args, solver=tab, rtol=rtol,
+                                   atol=atol, cfg=cfg, h0=h0,
+                                   use_pallas=use_pallas)
+    return ys.movedim(1, ax + 1), stats
 
 
 def odeint_final(

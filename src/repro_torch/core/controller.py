@@ -68,7 +68,11 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
 def initial_stepsize(f: Callable, t0: torch.Tensor, z0: torch.Tensor,
                      args: Tuple, order: int, rtol: float,
                      atol: float) -> torch.Tensor:
-    """Hairer I.4 'starting step size' heuristic (two evaluations of f)."""
+    """Hairer I.4 'starting step size' heuristic (two evaluations of f).
+
+    No Python branch reads a tensor value, so the batched solve and the
+    serving engine ``torch.func.vmap`` it over rows and per-row
+    tolerances (``rtol``/``atol`` then arrive as 0-d tensors)."""
     scale = atol + rtol * torch.abs(z0)
     f0 = f(t0, z0, *args)
     d0 = _rms(z0 / scale)

@@ -14,19 +14,26 @@ same accumulation order:
 * **Plain-tensor path** (default): tensor arithmetic on the state as it
   is; callers compute ``error_ratio`` themselves.
 
+``rk_step_batched`` is the per-sample form over a state with a leading
+batch dimension B: per-row times and stepsizes (B,), the per-sample
+field evaluated over the batch with ``torch.func.vmap``, per-row error
+norms, and kernels K3 and K4/K5 on the flat (B, N) path.
+
 Pytree (nested) states belong to a later slice and raise ``ValueError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.func import vmap
 
 from ..kernels import ops
 from .tableaus import Tableau
 
 VecField = Callable[..., torch.Tensor]  # f(t, z, *args) -> dz/dt
+Tol = Union[float, torch.Tensor]        # scalar, or (B,) under batching
 
 
 def check_state(z0: Any) -> None:
@@ -195,3 +202,142 @@ def error_ratio(err: torch.Tensor, z0: torch.Tensor, z1: torch.Tensor,
     r = (err / scale).float()
     total = torch.sum(r * r)
     return torch.sqrt(total / torch.full_like(total, r.numel()))
+
+
+# ------------------------------------------------------------ batched form
+
+def _is_flat_batched(z: torch.Tensor) -> bool:
+    return z.dim() == 2 and z.is_floating_point()
+
+
+def maybe_flatten_batched(f: VecField, z0: torch.Tensor, use_pallas: bool):
+    """Batched twin of ``maybe_flatten``: ``z0`` carries a leading batch
+    dimension B and ``f`` is the *per-sample* field.
+
+    Returns ``(f, z0, unravel, use_pallas)``: with the fused path, ``f``
+    is the per-sample field over the flat (N,) state, ``z0`` the (B, N)
+    batch and ``unravel`` maps (..., N) back to (..., *sample_shape);
+    otherwise the inputs unchanged with ``unravel=None``.
+    """
+    check_state(z0)
+    if z0.dim() < 1:
+        raise ValueError("a batched state needs a leading batch dimension")
+    if not use_pallas:
+        return f, z0, None, False
+    f_flat, _, unravel = flatten_problem(f, z0[0])
+    return f_flat, z0.reshape(z0.shape[0], -1), unravel, True
+
+
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B,) ``v`` shaped to broadcast over the rows of batch-leading
+    ``like``."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _baxpy(h: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-row y + h_b * x over batch-leading tensors, h of shape (B,)."""
+    return y + (_rows(h, x) * _promoted(h, x)).to(y.dtype)
+
+
+def _rk_step_flat_batched(tab: Tableau, fb: Callable, t: torch.Tensor,
+                          z: torch.Tensor, h: torch.Tensor,
+                          k0: Optional[torch.Tensor],
+                          err_scale: Optional[Tuple[Tol, Tol]]
+                          ) -> StepResult:
+    """Fused batched ψ over a (B, N) state: per-row stepsizes, per-row
+    error norms. ``fb`` maps ((B,), (B, N)) -> (B, N)."""
+    k0v = k0 if k0 is not None else fb(t, z)
+    stages = [k0v]
+    # one (s, B, N) buffer without autograd; under autograd (the ACA
+    # replay) a stacked copy per kernel call, as in _rk_step_flat
+    ks = None
+    if not torch.is_grad_enabled():
+        ks = torch.empty((tab.stages,) + tuple(z.shape), dtype=k0v.dtype,
+                         device=z.device)
+        ks[0] = k0v
+
+    def rows(i):
+        return ks[:i] if ks is not None else torch.stack(stages[:i])
+
+    for i in range(1, tab.stages):
+        zi = ops.rk_stage_increment_batched(z, rows(i), h, tab.a[i])
+        ki = fb(t + tab.c[i] * h, zi)
+        if ks is not None:
+            ks[i] = ki
+        stages.append(ki)
+
+    ratio = None
+    if tab.b_err is not None and err_scale is not None:
+        rtol, atol = err_scale
+        z_next, sq_sum = ops.rk_stage_combine_err_batched(
+            z, rows(tab.stages), h, tab.b, tab.b_err, rtol, atol)
+        ratio = torch.sqrt(sq_sum / torch.full_like(sq_sum, z.shape[-1]))
+    else:
+        z_next = ops.rk_stage_increment_batched(z, rows(tab.stages), h,
+                                                tab.b)
+    k_last = stages[-1] if tab.fsal else stages[0]
+    return StepResult(z_next=z_next, err=None, k_last=k_last,
+                      err_ratio=ratio)
+
+
+def batched_field(f: VecField, args: Tuple) -> Callable:
+    """The per-sample field ``f(t, z, *args)`` over the batch: (B,) times
+    and batch-leading states, ``args`` shared by every row."""
+    return vmap(lambda ti, zi: f(ti, zi, *args))
+
+
+def rk_step_batched(tab: Tableau, f: VecField, t: torch.Tensor,
+                    z: torch.Tensor, h: torch.Tensor, args: Tuple = (),
+                    k0: Optional[torch.Tensor] = None, *,
+                    use_pallas: bool = False,
+                    err_scale: Optional[Tuple[Tol, Tol]] = None,
+                    dense: bool = False) -> StepResult:
+    """One explicit RK step per batch row: ψ_{h_b}(t_b, z_b) for all b.
+
+    ``f`` is the per-sample field (no batch dimension); ``z`` carries a
+    leading batch dimension B; ``t`` and ``h`` are (B,). With
+    ``err_scale=(rtol, atol)`` the result's ``err_ratio`` is the (B,)
+    vector of per-row scaled error norms (then ``err`` is None); the
+    tolerances may be (B,) tensors, one per row, and a row at tolerance
+    τ gives the bits of the all-τ scalar form. A row whose h_b is 0
+    passes through unchanged: the masking the batched loop and the ACA
+    replay use to freeze rows. ``use_pallas=True`` sends a (B, N)
+    floating state to kernels K3 and K4/K5.
+    """
+    if dense:
+        raise ValueError(
+            "rk_step_batched(dense=True) (per-row interpolants) is not "
+            "ported yet: it comes with slice D (ROADMAP queue 1)")
+    fb = batched_field(f, args)
+    if use_pallas and _is_flat_batched(z):
+        return _rk_step_flat_batched(tab, fb, t, z, h, k0, err_scale)
+    ks = []
+    for i in range(tab.stages):
+        if i == 0:
+            ki = k0 if k0 is not None else fb(t, z)
+        else:
+            zi = _baxpy(h, _weighted_sum(ks, tab.a[i]), z)
+            ki = fb(t + tab.c[i] * h, zi)
+        ks.append(ki)
+
+    z_next = _baxpy(h, _weighted_sum(ks, tab.b), z)
+    err = ratio = None
+    if tab.b_err is not None:
+        e = _weighted_sum(ks, tab.b_err)
+        err = _rows(h, e) * _promoted(h, e)
+        if err_scale is not None:
+            ratio = error_ratio_batched(err, z, z_next, *err_scale)
+            err = None
+    k_last = ks[-1] if tab.fsal else ks[0]
+    return StepResult(z_next=z_next, err=err, k_last=k_last,
+                      err_ratio=ratio)
+
+
+def error_ratio_batched(err: torch.Tensor, z0: torch.Tensor,
+                        z1: torch.Tensor, rtol: Tol,
+                        atol: Tol) -> torch.Tensor:
+    """``error_ratio`` of each row of batch-leading tensors: (B,) f32.
+    ``rtol``/``atol`` are floats or (B,) tensors."""
+    dims = (0, 0, 0, 0 if isinstance(rtol, torch.Tensor) else None,
+            0 if isinstance(atol, torch.Tensor) else None)
+    return vmap(error_ratio, in_dims=dims)(err, z0, z1, rtol, atol)

@@ -1,17 +1,18 @@
 """Differentiable dispatch over the RK stage kernels.
 
-The counterpart of ``repro/kernels/ops.py``'s ``rk_stage_increment`` and
-``rk_stage_combine_err``: each is a ``torch.autograd.Function`` whose
+The counterpart of ``repro/kernels/ops.py``'s ``rk_stage_increment``,
+``rk_stage_combine_err`` and their batched forms (K3, and K4 or K5 by the
+tolerances' rank): each is a ``torch.autograd.Function`` whose
 forward launches the kernel (CUDA tensor) or runs its plain version (CPU
 tensor), and whose backward recomputes the plain version under
 ``enable_grad`` and returns its vector-Jacobian product — as the JAX
 package's custom_vjp backward takes ``jax.vjp`` of the jnp twin. The
-tableau weights and tolerances are constants and get no gradient.
+tableau weights and tolerances, scalar or per row, get no gradient.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -101,3 +102,84 @@ def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         return out
     zn, sq = out
     return zn, None, sq
+
+
+class _IncrementBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, k, h, a):
+        ctx.a = a
+        ctx.save_for_backward(z, k, h)
+        return rk_stage.rk_stage_increment_batched(z, k, h, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, k, h = ctx.saved_tensors
+        grads = _vjp(
+            lambda z_, k_, h_: (
+                rk_stage.increment_batched_plain(z_, k_, h_, ctx.a),),
+            (z, k, h), ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
+
+
+class _CombineErrBatched(torch.autograd.Function):
+    """K4 (float tolerances) or K5 ((B,) tolerance tensors)."""
+
+    @staticmethod
+    def forward(ctx, z, k, h, rtol, atol, b, e):
+        ctx.consts = (b, e)
+        row_tol = isinstance(rtol, torch.Tensor)
+        if row_tol:
+            ctx.save_for_backward(z, k, h, rtol, atol)
+            zn, partials = rk_stage.rk_stage_combine_err_batched_rowtol(
+                z, k, h, b, e, rtol, atol)
+        else:
+            ctx.tols = (rtol, atol)
+            ctx.save_for_backward(z, k, h)
+            zn, partials = rk_stage.rk_stage_combine_err_batched(
+                z, k, h, b, e, rtol, atol)
+        return zn, partials.sum(dim=-1)
+
+    @staticmethod
+    def backward(ctx, g_zn, g_sq):
+        saved = ctx.saved_tensors
+        z, k, h = saved[:3]
+        rtol, atol = saved[3:] if len(saved) == 5 else ctx.tols
+        b, e = ctx.consts
+        grads = _vjp(
+            lambda z_, k_, h_: rk_stage.combine_err_batched_plain(
+                z_, k_, h_, b, e, rtol, atol),
+            (z, k, h), ctx.needs_input_grad[:3], (g_zn, g_sq))
+        return (*grads, None, None, None, None)
+
+
+def rk_stage_increment_batched(z: torch.Tensor, k: torch.Tensor,
+                               h: torch.Tensor,
+                               a: Sequence[float]) -> torch.Tensor:
+    """Per-row stage argument z_b + h_b * sum_j a_j k_{j,b} over a (B, N)
+    batch (K3); differentiable. Rows with h_b = 0 pass through."""
+    return _IncrementBatched.apply(z, k, h, tuple(float(w) for w in a))
+
+
+def rk_stage_combine_err_batched(
+        z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+        b: Sequence[float], e: Sequence[float],
+        rtol: Union[float, torch.Tensor], atol: Union[float, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row combine + per-row sum of squared scaled errors over a (B, N)
+    batch; differentiable.
+
+    Returns (z_next (B, N), sq_sum (B,)); sqrt(sq_sum / N) is each row's
+    ``error_ratio``. Float tolerances go to K4 (baked into the launch);
+    if either is a tensor, both broadcast to (B,) f32 rows and go to K5.
+    """
+    bw = tuple(float(w) for w in b)
+    ew = tuple(float(w) for w in e)
+    if isinstance(rtol, torch.Tensor) or isinstance(atol, torch.Tensor):
+        rows = (z.shape[0],)
+        rt = torch.as_tensor(rtol, dtype=torch.float32,
+                             device=z.device).broadcast_to(rows).contiguous()
+        at = torch.as_tensor(atol, dtype=torch.float32,
+                             device=z.device).broadcast_to(rows).contiguous()
+        return _CombineErrBatched.apply(z, k, h, rt, at, bw, ew)
+    return _CombineErrBatched.apply(z, k, h, float(rtol), float(atol), bw,
+                                    ew)

@@ -1,4 +1,4 @@
-"""K1 and K2: the fused Runge-Kutta stage kernels and their plain versions.
+"""K1-K5: the fused Runge-Kutta stage kernels and their plain versions.
 
 * ``rk_stage_increment`` (K1): ``z + h * sum_j a_j k_j`` — the argument of
   each stage's field evaluation, and with the ``b`` row the solution
@@ -8,6 +8,15 @@
   ``err = h * sum_i e_i k_i`` (returned only with ``with_err``) and the
   per-block partial sums of ``(err / (atol + rtol * max(|z|, |z_next|)))^2``.
   Replaces ``repro/kernels/rk_stage.py::rk_stage_combine_err_pallas``.
+* ``rk_stage_increment_batched`` (K3): K1 on each row of a (B, N) state
+  with the row's own stepsize h (B,); k is (j, B, N). A row with h = 0
+  passes through. Replaces ``rk_stage_increment_batched_pallas``.
+* ``rk_stage_combine_err_batched`` (K4): K2 per row, without the err
+  store, with per-row norm partials (B, P) and scalar tolerances.
+  Replaces ``rk_stage_combine_err_batched_pallas``.
+* ``rk_stage_combine_err_batched_rowtol`` (K5): K4 with (B,) tolerances
+  read per row; a row at K4's tolerance gives K4's bits. Replaces
+  ``rk_stage_combine_err_batched_rowtol_pallas``.
 
 The CUDA source is ``csrc/rk_stage.cu``. Each wrapper takes the plain
 PyTorch version for a tensor on the CPU only; for a CUDA tensor it
@@ -32,11 +41,16 @@ THREADS = 256
 # grid-stride loop covers the rest. K2's partials buffer has one slot per
 # block, so the grid depends on N alone and the norm is deterministic.
 MAX_BLOCKS = 132 * 8
+# the batched kernels' rows are the grid's y dimension
+MAX_ROWS = 65535
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_WIDTH = {torch.float32: 4, torch.bfloat16: 8}   # 16-byte vectors
 
-launches = {"rk_stage_increment": 0, "rk_stage_combine_err": 0}
+launches = {"rk_stage_increment": 0, "rk_stage_combine_err": 0,
+            "rk_stage_increment_batched": 0,
+            "rk_stage_combine_err_batched": 0,
+            "rk_stage_combine_err_batched_rowtol": 0}
 
 
 def reset_launches() -> None:
@@ -79,6 +93,49 @@ def combine_err_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     return zn.to(z.dtype), (err if with_err else None), sq
 
 
+def increment_batched_plain(z: torch.Tensor, k: torch.Tensor,
+                            h: torch.Tensor,
+                            a: Sequence[float]) -> torch.Tensor:
+    """Per row b: z_b + h_b * sum_j a_j k_{j,b}; z (B, N), k (j, B, N),
+    h (B,)."""
+    acc = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
+    for j, aj in enumerate(tuple(a)[: k.shape[0]]):
+        if aj != 0.0:
+            acc = acc + aj * k[j].float()
+    return (z.float() + h.float()[:, None] * acc).to(z.dtype)
+
+
+def combine_err_batched_plain(z: torch.Tensor, k: torch.Tensor,
+                              h: torch.Tensor, b: Sequence[float],
+                              e: Sequence[float], rtol, atol
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_next (B, N), (B,) per-row sums of squared scaled errors).
+
+    ``rtol``/``atol`` are floats (K4) or (B,) tensors (K5): a row's
+    tolerance enters its scale exactly as the float does, so a row at
+    tolerance τ gives the bits of the all-τ scalar form.
+    """
+    zf = z.float()
+    acc = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
+    err = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
+    for i, (bi, ei) in enumerate(zip(b, e)):
+        ki = k[i].float()
+        if bi != 0.0:
+            acc = acc + bi * ki
+        if ei != 0.0:
+            err = err + ei * ki
+    hv = h.float()[:, None]
+    zn = zf + hv * acc
+    err = hv * err
+    if isinstance(rtol, torch.Tensor):
+        rtol = rtol.float()[:, None]
+    if isinstance(atol, torch.Tensor):
+        atol = atol.float()[:, None]
+    scale = atol + rtol * torch.maximum(zf.abs(), zn.abs())
+    r = err / scale
+    return zn.to(z.dtype), torch.sum(r * r, dim=-1)
+
+
 # ------------------------------------------------------------------ wrappers
 
 class _Row(ctypes.Structure):
@@ -105,6 +162,22 @@ _SIGNATURES = {
         ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
+    "rk_stage_increment_batched": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(_Row),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "rk_stage_combine_err_batched": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "rk_stage_combine_err_batched_rowtol": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
 }
 
 
@@ -118,11 +191,13 @@ def _lib() -> ctypes.CDLL:
         lib.rk_error_string.restype = ctypes.c_char_p
         lib.rk_threads_per_block.restype = ctypes.c_int
         lib.rk_max_stages.restype = ctypes.c_int
+        lib.rk_max_rows.restype = ctypes.c_int
         if (lib.rk_threads_per_block() != THREADS
-                or lib.rk_max_stages() != MAX_STAGES):
+                or lib.rk_max_stages() != MAX_STAGES
+                or lib.rk_max_rows() != MAX_ROWS):
             raise RuntimeError(
-                "rk_stage.cu and rk_stage.py disagree on the block size or "
-                "the stage limit")
+                "rk_stage.cu and rk_stage.py disagree on the block size, "
+                "the stage limit or the row limit")
         lib._repro_bound = True
     return lib
 
@@ -243,3 +318,132 @@ def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     _check_launch(lib, code, "rk_stage_combine_err")
     launches["rk_stage_combine_err"] += 1
     return zn, err, partials
+
+
+# ------------------------------------------------------ batched wrappers
+
+def _check_batched(what: str, z: torch.Tensor, k: torch.Tensor,
+                   h: torch.Tensor) -> None:
+    if z.dim() != 2 or k.dim() != 3 or tuple(k.shape[1:]) != tuple(z.shape):
+        raise ValueError(
+            f"{what}: expects z (B, N) and k (s, B, N); got "
+            f"{tuple(z.shape)} and {tuple(k.shape)}")
+    if z.dtype not in _DTYPE_CODE or k.dtype != z.dtype:
+        raise ValueError(
+            f"{what}: z and k must share one dtype among float32/bfloat16; "
+            f"got {z.dtype} and {k.dtype}")
+    if k.shape[0] > MAX_STAGES:
+        raise ValueError(
+            f"{what}: at most {MAX_STAGES} stages; got {k.shape[0]}")
+    if not 1 <= z.shape[0] <= MAX_ROWS:
+        raise ValueError(
+            f"{what}: between 1 and {MAX_ROWS} rows; got {z.shape[0]}")
+    if z.device != k.device or h.device != z.device:
+        raise ValueError(
+            f"{what}: z, k and h must lie on one device; got {z.device}, "
+            f"{k.device}, {h.device}")
+    if tuple(h.shape) != (z.shape[0],):
+        raise ValueError(
+            f"{what}: h must hold one stepsize per row, shape "
+            f"({z.shape[0]},); got {tuple(h.shape)}")
+
+
+def _rows_device(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def rk_stage_increment_batched(z: torch.Tensor, k: torch.Tensor,
+                               h: torch.Tensor,
+                               a: Sequence[float]) -> torch.Tensor:
+    """K3: per row b, z_b + h_b * sum_j a_j k_{j,b} with z (B, N), k (j, B,
+    N), h (B,) on z's device, ``a`` the tableau row (its first j weights
+    are read). A row with h_b = 0 returns z_b."""
+    _check_batched("rk_stage_increment_batched", z, k, h)
+    a = tuple(float(w) for w in tuple(a)[: k.shape[0]])
+    if z.device.type == "cpu":
+        return increment_batched_plain(z, k, h, a)
+    _on_card("rk_stage_increment_batched", z, k)
+    lib = _lib()
+    rows, n = z.shape
+    hd = _rows_device(h)
+    out = torch.empty_like(z)
+    vec = _vectorized(n, z.dtype, z, k, out)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        code = lib.rk_stage_increment_batched(
+            z.data_ptr(), k.data_ptr(), hd.data_ptr(), out.data_ptr(), n,
+            rows, ctypes.byref(_row(a)), _DTYPE_CODE[z.dtype], int(vec),
+            grid_blocks(n, z.dtype, vec), stream)
+    _check_launch(lib, code, "rk_stage_increment_batched")
+    launches["rk_stage_increment_batched"] += 1
+    return out
+
+
+def _combine_err_batched(what: str, z, k, h, b, e, rtol, atol, row_tol):
+    _check_batched(what, z, k, h)
+    b = tuple(float(w) for w in b)
+    e = tuple(float(w) for w in e)
+    if len(b) != k.shape[0] or len(e) != k.shape[0]:
+        raise ValueError(
+            f"{what}: {k.shape[0]} stages but {len(b)} b and {len(e)} e "
+            "weights")
+    if row_tol:
+        for name, tol in (("rtol", rtol), ("atol", atol)):
+            if not (isinstance(tol, torch.Tensor)
+                    and tuple(tol.shape) == (z.shape[0],)
+                    and tol.device == z.device):
+                raise ValueError(
+                    f"{what}: {name} must be a ({z.shape[0]},) tensor on "
+                    f"{z.device}")
+    if z.device.type == "cpu":
+        zn, sq = combine_err_batched_plain(z, k, h, b, e, rtol, atol)
+        return zn, sq[:, None]
+    _on_card(what, z, k)
+    lib = _lib()
+    rows, n = z.shape
+    hd = _rows_device(h)
+    zn = torch.empty_like(z)
+    vec = _vectorized(n, z.dtype, z, k, zn)
+    n_blocks = grid_blocks(n, z.dtype, vec)
+    partials = torch.empty((rows, n_blocks), dtype=torch.float32,
+                           device=z.device)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        common = (z.data_ptr(), k.data_ptr(), hd.data_ptr(), zn.data_ptr(),
+                  partials.data_ptr(), n, rows, ctypes.byref(_row(b)),
+                  ctypes.byref(_row(e)))
+        tail = (_DTYPE_CODE[z.dtype], int(vec), n_blocks, stream)
+        if row_tol:
+            rt, at = _rows_device(rtol), _rows_device(atol)
+            code = lib.rk_stage_combine_err_batched_rowtol(
+                *common, rt.data_ptr(), at.data_ptr(), *tail)
+        else:
+            code = lib.rk_stage_combine_err_batched(
+                *common, rtol, atol, *tail)
+    _check_launch(lib, code, what)
+    launches[what] += 1
+    return zn, partials
+
+
+def rk_stage_combine_err_batched(z: torch.Tensor, k: torch.Tensor,
+                                 h: torch.Tensor, b: Sequence[float],
+                                 e: Sequence[float], rtol: float,
+                                 atol: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: (z_next (B, N), norm partials (B, P) f32) with scalar rtol and
+    atol. Summing a row's partials and dividing by N gives that row's
+    ``error_ratio`` squared."""
+    return _combine_err_batched("rk_stage_combine_err_batched", z, k, h, b,
+                                e, float(rtol), float(atol), False)
+
+
+def rk_stage_combine_err_batched_rowtol(z: torch.Tensor, k: torch.Tensor,
+                                        h: torch.Tensor, b: Sequence[float],
+                                        e: Sequence[float],
+                                        rtol: torch.Tensor,
+                                        atol: torch.Tensor
+                                        ) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """K5: K4 with (B,) tolerance tensors on z's device, one per row."""
+    return _combine_err_batched("rk_stage_combine_err_batched_rowtol", z, k,
+                                h, b, e, rtol, atol, True)

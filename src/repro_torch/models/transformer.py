@@ -96,11 +96,25 @@ def node_block(block: TransformerBlock, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, SolveStats]:
     """The block as an ODE block, z(1) = x + ∫₀¹ branch(z) dt, with ACA
     gradients for x and every parameter; returns (z(1), stats). ``ncfg``
-    defaults to the block's ``RunConfig.node``."""
+    defaults to the block's ``RunConfig.node``.
+
+    With ``ncfg.batch_axis=0`` every sample x[b] (S, D) is its own ODE on
+    its own adaptive grid: the per-sample field runs the block on a batch
+    of one, and ``stats`` fields are (B,).
+    """
     ncfg = block.rcfg.node if ncfg is None else ncfg
     params = dict(block.named_parameters())
-    return node_block_solve(
-        lambda p, z, t: branch_fn(block, p, z, positions), params, x, ncfg)
+    if ncfg.batch_axis is None:
+        def fn(p, z, t):
+            return branch_fn(block, p, z, positions)
+    elif ncfg.batch_axis in (0, -x.dim()):
+        def fn(p, z, t):
+            return branch_fn(block, p, z.unsqueeze(0), positions)[0]
+    else:
+        raise ValueError(
+            f"node_block batches over the block's batch axis 0; got "
+            f"batch_axis={ncfg.batch_axis}")
+    return node_block_solve(fn, params, x, ncfg)
 
 
 def full_buffer(ncfg: NodeConfig) -> NodeConfig:

@@ -10,7 +10,10 @@ K1 and K2 must give z_next bitwise equal to their plain versions (the
 kernels round each product and sum like the plain PyTorch ops); K2's err
 within rtol 1e-6 of the plain version's max |err| (same arithmetic) and
 its norm within rtol 1e-5 (block partials vs one torch.sum over N terms).
-TF32 is off, so matmuls run in full f32 on both sides.
+The batched K3, K4 and K5 likewise give z_next bitwise, per-row norms
+within rtol 1e-6 (rows of at most 100,003 terms), an h = 0 row bit for
+bit, and K5 at K4's tolerance K4's bits. TF32 is off, so matmuls run in
+full f32 on both sides.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from repro_torch.core import odeint
 from repro_torch.core.tableaus import BOGACKI_SHAMPINE, DOPRI5, HEUN_EULER
 from repro_torch.kernels import rk_stage
+from repro_torch.serve import NodeEngineConfig, NodeRequest, NodeServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +122,111 @@ def test_toy_gradient_on_the_card(card):
     analytic = 2 * 1.5 * np.exp(4.0)
     assert abs(float(z0.grad) - analytic) / analytic < 1e-4
     assert ys.device.type == "cuda"
+
+
+def _batched_inputs(card, rows, n, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    z = torch.randn(rows, n, generator=g).to(dtype).to(card)
+    k = torch.randn(7, rows, n, generator=g).to(dtype).to(card)
+    h = torch.linspace(0.01, 0.08, rows).to(card)
+    if rows > 1:
+        h[1] = 0.0                  # a frozen row
+    return z, k, h
+
+
+@pytest.mark.parametrize("rows,n", [(1, 37), (3, 4096), (5, 100_003),
+                                    (2, 4098)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_increment_batched_kernel_is_bitwise_its_plain_version(card, rows,
+                                                               n, dtype):
+    z, k, h = _batched_inputs(card, rows, n, dtype)
+    before = rk_stage.launches["rk_stage_increment_batched"]
+    for tab in TABS:
+        row_list = [(i, tab.a[i]) for i in range(1, tab.stages)]
+        row_list.append((tab.stages, tab.b))
+        for i, a in row_list:
+            kk = k[:i].contiguous()
+            out = rk_stage.rk_stage_increment_batched(z, kk, h, a)
+            assert torch.equal(out, rk_stage.increment_batched_plain(
+                z, kk, h, a))
+            if rows > 1:
+                assert torch.equal(out[1], z[1])     # the h = 0 row
+    assert rk_stage.launches["rk_stage_increment_batched"] > before
+
+
+@pytest.mark.parametrize("rows,n", [(1, 37), (3, 4096), (5, 100_003),
+                                    (2, 4098)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_err_batched_kernels_match_their_plain_version(card, rows,
+                                                               n, dtype):
+    z, k, h = _batched_inputs(card, rows, n, dtype, seed=1)
+    rt = torch.logspace(-2, -5, rows).to(card)
+    at = 0.1 * rt
+    for tab in TABS:
+        kk = k[:tab.stages].contiguous()
+        args = (z, kk, h, tab.b, tab.b_err)
+        zn4, p4 = rk_stage.rk_stage_combine_err_batched(*args, 1e-3, 1e-4)
+        zp, sqp = rk_stage.combine_err_batched_plain(*args, 1e-3, 1e-4)
+        assert torch.equal(zn4, zp)
+        torch.testing.assert_close(p4.sum(-1), sqp, rtol=1e-6, atol=0.0)
+        zn5, p5 = rk_stage.rk_stage_combine_err_batched_rowtol(
+            *args, torch.full((rows,), 1e-3, device=card),
+            torch.full((rows,), 1e-4, device=card))
+        assert torch.equal(zn5, zn4) and torch.equal(p5, p4)
+        zn5, p5 = rk_stage.rk_stage_combine_err_batched_rowtol(*args, rt, at)
+        zp, sqp = rk_stage.combine_err_batched_plain(*args, rt, at)
+        assert torch.equal(zn5, zp)
+        torch.testing.assert_close(p5.sum(-1), sqp, rtol=1e-6, atol=0.0)
+        if rows > 1:
+            assert torch.equal(zn4[1], z[1]) and float(p4[1].sum()) == 0.0
+
+
+def test_batched_solve_fused_matches_plain_on_the_card(card):
+    rng = np.random.default_rng(0)
+    w = torch.tensor((rng.standard_normal((64, 64)) * 0.2).astype(
+        np.float32), device=card)
+    z0 = torch.tensor(rng.standard_normal((4, 64)).astype(np.float32),
+                      device=card)
+    tols = torch.tensor([1e-2, 1e-3, 1e-4, 1e-3], device=card)
+    out = []
+    for up in (False, True):
+        zz = z0.clone().requires_grad_()
+        ys, st = odeint(lambda t, z, m: torch.tanh(m @ z), zz, [0.0, 1.0],
+                        (w,), solver="dopri5", rtol=tols, atol=1e-4,
+                        batch_axis=0, use_pallas=up)
+        torch.sum(ys[-1] ** 2).backward()
+        out.append((ys.detach(), st.n_steps.tolist(), zz.grad))
+    (y0, s0, g0), (y1, s1, g1) = out
+    assert s0 == s1 and len(set(s0)) > 1
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-6)
+
+
+def test_node_serve_engine_on_the_card(card):
+    """A small engine run through K3 and K5: every request OK, and one
+    request alone gives its bits in the mix."""
+    w = torch.tensor(1.3, device=card)
+
+    def field(t, z, ww):
+        return torch.tanh(ww * z) - 0.1 * z * torch.sin(t)
+
+    rng = np.random.default_rng(3)
+    reqs = [NodeRequest(z0=rng.standard_normal(64).astype(np.float32),
+                        t1=float(t1), rtol=tol, atol=tol)
+            for t1, tol in zip([0.5, 1.0, 1.5, 1.0, 0.5],
+                               [1e-3, 1e-4, 1e-3, 1e-5, 1e-4])]
+    eng = NodeServeEngine(field, 64, (w,),
+                          NodeEngineConfig(slots=4, use_pallas=True),
+                          device=card)
+    rk_stage.reset_launches()
+    for i, r in enumerate(reqs):
+        eng.submit(r, arrival=0.5 * i)
+    res = eng.run()
+    assert all(r.ok for r in res)
+    assert rk_stage.launches["rk_stage_increment_batched"] > 0
+    assert rk_stage.launches["rk_stage_combine_err_batched_rowtol"] > 0
+    eng.reset()
+    eng.submit(reqs[1], arrival=0.5)
+    alone = eng.run()[0]
+    assert np.array_equal(alone.z_final, res[1].z_final)
+    assert alone.n_trials == res[1].n_trials

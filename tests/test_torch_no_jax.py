@@ -31,3 +31,6 @@ def test_no_jax_or_reference_import(path):
 def test_the_port_has_modules():
     assert len(FILES) > 10
     assert (ROOT / "chip_smoke.py").is_file()
+    port = ROOT / "src" / "repro_torch"
+    assert port / "serve" / "node_engine.py" in FILES
+    assert port / "serve" / "__init__.py" in FILES

@@ -10,6 +10,11 @@ The accepted step counts must be equal. z(1) and the ACA gradients (x
 and every parameter) are held to max |difference| / max |value| <= 1e-5:
 the two sides run the same algorithm and differ in the summation order
 of the matmuls and the softmax.
+
+The per-sample form (``NodeConfig(batch_axis=0)``) is held the same way
+against the reference's ``node_block_apply`` with ``batch_axis=0`` on x of
+shape (3, 16, 64), per-row step counts equal: each sample (16, 64) is its
+own ODE, its field the block on a batch of one.
 """
 
 import dataclasses
@@ -22,6 +27,7 @@ import torch
 
 from repro.configs import node18_cifar as jcfg
 from repro.core import odeint_final as jodeint_final
+from repro.core.node_block import node_block_apply as jnode_block_apply
 from repro.kernels import ops as jops
 from repro.models.common import init_params
 from repro.models.config import RunConfig as JRun
@@ -158,3 +164,66 @@ def test_fixed_regime_and_unported_kinds_raise():
     with pytest.raises(ValueError, match="slice D"):
         node_block(TransformerBlock(tcfg.SMOKE, TRun(), device="cpu"),
                    torch.zeros(1, 4, 64), tcfg.NODE_TRAIN)
+
+
+# ------------------------------------------------ per-sample (batch_axis=0)
+
+@pytest.fixture(scope="module")
+def batched_cases(cases):
+    cfg = jcfg.SMOKE
+    ncfg = dataclasses.replace(jcfg.NODE_TRAIN, checkpoint_segments=None,
+                               batch_axis=0)
+    rcfg = JRun(compute_dtype=jnp.float32, node=ncfg)
+    params = jax.tree.map(jnp.asarray, _nest(cases["params"]))
+    x = np.random.default_rng(2).standard_normal((3, 16, 64)).astype(
+        np.float32)
+
+    def block_fn(pp, z, t):
+        return _branch_fn(pp, z[None], cfg, rcfg, "attn", None)[0]
+
+    def loss(p, x):
+        zT = jnode_block_apply(block_fn, p, x, ncfg)
+        return jnp.mean(zT ** 2), zT
+
+    (_, zj), (gpj, gxj) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    _, stj = jodeint_final(
+        lambda t, z, pp: block_fn(pp, z, t), jnp.asarray(x), ncfg.t0,
+        ncfg.t1, (params,), solver=ncfg.solver, grad_method="aca",
+        rtol=ncfg.rtol, atol=ncfg.atol, max_steps=ncfg.max_steps,
+        use_pallas=ncfg.use_pallas, batch_axis=0)
+
+    blk = cases["blk"]
+    blk.zero_grad(set_to_none=True)
+    tncfg = dataclasses.replace(full_buffer(tcfg.NODE_TRAIN), batch_axis=0)
+    xt = torch.tensor(x, requires_grad=True)
+    zt, stt = node_block(blk, xt, tncfg)
+    torch.mean(zt ** 2).backward()
+    out = dict(zj=np.asarray(zj), stj=stj, gpj=_flat(gpj),
+               gxj=np.asarray(gxj), zt=zt.detach().numpy(), stt=stt,
+               gxt=xt.grad.numpy(),
+               gpt={n: p.grad.numpy() for n, p in blk.named_parameters()})
+    blk.zero_grad(set_to_none=True)
+    return out
+
+
+def test_batched_forward_matches_reference(batched_cases):
+    stt, stj = batched_cases["stt"], batched_cases["stj"]
+    for field in ("n_steps", "n_trials", "nfe", "status"):
+        np.testing.assert_array_equal(getattr(stt, field).numpy(),
+                                      np.asarray(getattr(stj, field)),
+                                      err_msg=field)
+    assert stt.n_steps.shape == (3,) and int(stt.n_steps.min()) > 1
+    assert _rel(batched_cases["zt"], batched_cases["zj"]) <= TOL
+
+
+def test_batched_input_gradient_matches_reference(batched_cases):
+    assert _rel(batched_cases["gxt"], batched_cases["gxj"]) <= TOL
+
+
+@pytest.mark.parametrize("name", ["norm1.w", "mixer.wq", "mixer.wk",
+                                  "mixer.wv", "mixer.wo", "norm2.w",
+                                  "ffn.w_in", "ffn.w_gate", "ffn.w_out"])
+def test_batched_parameter_gradient_matches_reference(batched_cases, name):
+    assert _rel(batched_cases["gpt"][name], batched_cases["gpj"][name]) \
+        <= TOL

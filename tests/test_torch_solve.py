@@ -199,7 +199,7 @@ def test_state_of_any_shape_keeps_its_shape():
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    (dict(batch_axis=0), "slice C"),
+    (dict(batch_axis=0, checkpoint_segments=4), "slice D"),
     (dict(mesh=object()), "slice I"),
     (dict(checkpoint_segments="auto"), "slice D"),
     (dict(interpolate_ts=True), "slice D"),
@@ -209,7 +209,7 @@ def test_state_of_any_shape_keeps_its_shape():
     (dict(solver="alf"), "slice F"),
     (dict(solver="rk4"), "slice B"),
     (dict(solver="euler"), "slice B"),
-    (dict(rtol=torch.tensor([1e-3, 1e-4])), "slice H"),
+    (dict(rtol=torch.tensor([1e-3, 1e-4])), "require batch_axis"),
     (dict(on_failure="raise"), "slice E"),
 ])
 def test_later_slice_options_raise_named_errors(kw, slice_):
