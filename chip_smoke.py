@@ -40,12 +40,36 @@ printing one JSON line (``"phase": ...``):
 7. ``node18_batched`` — the node18 block with NodeConfig(batch_axis=0) on x
                       (8, 512, 768): every sample on its own grid, two SGD
                       steps; then fused against plain at the same width.
-8. the ``kernels`` summary line (K1-K5), the card's name and power limit,
-   and the last line ``{"ok": true, "device": {...}}``.
+8. ``kernels_lm``   — K7 (RMSNorm), K8 (windowed GQA flash attention) and
+                      K10 (RG-LRU scan) against their plain versions on the
+                      card at the recurrentgemma_9b serving shapes: K7 at
+                      (16384, 4096) and (16383, 4096), f32 and bf16, and
+                      the decode shape (4, 4096); K8 at q (4, 16, 4096,
+                      256), one kv head, window 2048 and 0, f32 and bf16,
+                      and at S = 1000; K10 at (4, 4096, 4096) and (2,
+                      1000, 4096). Times beside the bound, the plain
+                      version and the library call (``F.rms_norm``,
+                      ``F.scaled_dot_product_attention`` with the band
+                      mask; none for K10).
+9. ``serve_recurrentgemma`` — ``ServeEngine.generate`` over
+                      ``build_model(recurrentgemma_9b.CONFIG with
+                      n_layers=5)``: full width (d_model 4096, 16 heads, 1
+                      kv head, head_dim 256, d_ff 12288, vocab 256000,
+                      window 2048, d_rnn 4096), one (rec, rec, attn) group
+                      and the 2-layer rec tail, bf16 params and compute,
+                      ``use_pallas=True``, seeded random weights. Call A:
+                      4 prompts of 4096 tokens, 32 new (greedy; decode
+                      wraps the 2048-slot ring); call B: 2 prompts of 1000,
+                      16 new. Launches checked exactly per call; then the
+                      plain route on the same weights (last-position
+                      logits, greedy tokens where the margin allows) and
+                      one f32 prefill of both routes.
+10. the ``kernels`` summary line (K1-K5, K7, K8, K10), the card's name and
+   power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
-node18_batched for K3/K4) runs with the launch counts set to 0 just
-before it and read just after.
+node18_batched for K3/K4, each serve_recurrentgemma call for K7/K8/K10)
+runs with every launch count set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -76,6 +100,11 @@ ROW_N = NODE18_SHAPE[1] * NODE18_SHAPE[2]
 SERVE_ROW_N = ROW_N + 2
 SERVE_REQUESTS = 16
 
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+RG_LAYERS = 5                   # one (rec, rec, attn) group + 2 rec tail
+RG_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
+LM_KERNELS = ("rmsnorm", "flash_attention", "rg_lru")
+
 # paper Fig. 6, ACA column: the reference's fused path on the CPU
 # (rel err, n_steps, n_trials, nfe) at dopri5, rtol=atol=1e-5
 TOY_REFERENCE = {
@@ -99,6 +128,26 @@ NODE_RTOL = 1e-4
 # per-row norms of K4/K5 (block partials summed per row) against the plain
 # version's one torch.sum per row over N terms
 ROW_NORM_RTOL = 1e-6
+# K7 against torch's RMSNorm, as max |diff| / max |plain|: f32 sums the
+# squares in another order and rsqrtf differs by an ulp or two; bf16 both
+# round one f32 value, so one bf16 ulp of each value
+RMS_F32_RTOL = 2e-6
+RMS_BF16_ULPS = 1.0
+# K8 against dense masked attention in f32: FMA sums in another order
+# (f32); the kernel rounds p to bf16 for the tensor cores (bf16)
+ATT_F32_RTOL = 2e-5
+ATT_BF16_RTOL = 1e-2
+# K10 against the doubling scan: products in another order
+LRU_RTOL = 1e-5
+# the served model, kernels vs plain route, as a share of max |logit|:
+# bf16 activations round at every layer in other places (K8 keeps scores
+# in f32 where the plain route rounds them to bf16), so the routes agree
+# to a few bf16 ulps of the logits; in f32 only summation order differs.
+# Two logits each within the tolerance can swap places only where their
+# margin is under twice it: greedy tokens must agree wherever the plain
+# route's top-2 margin exceeds 2 x LOGIT_BF16_RTOL x max |logit|
+LOGIT_BF16_RTOL = 2e-2
+LOGIT_F32_RTOL = 1e-3
 
 K1_K2 = ("rk_stage_increment", "rk_stage_combine_err")
 SERVE_KERNELS = ("rk_stage_increment_batched",
@@ -295,10 +344,10 @@ def phase_kernels(torch, seed: int):
 
 def phase_toy_gradient(torch):
     from repro_torch.core import odeint
-    from repro_torch.kernels import rk_stage
+    from repro_torch.kernels import ops, rk_stage
     z0v = 1.5
     rows = []
-    rk_stage.reset_launches()
+    ops.reset_launches()
     for (k, t_end), (ref_err, ref_steps, ref_trials, ref_nfe) in \
             TOY_REFERENCE.items():
         z0 = torch.tensor(z0v, device="cuda", requires_grad=True)
@@ -338,7 +387,7 @@ def _node18_train(torch, seed: int, ncfg, n_train: int, kernels,
     import numpy as np
 
     from repro_torch.configs import node18_cifar
-    from repro_torch.kernels import rk_stage
+    from repro_torch.kernels import ops, rk_stage
     from repro_torch.models.config import RunConfig
     from repro_torch.models.transformer import TransformerBlock, node_block
 
@@ -350,7 +399,7 @@ def _node18_train(torch, seed: int, ncfg, n_train: int, kernels,
     opt = torch.optim.SGD(block.parameters(), lr=1e-2)
     steps = []
     torch.cuda.synchronize()
-    rk_stage.reset_launches()              # the main path starts here
+    ops.reset_launches()                   # the main path starts here
     for step in range(n_train):
         before = dict(rk_stage.launches)
         torch.cuda.reset_peak_memory_stats()
@@ -589,7 +638,7 @@ def phase_serve_node18(torch, seed: int):
 
     from repro_torch.configs import node18_cifar
     from repro_torch.core import odeint
-    from repro_torch.kernels import rk_stage
+    from repro_torch.kernels import ops, rk_stage
     from repro_torch.models.config import RunConfig
     from repro_torch.models.transformer import TransformerBlock, branch_fn
     from repro_torch.serve import (
@@ -625,7 +674,7 @@ def phase_serve_node18(torch, seed: int):
     rounds = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rk_stage.reset_launches()              # the main path starts here
+    ops.reset_launches()                   # the main path starts here
     t_start = time.perf_counter()
     while True:
         torch.cuda.synchronize()
@@ -708,6 +757,333 @@ def phase_node18_batched(torch, seed: int):
                          "node18_batched")
 
 
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _bf16_ulps(torch, a, b) -> float:
+    """max |a - b| in units of b's bf16 ulp (8 significant bits)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(b.abs())
+    ulp = torch.ldexp(torch.ones_like(b), e - 8).clamp_min(2.0 ** -133)
+    return float(((a - b).abs() / ulp).max())
+
+
+def _band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of causal attention over s positions, each query
+    seeing min(q + 1, window) keys (window 0: all q + 1)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _bound(t: dict) -> None:
+    by_bytes = t["bytes"] / HBM_BYTES_PER_S
+    by_ops = t["flops"] / t["peak_flops"]
+    t["bound_ms"] = 1e3 * max(by_bytes, by_ops)
+    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_kernels_lm(torch, seed: int):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rg_lru as lru
+    from repro_torch.models.common import rmsnorm as rmsnorm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    worst = {k: 0.0 for k in LM_KERNELS}
+    cases = []
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    for rows in (16384, 16383, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            if rows == 4 and dtype == torch.float32:
+                continue
+            x = rnd(rows, 4096, scale=3.0).to(dtype)
+            w = rnd(4096).to(dtype)
+            out = ops.rmsnorm(x, w)
+            ref = rmsnorm_plain(x, w)
+            torch.cuda.synchronize()
+            diff = float((out.float() - ref.float()).abs().max())
+            worst["rmsnorm"] = max(worst["rmsnorm"], diff)
+            if dtype == torch.float32:
+                err = _rel(out, ref)
+                ok = err <= RMS_F32_RTOL
+            else:
+                err = _bf16_ulps(torch, out, ref)
+                ok = err <= RMS_BF16_ULPS
+            cases.append({"kernel": "rmsnorm", "shape": [rows, 4096],
+                          "dtype": str(dtype)[6:], "err": err,
+                          "max_abs_err": diff})
+            check(ok, f"K7 ({rows}, 4096) {dtype}: {err} beyond tolerance")
+    for b, s, window in ((4, 4096, 2048), (4, 4096, 0), (2, 1000, 2048)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = rnd(b, 16, s, 256).to(dtype)
+            k = rnd(b, 1, s, 256).to(dtype)
+            v = rnd(b, 1, s, 256).to(dtype)
+            out = ops.flash_attention(q, k, v, window=window)
+            ref = fa.flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            diff = float((out.float() - ref.float()).abs().max())
+            worst["flash_attention"] = max(worst["flash_attention"], diff)
+            err = _rel(out, ref)
+            tol = ATT_F32_RTOL if dtype == torch.float32 else ATT_BF16_RTOL
+            cases.append({"kernel": "flash_attention",
+                          "shape": [b, 16, s, 256], "kv_heads": 1,
+                          "window": window, "dtype": str(dtype)[6:],
+                          "err": err, "max_abs_err": diff})
+            check(bool(torch.isfinite(out).all()) and err <= tol,
+                  f"K8 {(b, 16, s, 256)} window {window} {dtype}: {err} "
+                  f"beyond {tol}")
+            del q, k, v, out, ref
+    for b, s in ((4, 4096), (2, 1000)):
+        log_a = -F.softplus(rnd(b, s, 4096))
+        x = rnd(b, s, 4096)
+        out = ops.rg_lru(log_a, x)
+        ref = lru.rg_lru_plain(log_a, x)
+        torch.cuda.synchronize()
+        diff = float((out - ref).abs().max())
+        worst["rg_lru"] = max(worst["rg_lru"], diff)
+        err = _rel(out, ref)
+        cases.append({"kernel": "rg_lru", "shape": [b, s, 4096],
+                      "dtype": "float32", "err": err, "max_abs_err": diff})
+        check(err <= LRU_RTOL, f"K10 ({b}, {s}, 4096): {err} > {LRU_RTOL}")
+    strong = ops.rg_lru(torch.full((1, 4096, 64), -2.0, device="cuda"),
+                        torch.ones((1, 4096, 64), device="cuda"))
+    fixed = 1.0 / (1.0 - math.exp(-2.0))
+    check(bool(torch.isfinite(strong).all())
+          and abs(float(strong[0, -1, 0]) - fixed) <= 1e-5 * fixed,
+          "K10 strong decay: not the fixed point 1 / (1 - e^-2)")
+    emit({"phase": "kernels_lm", "ok": True, "cases": cases,
+          "max_abs_err": worst,
+          "tolerances": {"rmsnorm_f32_rtol": RMS_F32_RTOL,
+                         "rmsnorm_bf16_ulps": RMS_BF16_ULPS,
+                         "attention_f32_rtol": ATT_F32_RTOL,
+                         "attention_bf16_rtol": ATT_BF16_RTOL,
+                         "rg_lru_rtol": LRU_RTOL}})
+
+    # times at the serving path's shapes and types (prefill of call A)
+    timings = {}
+    x = rnd(16384, 4096).to(torch.bfloat16)
+    w = rnd(4096).to(torch.bfloat16)
+    timings["rmsnorm"] = {
+        "shape": [16384, 4096], "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
+        "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
+        "library_ms": time_ms(torch, lambda: F.rms_norm(
+            x, (4096,), w, 1e-6)),
+        "bytes": 2 * 16384 * 4096 * 2 + 4096 * 2,
+        "flops": 4 * 16384 * 4096, "peak_flops": F32_FLOP_PER_S}
+    x = rnd(4, 4096).to(torch.bfloat16)
+    timings["rmsnorm_decode"] = {
+        "shape": [4, 4096], "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
+        "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
+        "library_ms": time_ms(torch, lambda: F.rms_norm(
+            x, (4096,), w, 1e-6)),
+        "bytes": 2 * 4 * 4096 * 2 + 4096 * 2,
+        "flops": 4 * 4 * 4096, "peak_flops": F32_FLOP_PER_S}
+    del x
+    b, s, window = 4, 4096, 2048
+    q = rnd(b, 16, s, 256).to(torch.bfloat16)
+    k = rnd(b, 1, s, 256).to(torch.bfloat16)
+    v = rnd(b, 1, s, 256).to(torch.bfloat16)
+    ke = k.expand(b, 16, s, 256).contiguous()
+    ve = v.expand(b, 16, s, 256).contiguous()
+    mask = fa.band_mask(s, window, device="cuda")
+    timings["flash_attention"] = {
+        "shape": [b, 16, s, 256], "kv_heads": 1, "window": window,
+        "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=window), iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=window), iters=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask), iters=10, warmup=2),
+        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
+        "flops": 4 * 256 * b * 16 * _band_pairs(s, window),
+        "peak_flops": BF16_FLOP_PER_S}
+    del q, k, v, ke, ve
+    log_a = -F.softplus(rnd(4, 4096, 4096))
+    x = rnd(4, 4096, 4096)
+    timings["rg_lru"] = {
+        "shape": [4, 4096, 4096], "dtype": "float32",
+        "ms": time_ms(torch, lambda: ops.rg_lru(log_a, x), iters=10,
+                      warmup=2),
+        "plain_ms": time_ms(torch, lambda: lru.rg_lru_plain(log_a, x),
+                            iters=5, warmup=1),
+        "library_ms": None,
+        "bytes": 3 * log_a.numel() * 4,
+        "flops": 3 * log_a.numel(), "peak_flops": F32_FLOP_PER_S}
+    del log_a, x
+    for t in timings.values():
+        _bound(t)
+    emit({"phase": "kernel_times_lm", "ok": True, "timings": timings})
+    return worst, timings
+
+
+def _cast_tree(tree, dtype):
+    """Floating leaves to ``dtype``; RG-LRU's ``lam`` stays f32."""
+    return {k: (_cast_tree(v, dtype) if isinstance(v, dict)
+                else v if k == "lam" else v.to(dtype))
+            for k, v in tree.items()}
+
+
+def _margins(torch, model, params, toks, s, new):
+    """The model's last-position logits along ``toks`` (B, s + new): the
+    prefill's and each decode step's, teacher-forced; returns (top-2
+    margins (B, new), max |logit|)."""
+    margins, top = [], 0.0
+    with torch.no_grad():
+        lg, caches = model.prefill(params, {"tokens": toks[:, :s]})
+        for j in range(new):
+            top2 = torch.topk(lg.float(), 2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            top = max(top, float(lg.float().abs().max()))
+            if j + 1 < new:
+                lg, caches = model.decode_step(
+                    params, {"tokens": toks[:, s + j:s + j + 1]}, caches,
+                    s + j)
+    return torch.stack(margins, dim=1), top
+
+
+def phase_serve_recurrentgemma(torch, seed: int):
+    import dataclasses
+
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(recurrentgemma_9b.CONFIG, n_layers=RG_LAYERS)
+    max_seq = max(s + n for _, s, n in RG_CALLS.values()) + 8
+    run16 = RunConfig(compute_dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, use_pallas=True,
+                      max_seq=max_seq)
+    model = build_model(cfg, run16)
+    params = model.init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.n_params()
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    prompts = {name: torch.randint(0, cfg.vocab, (b, s), generator=tgen,
+                                   device="cuda", dtype=torch.int32)
+               for name, (b, s, _) in RG_CALLS.items()}
+    # warm-up (cuBLAS handles, the kernels' first launch): not counted
+    ServeEngine(model, params, ServeConfig(max_new_tokens=2)).generate(
+        prompts["B"][:, :64])
+    torch.cuda.synchronize()
+
+    calls, outs, main_launches = {}, {}, {k: 0 for k in LM_KERNELS}
+    for name, (b, s, new) in RG_CALLS.items():
+        engine = ServeEngine(model, params, ServeConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        out = engine.generate(prompts[name])["tokens"]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = engine.last_decode_steps
+        want = {"rmsnorm": (2 * RG_LAYERS + 1) * (1 + steps),
+                "flash_attention": 1, "rg_lru": 4}
+        got = {k: counts[k] for k in LM_KERNELS}
+        check(got == want, f"call {name}: launches {got} != {want}")
+        check(steps == new - 1, f"call {name}: {steps} decode steps")
+        for k in LM_KERNELS:
+            main_launches[k] += got[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts[name])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs[name] = out
+        calls[name] = {
+            "prompts": b, "prompt_len": s, "new_tokens": new,
+            "decode_steps": steps, "launches": got,
+            "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
+            "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
+            "finite_tokens": bool(((out >= 0) & (out < cfg.vocab)).all()),
+        }
+        check(tuple(out.shape) == (b, s + new)
+              and calls[name]["finite_tokens"]
+              and torch.equal(out[:, :s], prompts[name]),
+              f"call {name}: output tokens {tuple(out.shape)} malformed")
+        emit({"phase": "serve_call", "call": name, **calls[name]})
+
+    # the plain route (use_pallas=False) on the same weights
+    plain = build_model(cfg, dataclasses.replace(run16, use_pallas=False))
+    routes = {}
+    for name, (b, s, new) in RG_CALLS.items():
+        with torch.no_grad():
+            lk, _ = model.prefill(params, {"tokens": prompts[name]})
+            lp, _ = plain.prefill(params, {"tokens": prompts[name]})
+        out_p = ServeEngine(plain, params, ServeConfig(
+            max_new_tokens=new)).generate(prompts[name])["tokens"]
+        margins, top = _margins(torch, plain, params, out_p, s, new)
+        tol = 2 * LOGIT_BF16_RTOL * top
+        gen_k, gen_p = outs[name][:, s:], out_p[:, s:]
+        equal, bad = 0, []
+        for row in range(b):
+            diff = (gen_k[row] != gen_p[row]).nonzero()
+            first = int(diff[0]) if len(diff) else new
+            equal += int((gen_k[row] == gen_p[row]).sum())
+            if first < new and float(margins[row, first]) > tol:
+                bad.append({"row": row, "step": first,
+                            "margin": float(margins[row, first])})
+        logit_err = _rel(lk, lp)
+        routes[name] = {"prefill_logit_rel": logit_err,
+                        "tokens_equal": equal, "tokens": b * new,
+                        "max_logit": top, "margin_tol": tol,
+                        "diverged_above_margin": bad}
+        check(logit_err <= LOGIT_BF16_RTOL,
+              f"call {name}: prefill logits kernels vs plain {logit_err} > "
+              f"{LOGIT_BF16_RTOL}")
+        check(not bad, f"call {name}: greedy tokens differ where the plain "
+              f"route's margin exceeds the tolerance: {bad}")
+    del params, model, plain
+    torch.cuda.empty_cache()
+
+    # one f32 prefill of both routes (TF32 off), the same seed's weights
+    b, s, _ = RG_CALLS["A"]
+    run32 = dataclasses.replace(run16, compute_dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = build_model(cfg, run32)
+    p32 = m32.init(seed=seed, device="cuda")
+    toks = prompts["A"][:1]
+    with torch.no_grad():
+        lk, _ = m32.prefill(p32, {"tokens": toks})
+        lp, _ = build_model(cfg, dataclasses.replace(
+            run32, use_pallas=False)).prefill(p32, {"tokens": toks})
+    f32_err = _rel(lk, lp)
+    del p32, m32
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_recurrentgemma", "ok": True,
+          "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                     "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                     "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                     "vocab": cfg.vocab, "window": cfg.window,
+                     "d_rnn": cfg.d_rnn, "n_params": n_params,
+                     "dtype": "bfloat16", "max_seq": max_seq},
+          "calls": calls, "kernels_vs_plain": routes,
+          "logit_bf16_rtol": LOGIT_BF16_RTOL,
+          "f32_prefill": {"prompts": 1, "prompt_len": s,
+                          "logit_rel": f32_err,
+                          "rtol": LOGIT_F32_RTOL},
+          "launches": main_launches})
+    check(f32_err <= LOGIT_F32_RTOL,
+          f"f32 prefill kernels vs plain {f32_err} > {LOGIT_F32_RTOL}")
+    return main_launches, calls
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -745,6 +1121,10 @@ def main(argv=None) -> int:
         serve_launches, _ = phase_serve_node18(torch, args.seed)
         phase = "node18_batched"
         batched_launches, _ = phase_node18_batched(torch, args.seed)
+        phase = "kernels_lm"
+        worst_lm, timings_lm = phase_kernels_lm(torch, args.seed)
+        phase = "serve_recurrentgemma"
+        lm_launches, _ = phase_serve_recurrentgemma(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -779,14 +1159,27 @@ def main(argv=None) -> int:
          "src/repro/kernels/rk_stage.py:499",
          timings_b[f"k5_heun_{SERVE_ROW_N}"]),
     ]
+    entries = [(name, "rk_stage", replaces, t)
+               for name, replaces, t in entries]
+    worst.update(worst_lm)
+    launches.update(lm_launches)
+    entries += [
+        ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
+         timings_lm["rmsnorm"]),
+        ("flash_attention", "flash_attention",
+         "src/repro/kernels/flash_attention.py:94",
+         timings_lm["flash_attention"]),
+        ("rg_lru", "rg_lru", "src/repro/kernels/rg_lru.py:52",
+         timings_lm["rg_lru"]),
+    ]
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/rk_stage.cu",
+         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": worst[name], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
          "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        for name, replaces, t in entries]})
+        for name, src, replaces, t in entries]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

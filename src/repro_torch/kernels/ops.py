@@ -1,4 +1,6 @@
-"""Differentiable dispatch over the RK stage kernels.
+"""Entry points of the port's kernels.
+
+Differentiable dispatch over the RK stage kernels.
 
 The counterpart of ``repro/kernels/ops.py``'s ``rk_stage_increment``,
 ``rk_stage_combine_err`` and their batched forms (K3, and K4 or K5 by the
@@ -8,15 +10,38 @@ tensor), and whose backward recomputes the plain version under
 ``enable_grad`` and returns its vector-Jacobian product — as the JAX
 package's custom_vjp backward takes ``jax.vjp`` of the jnp twin. The
 tableau weights and tolerances, scalar or per row, get no gradient.
+
+The serving kernels K7 (``rmsnorm``), K8 (``flash_attention``) and K10
+(``rg_lru``) keep the reference's ``ops`` signatures minus the TPU tile
+arguments. They are forward-only, as the reference's are (no custom_vjp).
+``launch_counts``/``reset_launches`` read and zero every kernel's counter.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from . import flash_attention as _flash_attention
+from . import rg_lru as _rg_lru
 from . import rk_stage
+from . import rmsnorm as _rmsnorm
+
+_COUNTED = (rk_stage, _rmsnorm, _flash_attention, _rg_lru)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last ``reset_launches``."""
+    out: Dict[str, int] = {}
+    for mod in _COUNTED:
+        out.update(mod.launches)
+    return out
+
+
+def reset_launches() -> None:
+    for mod in _COUNTED:
+        mod.reset_launches()
 
 
 def _vjp(fn: Callable, inputs: Tuple[torch.Tensor, ...], needs, cots):
@@ -183,3 +208,23 @@ def rk_stage_combine_err_batched(
         return _CombineErrBatched.apply(z, k, h, rt, at, bw, ew)
     return _CombineErrBatched.apply(z, k, h, float(rtol), float(atol), bw,
                                     ew)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, f32 statistics, out in x's dtype (K7)."""
+    return _rmsnorm.rmsnorm(x, w, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """Causal or sliding-window GQA attention, q (B, H, S, dh), k/v (B,
+    Hkv, S, dh) (K8)."""
+    return _flash_attention.flash_attention(q, k, v, window=window,
+                                            scale=scale)
+
+
+def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = exp(log_a_t) h_{t-1} + b_t over (B, S, C) in f32 (K10)."""
+    return _rg_lru.rg_lru(log_a, b)

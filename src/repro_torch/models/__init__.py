@@ -1,2 +1,3 @@
-"""Model code of the port: config, common blocks, attention, FFN and the
-transformer block with its NODE form."""
+"""Model code of the port: config, common blocks, attention, RG-LRU, FFN,
+the transformer stack with the node18 block and its NODE form, and the LM
+(``lm.build_model``)."""

@@ -1,8 +1,9 @@
 """Model / run configuration dataclasses of the port.
 
 ``ModelConfig`` is a copy of ``repro/models/config.py``'s (one per
-architecture in ``repro_torch.configs``). ``RunConfig`` keeps what this
-slice reads: the compute dtype of the matmuls and the NODE block config.
+architecture in ``repro_torch.configs``). ``RunConfig`` keeps what the
+ported paths read; the reference's mesh, sharding rules, ``decode_seq_shard``
+and ``zero1`` wait for the distributed slice.
 """
 
 from __future__ import annotations
@@ -83,11 +84,28 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """How a model runs: ``compute_dtype`` is what ``dense`` casts its
-    operands to (bf16 by default, as in the reference); ``node`` turns the
-    residual blocks into ODE blocks."""
+    """How a model runs.
+
+    ``compute_dtype`` is what ``dense`` casts its operands to (bf16 by
+    default, as in the reference) and ``param_dtype`` what ``init`` stores
+    (RG-LRU's ``lam`` stays f32 whatever it is). ``node`` turns the residual
+    blocks into ODE blocks. ``use_pallas`` — the reference's switch for its
+    TPU kernels — sends the serving modes (``prefill``, ``decode``) through
+    the card kernels K7 (every RMSNorm), K8 (prefill attention) and K10
+    (prefill RG-LRU scan); on CPU tensors those wrappers run their plain
+    versions. ``max_seq`` is the KV-cache capacity of serving and
+    ``label_smoothing`` the loss's.
+
+    The reference's ``scan_layers`` and ``remat`` have no meaning in an
+    eager stack (the port loops over the layer groups in Python and keeps
+    no compiled graph), so they are left out.
+    """
     compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
     node: NodeConfig = NodeConfig()       # continuous-depth (the paper)
+    use_pallas: bool = False
+    max_seq: int = 0                      # KV-cache capacity (serving)
+    label_smoothing: float = 0.0
 
     def with_(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,12 @@
-"""repro_torch.serve — the NODE solve server of the port.
+"""repro_torch.serve — serving engines of the port.
 
-``NodeServeEngine`` is continuous-batching NODE solve serving with
-per-request tolerance QoS, port of ``repro.serve.node_engine``. The LM
-``ServeEngine`` needs the LM stack and comes with slice G (ROADMAP
-queue 1).
+* ``ServeEngine`` — batched prefill + decode LM serving, port of
+  ``repro.serve.engine``.
+* ``NodeServeEngine`` — continuous-batching NODE solve serving with
+  per-request tolerance QoS, port of ``repro.serve.node_engine``.
 """
 
+from .engine import ServeConfig, ServeEngine
 from .node_engine import (
     STATUS_DEADLINE_MISS,
     NodeEngineConfig,
@@ -19,6 +20,8 @@ from .node_engine import (
 )
 
 __all__ = [
+    "ServeEngine",
+    "ServeConfig",
     "STATUS_DEADLINE_MISS",
     "NodeEngineConfig",
     "NodeRequest",

@@ -14,6 +14,18 @@ The batched K3, K4 and K5 likewise give z_next bitwise, per-row norms
 within rtol 1e-6 (rows of at most 100,003 terms), an h = 0 row bit for
 bit, and K5 at K4's tolerance K4's bits. TF32 is off, so matmuls run in
 full f32 on both sides.
+
+The serving kernels against their plain versions, as max |difference| /
+max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
+order, rsqrtf) and bf16 within one bf16 ulp of each value; K8 attention
+f32 within 2e-5 (FMA sums in another order) and bf16 within 1e-2 (the
+kernel rounds p to bf16 for the tensor cores); K10 within 1e-5 (the
+chunked walk and the doubling scan multiply in other orders). The SMOKE
+hybrid model generates the same greedy tokens with ``use_pallas`` on the
+card as without, its prefill logits within 1e-4, and the kernels launch
+as counted (K7 11 per prefill and per decode step with 8 layers: 2 x 8 +
+1 = 17, K8 once per attention layer per prefill, K10 once per rec layer
+per prefill).
 """
 
 import numpy as np
@@ -22,7 +34,11 @@ import torch
 
 from repro_torch.core import odeint
 from repro_torch.core.tableaus import BOGACKI_SHAMPINE, DOPRI5, HEUN_EULER
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import rg_lru as lru
 from repro_torch.kernels import rk_stage
+from repro_torch.models.common import rmsnorm as rmsnorm_plain
 from repro_torch.serve import NodeEngineConfig, NodeRequest, NodeServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -230,3 +246,105 @@ def test_node_serve_engine_on_the_card(card):
     alone = eng.run()[0]
     assert np.array_equal(alone.z_final, res[1].z_final)
     assert alone.n_trials == res[1].n_trials
+
+
+# ------------------------------------------------ serving kernels K7/K8/K10
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _bf16_ulps(a, b):
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(b.abs())
+    ulp = torch.ldexp(torch.ones_like(b), e - 8).clamp_min(2.0 ** -133)
+    return float(((a - b).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("rows,d", [(4, 4096), (1000, 4096), (33, 64),
+                                    (7, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_its_plain_version(card, rows, d, dtype,
+                                                  wdtype):
+    g = torch.Generator(device="cpu").manual_seed(rows + d)
+    x = (3 * torch.randn(rows, d, generator=g)).to(dtype).to(card)
+    w = torch.randn(d, generator=g).to(wdtype).to(card)
+    before = ops.launch_counts()["rmsnorm"]
+    out = ops.rmsnorm(x, w)
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        assert _rel(out, want) <= 2e-6
+    else:
+        assert _bf16_ulps(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", [(2, 4, 1, 128, 256),
+                                          (1, 4, 2, 100, 64),
+                                          (2, 2, 2, 37, 16),
+                                          (1, 8, 1, 300, 128)])
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_its_plain_version(card, b, h, hkv,
+                                                          s, dh, window,
+                                                          dtype):
+    g = torch.Generator(device="cpu").manual_seed(s + dh)
+    q = torch.randn(b, h, s, dh, generator=g).to(dtype).to(card)
+    k = torch.randn(b, hkv, s, dh, generator=g).to(dtype).to(card)
+    v = torch.randn(b, hkv, s, dh, generator=g).to(dtype).to(card)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window)
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert _rel(out, want) <= (2e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("b,s,c", [(2, 1000, 64), (1, 4096, 256),
+                                   (3, 7, 5)])
+def test_rg_lru_kernel_matches_its_plain_version(card, b, s, c):
+    g = torch.Generator(device="cpu").manual_seed(s + c)
+    log_a = -torch.nn.functional.softplus(
+        torch.randn(b, s, c, generator=g)).to(card)
+    x = torch.randn(b, s, c, generator=g).to(card)
+    before = ops.launch_counts()["rg_lru"]
+    out = ops.rg_lru(log_a, x)
+    want = lru.rg_lru_plain(log_a, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rg_lru"] == before + 1
+    assert _rel(out, want) <= 1e-5
+    strong = ops.rg_lru(torch.full_like(log_a, -2.0), torch.ones_like(x))
+    assert bool(torch.isfinite(strong).all())
+
+
+def test_hybrid_smoke_generate_with_kernels_on_the_card(card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = get_smoke_config("recurrentgemma_9b")     # 8 layers, window 16
+    runs = {}
+    for up in (True, False):
+        model = build_model(cfg, RunConfig(compute_dtype=torch.float32,
+                                           use_pallas=up, max_seq=64))
+        params = model.init(device=card, seed=0)
+        toks = torch.randint(0, cfg.vocab, (2, 40), device=card,
+                             generator=torch.Generator(card).manual_seed(1))
+        ops.reset_launches()
+        with torch.no_grad():
+            last, _ = model.prefill(params, {"tokens": toks})
+        counts = ops.launch_counts()
+        out = ServeEngine(model, params, ServeConfig(
+            max_new_tokens=6)).generate(toks)["tokens"]
+        runs[up] = (last, out, counts)
+    (lk, ok, ck), (lp, op_, cp) = runs[True], runs[False]
+    assert ck["rmsnorm"] == 17 and ck["flash_attention"] == 2 \
+        and ck["rg_lru"] == 6
+    assert all(v == 0 for v in cp.values())
+    assert _rel(lk, lp) <= 1e-4
+    assert torch.equal(ok, op_)

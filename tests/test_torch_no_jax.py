@@ -34,3 +34,5 @@ def test_the_port_has_modules():
     port = ROOT / "src" / "repro_torch"
     assert port / "serve" / "node_engine.py" in FILES
     assert port / "serve" / "__init__.py" in FILES
+    assert port / "serve" / "engine.py" in FILES
+    assert port / "kernels" / "flash_attention.py" in FILES
