@@ -10,11 +10,13 @@ printing one JSON line (``"phase": ...``):
                       (``src/repro_torch/kernels/csrc/*.cu``) into
                       ``build/repro_torch/``; build seconds and ptxas's
                       registers and spills per kernel.
-2. ``kernels``      — K1 and K2 against their plain PyTorch versions on the
-                      card at N = 3,145,728 (the node18 block's state) and
-                      N = 1,000,003 (a ragged tail), f32 and bf16: z_next
-                      bitwise, err and the norm sum within a relative
-                      tolerance; times by CUDA events beside the byte bound.
+2. ``kernels``      — K1, K2 and K6 against their plain PyTorch versions on
+                      the card at N = 3,145,728 (the node18 block's state)
+                      and N = 1,000,003 (a ragged tail), f32 and bf16:
+                      z_next bitwise (K6's err too), K2's err and norm sum
+                      within a relative tolerance; times by CUDA events
+                      beside the byte bound. K6 is on no solver path: its
+                      launches are this phase's own.
 3. ``toy_gradient`` — paper Fig. 6, the ACA column: dz/dt = kz through
                       ``odeint(..., use_pallas=True)``, against the
                       analytic gradient and the reference's step counts.
@@ -64,12 +66,37 @@ printing one JSON line (``"phase": ...``):
                       plain route on the same weights (last-position
                       logits, greedy tokens where the margin allows) and
                       one f32 prefill of both routes.
-10. the ``kernels`` summary line (K1-K5, K7, K8, K10), the card's name and
-   power limit, and the last line ``{"ok": true, "device": {...}}``.
+10. ``kernels_ssm``  — K9 (the Mamba-2 SSD chunk scan) against its plain
+                      version (``ssd_chunked``) on the card at the
+                      mamba2_2_7b prefill shapes: x (4, 4096, 80, 64) and
+                      (2, 1024, 80, 64), one group of state 128, chunk 256,
+                      bf16 and f32, y and h_last, at the reference init and
+                      (4, 4096) again with weak decay, where the state
+                      carried between chunks dominates; K7 at the Mamba-2
+                      widths 5120 and 2560. K9's time beside its operations bound
+                      and the plain version (no library call computes it).
+11. ``serve_mamba2`` — ``ServeEngine.generate`` over
+                      ``build_model(mamba2_2_7b.CONFIG)``: all 64 layers at
+                      full width (d_model 2560, d_inner 5120, 80 heads x 64,
+                      state 128, one group, conv 4, chunk 256, vocab
+                      50,280), 2.83 B parameters, bf16, ``use_pallas=True``,
+                      seeded random weights. Call A: 4 prompts of 4096
+                      tokens, 32 new (greedy); call B: 2 prompts of 1000
+                      (padded to 1024 inside the blocks), 16 new. Launches
+                      checked exactly per call (K9 once per layer per
+                      prefill, K7 2 per layer + 1 per prefill and per decode
+                      step); one prefill of call A and one decode step
+                      traced with torch.profiler (device busy and idle
+                      share, device time by kernel class); then the plain
+                      route on the same weights and one f32 prefill of
+                      both routes on call B's prompts.
+12. the ``kernels`` summary line (K1-K10), the card's name and power limit,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
-node18_batched for K3/K4, each serve_recurrentgemma call for K7/K8/K10)
-runs with every launch count set to 0 just before it and read just after.
+node18_batched for K3/K4, each serve_recurrentgemma call for K7/K8/K10,
+each serve_mamba2 call for K7/K9) runs with every launch count set to 0
+just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -148,6 +175,27 @@ LRU_RTOL = 1e-5
 # route's top-2 margin exceeds 2 x LOGIT_BF16_RTOL x max |logit|
 LOGIT_BF16_RTOL = 2e-2
 LOGIT_F32_RTOL = 1e-3
+
+# K9 against its plain version (ssd_chunked), as a share of max |plain|:
+# f32 sums its products and the chunk cumsum in other orders; in bf16 both
+# round one near-f32 value to bf16, so one bf16 ulp of each plain value on
+# top of the f32 bound. h_last is f32 in both.
+SSD_F32_RTOL = 1e-4
+# the weak-decay K9 case is drawn so that a chunk keeps about e^-1 of its
+# state; below this median the carried state would no longer dominate
+SSD_WEAK_DECAY = 0.1
+M2_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
+SSM_KERNELS = ("rmsnorm", "ssd_scan")
+# the served Mamba-2, kernels vs plain route, as a share of max |logit|,
+# derived before the first run: per layer the routes round the mixer's
+# output differently by about one bf16 ulp (2^-8; K9 rounds y to bf16
+# before the D-skip, the plain route after it; K7 and torch's RMSNorm may
+# round a value to neighbouring bf16 numbers), independently from layer to
+# layer, so over 64 layers the residual stream drifts by about sqrt(64) x
+# 2^-8 = 3.1e-2 of its size; with a factor 1.6 for the head, 5e-2. Greedy
+# tokens must agree wherever the plain route's top-2 margin exceeds
+# 2 x M2_LOGIT_BF16_RTOL x max |logit|; the f32 prefill as LOGIT_F32_RTOL.
+M2_LOGIT_BF16_RTOL = 5e-2
 
 K1_K2 = ("rk_stage_increment", "rk_stage_combine_err")
 SERVE_KERNELS = ("rk_stage_increment_batched",
@@ -234,7 +282,8 @@ def phase_kernels(torch, seed: int):
     from repro_torch.core.tableaus import DOPRI5, HEUN_EULER
     from repro_torch.kernels import rk_stage
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    worst = {"rk_stage_increment": 0.0, "rk_stage_combine_err": 0.0}
+    worst = {"rk_stage_increment": 0.0, "rk_stage_combine_err": 0.0,
+             "rk_stage_combine": 0.0}
     cases = []
     n_main = math.prod(NODE18_SHAPE)
     for n in (n_main, RAGGED_N):
@@ -282,11 +331,26 @@ def phase_kernels(torch, seed: int):
                         diff = max(diff, ed)
                     worst["rk_stage_combine_err"] = max(
                         worst["rk_stage_combine_err"], diff)
+            for tab in (HEUN_EULER, DOPRI5):
+                kk = k[:tab.stages].contiguous()
+                for e in (tab.b_err, None):
+                    zn, err = rk_stage.rk_stage_combine(z, kk, h, tab.b, e)
+                    zn_p, err_p = rk_stage.combine_plain(z, kk, h, tab.b, e)
+                    torch.cuda.synchronize()
+                    diff = max(float((zn.float() - zn_p.float()).abs().max()),
+                               float((err - err_p).abs().max()))
+                    worst["rk_stage_combine"] = max(
+                        worst["rk_stage_combine"], diff)
+                    check(torch.equal(zn, zn_p) and torch.equal(err, err_p),
+                          f"K6 {tab.name} n={n} {dtype} e={e is not None}: "
+                          f"not bitwise equal (max |diff| {diff})")
             cases.append({"n": n, "dtype": str(dtype).replace("torch.", ""),
                           "k1_rows": len(rows), "bitwise": True})
+    # K6 is on no solver path: its launches are this phase's own
+    k6_launches = rk_stage.launches["rk_stage_combine"]
     emit({"phase": "kernels", "ok": True, "cases": cases,
           "max_abs_err": worst, "err_rtol": ERR_RTOL,
-          "norm_rtol": NORM_RTOL})
+          "norm_rtol": NORM_RTOL, "k6_launches": k6_launches})
 
     # times at the main path's shape and type: node18's f32 state
     n = n_main
@@ -326,11 +390,26 @@ def phase_kernels(torch, seed: int):
             "bytes": nbytes, "flops": flops,
         }
 
+    def k6_entry(label, tab):
+        kk = k[:tab.stages].contiguous()
+        used = used_rows([tab.b, tab.b_err])
+        nbytes = 4 * n * (len(used) + 3) + 4
+        flops = n * (4 * len(used) + 3)
+        timings[label] = {
+            "ms": time_ms(torch, lambda: rk_stage.rk_stage_combine(
+                z, kk, h, tab.b, tab.b_err)),
+            "plain_ms": time_ms(torch, lambda: rk_stage.combine_plain(
+                z, kk, h, tab.b, tab.b_err)),
+            "library_ms": None,
+            "bytes": nbytes, "flops": flops,
+        }
+
     k1_entry("k1_heun_stage", HEUN_EULER.a[1], 1)      # trial loop
     k1_entry("k1_heun_b", HEUN_EULER.b, 2)             # ACA replay
     k1_entry("k1_dopri5_b", DOPRI5.b, 7)
     k2_entry("k2_heun", HEUN_EULER, False)             # trial loop
     k2_entry("k2_dopri5", DOPRI5, False)
+    k6_entry("k6_heun", HEUN_EULER)
     for t in timings.values():
         t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
                                   t["flops"] / F32_FLOP_PER_S)
@@ -339,7 +418,7 @@ def phase_kernels(torch, seed: int):
         t["achieved_GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
     emit({"phase": "kernel_times", "ok": True, "n": n, "dtype": "float32",
           "timings": timings})
-    return worst, timings
+    return worst, timings, k6_launches
 
 
 def phase_toy_gradient(torch):
@@ -1084,6 +1163,353 @@ def phase_serve_recurrentgemma(torch, seed: int):
     return main_launches, calls
 
 
+def _ssd_err(torch, y, yp) -> float:
+    """max |y - yp| beyond one bf16 ulp of yp (bf16) or at all (f32),
+    over max |yp|."""
+    d = (y.float() - yp.float()).abs()
+    if y.dtype == torch.bfloat16:
+        _, e = torch.frexp(yp.float().abs())
+        d = (d - torch.ldexp(torch.ones_like(d), e - 8)).clamp_min(0.0)
+    return float(d.max() / yp.float().abs().max())
+
+
+def _ssd_inputs(torch, gen, b, s, h, p, g, n, dtype, weak=False):
+    """The Mamba-2 block's distributions at the reference init: x, B, C
+    after SiLU-like scales, dt = softplus(N(0, 1)), a = -U[1, 16] (the
+    uniform_ssm init). There a chunk of 256 steps decays by about e^-200,
+    so the state carried between chunks adds nothing measurable. ``weak``
+    draws long memory instead: dt log-uniform in [1e-3, 1e-2] (the low end
+    of Mamba-2's dt init) and a = -exp(N(0, 1)) (the reference test's),
+    so a chunk decays by about e^-1 and the carried state dominates y and
+    h_last."""
+    import math
+
+    import torch.nn.functional as F
+    x = (0.5 * torch.randn(b, s, h, p, generator=gen, device="cuda")).to(dtype)
+    if weak:
+        lo, hi = math.log(1e-3), math.log(1e-2)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(b, s, h, generator=gen,
+                                                   device="cuda"))
+        a = -torch.exp(torch.randn(h, generator=gen, device="cuda"))
+    else:
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+        a = -(1.0 + 15.0 * torch.rand(h, generator=gen, device="cuda"))
+    bm = (0.5 * torch.randn(b, s, g, n, generator=gen, device="cuda")).to(
+        dtype)
+    cm = (0.5 * torch.randn(b, s, g, n, generator=gen, device="cuda")).to(
+        dtype)
+    return x, dt, a, bm, cm
+
+
+def phase_kernels_ssm(torch, seed: int):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as k9
+    from repro_torch.models.common import rmsnorm as rmsnorm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    worst = {"ssd_scan": 0.0}
+    cases = []
+    # K9 at the mamba2_2_7b prefill shapes: 80 heads x 64, one group of
+    # state 128, chunk 256; call A's (4, 4096) and call B's padded (2, 1024)
+    # at the reference init, and call A's with weak decay, where the state
+    # carried over 16 chunks dominates (the median chunk decay exp(sum of
+    # dt a over the chunk) is reported and must exceed SSD_WEAK_DECAY)
+    for b, s, weak in ((4, 4096, False), (2, 1024, False), (4, 4096, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, s, 80, 64, 1, 128,
+                                           dtype, weak=weak)
+            decay = float(torch.exp((dt * a).reshape(b, s // 256, 256, 80)
+                                    .sum(2)).median())
+            if weak:
+                check(decay >= SSD_WEAK_DECAY,
+                      f"K9 weak-decay inputs: median chunk decay {decay} "
+                      f"< {SSD_WEAK_DECAY}")
+            y, hl = ops.ssd_scan(x, dt, a, bm, cm, 256)
+            yp, hp = k9.ssd_scan_plain(x, dt, a, bm, cm, 256)
+            torch.cuda.synchronize()
+            diff = float((y.float() - yp.float()).abs().max())
+            worst["ssd_scan"] = max(worst["ssd_scan"], diff)
+            err_y, err_h = _ssd_err(torch, y, yp), _rel(hl, hp)
+            cases.append({"kernel": "ssd_scan", "shape": [b, s, 80, 64],
+                          "state": 128, "groups": 1, "chunk": 256,
+                          "dtype": str(dtype)[6:],
+                          "decay": "weak" if weak else "reference init",
+                          "median_chunk_decay": decay, "y_err": err_y,
+                          "h_last_rel": err_h, "max_abs_err": diff})
+            check(bool(torch.isfinite(y.float()).all())
+                  and err_y <= SSD_F32_RTOL and err_h <= SSD_F32_RTOL,
+                  f"K9 ({b}, {s}, 80, 64) {dtype} weak={weak}: y {err_y}, "
+                  f"h_last {err_h} beyond {SSD_F32_RTOL}")
+            del x, dt, a, bm, cm, y, hl, yp, hp
+            torch.cuda.empty_cache()
+    # K7 at the Mamba-2 widths: the gated norm (5120) and the final norm
+    # (2560), call A's prefill rows and the decode rows
+    for d in (5120, 2560):
+        for rows, dtype in ((16384, torch.bfloat16), (16384, torch.float32),
+                            (4, torch.bfloat16)):
+            x = (3.0 * torch.randn(rows, d, generator=gen, device="cuda")).to(
+                dtype)
+            w = torch.randn(d, generator=gen, device="cuda").to(dtype)
+            out = ops.rmsnorm(x, w)
+            ref = rmsnorm_plain(x, w)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                err = _rel(out, ref)
+                ok = err <= RMS_F32_RTOL
+            else:
+                err = _bf16_ulps(torch, out, ref)
+                ok = err <= RMS_BF16_ULPS
+            cases.append({"kernel": "rmsnorm", "shape": [rows, d],
+                          "dtype": str(dtype)[6:], "err": err})
+            check(ok, f"K7 ({rows}, {d}) {dtype}: {err} beyond tolerance")
+    emit({"phase": "kernels_ssm", "ok": True, "cases": cases,
+          "max_abs_err": worst, "ssd_f32_rtol": SSD_F32_RTOL})
+
+    # times at call A's prefill shape and type
+    b, s, h, p, n, q = 4, 4096, 80, 64, 128, 256
+    x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, s, h, p, 1, n,
+                                   torch.bfloat16)
+    tiles = b * h * (s // q)
+    timings = {"ssd_scan": {
+        "shape": [b, s, h, p], "state": n, "chunk": q, "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.ssd_scan(x, dt, a, bm, cm, q),
+                      iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: k9.ssd_scan_plain(
+            x, dt, a, bm, cm, q), iters=3, warmup=1),
+        "library_ms": None,
+        # x and y bf16, dt f32, B and C bf16, a, h_last f32
+        "bytes": 2 * x.numel() * 2 + dt.numel() * 4 + 2 * bm.numel() * 2
+        + h * 4 + b * h * p * n * 4,
+        # the causal half of C B^T (Q (Q + 1) / 2 products of 2N flops),
+        # its masked product with x (of 2P), C h and the state update
+        "flops": tiles * (q * (q + 1) * n + q * (q + 1) * p
+                          + 4 * q * n * p),
+        "peak_flops": BF16_FLOP_PER_S}}
+    del x, dt, a, bm, cm
+    xr = torch.randn(16384, 5120, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn(5120, generator=gen, device="cuda").to(torch.bfloat16)
+    timings["rmsnorm_5120"] = {
+        "shape": [16384, 5120], "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.rmsnorm(xr, w)),
+        "plain_ms": time_ms(torch, lambda: rmsnorm_plain(xr, w)),
+        "library_ms": time_ms(torch, lambda: F.rms_norm(
+            xr, (5120,), w, 1e-6)),
+        "bytes": 2 * xr.numel() * 2 + 5120 * 2,
+        "flops": 4 * xr.numel(), "peak_flops": F32_FLOP_PER_S}
+    del xr
+    torch.cuda.empty_cache()
+    for t in timings.values():
+        _bound(t)
+    emit({"phase": "kernel_times_ssm", "ok": True, "timings": timings})
+    return worst, timings
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "ssd_scan" in n:
+        return "ssd_scan"
+    if "rmsnorm" in n:
+        return "rmsnorm"
+    # cuBLAS's Hopper GEMMs are named nvjet_*, older ones *gemm*/*xmma*
+    if any(k in n for k in ("nvjet", "gemm", "xmma", "cutlass", "gemv")):
+        return "matmul"
+    return "other"
+
+
+def _trace(torch, fn) -> dict:
+    """One call of ``fn`` (after one untraced warm-up call) under
+    torch.profiler: wall ms on the host clock to a synchronize, the
+    device's busy ms (the sum of its kernels' times), kernels launched,
+    the idle share 1 - busy / wall, device ms by class (matmul, K9, K7,
+    other) and the six kernels with the most device time. The profiler
+    adds host time per op, so the wall here is above an untraced one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, by_class = {}, {}
+    for e in kern:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+    busy_ms = 1e-3 * sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernels": len(kern),
+            "idle_share": (1.0 - busy_ms / wall_ms) if kern else None,
+            "device_ms_by_class": {k: 1e-3 * v for k, v in by_class.items()},
+            "top": [[name[:80], 1e-3 * us] for name, us in top]}
+
+
+def phase_serve_mamba2(torch, seed: int):
+    import dataclasses
+
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = mamba2_2_7b.CONFIG
+    layers = cfg.n_layers
+    run16 = RunConfig(compute_dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, use_pallas=True)
+    model = build_model(cfg, run16)
+    params = model.init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.n_params()
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    prompts = {name: torch.randint(0, cfg.vocab, (b, s), generator=tgen,
+                                   device="cuda", dtype=torch.int32)
+               for name, (b, s, _) in M2_CALLS.items()}
+    # warm-up (cuBLAS handles, the kernels' first launch): not counted
+    ServeEngine(model, params, ServeConfig(max_new_tokens=2)).generate(
+        prompts["B"][:, :64])
+    torch.cuda.synchronize()
+
+    calls, outs, main_launches = {}, {}, {k: 0 for k in SSM_KERNELS}
+    for name, (b, s, new) in M2_CALLS.items():
+        engine = ServeEngine(model, params, ServeConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        out = engine.generate(prompts[name])["tokens"]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = engine.last_decode_steps
+        want = {"rmsnorm": (2 * layers + 1) * (1 + steps),
+                "ssd_scan": layers}
+        got = {k: counts[k] for k in SSM_KERNELS}
+        others = {k: v for k, v in counts.items()
+                  if k not in SSM_KERNELS and v}
+        check(got == want and not others,
+              f"call {name}: launches {got} (others {others}) != {want}")
+        check(steps == new - 1, f"call {name}: {steps} decode steps")
+        for k in SSM_KERNELS:
+            main_launches[k] += got[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts[name])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs[name] = out
+        calls[name] = {
+            "prompts": b, "prompt_len": s, "new_tokens": new,
+            "decode_steps": steps, "launches": got,
+            "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
+            "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
+            "finite_tokens": bool(((out >= 0) & (out < cfg.vocab)).all()),
+        }
+        check(tuple(out.shape) == (b, s + new)
+              and calls[name]["finite_tokens"]
+              and torch.equal(out[:, :s], prompts[name]),
+              f"call {name}: output tokens {tuple(out.shape)} malformed")
+        emit({"phase": "serve_call", "model": "mamba2_2_7b", "call": name,
+              **calls[name]})
+
+    # where the time goes: one traced prefill of call A and one traced
+    # decode step after call B's prefill (not main-path runs)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": prompts["B"]})
+        nxt = outs["B"][:, M2_CALLS["B"][1]:M2_CALLS["B"][1] + 1]
+        traces = {
+            "prefill_A": _trace(torch, lambda: model.prefill(
+                params, {"tokens": prompts["A"]})),
+            "decode_step_B": _trace(torch, lambda: model.decode_step(
+                params, {"tokens": nxt}, caches, M2_CALLS["B"][1])),
+        }
+    del caches
+    emit({"phase": "serve_mamba2_trace", "traces": traces})
+
+    # the plain route (use_pallas=False) on the same weights
+    plain = build_model(cfg, dataclasses.replace(run16, use_pallas=False))
+    routes = {}
+    for name, (b, s, new) in M2_CALLS.items():
+        with torch.no_grad():
+            lk, _ = model.prefill(params, {"tokens": prompts[name]})
+            lp, _ = plain.prefill(params, {"tokens": prompts[name]})
+        check(bool(torch.isfinite(lk.float()).all()),
+              f"call {name}: prefill logits not finite")
+        out_p = ServeEngine(plain, params, ServeConfig(
+            max_new_tokens=new)).generate(prompts[name])["tokens"]
+        margins, top = _margins(torch, plain, params, out_p, s, new)
+        tol = 2 * M2_LOGIT_BF16_RTOL * top
+        gen_k, gen_p = outs[name][:, s:], out_p[:, s:]
+        equal, bad = 0, []
+        for row in range(b):
+            diff = (gen_k[row] != gen_p[row]).nonzero()
+            first = int(diff[0]) if len(diff) else new
+            equal += int((gen_k[row] == gen_p[row]).sum())
+            if first < new and float(margins[row, first]) > tol:
+                bad.append({"row": row, "step": first,
+                            "margin": float(margins[row, first])})
+        logit_err = _rel(lk, lp)
+        routes[name] = {"prefill_logit_rel": logit_err,
+                        "tokens_equal": equal, "tokens": b * new,
+                        "max_logit": top, "margin_tol": tol,
+                        "margins_above_tol": int((margins > tol).sum()),
+                        "diverged_above_margin": bad,
+                        "share_of_bound": logit_err / M2_LOGIT_BF16_RTOL}
+        check(logit_err <= M2_LOGIT_BF16_RTOL,
+              f"call {name}: prefill logits kernels vs plain {logit_err} > "
+              f"{M2_LOGIT_BF16_RTOL}")
+        check(not bad, f"call {name}: greedy tokens differ where the plain "
+              f"route's margin exceeds the tolerance: {bad}")
+    del params, model, plain
+    torch.cuda.empty_cache()
+
+    # one f32 prefill of both routes on call B's prompts (TF32 off)
+    run32 = dataclasses.replace(run16, compute_dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = build_model(cfg, run32)
+    p32 = m32.init(seed=seed, device="cuda")
+    ops.reset_launches()
+    with torch.no_grad():
+        lk, _ = m32.prefill(p32, {"tokens": prompts["B"]})
+        f32_launches = ops.launch_counts()["ssd_scan"]
+        lp, _ = build_model(cfg, dataclasses.replace(
+            run32, use_pallas=False)).prefill(p32, {"tokens": prompts["B"]})
+    f32_err = _rel(lk, lp)
+    del p32, m32
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_mamba2", "ok": True,
+          "config": {"d_model": cfg.d_model, "n_layers": layers,
+                     "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_heads,
+                     "ssm_head_dim": cfg.ssm_head_dim,
+                     "ssm_state": cfg.ssm_state,
+                     "ssm_ngroups": cfg.ssm_ngroups,
+                     "ssm_conv": cfg.ssm_conv, "ssm_chunk": cfg.ssm_chunk,
+                     "vocab": cfg.vocab, "n_params": n_params,
+                     "dtype": "bfloat16"},
+          "calls": calls, "kernels_vs_plain": routes,
+          "logit_bf16_rtol": M2_LOGIT_BF16_RTOL,
+          "f32_prefill": {"prompts": M2_CALLS["B"][0],
+                          "prompt_len": M2_CALLS["B"][1],
+                          "logit_rel": f32_err, "rtol": LOGIT_F32_RTOL,
+                          "ssd_scan_launches": f32_launches},
+          "launches": main_launches})
+    check(f32_launches == layers,
+          f"f32 prefill: {f32_launches} K9 launches != {layers}")
+    check(f32_err <= LOGIT_F32_RTOL,
+          f"f32 prefill kernels vs plain {f32_err} > {LOGIT_F32_RTOL}")
+    return main_launches, calls
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1110,7 +1536,7 @@ def main(argv=None) -> int:
     try:
         phase_build()
         phase = "kernels"
-        worst, timings = phase_kernels(torch, args.seed)
+        worst, timings, k6_launches = phase_kernels(torch, args.seed)
         phase = "toy_gradient"
         phase_toy_gradient(torch)
         phase = "node18_block"
@@ -1125,6 +1551,10 @@ def main(argv=None) -> int:
         worst_lm, timings_lm = phase_kernels_lm(torch, args.seed)
         phase = "serve_recurrentgemma"
         lm_launches, _ = phase_serve_recurrentgemma(torch, args.seed)
+        phase = "kernels_ssm"
+        worst_ssm, timings_ssm = phase_kernels_ssm(torch, args.seed)
+        phase = "serve_mamba2"
+        ssm_launches, _ = phase_serve_mamba2(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -1144,7 +1574,8 @@ def main(argv=None) -> int:
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"],
     }
-    launches = {**{k: launches[k] for k in K1_K2}, **batch_launch}
+    launches = {**{k: launches[k] for k in K1_K2}, **batch_launch,
+                "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
          timings["k1_heun_stage"]),
@@ -1158,17 +1589,25 @@ def main(argv=None) -> int:
         ("rk_stage_combine_err_batched_rowtol",
          "src/repro/kernels/rk_stage.py:499",
          timings_b[f"k5_heun_{SERVE_ROW_N}"]),
+        ("rk_stage_combine", "src/repro/kernels/rk_stage.py:151",
+         timings["k6_heun"]),
     ]
     entries = [(name, "rk_stage", replaces, t)
                for name, replaces, t in entries]
     worst.update(worst_lm)
+    worst.update(worst_ssm)
+    # K7 runs on both LM paths: its launches add up
     launches.update(lm_launches)
+    launches["rmsnorm"] += ssm_launches["rmsnorm"]
+    launches["ssd_scan"] = ssm_launches["ssd_scan"]
     entries += [
         ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
          timings_lm["rmsnorm"]),
         ("flash_attention", "flash_attention",
          "src/repro/kernels/flash_attention.py:94",
          timings_lm["flash_attention"]),
+        ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:84",
+         timings_ssm["ssd_scan"]),
         ("rg_lru", "rg_lru", "src/repro/kernels/rg_lru.py:52",
          timings_lm["rg_lru"]),
     ]
@@ -1178,7 +1617,9 @@ def main(argv=None) -> int:
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": worst[name], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+         # K6 is on no path: its launches are the kernels phase's own
+         "main_path": name != "rk_stage_combine"}
         for name, src, replaces, t in entries]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -30,7 +30,7 @@ ARCHS = (
     "node18_cifar",
 )
 
-PORTED = ("recurrentgemma_9b", "node18_cifar")
+PORTED = ("recurrentgemma_9b", "mamba2_2_7b", "node18_cifar")
 
 
 def _norm(name: str) -> str:
@@ -44,8 +44,7 @@ def _module(name: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: {PORTED}; "
-            "the Mamba-2, dense and MoE families are later slices, ROADMAP "
-            "queue 1)")
+            "the dense and MoE families are later slices, ROADMAP queue 1)")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

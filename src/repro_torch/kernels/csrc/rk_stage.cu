@@ -1,5 +1,5 @@
-// Fused Runge-Kutta stage kernels for Hopper (sm_90a): K1-K5 of the port,
-// the kernels of every adaptive trial on the flat-state paths.
+// Fused Runge-Kutta stage kernels for Hopper (sm_90a): K1-K6 of the port,
+// K1-K5 the kernels of every adaptive trial on the flat-state paths.
 //
 // K1 rk_stage_increment replaces the TPU kernel
 //   src/repro/kernels/rk_stage.py::rk_stage_increment_pallas (_incr_kernel):
@@ -26,14 +26,21 @@
 //   K4 with rtol[b], atol[b] loaded per row from (B,) device arrays. The
 //   arithmetic is K4's, so a row at the same tolerance is bitwise K4's.
 //
-// All five are bounded by bytes, not operations: each element costs a few
+// K6 rk_stage_combine replaces rk_stage.py::rk_stage_combine_pallas
+//   (_kernel): K2's combine with the (N,) err always stored and no norm
+//   (a K2 template variant). No solver path launches it; it completes the
+//   set, as the reference's ops.rk_stage_combine does.
+//
+// All six are bounded by bytes, not operations: each element costs a few
 // flops against 4 (f32) or 2 (bf16) bytes per array touched. At the NODE18
 // block's state (8*512*768 = 3,145,728 f32 values, 12.6 MB), solo (N) or
 // batched (B = 8 rows of 393,216):
 //   K1/K3 with one stage (HeunEuler) read 2 and write 1 state: 37.7 MB,
 //   11.3 us at 3.35 TB/s;
 //   K2/K4/K5 for HeunEuler without err read 3 and write 1: 50.3 MB, 15.0 us;
-//   for Dopri5 (6 of 7 stages read) 8 and 1: 113 MB.
+//   for Dopri5 (6 of 7 stages read) 8 and 1: 113 MB;
+//   K6 for HeunEuler reads 3 and writes 2 (z_next and the f32 err): 62.9
+//   MB, 18.8 us.
 // The design therefore only has to stream: a grid-stride loop over
 // 16-byte vectors (4 f32 or 8 bf16 per thread per load) when N is a
 // multiple of the vector width and every base pointer is 16-byte aligned
@@ -166,9 +173,9 @@ __device__ __forceinline__ void increment_row(const T* __restrict__ z,
   }
 }
 
-// One state row: zn, optional err, and this thread's share of the sum of
-// squared scaled errors (returned).
-template <typename T, int V, bool WITH_ERR>
+// One state row: zn, optional err, and (NORM) this thread's share of the
+// sum of squared scaled errors (returned; 0 without NORM).
+template <typename T, int V, bool WITH_ERR, bool NORM = true>
 __device__ __forceinline__ float combine_err_row(
     const T* __restrict__ z, const T* __restrict__ k, long long kstride,
     float hv, T* __restrict__ zn_out, float* __restrict__ err_out,
@@ -213,12 +220,14 @@ __device__ __forceinline__ float combine_err_row(
     }
     store_vec<T, V>(zn_out + off, zn);
     if constexpr (WITH_ERR) store_f32<V>(err_out + off, er);
+    if constexpr (NORM) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float scale = __fadd_rn(
-          atol, __fmul_rn(rtol, fmaxf(fabsf(zv[i]), fabsf(zn[i]))));
-      const float r = __fdiv_rn(er[i], scale);
-      sq = __fadd_rn(sq, __fmul_rn(r, r));
+      for (int i = 0; i < V; ++i) {
+        const float scale = __fadd_rn(
+            atol, __fmul_rn(rtol, fmaxf(fabsf(zv[i]), fabsf(zn[i]))));
+        const float r = __fdiv_rn(er[i], scale);
+        sq = __fadd_rn(sq, __fmul_rn(r, r));
+      }
     }
   }
   return sq;
@@ -266,6 +275,18 @@ __global__ void __launch_bounds__(RK_THREADS)
   const float sq = combine_err_row<T, V, WITH_ERR>(
       z, k, n, __ldg(h), zn_out, err_out, n, b, e, rtol, atol);
   block_sum_to(sq, partials + blockIdx.x);
+}
+
+// K6: zn and err, no norm.
+template <typename T, int V>
+__global__ void __launch_bounds__(RK_THREADS)
+    rk_stage_combine_kernel(const T* __restrict__ z, const T* __restrict__ k,
+                            const float* __restrict__ h,
+                            T* __restrict__ zn_out,
+                            float* __restrict__ err_out, long long n, RkRow b,
+                            RkRow e) {
+  combine_err_row<T, V, true, false>(z, k, n, __ldg(h), zn_out, err_out, n,
+                                     b, e, 0.0f, 0.0f);
 }
 
 // K3: row r = blockIdx.y of z (rows, n) with k (a.n, rows, n), h (rows,).
@@ -329,6 +350,15 @@ static void launch_combine_err(const void* z, const void* k, const void* h,
         static_cast<const float*>(h), static_cast<T*>(zn), nullptr, partials,
         n, b, e, rtol, atol);
   }
+}
+
+template <typename T, int V>
+static void launch_combine(const void* z, const void* k, const void* h,
+                           void* zn, float* err, long long n, const RkRow& b,
+                           const RkRow& e, int n_blocks, cudaStream_t st) {
+  rk_stage_combine_kernel<T, V><<<n_blocks, RK_THREADS, 0, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(k),
+      static_cast<const float*>(h), static_cast<T*>(zn), err, n, b, e);
 }
 
 template <typename T, int V>
@@ -458,6 +488,32 @@ extern "C" int rk_stage_combine_err(const void* z, const void* k,
     else
       launch_combine_err<__nv_bfloat16, 1>(z, k, h, zn, errp, part, n, *b,
                                            *e, rtol, atol, n_blocks, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rk_stage_combine(const void* z, const void* k, const void* h,
+                                void* zn, void* err, long long n,
+                                const RkRow* b, const RkRow* e, int dtype,
+                                int vec, int n_blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b->n < 0 || b->n > RK_MAX_STAGES || e->n != b->n || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* errp = static_cast<float*>(err);
+  if (dtype == 0) {
+    if (vec)
+      launch_combine<float, 4>(z, k, h, zn, errp, n, *b, *e, n_blocks, st);
+    else
+      launch_combine<float, 1>(z, k, h, zn, errp, n, *b, *e, n_blocks, st);
+  } else if (dtype == 1) {
+    if (vec)
+      launch_combine<__nv_bfloat16, 8>(z, k, h, zn, errp, n, *b, *e,
+                                       n_blocks, st);
+    else
+      launch_combine<__nv_bfloat16, 1>(z, k, h, zn, errp, n, *b, *e,
+                                       n_blocks, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,17 +3,20 @@
 Differentiable dispatch over the RK stage kernels.
 
 The counterpart of ``repro/kernels/ops.py``'s ``rk_stage_increment``,
-``rk_stage_combine_err`` and their batched forms (K3, and K4 or K5 by the
-tolerances' rank): each is a ``torch.autograd.Function`` whose
-forward launches the kernel (CUDA tensor) or runs its plain version (CPU
-tensor), and whose backward recomputes the plain version under
-``enable_grad`` and returns its vector-Jacobian product — as the JAX
-package's custom_vjp backward takes ``jax.vjp`` of the jnp twin. The
-tableau weights and tolerances, scalar or per row, get no gradient.
+``rk_stage_combine_err``, their batched forms (K3, and K4 or K5 by the
+tolerances' rank) and ``rk_stage_combine`` (K6): each is a
+``torch.autograd.Function`` whose forward launches the kernel (CUDA
+tensor) or runs its plain version (CPU tensor), and whose backward
+recomputes the plain version under ``enable_grad`` and returns its
+vector-Jacobian product — as the JAX package's custom_vjp backward takes
+``jax.vjp`` of the jnp twin. The tableau weights and tolerances, scalar or
+per row, get no gradient.
 
-The serving kernels K7 (``rmsnorm``), K8 (``flash_attention``) and K10
-(``rg_lru``) keep the reference's ``ops`` signatures minus the TPU tile
-arguments. They are forward-only, as the reference's are (no custom_vjp).
+The serving kernels K7 (``rmsnorm``), K8 (``flash_attention``), K9
+(``ssd_scan``) and K10 (``rg_lru``) keep the reference's ``ops``
+signatures minus the TPU tile arguments (K9 adds ``h0`` and returns the
+final state). They are forward-only, as the reference's are (no
+custom_vjp).
 ``launch_counts``/``reset_launches`` read and zero every kernel's counter.
 """
 
@@ -27,8 +30,9 @@ from . import flash_attention as _flash_attention
 from . import rg_lru as _rg_lru
 from . import rk_stage
 from . import rmsnorm as _rmsnorm
+from . import ssd_scan as _ssd_scan
 
-_COUNTED = (rk_stage, _rmsnorm, _flash_attention, _rg_lru)
+_COUNTED = (rk_stage, _rmsnorm, _flash_attention, _rg_lru, _ssd_scan)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,6 +82,23 @@ class _Increment(torch.autograd.Function):
         return (*grads, None)
 
 
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, k, h, b, e):
+        ctx.consts = (b, e)
+        ctx.save_for_backward(z, k, h)
+        return rk_stage.rk_stage_combine(z, k, h, b, e)
+
+    @staticmethod
+    def backward(ctx, g_zn, g_err):
+        z, k, h = ctx.saved_tensors
+        b, e = ctx.consts
+        grads = _vjp(
+            lambda z_, k_, h_: rk_stage.combine_plain(z_, k_, h_, b, e),
+            (z, k, h), ctx.needs_input_grad[:3], (g_zn, g_err))
+        return (*grads, None, None)
+
+
 class _CombineErr(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, k, h, b, e, rtol, atol, with_err):
@@ -107,6 +128,16 @@ def rk_stage_increment(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
                        a: Sequence[float]) -> torch.Tensor:
     """Stage argument z + h * sum_j a_j k_j (K1); differentiable."""
     return _Increment.apply(z, k, h, tuple(float(w) for w in a))
+
+
+def rk_stage_combine(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                     b: Sequence[float], e: Optional[Sequence[float]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused (z + h * sum_i b_i k_i, h * sum_i e_i k_i) (K6);
+    differentiable."""
+    return _Combine.apply(z, k, h, tuple(float(w) for w in b),
+                          tuple(float(w) for w in e) if e is not None
+                          else None)
 
 
 def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
@@ -223,6 +254,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, S, dh) (K8)."""
     return _flash_attention.flash_attention(q, k, v, window=window,
                                             scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunk scan (K9): (y (B, S, H, P) in x's dtype, h_last
+    (B, H, P, N) f32)."""
+    return _ssd_scan.ssd_scan(x, dt, a, b_mat, c_mat, chunk, h0=h0)
 
 
 def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

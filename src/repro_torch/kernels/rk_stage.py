@@ -1,4 +1,4 @@
-"""K1-K5: the fused Runge-Kutta stage kernels and their plain versions.
+"""K1-K6: the fused Runge-Kutta stage kernels and their plain versions.
 
 * ``rk_stage_increment`` (K1): ``z + h * sum_j a_j k_j`` — the argument of
   each stage's field evaluation, and with the ``b`` row the solution
@@ -17,6 +17,9 @@
 * ``rk_stage_combine_err_batched_rowtol`` (K5): K4 with (B,) tolerances
   read per row; a row at K4's tolerance gives K4's bits. Replaces
   ``rk_stage_combine_err_batched_rowtol_pallas``.
+* ``rk_stage_combine`` (K6): K2's ``z_next`` and ``err`` (always stored,
+  zeros for ``e=None``) without the norm. Replaces
+  ``rk_stage_combine_pallas``; no solver path calls it.
 
 The CUDA source is ``csrc/rk_stage.cu``. Each wrapper takes the plain
 PyTorch version for a tensor on the CPU only; for a CUDA tensor it
@@ -50,7 +53,8 @@ _VEC_WIDTH = {torch.float32: 4, torch.bfloat16: 8}   # 16-byte vectors
 launches = {"rk_stage_increment": 0, "rk_stage_combine_err": 0,
             "rk_stage_increment_batched": 0,
             "rk_stage_combine_err_batched": 0,
-            "rk_stage_combine_err_batched_rowtol": 0}
+            "rk_stage_combine_err_batched_rowtol": 0,
+            "rk_stage_combine": 0}
 
 
 def reset_launches() -> None:
@@ -70,12 +74,8 @@ def increment_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     return (z.float() + h * acc).to(z.dtype)
 
 
-def combine_err_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
-                      b: Sequence[float], e: Sequence[float], rtol: float,
-                      atol: float, with_err: bool = True
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                 torch.Tensor]:
-    """(z_next, err or None, (1,) sum of squared scaled errors)."""
+def _combine_f32(z, k, h, b, e):
+    """(z, z + h * sum_i b_i k_i, h * sum_i e_i k_i), all f32."""
     zf = z.float()
     acc = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
     err = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
@@ -85,12 +85,30 @@ def combine_err_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
             acc = acc + bi * ki
         if ei != 0.0:
             err = err + ei * ki
-    zn = zf + h * acc
-    err = h * err
+    return zf, zf + h * acc, h * err
+
+
+def combine_err_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                      b: Sequence[float], e: Sequence[float], rtol: float,
+                      atol: float, with_err: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                 torch.Tensor]:
+    """(z_next, err or None, (1,) sum of squared scaled errors)."""
+    zf, zn, err = _combine_f32(z, k, h, b, e)
     scale = atol + rtol * torch.maximum(zf.abs(), zn.abs())
     r = err / scale
     sq = torch.sum(r * r).reshape(1)
     return zn.to(z.dtype), (err if with_err else None), sq
+
+
+def combine_plain(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                  b: Sequence[float], e: Optional[Sequence[float]]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z + h * sum_i b_i k_i in z's dtype, h * sum_i e_i k_i f32); e=None
+    gives zero weights."""
+    e = tuple(e) if e is not None else tuple(0.0 for _ in b)
+    _, zn, err = _combine_f32(z, k, h, b, e)
+    return zn.to(z.dtype), err
 
 
 def increment_batched_plain(z: torch.Tensor, k: torch.Tensor,
@@ -161,6 +179,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "rk_stage_combine": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(_Row),
+        ctypes.POINTER(_Row), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
     "rk_stage_increment_batched": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -318,6 +341,39 @@ def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     _check_launch(lib, code, "rk_stage_combine_err")
     launches["rk_stage_combine_err"] += 1
     return zn, err, partials
+
+
+def rk_stage_combine(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
+                     b: Sequence[float], e: Optional[Sequence[float]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: (z_next (N,) in z's dtype, err (N,) f32); ``e=None`` gives a zero
+    err."""
+    _check_inputs("rk_stage_combine", z, k, h)
+    b = tuple(float(w) for w in b)
+    e = tuple(float(w) for w in e) if e is not None else (0.0,) * len(b)
+    if len(b) != k.shape[0] or len(e) != k.shape[0]:
+        raise ValueError(
+            f"rk_stage_combine: {k.shape[0]} stages but {len(b)} b and "
+            f"{len(e)} e weights")
+    if z.device.type == "cpu":
+        return combine_plain(z, k, h, b, e)
+    _on_card("rk_stage_combine", z, k)
+    lib = _lib()
+    n = z.shape[0]
+    hd = _h_device(h)
+    zn = torch.empty_like(z)
+    err = torch.empty(n, dtype=torch.float32, device=z.device)
+    vec = _vectorized(n, z.dtype, z, k, zn, err)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        code = lib.rk_stage_combine(
+            z.data_ptr(), k.data_ptr(), hd.data_ptr(), zn.data_ptr(),
+            err.data_ptr(), n, ctypes.byref(_row(b)), ctypes.byref(_row(e)),
+            _DTYPE_CODE[z.dtype], int(vec), grid_blocks(n, z.dtype, vec),
+            stream)
+    _check_launch(lib, code, "rk_stage_combine")
+    launches["rk_stage_combine"] += 1
+    return zn, err
 
 
 # ------------------------------------------------------ batched wrappers

@@ -4,7 +4,8 @@
         --smoke --prompt-len 32 --new-tokens 16 --device cpu
 
 Port of ``repro/launch/serve.py`` with ``--device`` (default ``cuda``) and
-``--use-pallas`` (the card kernels K7/K8/K10 in prefill and decode).
+``--use-pallas`` (the card kernels: K7 at every RMSNorm, K8, K9 and K10 in
+prefill).
 Weights are random at the reference's init scales, from a generator seeded
 0 on the device; prompts from one seeded 1. A full config runs bf16 params
 and compute, ``--smoke`` f32. It prints the reference's summary line.
@@ -35,7 +36,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--use-pallas", action="store_true",
                     help="run RMSNorm, prefill attention and the prefill "
-                         "RG-LRU scan through the card kernels")
+                         "RG-LRU and SSD scans through the card kernels")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)

@@ -30,7 +30,8 @@ Tree = Any
 class ParamDef:
     """One parameter (or cache) leaf: shape, dtype and initializer
     (``normal`` with std ``scale`` or 1/sqrt(fan_in), ``embed`` with std
-    ``scale`` or 0.02, ``zeros``, ``ones``)."""
+    ``scale`` or 0.02, ``zeros``, ``ones``, ``uniform_ssm``: log U[1, 16],
+    the SSM decay rates A stored as log)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     init: str = "normal"
@@ -61,6 +62,10 @@ def _init_one(d: ParamDef, gen: torch.Generator,
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "uniform_ssm":
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return torch.log(1.0 + 15.0 * u).to(d.dtype)
     if d.init == "embed":
         std = d.scale if d.scale is not None else 0.02
     elif d.init == "normal":

@@ -88,11 +88,12 @@ class RunConfig:
 
     ``compute_dtype`` is what ``dense`` casts its operands to (bf16 by
     default, as in the reference) and ``param_dtype`` what ``init`` stores
-    (RG-LRU's ``lam`` stays f32 whatever it is). ``node`` turns the residual
+    (RG-LRU's ``lam`` and Mamba-2's ``dt_bias``, ``a_log``, ``d_skip`` stay
+    f32 whatever it is). ``node`` turns the residual
     blocks into ODE blocks. ``use_pallas`` — the reference's switch for its
     TPU kernels — sends the serving modes (``prefill``, ``decode``) through
-    the card kernels K7 (every RMSNorm), K8 (prefill attention) and K10
-    (prefill RG-LRU scan); on CPU tensors those wrappers run their plain
+    the card kernels K7 (every RMSNorm), K8 (prefill attention), K9 (prefill
+    SSD scan) and K10 (prefill RG-LRU scan); on CPU tensors those wrappers run their plain
     versions. ``max_seq`` is the KV-cache capacity of serving and
     ``label_smoothing`` the loss's.
 

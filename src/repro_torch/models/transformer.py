@@ -3,15 +3,16 @@ node18 block with its NODE form (the paper's ResNet → NODE step).
 
 Port of ``repro/models/transformer.py``. A *block* is (norm → mixer →
 residual, norm → ffn → residual), or the parallel variant (attention and
-ffn both read one norm). The mixer is attention (kind ``attn``) or an
-RG-LRU recurrent block (``rec``); hybrid (RecurrentGemma) stacks repeat a
-unit of kinds (("rec", "rec", "attn")) over groups and apply the
-remainder as a tail. Parameters keep the reference's tree: ``u{j}_{kind}``
-leaves stacked on a leading groups dim, ``tail{j}_{kind}`` unstacked. The
-reference scans over the groups (``lax.scan``); the port loops over them
-in Python, on views of the stacked leaves. The kinds ``ssm`` (Mamba-2)
-and ``moe_attn``, and NODE mode inside the LM stack, are later slices and
-raise ``NotImplementedError``.
+ffn both read one norm); a Mamba-2 block (kind ``ssm``) is norm → mixer →
+residual alone. The mixer is attention (kind ``attn``), an RG-LRU
+recurrent block (``rec``) or the Mamba-2 SSD block (``ssm``); hybrid
+(RecurrentGemma) stacks repeat a unit of kinds (("rec", "rec", "attn"))
+over groups and apply the remainder as a tail. Parameters keep the
+reference's tree: ``u{j}_{kind}`` leaves stacked on a leading groups dim,
+``tail{j}_{kind}`` unstacked. The reference scans over the groups
+(``lax.scan``); the port loops over them in Python, on views of the
+stacked leaves. The kind ``moe_attn``, and NODE mode inside the LM stack,
+are later slices and raise ``NotImplementedError``.
 
 ``TransformerBlock`` is the node18 block as a module (``block_apply`` of
 kind ``attn`` over parameters named by the reference's keys, ``norm1.w``,
@@ -39,11 +40,10 @@ from .common import (ParamDef, Tree, apply_norm, map_defs, norm_defs,
                      normal_init)
 from .config import ModelConfig, RunConfig
 from .ffn import ffn_apply, ffn_defs
+from .mamba2 import mamba2_block_apply, mamba2_cache_defs, mamba2_defs
 from .rglru import rglru_block_apply, rglru_cache_defs, rglru_defs
 
 _LATER = {
-    "ssm": "the Mamba-2 (ssm) block is a later slice of the port (with "
-           "kernel K9, ROADMAP queue 1)",
     "moe_attn": "the MoE block is a later slice of the port (dense/MoE "
                 "serving, ROADMAP queue 1)",
 }
@@ -74,6 +74,9 @@ def block_defs(cfg: ModelConfig, kind: str, param_dtype: torch.dtype
                ) -> Tree:
     _ported(kind)
     d = {"norm1": norm_defs(cfg.norm, cfg.d_model, param_dtype)}
+    if kind == "ssm":
+        d["mixer"] = mamba2_defs(cfg, param_dtype)
+        return d  # mamba2 blocks are single-residual (no separate ffn)
     if kind == "rec":
         d["mixer"] = rglru_defs(cfg, param_dtype)
     else:
@@ -87,6 +90,8 @@ def block_defs(cfg: ModelConfig, kind: str, param_dtype: torch.dtype
 def block_cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      cache_dtype: torch.dtype) -> Tree:
     _ported(kind)
+    if kind == "ssm":
+        return mamba2_cache_defs(cfg, batch)
     if kind == "rec":
         return rglru_cache_defs(cfg, batch)
     # attention KV cache; window-limited archs only need the window
@@ -112,6 +117,10 @@ def block_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig, rcfg: RunConfig,
     kernel = rcfg.use_pallas and mode in ("prefill", "decode")
     aux = torch.zeros((), device=x.device)
     h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps, kernel=kernel)
+    if kind == "ssm":
+        mix, new_cache = mamba2_block_apply(p["mixer"], h, cfg, rcfg,
+                                            mode=mode, cache=cache)
+        return x + mix, new_cache, aux
     if kind == "rec":
         mix, new_cache = rglru_block_apply(p["mixer"], h, cfg, rcfg,
                                            mode=mode, cache=cache)

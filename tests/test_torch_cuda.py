@@ -26,7 +26,20 @@ card as without, its prefill logits within 1e-4, and the kernels launch
 as counted (K7 11 per prefill and per decode step with 8 layers: 2 x 8 +
 1 = 17, K8 once per attention layer per prefill, K10 once per rec layer
 per prefill).
+
+K6 (combine without the norm) gives z_next and err bitwise equal to its
+plain version (K2's rounding, pinned with __fmul_rn/__fadd_rn). K9 (the
+SSD chunk scan) against its plain version, as max |difference| / max
+|plain|: f32 within 1e-4 (FMA sums and the chunk cumsum in other orders);
+bf16 within one bf16 ulp of each plain value plus that f32 bound (y is
+rounded once to bf16 on both sides, from f32 values that differ by the f32
+bound); h_last within 1e-4 in both. The SMOKE Mamba-2 model generates the
+same greedy tokens with ``use_pallas`` as without, its prefill logits
+within 1e-4, K9 once per layer per prefill and K7 2 per layer + 1 per
+prefill and per decode step.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -38,6 +51,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rg_lru as lru
 from repro_torch.kernels import rk_stage
+from repro_torch.kernels import ssd_scan as k9
 from repro_torch.models.common import rmsnorm as rmsnorm_plain
 from repro_torch.serve import NodeEngineConfig, NodeRequest, NodeServeEngine
 
@@ -345,6 +359,121 @@ def test_hybrid_smoke_generate_with_kernels_on_the_card(card):
     (lk, ok, ck), (lp, op_, cp) = runs[True], runs[False]
     assert ck["rmsnorm"] == 17 and ck["flash_attention"] == 2 \
         and ck["rg_lru"] == 6
+    assert all(v == 0 for v in cp.values())
+    assert _rel(lk, lp) <= 1e-4
+    assert torch.equal(ok, op_)
+
+
+# ------------------------------------------------------------ K6 and K9
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernel_is_bitwise_its_plain_version(card, n, dtype):
+    z, k, h = _inputs(card, n, dtype, seed=3)
+    before = rk_stage.launches["rk_stage_combine"]
+    for tab in TABS:
+        kk = k[:tab.stages].contiguous()
+        for e in (tab.b_err, None):
+            zn, err = rk_stage.rk_stage_combine(z, kk, h, tab.b, e)
+            zp, ep = rk_stage.combine_plain(z, kk, h, tab.b, e)
+            assert torch.equal(zn, zp) and torch.equal(err, ep)
+    assert rk_stage.launches["rk_stage_combine"] == before + 2 * len(TABS)
+
+
+def _ssd_inputs(card, b, s, h, p, g, n, dtype, seed, h0=False, weak=False):
+    """The reference init's dt = softplus(N(0, 1)), a = -U[1, 16], under
+    which a chunk forgets its state; or, with ``weak``, dt log-uniform in
+    [1e-3, 1e-2] and a = -exp(N(0, 1)), under which the state carried
+    between chunks dominates."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = (0.5 * torch.randn(b, s, h, p, generator=gen)).to(dtype).to(card)
+    if weak:
+        lo, hi = math.log(1e-3), math.log(1e-2)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(b, s, h, generator=gen))
+        a = -torch.exp(torch.randn(h, generator=gen))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen))
+        a = -(1.0 + 15.0 * torch.rand(h, generator=gen))
+    bm = (0.5 * torch.randn(b, s, g, n, generator=gen)).to(dtype).to(card)
+    cm = (0.5 * torch.randn(b, s, g, n, generator=gen)).to(dtype).to(card)
+    h0t = torch.randn(b, h, p, n, generator=gen).to(card) if h0 else None
+    return x, dt.to(card), a.to(card), bm, cm, h0t
+
+
+def _ssd_err(y, yp):
+    """max |y - yp| beyond one bf16 ulp of yp (bf16) or at all (f32), over
+    max |yp|."""
+    d = (y.float() - yp.float()).abs()
+    if y.dtype == torch.bfloat16:
+        _, e = torch.frexp(yp.float().abs())
+        d = (d - torch.ldexp(torch.ones_like(d), e - 8)).clamp_min(0.0)
+    return float(d.max() / yp.float().abs().max())
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", [(2, 64, 4, 16, 1, 16, 16),
+                                           (2, 128, 4, 16, 2, 16, 32),
+                                           (1, 512, 8, 64, 2, 128, 256),
+                                           (2, 256, 6, 64, 2, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_scan_kernel_matches_its_plain_version(card, b, s, h, p, g, n, q,
+                                                   dtype, h0, weak):
+    x, dt, a, bm, cm, h0t = _ssd_inputs(card, b, s, h, p, g, n, dtype,
+                                        seed=s + n, h0=h0, weak=weak)
+    before = ops.launch_counts()["ssd_scan"]
+    y, hl = ops.ssd_scan(x, dt, a, bm, cm, q, h0=h0t)
+    yp, hp = k9.ssd_scan_plain(x, dt, a, bm, cm, q, h0=h0t)
+    if weak:
+        # the inputs do what they are for: each chunk scanned from a zero
+        # state (no carry) is far from the chunked scan
+        alone = torch.cat([k9.ssd_chunked(
+            *(t[:, c * q:(c + 1) * q] for t in (x, dt)), a,
+            *(t[:, c * q:(c + 1) * q] for t in (bm, cm)), q)[0]
+            for c in range(s // q)], dim=1)
+        assert _rel(alone, yp) > 0.5
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert y.dtype == dtype and hl.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    assert _ssd_err(y, yp) <= 1e-4
+    assert _rel(hl, hp) <= 1e-4
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
+    x, dt, a, bm, cm, _ = _ssd_inputs(card, 1, 48, 2, 16, 1, 16,
+                                      torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.ssd_scan(x, dt, a, bm, cm, 24)           # chunk not a multiple
+    x, dt, a, bm, cm, _ = _ssd_inputs(card, 1, 32, 2, 16, 1, 256,
+                                      torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.ssd_scan(x, dt, a, bm, cm, 16)           # bf16 state 256
+
+
+def test_mamba2_smoke_generate_with_kernels_on_the_card(card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = get_smoke_config("mamba2_2_7b")     # 3 layers, chunk 16
+    runs = {}
+    for up in (True, False):
+        model = build_model(cfg, RunConfig(compute_dtype=torch.float32,
+                                           use_pallas=up, max_seq=64))
+        params = model.init(device=card, seed=0)
+        toks = torch.randint(0, cfg.vocab, (2, 40), device=card,
+                             generator=torch.Generator(card).manual_seed(1))
+        ops.reset_launches()
+        with torch.no_grad():
+            last, _ = model.prefill(params, {"tokens": toks})
+        counts = ops.launch_counts()
+        out = ServeEngine(model, params, ServeConfig(
+            max_new_tokens=6)).generate(toks)["tokens"]
+        runs[up] = (last, out, counts)
+    (lk, ok, ck), (lp, op_, cp) = runs[True], runs[False]
+    assert ck["rmsnorm"] == 7 and ck["ssd_scan"] == 3
     assert all(v == 0 for v in cp.values())
     assert _rel(lk, lp) <= 1e-4
     assert torch.equal(ok, op_)

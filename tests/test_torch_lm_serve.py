@@ -1,13 +1,18 @@
-"""LM serving of the port (the hybrid RecurrentGemma family) against the
-reference, mirroring ``tests/test_models_consistency.py``.
+"""LM serving of the port (the hybrid RecurrentGemma and the Mamba-2
+families) against the reference, mirroring
+``tests/test_models_consistency.py``.
 
-Two configs: ``hybrid-window`` (the reference test's, window 8) and
-``recurrentgemma_9b.SMOKE`` (window 16), f32 compute. The reference's
-``init`` draws the weights; ``convert.tree_from_jax`` carries them over.
-Prompt lengths cover S below the window, S = 2 x window (the
-sliding-window route) and S not a multiple of the window (the banded
-fallback); each then decodes ``NEW`` tokens, past the window, so the ring
-buffer wraps. The reference runs jitted (the same functions).
+Four configs, f32 compute: ``hybrid-window`` (the reference test's, window
+8), ``recurrentgemma_9b.SMOKE`` (window 16), ``ssm`` (the reference test's
+Mamba-2 config, chunk 8) and ``mamba2_2_7b.SMOKE`` (chunk 16). The
+reference's ``init`` draws the weights; ``convert.tree_from_jax`` carries
+them over. For the hybrids, prompt lengths cover S below the window, S = 2
+x window (the sliding-window route) and S not a multiple of the window
+(the banded fallback); each then decodes ``NEW`` tokens, past the window,
+so the ring buffer wraps. For Mamba-2 they cover S below the chunk, S = 2
+x chunk and S off a multiple (prefill pads to the chunk with dt = 0); the
+decode steps then carry the conv and SSM states. The reference runs
+jitted (the same functions).
 
 Tolerances, as max |difference| / max |reference|:
 
@@ -16,9 +21,9 @@ Tolerances, as max |difference| / max |reference|:
   in other orders (observed up to 4e-6);
 * the port's prefill -> decode vs its own forward: 1e-4, the reference
   test's bound for the same check;
-* ``use_pallas=True`` on the CPU (the plain versions of K7, K8 and K10)
-  vs ``use_pallas=False``: 1e-5 — K8's plain version and the doubling
-  scan compute the plain route's functions in another order;
+* ``use_pallas=True`` on the CPU (the plain versions of K7, K8, K9 and
+  K10) vs ``use_pallas=False``: 1e-5 — K8's plain version and the
+  doubling scan compute the plain route's functions in another order;
 * greedy ``generate``: tokens equal to the reference's at every step
   whose top-2 logit margin (reference) exceeds 1e-5 x max |logit|; after
   the first step below that margin the two may rightly diverge.
@@ -32,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import mamba2_2_7b as jm2
 from repro.configs import recurrentgemma_9b as jrg
 from repro.models import ModelConfig as JModelConfig
 from repro.models import RunConfig as JRunConfig
@@ -39,6 +45,7 @@ from repro.models import build_model as jbuild_model
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import mamba2_2_7b as tm2
 from repro_torch.configs import recurrentgemma_9b as trg
 from repro_torch.convert import tree_from_jax
 from repro_torch.kernels import ops
@@ -57,9 +64,16 @@ CONFIGS = {
         n_heads=4, n_kv_heads=1, d_ff=128, window=8,
         pattern=("rec", "rec", "attn"), d_rnn=64),
     "recurrentgemma-smoke": dataclasses.asdict(jrg.SMOKE),
+    "ssm": dict(
+        name="t", family="ssm", n_layers=3, d_model=64, vocab=128,
+        ssm_state=16, ssm_head_dim=16, ssm_chunk=8),
+    "mamba2-smoke": dataclasses.asdict(jm2.SMOKE),
 }
-# below the window, 2 x window (sliding route), not a multiple (banded)
-LENGTHS = {"hybrid-window": (5, 16, 12), "recurrentgemma-smoke": (10, 32, 24)}
+# hybrids: below the window, 2 x window (sliding route), not a multiple
+# (banded); Mamba-2: below the chunk, 2 x chunk, not a multiple (padded)
+LENGTHS = {"hybrid-window": (5, 16, 12),
+           "recurrentgemma-smoke": (10, 32, 24),
+           "ssm": (5, 16, 12), "mamba2-smoke": (10, 32, 24)}
 CASES = [(name, s) for name in CONFIGS for s in LENGTHS[name]]
 
 
@@ -195,7 +209,8 @@ def test_use_pallas_plain_versions_match_plain_route(name, s):
 
 
 @pytest.mark.parametrize("name,s", [("hybrid-window", 12),
-                                    ("recurrentgemma-smoke", 24)])
+                                    ("recurrentgemma-smoke", 24),
+                                    ("ssm", 12), ("mamba2-smoke", 24)])
 def test_generate_greedy_matches_reference(name, s):
     ref = _reference(name, s)
     jeng = JServeEngine(ref["model"], ref["params"],
@@ -374,13 +389,28 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert "arch=recurrentgemma-smoke generated 4 tokens x 2 seqs" in out
 
 
+def test_launch_serve_mamba2_smoke_on_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2_2_7b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "20", "--new-tokens", "4",
+                "--use-pallas"])
+    out = capsys.readouterr().out
+    assert "arch=mamba2-smoke generated 4 tokens x 2 seqs" in out
+
+
 def test_configs_match_the_reference_and_count_its_parameters():
     for port_cfg, ref_cfg in ((trg.CONFIG, jrg.CONFIG),
-                              (trg.SMOKE, jrg.SMOKE)):
+                              (trg.SMOKE, jrg.SMOKE),
+                              (tm2.CONFIG, jm2.CONFIG),
+                              (tm2.SMOKE, jm2.SMOKE)):
         assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref_cfg)
         assert build_model(port_cfg).n_params() == \
             jbuild_model(ref_cfg).n_params()
     assert get_config("recurrentgemma-9b") is trg.CONFIG
+    assert get_config("mamba2-2.7b") is tm2.CONFIG
+    assert get_smoke_config("mamba2_2_7b") is tm2.SMOKE
+    # the card serves all 64 layers at full width
+    assert build_model(tm2.CONFIG).n_params() == 2_830_951_936
     # the card's cut: one (rec, rec, attn) group and the 2-layer rec tail
     cut = build_model(dataclasses.replace(trg.CONFIG, n_layers=5))
     assert 2.8e9 < cut.n_params() < 2.9e9
@@ -390,11 +420,12 @@ def test_later_slices_raise_named_errors():
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("mamba2_2_7b")
+        get_config("qwen2_72b")
+    # Mamba-2 is ported: the registry and the stack build it
+    assert get_config("mamba2_2_7b").family == "ssm"
     ssm = ModelConfig(name="t", family="ssm", n_layers=2, d_model=32,
                       vocab=64, ssm_state=8)
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        build_model(ssm)
+    assert "u0_ssm" in build_model(ssm).defs["stack"]
     moe = ModelConfig(name="t", family="moe", n_layers=2, d_model=32,
                       vocab=64, n_heads=2, n_kv_heads=2, n_experts=4,
                       top_k=2, d_expert=16)

@@ -36,3 +36,6 @@ def test_the_port_has_modules():
     assert port / "serve" / "__init__.py" in FILES
     assert port / "serve" / "engine.py" in FILES
     assert port / "kernels" / "flash_attention.py" in FILES
+    assert port / "kernels" / "ssd_scan.py" in FILES
+    assert port / "models" / "mamba2.py" in FILES
+    assert port / "configs" / "mamba2_2_7b.py" in FILES

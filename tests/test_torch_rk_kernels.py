@@ -1,9 +1,9 @@
-"""K1/K2 plain versions and autograd Functions against the reference.
+"""K1/K2/K6 plain versions and autograd Functions against the reference.
 
 The same numpy inputs go to the reference's dispatch layer
 (``repro.kernels.ops``, Pallas in interpret mode, as ``tests/
 test_kernels.py`` runs it) and to the port on the CPU, where each wrapper
-runs its kernel's plain version. Mirrors ``test_kernels.py:43-115``.
+runs its kernel's plain version. Mirrors ``test_kernels.py:27-115``.
 
 Tolerances: f32 outputs rtol=atol=1e-6, the reference's own kernel-vs-
 oracle bound (both sides accumulate in f32 in the same order; the bound
@@ -106,6 +106,58 @@ def test_combine_err_plain_matches_reference(tab, dtype):
             with_err=False)
         assert err_q is None
         assert torch.equal(zn_q, zn_p) and torch.equal(part_q, part)
+
+
+@pytest.mark.parametrize("tab", sorted(TABS))
+@pytest.mark.parametrize("n", [37, 1000])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_combine_plain_matches_reference(tab, n, dtype):
+    """K6 (``test_kernels.py::test_rk_stage_combine``): z_next and err
+    against the oracle and the interpret-mode Pallas kernel, with the
+    embedded weights and with e=None (a zero err)."""
+    tab = TABS[tab]
+    jdt, tdt, tol = DTYPES[dtype]
+    h = 0.05
+    z, k = _inputs(n + 2, tab.stages, n)
+    zj, zt = _both(z, jdt, tdt)
+    kj, kt = _both(k, jdt, tdt)
+    for e in (tab.b_err, None):
+        o_p, e_p = rk_stage.rk_stage_combine(zt, kt, torch.tensor(h), tab.b,
+                                             e)
+        assert o_p.dtype == tdt and e_p.dtype == torch.float32
+        o_o, e_o = jref.rk_stage_combine_ref(zj, kj, jnp.float32(h), tab.b,
+                                             e)
+        o_k, e_k = jops.rk_stage_combine(zj, kj, jnp.float32(h), tab.b, e,
+                                         block=512)
+        for o_r, e_r in ((o_o, e_o), (o_k, e_k)):
+            np.testing.assert_allclose(_np(o_p), _np(o_r), rtol=tol,
+                                       atol=tol)
+            np.testing.assert_allclose(_np(e_p), _np(e_r), rtol=tol,
+                                       atol=tol)
+        if e is None:
+            assert not bool(e_p.any())
+
+
+def test_combine_function_matches_jax_vjp_of_twin():
+    """K6's Function: backward = jax.vjp of the reference's combine twin
+    (rtol 1e-5, atol 1e-6, as the other Functions)."""
+    tab = DOPRI5
+    z, k = _inputs(9, tab.stages, 200)
+    h = np.float32(0.07)
+
+    def loss_ref(z, k, h):
+        zn, err = jref.rk_stage_combine_ref(z, k, h, tab.b, tab.b_err)
+        return jnp.sum(zn ** 2) + jnp.sum(jnp.sin(err))
+
+    g_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(
+        jnp.asarray(z), jnp.asarray(k), jnp.float32(h))
+    zt, kt, ht = (torch.tensor(v, requires_grad=True) for v in (z, k, h))
+    zn, err = tops.rk_stage_combine(zt, kt, ht, tab.b, tab.b_err)
+    (torch.sum(zn ** 2) + torch.sum(torch.sin(err))).backward()
+    for gp, gr in zip((zt.grad, kt.grad, ht.grad), g_ref):
+        np.testing.assert_allclose(gp.numpy(), np.asarray(gr), rtol=1e-5,
+                                   atol=1e-6)
+    assert rk_stage.launches["rk_stage_combine"] == 0
 
 
 def test_autograd_functions_match_jax_vjp_of_twins():
