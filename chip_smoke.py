@@ -72,9 +72,15 @@ printing one JSON line (``"phase": ...``):
                       (2, 1024, 80, 64), one group of state 128, chunk 256,
                       bf16 and f32, y and h_last, at the reference init and
                       (4, 4096) again with weak decay, where the state
-                      carried between chunks dominates; K7 at the Mamba-2
-                      widths 5120 and 2560. K9's time beside its operations bound
-                      and the plain version (no library call computes it).
+                      carried between chunks dominates; K9's three bf16
+                      kernels (chunk states, state pass, chunk outputs)
+                      one at a time against their plain parts at (4, 4096),
+                      both decays; K7 at the Mamba-2 widths 5120 and 2560.
+                      K9's time beside its operations bound and the plain
+                      version (no library call computes it), and each of
+                      its three kernels' times, their sum and the design's
+                      byte floor (the bytes the three move, each kernel's
+                      inputs read once and outputs written once).
 11. ``serve_mamba2`` — ``ServeEngine.generate`` over
                       ``build_model(mamba2_2_7b.CONFIG)``: all 64 layers at
                       full width (d_model 2560, d_inner 5120, 80 heads x 64,
@@ -83,14 +89,17 @@ printing one JSON line (``"phase": ...``):
                       seeded random weights. Call A: 4 prompts of 4096
                       tokens, 32 new (greedy); call B: 2 prompts of 1000
                       (padded to 1024 inside the blocks), 16 new. Launches
-                      checked exactly per call (K9 once per layer per
-                      prefill, K7 2 per layer + 1 per prefill and per decode
-                      step); one prefill of call A and one decode step
+                      checked exactly per call (K9, and each of its three
+                      kernels, once per layer per prefill, K7 2 per layer +
+                      1 per prefill and per decode step); peak memory and
+                      prefill time per call; one prefill of call A and one
+                      decode step
                       traced with torch.profiler (device busy and idle
                       share, device time by kernel class); then the plain
                       route on the same weights and one f32 prefill of
                       both routes on call B's prompts.
-12. the ``kernels`` summary line (K1-K10), the card's name and power limit,
+12. the ``kernels`` summary line (K1-K10, and K9's three kernels), the
+   card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
@@ -185,7 +194,9 @@ SSD_F32_RTOL = 1e-4
 # state; below this median the carried state would no longer dominate
 SSD_WEAK_DECAY = 0.1
 M2_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
-SSM_KERNELS = ("rmsnorm", "ssd_scan")
+# K9's three bf16 kernels, each launched once per bf16 K9 call
+K9_PARTS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+SSM_KERNELS = ("rmsnorm", "ssd_scan") + K9_PARTS
 # the served Mamba-2, kernels vs plain route, as a share of max |logit|,
 # derived before the first run: per layer the routes round the mixer's
 # output differently by about one bf16 ulp (2^-8; K9 rounds y to bf16
@@ -219,20 +230,26 @@ def check(cond: bool, what: str) -> None:
 
 # ------------------------------------------------------------------ timing
 
-def time_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
+def time_ms(torch, fn, iters: int = 30, warmup: int = 5, prep=None) -> float:
     """Mean device time of ``fn`` by CUDA events around each launch.
 
     Before each launch the card first spins ~1 ms (so the host has
     enqueued all of ``fn`` before the start event runs: host overhead is
     not timed) and then writes 128 MB (so ``fn`` finds the 50 MB L2 cold,
     as a solve's field evaluation leaves it between two stage kernels).
+    ``prep`` (for a kernel that works in place) runs before each launch,
+    outside the timed span.
     """
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
+        if prep is not None:
+            prep()
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
+        if prep is not None:
+            prep()
         torch.cuda._sleep(2_000_000)
         flush.zero_()
         s.record()
@@ -1244,6 +1261,42 @@ def phase_kernels_ssm(torch, seed: int):
                   f"h_last {err_h} beyond {SSD_F32_RTOL}")
             del x, dt, a, bm, cm, y, hl, yp, hp
             torch.cuda.empty_cache()
+    # K9's three bf16 kernels one at a time against their plain parts, on
+    # the same inputs, at call A's shape (reference init and weak decay):
+    # cs and S_c (chunk_states), h_prev and h_last (state_pass) as a share
+    # of max |plain|, y (chunk_outputs) beyond one bf16 ulp
+    for k in K9_PARTS:
+        worst[k] = 0.0
+    for weak in (False, True):
+        x, dt, a, bm, cm = _ssd_inputs(torch, gen, 4, 4096, 80, 64, 1, 128,
+                                       torch.bfloat16, weak=weak)
+        cs_p, st_p = k9.chunk_states(x, dt, a, bm, 256)
+        hp_p, hl_p = k9.state_pass(st_p, cs_p, 256)
+        cs, st = k9.ssd_chunk_state(x, dt, a, bm, 256)
+        got = {"ssd_chunk_state": ((cs, cs_p), (st, st_p))}
+        hp, hl = k9.ssd_state_pass(st_p.clone(), cs_p, 256)
+        got["ssd_state_pass"] = ((hp, hp_p), (hl, hl_p))
+        y = k9.ssd_chunk_scan(x, dt, cs_p, bm, cm, hp_p, 256)
+        got["ssd_chunk_scan"] = ((y, k9.chunk_outputs(
+            x, dt, cs_p, bm, cm, hp_p, 256).to(x.dtype)),)
+        torch.cuda.synchronize()
+        for k, pairs in got.items():
+            err = max(_ssd_err(torch, u, v) if u.dtype == torch.bfloat16
+                      else _rel(u, v) for u, v in pairs)
+            diff = max(float((u.float() - v.float()).abs().max())
+                       for u, v in pairs)
+            worst[k] = max(worst[k], diff)
+            cases.append({"kernel": k, "shape": [4, 4096, 80, 64],
+                          "state": 128, "groups": 1, "chunk": 256,
+                          "dtype": "bfloat16",
+                          "decay": "weak" if weak else "reference init",
+                          "err": err, "max_abs_err": diff})
+            check(err <= SSD_F32_RTOL and all(
+                bool(torch.isfinite(u.float()).all()) for u, _ in pairs),
+                f"{k} (4, 4096, 80, 64) weak={weak}: {err} beyond "
+                f"{SSD_F32_RTOL}")
+        del x, dt, a, bm, cm, cs_p, st_p, hp_p, hl_p, cs, st, hp, hl, y, got
+        torch.cuda.empty_cache()
     # K7 at the Mamba-2 widths: the gated norm (5120) and the final norm
     # (2560), call A's prefill rows and the decode rows
     for d in (5120, 2560):
@@ -1287,7 +1340,45 @@ def phase_kernels_ssm(torch, seed: int):
         "flops": tiles * (q * (q + 1) * n + q * (q + 1) * p
                           + 4 * q * n * p),
         "peak_flops": BF16_FLOP_PER_S}}
-    del x, dt, a, bm, cm
+    # the three kernels alone, each on the outputs of the one before it;
+    # bytes each reads and writes once, and their sum: the design's floor
+    nc, st_n = s // q, b * (s // q) * h * p * n
+    cs, st = k9.ssd_chunk_state(x, dt, a, bm, q)
+    saved = st.clone()
+    k9.ssd_state_pass(st, cs, q)
+    h_prev = st.clone()
+    timings["ssd_chunk_state"] = {
+        "ms": time_ms(torch, lambda: k9.ssd_chunk_state(x, dt, a, bm, q),
+                      iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: k9.chunk_states(
+            x, dt, a, bm, q), iters=3, warmup=1),
+        # x, B, dt, a in; cs and S_c out
+        "bytes": x.numel() * 2 + bm.numel() * 2 + dt.numel() * 4 + h * 4
+        + dt.numel() * 4 + st_n * 4,
+        "flops": tiles * 2 * q * n * p, "peak_flops": BF16_FLOP_PER_S}
+    timings["ssd_state_pass"] = {
+        "ms": time_ms(torch, lambda: k9.ssd_state_pass(st, cs, q),
+                      iters=10, warmup=2, prep=lambda: st.copy_(saved)),
+        "plain_ms": time_ms(torch, lambda: k9.state_pass(saved, cs, q),
+                            iters=3, warmup=1),
+        # S_c in, h_prev out, the chunks' last cs, h_last
+        "bytes": 2 * st_n * 4 + b * nc * h * 4 + b * h * p * n * 4,
+        "flops": 2 * st_n, "peak_flops": F32_FLOP_PER_S}
+    timings["ssd_chunk_scan"] = {
+        "ms": time_ms(torch, lambda: k9.ssd_chunk_scan(
+            x, dt, cs, bm, cm, h_prev, q), iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: k9.chunk_outputs(
+            x, dt, cs, bm, cm, h_prev, q), iters=3, warmup=1),
+        # x, dt, cs, B, C, h_prev in; y out
+        "bytes": 2 * x.numel() * 2 + 2 * dt.numel() * 4
+        + 2 * bm.numel() * 2 + st_n * 4,
+        "flops": tiles * (q * (q + 1) * n + q * (q + 1) * p
+                          + 2 * q * n * p),
+        "peak_flops": BF16_FLOP_PER_S}
+    for k in K9_PARTS:
+        timings[k].update({"shape": [b, s, h, p], "state": n, "chunk": q,
+                           "dtype": "bfloat16", "library_ms": None})
+    del x, dt, a, bm, cm, cs, st, saved, h_prev
     xr = torch.randn(16384, 5120, generator=gen, device="cuda").to(
         torch.bfloat16)
     w = torch.randn(5120, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1303,13 +1394,17 @@ def phase_kernels_ssm(torch, seed: int):
     torch.cuda.empty_cache()
     for t in timings.values():
         _bound(t)
+    k9t = timings["ssd_scan"]
+    k9t["parts_ms"] = sum(timings[k]["ms"] for k in K9_PARTS)
+    k9t["design_bytes"] = sum(timings[k]["bytes"] for k in K9_PARTS)
+    k9t["design_floor_ms"] = 1e3 * k9t["design_bytes"] / HBM_BYTES_PER_S
     emit({"phase": "kernel_times_ssm", "ok": True, "timings": timings})
     return worst, timings
 
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "ssd_scan" in n:
+    if "ssd_scan" in n or any(k in n for k in K9_PARTS):
         return "ssd_scan"
     if "rmsnorm" in n:
         return "rmsnorm"
@@ -1392,7 +1487,7 @@ def phase_serve_mamba2(torch, seed: int):
         peak = torch.cuda.max_memory_allocated() / 1e9
         steps = engine.last_decode_steps
         want = {"rmsnorm": (2 * layers + 1) * (1 + steps),
-                "ssd_scan": layers}
+                "ssd_scan": layers, **{k: layers for k in K9_PARTS}}
         got = {k: counts[k] for k in SSM_KERNELS}
         others = {k: v for k, v in counts.items()
                   if k not in SSM_KERNELS and v}
@@ -1599,7 +1694,8 @@ def main(argv=None) -> int:
     # K7 runs on both LM paths: its launches add up
     launches.update(lm_launches)
     launches["rmsnorm"] += ssm_launches["rmsnorm"]
-    launches["ssd_scan"] = ssm_launches["ssd_scan"]
+    for k in ("ssd_scan",) + K9_PARTS:
+        launches[k] = ssm_launches[k]
     entries += [
         ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
          timings_lm["rmsnorm"]),
@@ -1608,6 +1704,8 @@ def main(argv=None) -> int:
          timings_lm["flash_attention"]),
         ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:84",
          timings_ssm["ssd_scan"]),
+        *((k, "ssd_scan", "src/repro/kernels/ssd_scan.py:84", timings_ssm[k])
+          for k in K9_PARTS),
         ("rg_lru", "rg_lru", "src/repro/kernels/rg_lru.py:52",
          timings_lm["rg_lru"]),
     ]

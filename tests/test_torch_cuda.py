@@ -33,7 +33,12 @@ SSD chunk scan) against its plain version, as max |difference| / max
 |plain|: f32 within 1e-4 (FMA sums and the chunk cumsum in other orders);
 bf16 within one bf16 ulp of each plain value plus that f32 bound (y is
 rounded once to bf16 on both sides, from f32 values that differ by the f32
-bound); h_last within 1e-4 in both. The SMOKE Mamba-2 model generates the
+bound); h_last within 1e-4 in both. K9's three bf16 kernels one at a time
+against their plain parts on the same inputs: cs and S_c
+(``chunk_states``), h_prev and h_last (``state_pass``) within 1e-4 (the
+f32 operands enter the tensor cores as hi + lo bf16 pairs, about 16 bits;
+the pass rounds as the plain version does), y (``chunk_outputs``) within
+one bf16 ulp plus 1e-4. The SMOKE Mamba-2 model generates the
 same greedy tokens with ``use_pallas`` as without, its prefill logits
 within 1e-4, K9 once per layer per prefill and K7 2 per layer + 1 per
 prefill and per decode step.
@@ -411,10 +416,11 @@ def _ssd_err(y, yp):
     return float(d.max() / yp.float().abs().max())
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,q", [(2, 64, 4, 16, 1, 16, 16),
-                                           (2, 128, 4, 16, 2, 16, 32),
-                                           (1, 512, 8, 64, 2, 128, 256),
-                                           (2, 256, 6, 64, 2, 128, 64)])
+SSD_SHAPES = [(2, 64, 4, 16, 1, 16, 16), (2, 128, 4, 16, 2, 16, 32),
+              (1, 512, 8, 64, 2, 128, 256), (2, 256, 6, 64, 2, 128, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h0", [False, True])
 @pytest.mark.parametrize("weak", [False, True])
@@ -439,6 +445,66 @@ def test_ssd_scan_kernel_matches_its_plain_version(card, b, s, h, p, g, n, q,
     assert bool(torch.isfinite(y.float()).all())
     assert _ssd_err(y, yp) <= 1e-4
     assert _rel(hl, hp) <= 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", SSD_SHAPES)
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_chunk_state_kernel_matches_its_plain_part(card, b, s, h, p, g, n,
+                                                       q, weak):
+    """Kernel 1 (bf16 only) against ``chunk_states``: cs and S_c."""
+    x, dt, a, bm, _, _ = _ssd_inputs(card, b, s, h, p, g, n, torch.bfloat16,
+                                     seed=s + n, weak=weak)
+    before = ops.launch_counts()["ssd_chunk_state"]
+    cs, states = k9.ssd_chunk_state(x, dt, a, bm, q)
+    cs_p, states_p = k9.chunk_states(x, dt, a, bm, q)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk_state"] == before + 1
+    assert cs.shape == cs_p.shape and states.shape == states_p.shape
+    assert _rel(cs, cs_p) <= 1e-4 and _rel(states, states_p) <= 1e-4
+    with pytest.raises(ValueError, match="bfloat16"):
+        k9.ssd_chunk_state(x.float(), dt, a, bm.float(), q)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_state_pass_kernel_matches_its_plain_part(card, b, s, h, p, g, n,
+                                                      q, dtype, h0, weak):
+    """Kernel 2 against ``state_pass`` on the same chunk states (from
+    inputs in either dtype): h_prev (written over the states) and h_last."""
+    x, dt, a, bm, _, h0t = _ssd_inputs(card, b, s, h, p, g, n, dtype,
+                                       seed=s + n, h0=h0, weak=weak)
+    cs, states = k9.chunk_states(x, dt, a, bm, q)
+    h_prev_p, h_last_p = k9.state_pass(states, cs, q, h0=h0t)
+    before = ops.launch_counts()["ssd_state_pass"]
+    work = states.clone()
+    h_prev, h_last = k9.ssd_state_pass(work, cs, q, h0=h0t)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_state_pass"] == before + 1
+    assert h_prev.data_ptr() == work.data_ptr()      # in place
+    assert _rel(h_prev, h_prev_p) <= 1e-4 and _rel(h_last, h_last_p) <= 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", SSD_SHAPES)
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_chunk_scan_kernel_matches_its_plain_part(card, b, s, h, p, g, n,
+                                                      q, h0, weak):
+    """Kernel 3 (bf16 only) against ``chunk_outputs`` on the same cs and
+    h_prev: y within one bf16 ulp of each plain value plus 1e-4."""
+    x, dt, a, bm, cm, h0t = _ssd_inputs(card, b, s, h, p, g, n,
+                                        torch.bfloat16, seed=s + n, h0=h0,
+                                        weak=weak)
+    cs, states = k9.chunk_states(x, dt, a, bm, q)
+    h_prev, _ = k9.state_pass(states, cs, q, h0=h0t)
+    before = ops.launch_counts()["ssd_chunk_scan"]
+    y = k9.ssd_chunk_scan(x, dt, cs, bm, cm, h_prev, q)
+    yp = k9.chunk_outputs(x, dt, cs, bm, cm, h_prev, q).to(x.dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk_scan"] == before + 1
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y.float()).all())
+    assert _ssd_err(y, yp) <= 1e-4
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):

@@ -199,6 +199,127 @@ def test_ssd_scan_bf16_rounds_y_once():
                   / y32.abs().clamp_min(1e-30)).max()) <= 2.0 ** -8
 
 
+# ``ssd_chunked`` as it was before the split into the three kernels'
+# plain versions, op for op: the composition must give its bits
+def _ssd_chunked_frozen(x, dt, a, b_mat, c_mat, chunk, h0=None):
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    nc = s // chunk
+    rep = h // g
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtc = dt.float().reshape(bsz, nc, chunk, h)
+    bf = torch.repeat_interleave(b_mat.float(), rep, dim=2).reshape(
+        bsz, nc, chunk, h, n)
+    cf = torch.repeat_interleave(c_mat.float(), rep, dim=2).reshape(
+        bsz, nc, chunk, h, n)
+    da = dtc * a.float()[None, None, None, :]
+    da_cum = k9.chunk_cumsum(da, 2)
+    da_total = da_cum[:, :, -1]
+    l_mat = torch.exp(k9._segsum(da_cum.transpose(2, 3)))
+    cb = torch.einsum("bcqhn,bckhn->bchqk", cf, bf)
+    y_diag = torch.einsum("bchqk,bckh,bckhp->bcqhp", cb * l_mat, dtc, xf)
+    decay_to_end = torch.exp(da_total[:, :, None, :] - da_cum)
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", bf,
+                          dtc * decay_to_end, xf)
+    hc = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hc)
+        hc = hc * torch.exp(da_total[:, c])[..., None, None] + states[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)
+    decay_from_start = torch.exp(da_cum)
+    y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", cf, h_prev,
+                           decay_from_start)
+    return (y_diag + y_inter).reshape(bsz, s, h, p), hc
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32)])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_chunked_is_the_pre_split_arithmetic_bitwise(s, chunk, g, h0,
+                                                         weak):
+    arrs = _scan_inputs(2, s, 4, 16, g, 8, seed=s + g, h0=h0)
+    if weak:
+        arrs[:5] = _weak_decay_inputs(2, s, 4, 16, g, 8, seed=s + g)
+    ts = _t(*arrs)
+    h0t = ts[5] if h0 else None
+    y, h_last = k9.ssd_chunked(*ts[:5], chunk, h0=h0t)
+    y_f, h_f = _ssd_chunked_frozen(*ts[:5], chunk, h0=h0t)
+    assert torch.equal(y, y_f) and torch.equal(h_last, h_f)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32)])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("h0", [False, True])
+def test_ssd_parts_match_the_reference_chunked_scan(s, chunk, g, h0):
+    """Each plain part against the quantity the reference's ``ssd_chunked``
+    builds: cs against its within-chunk cumsum of dt·a; S_c against its
+    h_last over chunk c alone from a zero state (0·e + S_c = S_c); the
+    state before chunk c against its h_last over chunks 0..c-1 from h0;
+    h_last and y against its outputs. 1e-5 of max |reference|."""
+    arrs = _scan_inputs(2, s, 4, 16, g, 8, seed=3 * s + g, h0=h0)
+    x, dt, a, bm, cm = arrs[:5]
+    hj = jnp.asarray(arrs[5]) if h0 else None
+    ht = torch.from_numpy(arrs[5]) if h0 else None
+    nc = s // chunk
+    cs, states = k9.chunk_states(*_t(x, dt, a, bm), chunk)
+    assert tuple(cs.shape) == (2, s, 4) and tuple(states.shape) == (
+        2, nc, 4, 16, 8)
+    da = jnp.asarray(dt).reshape(2, nc, chunk, 4) * jnp.asarray(a)
+    cs_r = jnp.cumsum(da, axis=2).reshape(2, s, 4)
+    assert _rel(cs, cs_r) <= TOL
+    h_prev, h_last = k9.state_pass(states, cs, chunk, h0=ht)
+    y = k9.chunk_outputs(*_t(x, dt), cs, *_t(bm, cm), h_prev, chunk)
+    y_r, h_r = jm2.ssd_chunked(*_j(x, dt, a, bm, cm), chunk, h0=hj)
+    assert _rel(y, y_r) <= TOL and _rel(h_last, h_r) <= TOL
+    for c in range(nc):
+        part = slice(c * chunk, (c + 1) * chunk)
+        _, s_r = jm2.ssd_chunked(*_j(x[:, part], dt[:, part], a,
+                                     bm[:, part], cm[:, part]), chunk)
+        assert _rel(states[:, c], s_r) <= TOL, c
+        if c == 0:
+            want = arrs[5] if h0 else np.zeros((2, 4, 16, 8), np.float32)
+            assert np.array_equal(h_prev[:, 0].numpy(), want)
+        else:
+            upto = slice(0, c * chunk)
+            _, p_r = jm2.ssd_chunked(*_j(x[:, upto], dt[:, upto], a,
+                                         bm[:, upto], cm[:, upto]), chunk,
+                                     h0=hj)
+            assert _rel(h_prev[:, c], p_r) <= TOL, c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0", [False, True])
+def test_ssd_part_wrappers_compose_to_the_scan_on_the_cpu(dtype, h0):
+    """On CPU tensors the three kernels' wrappers run their plain versions,
+    count no launch, and compose to ``ssd_scan`` bit for bit."""
+    arrs = _scan_inputs(2, 64, 4, 16, 2, 16, seed=13, h0=h0)
+    x, dt, a, bm, cm = _t(*arrs[:5])
+    x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+    ht = torch.from_numpy(arrs[5]) if h0 else None
+    cs, states = k9.ssd_chunk_state(x, dt, a, bm, 16)
+    h_prev, h_last = k9.ssd_state_pass(states, cs, 16, h0=ht)
+    y = k9.ssd_chunk_scan(x, dt, cs, bm, cm, h_prev, 16)
+    y_w, h_w = ops.ssd_scan(x, dt, a, bm, cm, 16, h0=ht)
+    assert y.dtype == dtype
+    assert torch.equal(y, y_w) and torch.equal(h_last, h_w)
+
+
+def test_ssd_part_wrappers_refuse_bad_inputs():
+    x, dt, a, bm, cm = _t(*_scan_inputs(1, 32, 4, 8, 2, 8))
+    cs, states = k9.ssd_chunk_state(x, dt, a, bm, 16)
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        k9.ssd_chunk_state(x, dt, a, bm, 12)
+    with pytest.raises(ValueError, match="states"):
+        k9.ssd_state_pass(states, cs, 8)
+    with pytest.raises(ValueError, match="float32"):
+        k9.ssd_state_pass(states.double(), cs.double(), 16)
+    with pytest.raises(ValueError, match="h_prev"):
+        k9.ssd_chunk_scan(x, dt, cs, bm, cm, states[:, :1], 16)
+
+
 def test_ssd_decode_step_matches_reference():
     rng = np.random.default_rng(4)
     b, h, p, g, n = 2, 4, 16, 2, 8
