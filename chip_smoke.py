@@ -52,7 +52,13 @@ printing one JSON line (``"phase": ...``):
                       1000, 4096). Times beside the bound, the plain
                       version and the library call (``F.rms_norm``,
                       ``F.scaled_dot_product_attention`` with the band
-                      mask; none for K10).
+                      mask; none for K10); the launch floor (an empty
+                      kernel on the same ctypes route, timed as every
+                      kernel is); K7 also at the decode rows (4,
+                      D) of D = 4096, 2560 and 5120, through the kernel
+                      its rule picks and through each of its two kernels
+                      (one-pass, two-pass); K8 also at window 0 beside
+                      SDPA's causal call (``is_causal=True``).
 9. ``serve_recurrentgemma`` — ``ServeEngine.generate`` over
                       ``build_model(recurrentgemma_9b.CONFIG with
                       n_layers=5)``: full width (d_model 4096, 16 heads, 1
@@ -98,8 +104,10 @@ printing one JSON line (``"phase": ...``):
                       share, device time by kernel class); then the plain
                       route on the same weights and one f32 prefill of
                       both routes on call B's prompts.
-12. the ``kernels`` summary line (K1-K10, and K9's three kernels), the
-   card's name and power limit,
+12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
+   with the launch floor, K7 with its decode times and the launches of
+   each of its two kernels over both LM paths, K8 with its window-0 time
+   and SDPA's causal time), the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
@@ -887,6 +895,7 @@ def phase_kernels_lm(torch, seed: int):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rg_lru as lru
+    from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models.common import rmsnorm as rmsnorm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
@@ -902,21 +911,25 @@ def phase_kernels_lm(torch, seed: int):
                 continue
             x = rnd(rows, 4096, scale=3.0).to(dtype)
             w = rnd(4096).to(dtype)
-            out = ops.rmsnorm(x, w)
             ref = rmsnorm_plain(x, w)
-            torch.cuda.synchronize()
-            diff = float((out.float() - ref.float()).abs().max())
-            worst["rmsnorm"] = max(worst["rmsnorm"], diff)
-            if dtype == torch.float32:
-                err = _rel(out, ref)
-                ok = err <= RMS_F32_RTOL
-            else:
-                err = _bf16_ulps(torch, out, ref)
-                ok = err <= RMS_BF16_ULPS
-            cases.append({"kernel": "rmsnorm", "shape": [rows, 4096],
-                          "dtype": str(dtype)[6:], "err": err,
-                          "max_abs_err": diff})
-            check(ok, f"K7 ({rows}, 4096) {dtype}: {err} beyond tolerance")
+            # the kernel K7's rule picks, then each of its two kernels
+            for kernel in (None,) + k7.KERNELS:
+                out = k7.rmsnorm(x, w, kernel=kernel)
+                torch.cuda.synchronize()
+                diff = float((out.float() - ref.float()).abs().max())
+                worst["rmsnorm"] = max(worst["rmsnorm"], diff)
+                if dtype == torch.float32:
+                    err = _rel(out, ref)
+                    ok = err <= RMS_F32_RTOL
+                else:
+                    err = _bf16_ulps(torch, out, ref)
+                    ok = err <= RMS_BF16_ULPS
+                cases.append({"kernel": "rmsnorm", "shape": [rows, 4096],
+                              "dtype": str(dtype)[6:],
+                              "k7_kernel": kernel or "rule", "err": err,
+                              "max_abs_err": diff})
+                check(ok, f"K7 ({rows}, 4096) {dtype} {kernel or 'rule'}: "
+                      f"{err} beyond tolerance")
     for b, s, window in ((4, 4096, 2048), (4, 4096, 0), (2, 1000, 2048)):
         for dtype in (torch.bfloat16, torch.float32):
             q = rnd(b, 16, s, 256).to(dtype)
@@ -963,28 +976,33 @@ def phase_kernels_lm(torch, seed: int):
                          "attention_bf16_rtol": ATT_BF16_RTOL,
                          "rg_lru_rtol": LRU_RTOL}})
 
-    # times at the serving path's shapes and types (prefill of call A)
+    # times at the serving path's shapes and types (prefill of call A; K7
+    # also at the decode rows of both LMs' widths); K7 through the kernel
+    # its rule picks ("ms") and through each of its two kernels
     timings = {}
-    x = rnd(16384, 4096).to(torch.bfloat16)
-    w = rnd(4096).to(torch.bfloat16)
-    timings["rmsnorm"] = {
-        "shape": [16384, 4096], "dtype": "bfloat16",
-        "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
-        "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
-        "library_ms": time_ms(torch, lambda: F.rms_norm(
-            x, (4096,), w, 1e-6)),
-        "bytes": 2 * 16384 * 4096 * 2 + 4096 * 2,
-        "flops": 4 * 16384 * 4096, "peak_flops": F32_FLOP_PER_S}
-    x = rnd(4, 4096).to(torch.bfloat16)
-    timings["rmsnorm_decode"] = {
-        "shape": [4, 4096], "dtype": "bfloat16",
-        "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
-        "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
-        "library_ms": time_ms(torch, lambda: F.rms_norm(
-            x, (4096,), w, 1e-6)),
-        "bytes": 2 * 4 * 4096 * 2 + 4096 * 2,
-        "flops": 4 * 4 * 4096, "peak_flops": F32_FLOP_PER_S}
-    del x
+    # the launch floor: an empty kernel of one warp on the kernels' ctypes
+    # route, timed as every kernel is; no kernel can take less. Taken here,
+    # beside K7's decode rows, with the card's clocks up
+    timings["launch_floor"] = {"ms": time_ms(
+        torch, lambda: k7.noop("cuda"), iters=50, warmup=10)}
+    for key, rows, d in (("rmsnorm", 16384, 4096),
+                         ("rmsnorm_decode", 4, 4096),
+                         ("rmsnorm_decode_2560", 4, 2560),
+                         ("rmsnorm_decode_5120", 4, 5120)):
+        x = rnd(rows, d).to(torch.bfloat16)
+        w = rnd(d).to(torch.bfloat16)
+        timings[key] = {
+            "shape": [rows, d], "dtype": "bfloat16",
+            "kernel": k7.kernel_for(d, 2, True),
+            "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
+            **{f"{k}_ms": time_ms(torch, lambda k=k: k7.rmsnorm(
+                x, w, kernel=k)) for k in k7.KERNELS},
+            "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
+            "library_ms": time_ms(torch, lambda: F.rms_norm(
+                x, (d,), w, 1e-6)),
+            "bytes": 2 * rows * d * 2 + d * 2,
+            "flops": 4 * rows * d, "peak_flops": F32_FLOP_PER_S}
+    del x, w
     b, s, window = 4, 4096, 2048
     q = rnd(b, 16, s, 256).to(torch.bfloat16)
     k = rnd(b, 1, s, 256).to(torch.bfloat16)
@@ -1004,6 +1022,20 @@ def phase_kernels_lm(torch, seed: int):
         "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
         "flops": 4 * 256 * b * 16 * _band_pairs(s, window),
         "peak_flops": BF16_FLOP_PER_S}
+    # window 0 (causal) beside SDPA's own causal path, which computes K8's
+    # function there without a mask tensor
+    timings["flash_attention_causal"] = {
+        "shape": [b, 16, s, 256], "kv_heads": 1, "window": 0,
+        "dtype": "bfloat16",
+        "ms": time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=0), iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=0), iters=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), iters=10, warmup=2),
+        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
+        "flops": 4 * 256 * b * 16 * _band_pairs(s, 0),
+        "peak_flops": BF16_FLOP_PER_S}
     del q, k, v, ke, ve
     log_a = -F.softplus(rnd(4, 4096, 4096))
     x = rnd(4, 4096, 4096)
@@ -1017,8 +1049,9 @@ def phase_kernels_lm(torch, seed: int):
         "bytes": 3 * log_a.numel() * 4,
         "flops": 3 * log_a.numel(), "peak_flops": F32_FLOP_PER_S}
     del log_a, x
-    for t in timings.values():
-        _bound(t)
+    for key, t in timings.items():
+        if key != "launch_floor":
+            _bound(t)
     emit({"phase": "kernel_times_lm", "ok": True, "timings": timings})
     return worst, timings
 
@@ -1053,6 +1086,7 @@ def phase_serve_recurrentgemma(torch, seed: int):
 
     from repro_torch.configs import recurrentgemma_9b
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models.config import RunConfig
     from repro_torch.models.lm import build_model
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1092,6 +1126,9 @@ def phase_serve_recurrentgemma(torch, seed: int):
                 "flash_attention": 1, "rg_lru": 4}
         got = {k: counts[k] for k in LM_KERNELS}
         check(got == want, f"call {name}: launches {got} != {want}")
+        k7_kernels = dict(k7.variant_launches)
+        check(sum(k7_kernels.values()) == got["rmsnorm"],
+              f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
         check(steps == new - 1, f"call {name}: {steps} decode steps")
         for k in LM_KERNELS:
             main_launches[k] += got[k]
@@ -1104,6 +1141,7 @@ def phase_serve_recurrentgemma(torch, seed: int):
         calls[name] = {
             "prompts": b, "prompt_len": s, "new_tokens": new,
             "decode_steps": steps, "launches": got,
+            "rmsnorm_kernels": k7_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -1222,6 +1260,7 @@ def phase_kernels_ssm(torch, seed: int):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
     from repro_torch.kernels import ssd_scan as k9
     from repro_torch.models.common import rmsnorm as rmsnorm_plain
 
@@ -1305,18 +1344,22 @@ def phase_kernels_ssm(torch, seed: int):
             x = (3.0 * torch.randn(rows, d, generator=gen, device="cuda")).to(
                 dtype)
             w = torch.randn(d, generator=gen, device="cuda").to(dtype)
-            out = ops.rmsnorm(x, w)
             ref = rmsnorm_plain(x, w)
-            torch.cuda.synchronize()
-            if dtype == torch.float32:
-                err = _rel(out, ref)
-                ok = err <= RMS_F32_RTOL
-            else:
-                err = _bf16_ulps(torch, out, ref)
-                ok = err <= RMS_BF16_ULPS
-            cases.append({"kernel": "rmsnorm", "shape": [rows, d],
-                          "dtype": str(dtype)[6:], "err": err})
-            check(ok, f"K7 ({rows}, {d}) {dtype}: {err} beyond tolerance")
+            # the kernel K7's rule picks, then each of its two kernels
+            for kernel in (None,) + k7.KERNELS:
+                out = k7.rmsnorm(x, w, kernel=kernel)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    err = _rel(out, ref)
+                    ok = err <= RMS_F32_RTOL
+                else:
+                    err = _bf16_ulps(torch, out, ref)
+                    ok = err <= RMS_BF16_ULPS
+                cases.append({"kernel": "rmsnorm", "shape": [rows, d],
+                              "dtype": str(dtype)[6:],
+                              "k7_kernel": kernel or "rule", "err": err})
+                check(ok, f"K7 ({rows}, {d}) {dtype} {kernel or 'rule'}: "
+                      f"{err} beyond tolerance")
     emit({"phase": "kernels_ssm", "ok": True, "cases": cases,
           "max_abs_err": worst, "ssd_f32_rtol": SSD_F32_RTOL})
 
@@ -1452,6 +1495,7 @@ def phase_serve_mamba2(torch, seed: int):
 
     from repro_torch.configs import mamba2_2_7b
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models.config import RunConfig
     from repro_torch.models.lm import build_model
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1493,6 +1537,9 @@ def phase_serve_mamba2(torch, seed: int):
                   if k not in SSM_KERNELS and v}
         check(got == want and not others,
               f"call {name}: launches {got} (others {others}) != {want}")
+        k7_kernels = dict(k7.variant_launches)
+        check(sum(k7_kernels.values()) == got["rmsnorm"],
+              f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
         check(steps == new - 1, f"call {name}: {steps} decode steps")
         for k in SSM_KERNELS:
             main_launches[k] += got[k]
@@ -1505,6 +1552,7 @@ def phase_serve_mamba2(torch, seed: int):
         calls[name] = {
             "prompts": b, "prompt_len": s, "new_tokens": new,
             "decode_steps": steps, "launches": got,
+            "rmsnorm_kernels": k7_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -1645,11 +1693,11 @@ def main(argv=None) -> int:
         phase = "kernels_lm"
         worst_lm, timings_lm = phase_kernels_lm(torch, args.seed)
         phase = "serve_recurrentgemma"
-        lm_launches, _ = phase_serve_recurrentgemma(torch, args.seed)
+        lm_launches, lm_calls = phase_serve_recurrentgemma(torch, args.seed)
         phase = "kernels_ssm"
         worst_ssm, timings_ssm = phase_kernels_ssm(torch, args.seed)
         phase = "serve_mamba2"
-        ssm_launches, _ = phase_serve_mamba2(torch, args.seed)
+        ssm_launches, ssm_calls = phase_serve_mamba2(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -1696,6 +1744,10 @@ def main(argv=None) -> int:
     launches["rmsnorm"] += ssm_launches["rmsnorm"]
     for k in ("ssd_scan",) + K9_PARTS:
         launches[k] = ssm_launches[k]
+    k7_variants = {}
+    for c in (*lm_calls.values(), *ssm_calls.values()):
+        for k, n in c["rmsnorm_kernels"].items():
+            k7_variants[k] = k7_variants.get(k, 0) + n
     entries += [
         ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
          timings_lm["rmsnorm"]),
@@ -1709,6 +1761,19 @@ def main(argv=None) -> int:
         ("rg_lru", "rg_lru", "src/repro/kernels/rg_lru.py:52",
          timings_lm["rg_lru"]),
     ]
+    # K7's decode rows and the launches of each of its two kernels, K8 at
+    # window 0 beside SDPA's causal call
+    extras = {
+        "rmsnorm": {
+            "kernel_launches": k7_variants,
+            "decode_ms": {str(timings_lm[k]["shape"][1]): timings_lm[k]["ms"]
+                          for k in ("rmsnorm_decode", "rmsnorm_decode_2560",
+                                    "rmsnorm_decode_5120")}},
+        "flash_attention": {
+            "causal_ms": timings_lm["flash_attention_causal"]["ms"],
+            "causal_library_ms":
+            timings_lm["flash_attention_causal"]["library_ms"]},
+    }
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1716,8 +1781,11 @@ def main(argv=None) -> int:
          "max_abs_err": worst[name], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
          "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+         # no kernel takes less than one launch (an empty kernel's time)
+         "launch_floor_ms": timings_lm["launch_floor"]["ms"],
          # K6 is on no path: its launches are the kernels phase's own
-         "main_path": name != "rk_stage_combine"}
+         "main_path": name != "rk_stage_combine",
+         **extras.get(name, {})}
         for name, src, replaces, t in entries]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,64 +17,96 @@
 // 285 MB of q, k, v and out (0.085 ms at 3.35 TB/s).
 //
 // Design of the bf16 kernel (flash_fwd_bf16):
-//  * one block of 4 warps per (64-query tile, head, batch); each warp owns
-//    16 query rows. Q, K and V tiles of 64 x dh bf16 sit in shared memory
-//    (rows padded by 8 elements: conflict-free fragment loads); at dh =
-//    256 that is 3 x 33 KB, above the 48 KB static limit, so the launch
-//    raises the block's dynamic shared-memory limit
-//    (cudaFuncSetAttribute).
+//  * one block of FA_WARPS = 4 warps per (64-query tile, head, batch);
+//    each warp owns 16 query rows. Q, K and V tiles of 64 x dh bf16 sit in shared memory
+//    (rows padded by 8 elements, so that the eight 16-byte rows an
+//    ldmatrix reads fall in distinct banks); at dh = 256 that is 3 x 33 KB,
+//    above the 48 KB static limit, so the launch raises the block's dynamic
+//    shared-memory limit (cudaFuncSetAttribute): two blocks an SM.
 //  * both products run on the tensor cores through mma.sync m16n8k16
-//    (bf16 in, f32 accumulate), whose register layout is documented: the
-//    S = Q K^T accumulator of a warp is 16 x 64 f32 in 32 registers a
-//    thread, and the O accumulator 16 x dh f32 (128 registers a thread at
-//    dh = 256) stays in registers across the whole kv sweep. Row max and
-//    row sum reduce over the 4 threads of a quad by shuffles; the S
-//    accumulator is re-packed to bf16 in registers as the A operand of
-//    P V (p rounds to bf16 there; scores, max, sum and O stay f32).
-//  * fully masked kv tiles are skipped: the kv loop runs only over tiles
-//    that meet the causal band of the query tile (and the window), which
-//    makes windowed attention O(S * w) like the TPU kernel's pl.when.
-//  * any S: rows and keys past S are zero-filled on load and masked; the
-//    TPU kernel's requirement that S divide by its blocks is gone.
-//  * simple first: synchronous tile loads, no cp.async / TMA / wgmma
-//    pipeline yet (later work).
+//    (bf16 in, f32 accumulate). Their fragments come by ldmatrix: Q's and
+//    K's by ldmatrix.x4, V's by ldmatrix.x4.trans (one instruction for
+//    two 8-column n-tiles). The S = Q K^T accumulator of a warp is 16 x 64
+//    f32 in 32 registers a thread, and the O accumulator 16 x dh f32 (128
+//    registers a thread at dh = 256) stays in registers across the whole
+//    kv sweep. Row max and row sum reduce over the 4 threads of a quad by
+//    shuffles; the S accumulator is re-packed to bf16 in registers as the
+//    A operand of P V (p rounds to bf16 there; scores, max, sum and O stay
+//    f32). Scores are kept in log2 units (scale * log2(e) folded into one
+//    multiply) and exponentiated by exp2f.
+//  * loads overlap the products (cp.async, 16 bytes a copy, in the
+//    FlashAttention-2 order, one buffer each for K and V): V(j) is issued
+//    before S = Q K(j)^T, and K(j + 1) as soon as every warp is done with
+//    K(j), so S hides V's load and the softmax and P V hide K's.
+//  * the kv tiles a query tile visits are classified by one rule
+//    (fa_tiles, the same as kernels/flash_attention.py::kv_tiles): tiles
+//    outside the band are never visited (windowed attention is O(S * w),
+//    like the TPU kernel's pl.when); of the visited tiles, the interior
+//    ones, every key live for every query row of the tile, are neither
+//    masked nor checked. Only the diagonal tile, the window's lower-edge
+//    tile and a tile reaching past S run the mask, before the exp.
+//  * any S: rows and keys past S are zero-filled by the cp.async src-size
+//    operand and masked; the TPU kernel's requirement that S divide by its
+//    blocks is gone.
+// Times on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke and
+// tests/torch_k7_k8_ablations.py, PERF.md section 6) at q (4, 16, 4096,
+// 256), one kv head: window 2048 1.74 ms (3.60 ms before this design; 24%
+// of the 0.417 ms bound), window 0 2.28 ms, where SDPA's causal path takes
+// 0.86 ms. Without the overlapped loads 1.90 ms, with every tile masked
+// 2.13 ms; 128-query tiles (8 warps), 32-key tiles with one or two
+// buffers, and two 64-key buffers were slower. Without the K and V
+// fragment reads from shared memory it would take 1.50 ms: at dh = 256 a
+// 16-row warp must hold O in 128 registers, so each of the four warps
+// reads all of K and V from shared memory for itself (wgmma, which reads
+// them once per warpgroup, is later work).
 // The f32 kernel (flash_fwd_f32) keeps f32 end to end with plain FMAs
 // (the tensor cores would round to TF32): 128 threads per 16-query tile,
-// 8 threads per query row, 32-key tiles in shared memory.
+// 8 threads per query row, 32-key tiles in shared memory, synchronous
+// loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define FA_NEG_INF (-1e30f)
+#define FA_LOG2E 1.4426950408889634f
 
 // ------------------------------------------------------------ bf16, mma
 
-#define FA_BQ 64
+#define FA_WARPS 4
 #define FA_BK 64
-#define FA_THREADS 128
 #define FA_PAD 8
 
-__device__ __forceinline__ void fa_mma(float (&d)[4], uint32_t a0,
-                                       uint32_t a1, uint32_t a2, uint32_t a3,
+__device__ __forceinline__ void fa_mma(float (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t fa_ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lane l giving the
+// address of row l % 8 of matrix l / 8; register i holds matrix i's (row
+// g, columns 2t, 2t + 1), or with .trans its (rows 2t, 2t + 1, column g),
+// as mma.sync's fragments take them
+__device__ __forceinline__ void fa_ldm4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
-// two bf16 from two addresses, the first in the low half
-__device__ __forceinline__ uint32_t fa_pack2(const __nv_bfloat16* lo,
-                                             const __nv_bfloat16* hi) {
-  const uint32_t l = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t h = *reinterpret_cast<const uint16_t*>(hi);
-  return l | (h << 16);
+__device__ __forceinline__ void fa_ldm4t(uint32_t (&r)[4],
+                                         const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 __device__ __forceinline__ uint32_t fa_pack_f32(float lo, float hi) {
@@ -82,21 +114,40 @@ __device__ __forceinline__ uint32_t fa_pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 64 rows of dh bf16 from row0 on into shared memory (row stride LD),
-// rows at or past S as zeros
-template <int HD>
-__device__ __forceinline__ void fa_load_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             int row0, int S) {
+// 16 bytes from device to shared memory without passing through
+// registers (cp.async, L2 only); `bytes` 0 writes 16 zero bytes and reads
+// nothing. Visible to the thread after a wait on its group, to the block
+// after that and a __syncthreads.
+__device__ __forceinline__ void fa_cp16(void* smem, const void* gmem,
+                                        int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void fa_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `n` of the thread's newest groups are in flight
+template <int n>
+__device__ __forceinline__ void fa_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// ROWS rows of dh bf16 from row0 on into shared memory (row stride LD) by
+// cp.async, rows at or past S as zeros
+template <int HD, int ROWS, int NTHREADS>
+__device__ __forceinline__ void fa_cp_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int row0, int S) {
   constexpr int LD = HD + FA_PAD;
   constexpr int VPR = HD / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < 64 * VPR; i += FA_THREADS) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
     const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * HD +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    const bool in = row0 + r < S;
+    fa_cp16(dst + r * LD + c,
+            in ? src + (long long)(row0 + r) * HD + c : src, in ? 16 : 0);
   }
 }
 
@@ -105,24 +156,93 @@ __device__ __forceinline__ bool fa_live(int key, int qpos, int S,
   return key <= qpos && key < S && (window <= 0 || key > qpos - window);
 }
 
+// The kv tiles of bk keys that the query rows [q0, q_last] visit, [lo,
+// hi], and among them the interior ones, [ilo, ihi] (empty when ilo >
+// ihi): every key of an interior tile is live for every one of the rows
+// (at most q0, so before S; above q_last - window). A tile outside [lo,
+// hi] holds no live key. kernels/flash_attention.py::kv_tiles is the same
+// rule, and its tests hold it against the band mask.
+__device__ __forceinline__ void fa_tiles(int q0, int q_last, int window,
+                                         int bk, int& lo, int& hi, int& ilo,
+                                         int& ihi) {
+  hi = q_last / bk;
+  lo = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / bk : 0;
+  ihi = (q0 + 1) / bk - 1;
+  ilo = (window > 0 && q_last - window + 1 > 0)
+            ? (q_last - window + 1 + bk - 1) / bk
+            : 0;
+}
+
+// One kv tile's scores s (log2 units after the scale) into p, the running
+// max and sum of rows g and g + 8 updated, alpha the rescale of O; MASK
+// checks every (query, key) pair, else every pair is live.
+template <bool MASK, int NT>
+__device__ __forceinline__ void fa_softmax(float (&s)[NT][4], float (&m_r)[2],
+                                           float (&l_r)[2], float (&alpha)[2],
+                                           float scale_log2, int k0,
+                                           const int (&qpos)[2], int t, int S,
+                                           int window) {
+  float mx[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = e >> 1;
+      float val = s[nt][e] * scale_log2;
+      if (MASK && !fa_live(k0 + nt * 8 + 2 * t + (e & 1), qpos[rr], S,
+                           window))
+        val = FA_NEG_INF;
+      s[nt][e] = val;
+      mx[rr] = fmaxf(mx[rr], val);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    const float m_new = fmaxf(m_r[rr], mx[rr]);
+    alpha[rr] = exp2f(m_r[rr] - m_new);
+    m_r[rr] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = e >> 1;
+      float p = exp2f(s[nt][e] - m_r[rr]);
+      if (MASK && !fa_live(k0 + nt * 8 + 2 * t + (e & 1), qpos[rr], S,
+                           window))
+        p = 0.f;  // a row with no live key yet has m_r = NEG_INF
+      s[nt][e] = p;
+      sum[rr] += p;
+    }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+    sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+    l_r[rr] = l_r[rr] * alpha[rr] + sum[rr];
+  }
+}
+
 template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_WARPS * 32)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
-                   int window, float scale) {
+                   int window, float scale_log2) {
   extern __shared__ __align__(16) unsigned char fa_smem[];
+  constexpr int BQ = 16 * FA_WARPS, NTHREADS = 32 * FA_WARPS;
   constexpr int LD = HD + FA_PAD;
   constexpr int NT = FA_BK / 8;  // 8-key n-tiles of S
   constexpr int DT = HD / 8;     // 8-column n-tiles of O
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
-  __nv_bfloat16* Ks = Qs + FA_BQ * LD;
+  __nv_bfloat16* Ks = Qs + BQ * LD;
   __nv_bfloat16* Vs = Ks + FA_BK * LD;
 
   const int h = blockIdx.y, bb = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * FA_BQ;
+  const int q0 = blockIdx.x * BQ;
   const long long qoff = ((long long)bb * H + h) * S * (long long)HD;
   const long long kvoff = ((long long)bb * Hkv + hk) * S * (long long)HD;
   const __nv_bfloat16* qg = q + qoff;
@@ -134,14 +254,18 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16;
   const int qpos[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  // ldmatrix addresses: for Q (A) and V (.trans), rows + 8 in blocks 1, 3
+  // and columns + 8 in blocks 2, 3; for K, keys + 8 in blocks 2, 3 and
+  // columns + 8 in blocks 1, 3
+  const int ar = (lane & 7) + (((lane >> 3) & 1) << 3), ac = (lane >> 4) << 3;
+  const int kr = (lane & 7) + ((lane >> 4) << 3), kc = ((lane >> 3) & 1) << 3;
 
-  fa_load_tile<HD>(Qs, qg, q0, S);
+  int lo, hi, ilo, ihi;
+  fa_tiles(q0, min(q0 + BQ, S) - 1, window, FA_BK, lo, hi, ilo, ihi);
 
-  // kv tiles that meet the band of this query tile
-  const int q_last = min(q0 + FA_BQ, S) - 1;
-  const int j_hi = q_last / FA_BK;
-  int j_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) j_lo = (q0 - window + 1) / FA_BK;
+  fa_cp_tile<HD, BQ, NTHREADS>(Qs, qg, q0, S);
+  fa_cp_tile<HD, FA_BK, NTHREADS>(Ks, kg, lo * FA_BK, S);
+  fa_cp_commit();
 
   float acc[DT][4];
 #pragma unroll
@@ -151,12 +275,12 @@ __global__ void __launch_bounds__(FA_THREADS)
   float m_r[2] = {FA_NEG_INF, FA_NEG_INF};
   float l_r[2] = {0.f, 0.f};
 
-  for (int j = j_lo; j <= j_hi; ++j) {
+  for (int j = lo; j <= hi; ++j) {
     const int k0 = j * FA_BK;
-    __syncthreads();  // the previous tile's readers are done
-    fa_load_tile<HD>(Ks, kg, k0, S);
-    fa_load_tile<HD>(Vs, vg, k0, S);
-    __syncthreads();
+    fa_cp_wait<0>();
+    __syncthreads();  // K(j) has landed; every warp is done with V(j - 1)
+    fa_cp_tile<HD, FA_BK, NTHREADS>(Vs, vg, k0, S);
+    fa_cp_commit();
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
     float s[NT][4];
@@ -166,57 +290,29 @@ __global__ void __launch_bounds__(FA_THREADS)
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const __nv_bfloat16* qa = Qs + (r0 + g) * LD + kk * 16 + 2 * t;
-      const uint32_t a0 = fa_ld32(qa), a1 = fa_ld32(qa + 8 * LD);
-      const uint32_t a2 = fa_ld32(qa + 8), a3 = fa_ld32(qa + 8 * LD + 8);
+      uint32_t qa[4];
+      fa_ldm4(qa, Qs + (r0 + ar) * LD + kk * 16 + ac);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kb = Ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        fa_mma(s[nt], a0, a1, a2, a3, fa_ld32(kb), fa_ld32(kb + 8));
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t kb[4];
+        fa_ldm4(kb, Ks + (nt * 8 + kr) * LD + kk * 16 + kc);
+        fa_mma(s[nt], qa, kb[0], kb[1]);
+        fa_mma(s[nt + 1], qa, kb[2], kb[3]);
       }
+    }
+    __syncthreads();  // every warp is done with K(j)
+    if (j < hi) {
+      fa_cp_tile<HD, FA_BK, NTHREADS>(Ks, kg, k0 + FA_BK, S);
+      fa_cp_commit();
     }
 
-    // scale, mask and the tile's row max (rows g and g + 8)
-    float mx[2] = {FA_NEG_INF, FA_NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const float val = fa_live(key, qpos[rr], S, window)
-                              ? s[nt][e] * scale
-                              : FA_NEG_INF;
-        s[nt][e] = val;
-        mx[rr] = fmaxf(mx[rr], val);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m_r[rr], mx[rr]);
-      alpha[rr] = expf(m_r[rr] - m_new);
-      m_r[rr] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const float p = fa_live(key, qpos[rr], S, window)
-                            ? expf(s[nt][e] - m_r[rr])
-                            : 0.f;
-        s[nt][e] = p;
-        sum[rr] += p;
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
-      l_r[rr] = l_r[rr] * alpha[rr] + sum[rr];
-    }
+    float alpha[2];
+    if (j >= ilo && j <= ihi)
+      fa_softmax<false>(s, m_r, l_r, alpha, scale_log2, k0, qpos, t, S,
+                        window);
+    else
+      fa_softmax<true>(s, m_r, l_r, alpha, scale_log2, k0, qpos, t, S,
+                       window);
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
       acc[d][0] *= alpha[0];
@@ -225,19 +321,26 @@ __global__ void __launch_bounds__(FA_THREADS)
       acc[d][3] *= alpha[1];
     }
 
-    // O += P V: the S accumulator of two n-tiles is one A operand
+    if (j < hi)
+      fa_cp_wait<1>();
+    else
+      fa_cp_wait<0>();
+    __syncthreads();  // V(j) has landed
+
+    // O += P V: the S accumulator of two n-tiles is one A operand; V's
+    // fragments for two 8-column tiles of O by one ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < FA_BK / 16; ++kk) {
-      const uint32_t a0 = fa_pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = fa_pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = fa_pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = fa_pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const uint32_t pa[4] = {fa_pack_f32(s[2 * kk][0], s[2 * kk][1]),
+                              fa_pack_f32(s[2 * kk][2], s[2 * kk][3]),
+                              fa_pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              fa_pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const __nv_bfloat16* vb = Vs + (kk * 16 + 2 * t) * LD + d * 8 + g;
-        const uint32_t b0 = fa_pack2(vb, vb + LD);
-        const uint32_t b1 = fa_pack2(vb + 8 * LD, vb + 9 * LD);
-        fa_mma(acc[d], a0, a1, a2, a3, b0, b1);
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t vb[4];
+        fa_ldm4t(vb, Vs + (kk * 16 + ar) * LD + d * 8 + ac);
+        fa_mma(acc[d], pa, vb[0], vb[1]);
+        fa_mma(acc[d + 1], pa, vb[2], vb[3]);
       }
     }
   }
@@ -373,16 +476,17 @@ static cudaError_t fa_launch_bf16(const void* q, const void* k,
                                   const void* v, void* o, int B, int H,
                                   int Hkv, int S, int window, float scale,
                                   cudaStream_t stream) {
-  const int smem = 3 * 64 * (HD + FA_PAD) * 2;
+  constexpr int BQ = 16 * FA_WARPS;
+  const int smem = (BQ + 2 * FA_BK) * (HD + FA_PAD) * 2;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
-  flash_fwd_bf16<HD><<<grid, FA_THREADS, smem, stream>>>(
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_fwd_bf16<HD><<<grid, 32 * FA_WARPS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Hkv, S, window, scale);
+      H, Hkv, S, window, scale * FA_LOG2E);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@ dh), k and v (B, Hkv, S, dh) with H a multiple of Hkv, query i attending
 key j iff j <= i and (window == 0 or j > i - window), output (B, H, S, dh)
 in q's dtype. The CUDA source is ``csrc/flash_attention.cu`` (bf16 on the
 tensor cores, f32 with plain FMAs); it takes any S, and head dims 16, 32,
-64, 128 and 256.
+64, 128 and 256. ``kv_tiles`` is the bf16 kernel's rule for the kv tiles a
+query tile visits and the interior ones among them, which it runs
+without a mask.
 
 ``flash_attention_plain`` is the reference oracle's arithmetic
 (``flash_attention_ref``: ``full_attention`` over expanded KV) with the
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,6 +31,7 @@ from .rmsnorm import forward_only
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BQ, BK = 64, 64         # the bf16 kernel's query and kv tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"flash_attention": 0}
@@ -49,6 +52,24 @@ def band_mask(s: int, window: int, device=None) -> torch.Tensor:
     return m
 
 
+def kv_tiles(q0: int, s: int, window: int, bq: int = BQ,
+             bk: int = BK) -> Tuple[int, int, int, int]:
+    """The kv tiles of ``bk`` keys that the query tile of rows [q0,
+    min(q0 + bq, s) - 1] visits, (lo, hi), inclusive, and the interior
+    ones among them, (ilo, ihi) (none when ilo > ihi), as the bf16 kernel
+    computes them (``csrc/flash_attention.cu``, ``fa_tiles``): every key
+    of an interior tile is live for every row of the query tile, so the
+    kernel skips its mask; a tile outside (lo, hi) holds no live key."""
+    q_last = min(q0 + bq, s) - 1
+    hi = q_last // bk
+    lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 \
+        else 0
+    ihi = (q0 + 1) // bk - 1
+    ilo = -(-(q_last - window + 1) // bk) \
+        if window > 0 and q_last - window + 1 > 0 else 0
+    return lo, hi, ilo, ihi
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, window: int = 0,
                           scale: Optional[float] = None) -> torch.Tensor:
@@ -63,8 +84,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, ve).to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/flash_attention.cu``) with its functions'
+    argument and result types set, once."""
     if not getattr(lib, "_repro_bound", False):
         lib.flash_attention_forward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -76,6 +98,10 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("flash_attention"))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

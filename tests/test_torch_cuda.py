@@ -19,7 +19,11 @@ The serving kernels against their plain versions, as max |difference| /
 max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
 order, rsqrtf) and bf16 within one bf16 ulp of each value; K8 attention
 f32 within 2e-5 (FMA sums in another order) and bf16 within 1e-2 (the
-kernel rounds p to bf16 for the tensor cores); K10 within 1e-5 (the
+kernel rounds p to bf16 for the tensor cores), also for lengths and
+windows that are no multiple of its tiles and every head dim; K7's one-
+and two-pass kernels each at the decode rows and serving widths, at the
+one-pass kernel's widest row and one vector beyond, and with an
+unaligned weight, each launch counted under its kernel; K10 within 1e-5 (the
 chunked walk and the doubling scan multiply in other orders). The SMOKE
 hybrid model generates the same greedy tokens with ``use_pallas`` on the
 card as without, its prefill logits within 1e-4, and the kernels launch
@@ -56,6 +60,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rg_lru as lru
 from repro_torch.kernels import rk_stage
+from repro_torch.kernels import rmsnorm as k7
 from repro_torch.kernels import ssd_scan as k9
 from repro_torch.models.common import rmsnorm as rmsnorm_plain
 from repro_torch.serve import NodeEngineConfig, NodeRequest, NodeServeEngine
@@ -300,6 +305,90 @@ def test_rmsnorm_kernel_matches_its_plain_version(card, rows, d, dtype,
         assert _rel(out, want) <= 2e-6
     else:
         assert _bf16_ulps(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 4096])
+@pytest.mark.parametrize("d", [2560, 4096, 5120])
+@pytest.mark.parametrize("kernel", ["one_pass", "two_pass"])
+def test_rmsnorm_kernels_at_the_serving_widths(card, rows, d, kernel):
+    # the decode rows (1-8) and prefill-like rows at the Mamba-2 and
+    # RecurrentGemma widths, bf16, through each of K7's two kernels
+    g = torch.Generator(device="cpu").manual_seed(rows * d)
+    x = (3 * torch.randn(rows, d, generator=g)).to(torch.bfloat16).to(card)
+    w = torch.randn(d, generator=g).to(torch.bfloat16).to(card)
+    before = ops.launch_counts()["rmsnorm"]
+    ran = k7.variant_launches[kernel]
+    out = k7.rmsnorm(x, w, kernel=kernel)
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert k7.variant_launches[kernel] == ran + 1
+    assert _bf16_ulps(out, want) <= 1.0
+    if kernel == "one_pass":  # the wrapper's own choice at these widths
+        ran = k7.variant_launches["one_pass"]
+        ops.rmsnorm(x, w)
+        assert k7.variant_launches["one_pass"] == ran + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extra,chosen", [(0, "one_pass"), (1, "two_pass")])
+def test_rmsnorm_at_the_one_pass_limit(card, dtype, extra, chosen):
+    # the widest row the one-pass kernel holds, and one vector beyond it
+    size = torch.empty((), dtype=dtype).element_size()
+    d = k7.one_pass_max_d(size) + extra * (16 // size)
+    g = torch.Generator(device="cpu").manual_seed(d)
+    x = (3 * torch.randn(3, d, generator=g)).to(dtype).to(card)
+    w = torch.randn(d, generator=g).to(dtype).to(card)
+    ran = k7.variant_launches[chosen]
+    out = ops.rmsnorm(x, w)
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert k7.variant_launches[chosen] == ran + 1
+    if dtype == torch.float32:
+        assert _rel(out, want) <= 2e-6
+    else:
+        assert _bf16_ulps(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_with_a_misaligned_weight(card, dtype):
+    # w one element into its buffer: not 16-byte aligned, so the two-pass
+    # kernel takes it; the one-pass kernel refuses it
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = (3 * torch.randn(4, 4096, generator=g)).to(dtype).to(card)
+    w = torch.randn(4097, generator=g).to(dtype).to(card)[1:]
+    assert w.data_ptr() % 16 != 0
+    ran = k7.variant_launches["two_pass"]
+    out = ops.rmsnorm(x, w)
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert k7.variant_launches["two_pass"] == ran + 1
+    if dtype == torch.float32:
+        assert _rel(out, want) <= 2e-6
+    else:
+        assert _bf16_ulps(out, want) <= 1.0
+    with pytest.raises(ValueError, match="one-pass"):
+        k7.rmsnorm(x, w, kernel="one_pass")
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 777])
+@pytest.mark.parametrize("window", [0, 1, 7, 63, 100, 1000])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+def test_flash_attention_bf16_tile_classes(card, s, window, dh):
+    # lengths and windows that are no multiple of the 64-key tile, windows
+    # shorter than one tile and longer than S, every head dim, GQA with 2
+    # kv heads: interior, diagonal, window-edge and past-S tiles
+    g = torch.Generator(device="cpu").manual_seed(s * 7 + window + dh)
+    q = torch.randn(2, 4, s, dh, generator=g).to(torch.bfloat16).to(card)
+    k = torch.randn(2, 2, s, dh, generator=g).to(torch.bfloat16).to(card)
+    v = torch.randn(2, 2, s, dh, generator=g).to(torch.bfloat16).to(card)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window)
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, want) <= 1e-2
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh", [(2, 4, 1, 128, 256),

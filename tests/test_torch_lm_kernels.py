@@ -36,6 +36,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rg_lru as lru
+from repro_torch.kernels import rmsnorm as k7
 
 # the oracle's associative scan runs op by op without jit (seconds)
 rg_lru_ref = jax.jit(jref.rg_lru_ref)
@@ -116,6 +117,19 @@ def test_rmsnorm_weight_keeps_its_dtype():
                             jnp.asarray(w.numpy()).astype(jnp.bfloat16))
     assert got.dtype == torch.bfloat16
     assert _max_bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("d,itemsize,aligned,want", [
+    (2560, 2, True, "one_pass"), (4096, 2, True, "one_pass"),
+    (5120, 2, True, "one_pass"), (16384, 2, True, "one_pass"),
+    (16392, 2, True, "two_pass"), (8192, 4, True, "one_pass"),
+    (8196, 4, True, "two_pass"), (64, 4, True, "one_pass"),
+    (100, 2, True, "two_pass"), (4096, 2, False, "two_pass")])
+def test_rmsnorm_kernel_rule(d, itemsize, aligned, want):
+    # K7's one-pass kernel takes aligned rows of whole 16-byte vectors up
+    # to 1024 threads x 2 vectors; the two-pass kernel takes the rest
+    assert k7.one_pass_max_d(itemsize) == 1024 * 2 * (16 // itemsize)
+    assert k7.kernel_for(d, itemsize, aligned) == want
 
 
 # ------------------------------------------------------------------ K8
@@ -238,6 +252,8 @@ def test_wrappers_refuse_bad_inputs():
         ops.rmsnorm(x, torch.ones(4))
     with pytest.raises(ValueError, match="rmsnorm"):
         ops.rmsnorm(x.double(), torch.ones(8))
+    with pytest.raises(ValueError, match="kernel"):
+        k7.rmsnorm(x, torch.ones(8), kernel="three_pass")
     q = torch.zeros(1, 4, 8, 16)
     with pytest.raises(ValueError, match="flash_attention"):
         ops.flash_attention(q, torch.zeros(1, 3, 8, 16),
