@@ -50,6 +50,24 @@
 // the row, and the same number of blocks per row as K1/K2 use for one
 // state of N values covers the row with a grid-stride loop.
 //
+// K3 streams 16-byte vectors whatever N is. Row r of z, of out and of
+// every stage of k starts at one offset modulo 16 bytes exactly when
+// (rows * N) % V == 0 (V the vector width) and the three base pointers
+// are mutually aligned modulo 16 bytes; the wrapper checks that once per
+// call (and allocates out at z's offset). Each row then peels a scalar
+// head up to its first 16-byte boundary and a scalar tail, and streams the
+// rest in vectors, RK_UNROLL a thread and pass, all of a pass's loads
+// (z and every stage read) issued before its arithmetic; its grid covers
+// each row in one pass.
+// Otherwise (for example (3, 4097) in f32, or a z at an offset that k
+// does not share) K3 runs one element per thread per load, as before. K1
+// shares the row code with one vector a pass, its own rule for the vector
+// path and K3's one-pass grid on it (a grid capped at one wave of 8
+// blocks an SM was slower for both); K2, K4, K5 and K6 keep the rule and
+// grid of the first paragraph.
+// K1 and K3 read at most RK_FEW_STAGES stages through kernels that hold
+// only that many stages' loads in registers.
+//
 // Rounding: the accumulation follows the Pallas body exactly
 // (acc = 0; acc = acc + a_j*k_j for ascending j, skipping a_j == 0; then
 // out = z + h*acc), with __fmul_rn/__fadd_rn so that nvcc does not contract
@@ -73,6 +91,12 @@
 #define RK_MAX_STAGES 7
 #define RK_THREADS 256
 #define RK_MAX_ROWS 65535   // gridDim.y
+// K1/K3 with at most this many stages (HeunEuler's, Bogacki-Shampine's
+// first rows) hold fewer loads in registers than with RK_MAX_STAGES
+#define RK_FEW_STAGES 2
+// K3's 16-byte vectors a thread and pass (2 and 4 were slower:
+// tests/torch_k3_k10_ablations.py)
+#define RK_UNROLL 1
 
 struct RkRow {
   float w[RK_MAX_STAGES];
@@ -95,19 +119,44 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// V values of T starting at p, widened to f32 (one 16-byte load if V > 1).
+// The raw bits of one load of V values of T: a 16-byte vector when V > 1.
 template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p,
-                                         float (&x)[V]) {
+struct Pack {
+  using type = uint4;
+};
+template <typename T>
+struct Pack<T, 1> {
+  using type = T;
+};
+
+template <typename T, int V>
+__device__ __forceinline__ typename Pack<T, V>::type load_pack(
+    const T* __restrict__ p) {
   if constexpr (V == 1) {
-    x[0] = to_f32(p[0]);
+    return p[0];
   } else {
     static_assert(sizeof(T) * V == 16, "vector loads are 16 bytes");
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const typename Pack<T, V>::type& raw,
+                                       float (&x)[V]) {
+  if constexpr (V == 1) {
+    x[0] = to_f32(raw);
+  } else {
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int i = 0; i < V; ++i) x[i] = to_f32(e[i]);
   }
+}
+
+// V values of T starting at p, widened to f32 (one 16-byte load if V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         float (&x)[V]) {
+  unpack<T, V>(load_pack<T, V>(p), x);
 }
 
 template <typename T, int V>
@@ -138,38 +187,91 @@ __device__ __forceinline__ void store_f32(float* __restrict__ p,
   }
 }
 
+// Element i of one state row, with the vector loop's arithmetic.
+template <typename T, int NSMAX>
+__device__ __forceinline__ void increment_one(const T* __restrict__ z,
+                                              const T* __restrict__ k,
+                                              long long kstride, float hv,
+                                              T* __restrict__ out, long long i,
+                                              const RkRow& a) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NSMAX; ++j)
+    if (j < a.n && a.w[j] != 0.0f)
+      acc = __fadd_rn(acc, __fmul_rn(a.w[j], to_f32(k[j * kstride + i])));
+  out[i] = from_f32<T>(__fadd_rn(to_f32(z[i]), __fmul_rn(hv, acc)));
+}
+
 // One state row of n values: out = z + h * sum_j a_j k_j, where stage j of
-// the row starts at k + j * kstride. This block's share of the row is the
+// the row starts at k + j * kstride; a.n <= NSMAX stages are read. With
+// V > 1, z, every stage row of k and out must start at one offset modulo
+// 16 bytes (the caller's condition): the row then runs as a scalar head up
+// to z's first 16-byte boundary (at most V - 1 elements), an interior of
+// 16-byte vectors and a scalar tail (at most V - 1), each element with the
+// same arithmetic. In the interior a thread takes U vectors a pass, all
+// their loads issued before any arithmetic; this block's share is the
 // grid-stride loop over gridDim.x blocks.
-template <typename T, int V>
+template <typename T, int V, int U, int NSMAX>
 __device__ __forceinline__ void increment_row(const T* __restrict__ z,
                                               const T* __restrict__ k,
                                               long long kstride, float hv,
                                               T* __restrict__ out,
                                               long long n, const RkRow& a) {
-  const long long units = n / V;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       u < units; u += stride) {
-    const long long off = u * V;
-    float acc[V];
+  using P = typename Pack<T, V>::type;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  long long head = 0;
+  if constexpr (V > 1) {
+    const long long off =
+        (long long)((reinterpret_cast<uintptr_t>(z) / sizeof(T)) % V);
+    head = min((V - off) % V, n);
+  }
+  const long long units = (n - head) / V;
+  const long long tail = head + units * V;
+  if (g < head) increment_one<T, NSMAX>(z, k, kstride, hv, out, g, a);
+  if (g < n - tail)
+    increment_one<T, NSMAX>(z, k, kstride, hv, out, tail + g, a);
+  const T* __restrict__ zi = z + head;
+  const T* __restrict__ ki = k + head;
+  T* __restrict__ oi = out + head;
+  for (long long u0 = g; u0 < units; u0 += threads * U) {
+    P zr[U], kr[NSMAX][U];
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+    for (int q = 0; q < U; ++q) {
+      const long long off = (u0 + q * threads) * V;
+      if (off < units * V) {
+        zr[q] = load_pack<T, V>(zi + off);
 #pragma unroll
-    for (int j = 0; j < RK_MAX_STAGES; ++j) {
-      if (j < a.n && a.w[j] != 0.0f) {
-        float kj[V];
-        load_vec<T, V>(k + (long long)j * kstride + off, kj);
-#pragma unroll
-        for (int i = 0; i < V; ++i)
-          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.w[j], kj[i]));
+        for (int j = 0; j < NSMAX; ++j)
+          if (j < a.n && a.w[j] != 0.0f)
+            kr[j][q] = load_pack<T, V>(ki + j * kstride + off);
       }
     }
-    float zv[V];
-    load_vec<T, V>(z + off, zv);
 #pragma unroll
-    for (int i = 0; i < V; ++i) zv[i] = __fadd_rn(zv[i], __fmul_rn(hv, acc[i]));
-    store_vec<T, V>(out + off, zv);
+    for (int q = 0; q < U; ++q) {
+      const long long off = (u0 + q * threads) * V;
+      if (off < units * V) {
+        float acc[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NSMAX; ++j) {
+          if (j < a.n && a.w[j] != 0.0f) {
+            float kj[V];
+            unpack<T, V>(kr[j][q], kj);
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              acc[i] = __fadd_rn(acc[i], __fmul_rn(a.w[j], kj[i]));
+          }
+        }
+        float zv[V];
+        unpack<T, V>(zr[q], zv);
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          zv[i] = __fadd_rn(zv[i], __fmul_rn(hv, acc[i]));
+        store_vec<T, V>(oi + off, zv);
+      }
+    }
   }
 }
 
@@ -253,13 +355,13 @@ __device__ __forceinline__ void block_sum_to(float sq, float* __restrict__ out) 
 }
 
 // K1: out = z + h * sum_j a_j k_j over k of shape (a.n, n).
-template <typename T, int V>
+template <typename T, int V, int NSMAX>
 __global__ void __launch_bounds__(RK_THREADS)
     rk_stage_increment_kernel(const T* __restrict__ z,
                               const T* __restrict__ k,
                               const float* __restrict__ h,
                               T* __restrict__ out, long long n, RkRow a) {
-  increment_row<T, V>(z, k, n, __ldg(h), out, n, a);
+  increment_row<T, V, 1, NSMAX>(z, k, n, __ldg(h), out, n, a);
 }
 
 // K2: zn, optional err, and one partial norm sum per block.
@@ -289,8 +391,10 @@ __global__ void __launch_bounds__(RK_THREADS)
                                      b, e, 0.0f, 0.0f);
 }
 
-// K3: row r = blockIdx.y of z (rows, n) with k (a.n, rows, n), h (rows,).
-template <typename T, int V>
+// K3: row r = blockIdx.y of z (rows, n) with k (a.n, rows, n), h (rows,);
+// U vectors a thread and pass on the vector path, one element on the
+// scalar path.
+template <typename T, int V, int NSMAX>
 __global__ void __launch_bounds__(RK_THREADS)
     rk_stage_increment_batched_kernel(const T* __restrict__ z,
                                       const T* __restrict__ k,
@@ -298,8 +402,8 @@ __global__ void __launch_bounds__(RK_THREADS)
                                       T* __restrict__ out, long long n,
                                       long long rows, RkRow a) {
   const long long r = blockIdx.y;
-  increment_row<T, V>(z + r * n, k + r * n, rows * n, __ldg(h + r),
-                      out + r * n, n, a);
+  increment_row<T, V, V == 1 ? 1 : RK_UNROLL, NSMAX>(
+      z + r * n, k + r * n, rows * n, __ldg(h + r), out + r * n, n, a);
 }
 
 // K4 (ROWTOL false: rtol, atol by value) and K5 (ROWTOL true: rtol[r],
@@ -328,9 +432,16 @@ template <typename T, int V>
 static void launch_increment(const void* z, const void* k, const void* h,
                              void* out, long long n, const RkRow& a,
                              int n_blocks, cudaStream_t st) {
-  rk_stage_increment_kernel<T, V><<<n_blocks, RK_THREADS, 0, st>>>(
-      static_cast<const T*>(z), static_cast<const T*>(k),
-      static_cast<const float*>(h), static_cast<T*>(out), n, a);
+  const T* zt = static_cast<const T*>(z);
+  const T* kt = static_cast<const T*>(k);
+  const float* hf = static_cast<const float*>(h);
+  T* ot = static_cast<T*>(out);
+  if (a.n <= RK_FEW_STAGES)
+    rk_stage_increment_kernel<T, V, RK_FEW_STAGES>
+        <<<n_blocks, RK_THREADS, 0, st>>>(zt, kt, hf, ot, n, a);
+  else
+    rk_stage_increment_kernel<T, V, RK_MAX_STAGES>
+        <<<n_blocks, RK_THREADS, 0, st>>>(zt, kt, hf, ot, n, a);
 }
 
 template <typename T, int V>
@@ -367,9 +478,16 @@ static void launch_increment_batched(const void* z, const void* k,
                                      long long rows, const RkRow& a,
                                      int n_blocks, cudaStream_t st) {
   const dim3 grid(n_blocks, static_cast<unsigned>(rows));
-  rk_stage_increment_batched_kernel<T, V><<<grid, RK_THREADS, 0, st>>>(
-      static_cast<const T*>(z), static_cast<const T*>(k),
-      static_cast<const float*>(h), static_cast<T*>(out), n, rows, a);
+  const T* zt = static_cast<const T*>(z);
+  const T* kt = static_cast<const T*>(k);
+  const float* hf = static_cast<const float*>(h);
+  T* ot = static_cast<T*>(out);
+  if (a.n <= RK_FEW_STAGES)
+    rk_stage_increment_batched_kernel<T, V, RK_FEW_STAGES>
+        <<<grid, RK_THREADS, 0, st>>>(zt, kt, hf, ot, n, rows, a);
+  else
+    rk_stage_increment_batched_kernel<T, V, RK_MAX_STAGES>
+        <<<grid, RK_THREADS, 0, st>>>(zt, kt, hf, ot, n, rows, a);
 }
 
 template <typename T, int V, bool ROWTOL>
@@ -427,16 +545,19 @@ static int combine_err_batched(const void* z, const void* k, const void* h,
 
 // ---------------------------------------------------------------- C ABI
 // dtype: 0 = float32, 1 = bfloat16. vec: 1 = 16-byte vectors (the caller
-// has checked N % width == 0 and 16-byte alignment), 0 = one element per
-// load. n_blocks: the grid (per row for the batched kernels), chosen by the
-// caller (it sizes `partials`). rows: B of a batched (B, N) state. Each
-// returns cudaGetLastError() after the launch.
+// has checked N % width == 0 and 16-byte alignment; for K3, that rows * N
+// % width == 0 and the pointers share one offset modulo 16 bytes), 0 = one
+// element per load. n_blocks: the grid (per row for the batched kernels),
+// chosen by the caller (it sizes `partials`). rows: B of a batched (B, N)
+// state. Each returns cudaGetLastError() after the launch.
 
 extern "C" int rk_threads_per_block(void) { return RK_THREADS; }
 
 extern "C" int rk_max_stages(void) { return RK_MAX_STAGES; }
 
 extern "C" int rk_max_rows(void) { return RK_MAX_ROWS; }
+
+extern "C" int rk_unroll(void) { return RK_UNROLL; }
 
 extern "C" const char* rk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,14 +2,16 @@
 
 ``rg_lru`` replaces ``repro/kernels/rg_lru.py::rg_lru_pallas``:
 ``h_t = exp(log_a_t) * h_{t-1} + b_t`` over (B, S, C) in f32 from h = 0.
-The CUDA source is ``csrc/rg_lru.cu`` (a chunked scan in three passes,
-sequential inside each chunk). ``rg_lru_plain`` is a log-depth doubling
-scan of (a, b) pairs in f32 — the algorithm of the reference's
-``lax.associative_scan`` (``rg_lru_ref``, and the model's ``rglru_scan``),
-composing ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``; it is also the
-model's plain route. For a tensor on the CPU the wrapper takes it; for a
-CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
-launches (one per call; the call runs three CUDA kernels).
+The CUDA source is ``csrc/rg_lru.cu``: one pass in which a block owns a
+batch row and ``TILE_CHANNELS`` channels and walks all of S in tiles of
+``SEGMENTS`` segments of ``SEGMENT_STEPS`` steps, sequential inside each
+segment, the segments composed as (A, h) pairs. ``rg_lru_plain`` is a
+log-depth doubling scan of (a, b) pairs in f32 — the algorithm of the
+reference's ``lax.associative_scan`` (``rg_lru_ref``, and the model's
+``rglru_scan``), composing ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``;
+it is also the model's plain route. For a tensor on the CPU the wrapper
+takes it; for a CUDA tensor it launches the kernel or raises.
+``launches`` counts kernel launches (one per call).
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 from . import build
 from .rmsnorm import forward_only
 
-CHUNK = 64   # steps per chunk of the card's scan
+# the card's tile (csrc/rg_lru.cu's LRU_CT, LRU_NS, LRU_L): channels a
+# block, segments a tile, steps a segment
+TILE_CHANNELS, SEGMENTS, SEGMENT_STEPS = 32, 8, 16
 
 launches = {"rg_lru": 0}
 
@@ -44,16 +48,30 @@ def rg_lru_plain(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/rg_lru.cu``) with its argument types."""
+    lib.rg_lru_forward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.rg_lru_forward.restype = ctypes.c_int
+    lib.rg_lru_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.rg_lru_tile.restype = None
+    lib.rg_lru_error_string.argtypes = [ctypes.c_int]
+    lib.rg_lru_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("rg_lru")
     if not getattr(lib, "_repro_bound", False):
-        lib.rg_lru_forward.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.rg_lru_forward.restype = ctypes.c_int
-        lib.rg_lru_error_string.argtypes = [ctypes.c_int]
-        lib.rg_lru_error_string.restype = ctypes.c_char_p
+        bind(lib)
+        tile = [ctypes.c_int() for _ in range(3)]
+        lib.rg_lru_tile(*(ctypes.byref(t) for t in tile))
+        if tuple(t.value for t in tile) != (TILE_CHANNELS, SEGMENTS,
+                                            SEGMENT_STEPS):
+            raise RuntimeError(
+                "rg_lru.cu and rg_lru.py disagree on the tile: "
+                f"{tuple(t.value for t in tile)}")
         lib._repro_bound = True
     return lib
 
@@ -85,15 +103,10 @@ def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(la)
     if y.numel() == 0:
         return y
-    n_chunks = -(-s // CHUNK)
-    scratch = torch.empty((3, bsz, n_chunks, c), dtype=torch.float32,
-                          device=log_a.device)
     with torch.cuda.device(log_a.device):
         stream = torch.cuda.current_stream(log_a.device).cuda_stream
-        code = lib.rg_lru_forward(
-            la.data_ptr(), bc.data_ptr(), y.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), scratch[2].data_ptr(), bsz, s, c, CHUNK,
-            stream)
+        code = lib.rg_lru_forward(la.data_ptr(), bc.data_ptr(), y.data_ptr(),
+                                  bsz, s, c, stream)
     if code != 0:
         raise RuntimeError(
             f"rg_lru launch failed: CUDA error {code} "

@@ -46,6 +46,8 @@ THREADS = 256
 MAX_BLOCKS = 132 * 8
 # the batched kernels' rows are the grid's y dimension
 MAX_ROWS = 65535
+# K3's 16-byte vectors a thread and pass (csrc/rk_stage.cu's RK_UNROLL)
+UNROLL = 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_WIDTH = {torch.float32: 4, torch.bfloat16: 8}   # 16-byte vectors
@@ -215,12 +217,14 @@ def _lib() -> ctypes.CDLL:
         lib.rk_threads_per_block.restype = ctypes.c_int
         lib.rk_max_stages.restype = ctypes.c_int
         lib.rk_max_rows.restype = ctypes.c_int
+        lib.rk_unroll.restype = ctypes.c_int
         if (lib.rk_threads_per_block() != THREADS
                 or lib.rk_max_stages() != MAX_STAGES
-                or lib.rk_max_rows() != MAX_ROWS):
+                or lib.rk_max_rows() != MAX_ROWS
+                or lib.rk_unroll() != UNROLL):
             raise RuntimeError(
                 "rk_stage.cu and rk_stage.py disagree on the block size, "
-                "the stage limit or the row limit")
+                "the stage limit, the row limit or K3's unroll")
         lib._repro_bound = True
     return lib
 
@@ -273,6 +277,33 @@ def grid_blocks(n: int, dtype: torch.dtype, vec: bool) -> int:
     return max(1, min(-(-units // THREADS), MAX_BLOCKS))
 
 
+def row_vectorized(rows: int, n: int, dtype: torch.dtype,
+                   *tensors: torch.Tensor) -> bool:
+    """K3's vector path: every row of every tensor starts at one offset
+    modulo 16 bytes, so each row peels the same scalar head."""
+    return (rows * n) % _VEC_WIDTH[dtype] == 0 and len(
+        {t.data_ptr() % 16 for t in tensors}) == 1
+
+
+def increment_blocks(n: int, dtype: torch.dtype, vec: bool) -> int:
+    """K1's grid and K3's blocks per row: one pass of UNROLL vectors a
+    thread over the row on the vector path, ``grid_blocks`` on the scalar
+    path."""
+    if not vec:
+        return grid_blocks(n, dtype, False)
+    return max(1, -(-(n // _VEC_WIDTH[dtype]) // (THREADS * UNROLL)))
+
+
+def empty_at_offset_of(z: torch.Tensor) -> torch.Tensor:
+    """An uninitialized contiguous tensor like ``z`` whose data starts at
+    z's offset modulo 16 bytes (a view into a slightly larger buffer)."""
+    shift = (z.data_ptr() % 16) // z.element_size()
+    if shift == 0:
+        return torch.empty_like(z)
+    buf = torch.empty(z.numel() + shift, dtype=z.dtype, device=z.device)
+    return buf[shift:].view(z.shape)
+
+
 def _h_device(h: torch.Tensor) -> torch.Tensor:
     return h.reshape(()).to(torch.float32).contiguous()
 
@@ -297,7 +328,7 @@ def rk_stage_increment(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         code = lib.rk_stage_increment(
             z.data_ptr(), k.data_ptr(), hd.data_ptr(), out.data_ptr(), n,
             ctypes.byref(_row(a)), _DTYPE_CODE[z.dtype], int(vec),
-            grid_blocks(n, z.dtype, vec), stream)
+            increment_blocks(n, z.dtype, vec), stream)
     _check_launch(lib, code, "rk_stage_increment")
     launches["rk_stage_increment"] += 1
     return out
@@ -422,14 +453,14 @@ def rk_stage_increment_batched(z: torch.Tensor, k: torch.Tensor,
     lib = _lib()
     rows, n = z.shape
     hd = _rows_device(h)
-    out = torch.empty_like(z)
-    vec = _vectorized(n, z.dtype, z, k, out)
+    out = empty_at_offset_of(z)
+    vec = row_vectorized(rows, n, z.dtype, z, k, out)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         code = lib.rk_stage_increment_batched(
             z.data_ptr(), k.data_ptr(), hd.data_ptr(), out.data_ptr(), n,
             rows, ctypes.byref(_row(a)), _DTYPE_CODE[z.dtype], int(vec),
-            grid_blocks(n, z.dtype, vec), stream)
+            increment_blocks(n, z.dtype, vec), stream)
     _check_launch(lib, code, "rk_stage_increment_batched")
     launches["rk_stage_increment_batched"] += 1
     return out

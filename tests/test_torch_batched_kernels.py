@@ -261,3 +261,68 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert set(rk_stage.launches) >= {
         "rk_stage_increment_batched", "rk_stage_combine_err_batched",
         "rk_stage_combine_err_batched_rowtol"}
+
+
+# ------------------------------------------------- K3's row split (card)
+
+
+def _k3_coverage(rows, n, v, lead, blocks, unroll):
+    """How often K3's vector path (``increment_row`` in csrc/rk_stage.cu)
+    touches each element of a (rows, n) state whose first element lies
+    ``lead`` elements past a 16-byte boundary, with ``blocks`` blocks of
+    ``rk_stage.THREADS`` threads per row: the scalar head up to the row's
+    first boundary, ``unroll`` vectors a thread and pass over the
+    interior, the scalar tail."""
+    seen = np.zeros((rows, n), np.int64)
+    threads = blocks * rk_stage.THREADS
+    g = np.arange(threads)
+    for r in range(rows):
+        head = min((v - (lead + r * n) % v) % v, n)
+        units = (n - head) // v
+        tail = head + units * v
+        np.add.at(seen[r], g[g < head], 1)
+        np.add.at(seen[r], tail + g[g < n - tail], 1)
+        for u0 in range(0, max(units, 1), threads * unroll):
+            for q in range(unroll):
+                u = u0 + q * threads + g
+                u = u[u < units]
+                for i in range(v):
+                    np.add.at(seen[r], head + u * v + i, 1)
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_k3_row_split_covers_each_element_once(dtype, rows):
+    """Every element of every row exactly once, for N mod V in 0..V-1 and
+    every start offset the vector path takes, with the wrapper's grid and
+    with one block a row (the grid-stride loop)."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    for n in range(5000, 5000 + v):
+        if (rows * n) % v:
+            continue                # the scalar path
+        for lead in range(v):
+            for blocks in (rk_stage.increment_blocks(n, dtype, True),
+                           1):
+                seen = _k3_coverage(rows, n, v, lead, blocks,
+                                    rk_stage.UNROLL)
+                assert (seen == 1).all(), (n, lead, blocks)
+
+
+def test_k3_path_decision_and_output_offset():
+    """The vector path needs (rows * N) % V == 0 and one offset modulo 16
+    bytes for z, k and out; out is allocated at z's offset."""
+    buf = torch.zeros(8 * 4099 + 3)
+    z = buf[1:1 + 8 * 4098].view(8, 4098)          # 4 bytes past 16
+    kbuf = torch.zeros(2 * 8 * 4098 + 1)
+    k = kbuf[1:].view(2, 8, 4098)
+    out = rk_stage.empty_at_offset_of(z)
+    assert out.shape == z.shape and out.is_contiguous()
+    assert out.data_ptr() % 16 == z.data_ptr() % 16 == 4
+    assert rk_stage.row_vectorized(8, 4098, torch.float32, z, k, out)
+    assert not rk_stage.row_vectorized(8, 4098, torch.float32, z,
+                                       torch.zeros(2, 8, 4098), out)
+    zb = torch.zeros(3, 4098)
+    assert not rk_stage.row_vectorized(3, 4098, torch.float32, zb, zb, zb)
+    assert rk_stage.row_vectorized(3, 4096, torch.float32, zb, zb, zb)
+    assert rk_stage.empty_at_offset_of(zb).data_ptr() % 16 == 0

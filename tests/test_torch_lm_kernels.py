@@ -20,7 +20,13 @@ Tolerances (max |difference| / max |reference|):
   them in f32 and rounds the output once.
 * RG-LRU: 2e-6 against the oracle — both compose the same (a, b) pairs in
   f32 over log2(S) levels of two different trees; 1e-5 against the
-  sequential Pallas walk.
+  sequential Pallas walk. K10's order (segments scanned from 0, composed
+  as (A, h) pairs per tile, the carry across tiles), emulated here in
+  torch: 1e-5 against both; with weak decay (the state carried over the
+  whole sequence) 5 S 2^-24 of max |h|, the bound derived in
+  ``tests/test_torch_cuda.py`` (an error made at a step reaches later
+  steps scaled by decay factors <= 1: under 3 roundings a step on the
+  kernel's side, 2 ulp of exp).
 """
 
 import math
@@ -241,6 +247,70 @@ def test_rg_lru_plain_is_the_sequential_recurrence():
     seq = np.stack(seq, axis=1)
     got = lru.rg_lru_plain(torch.from_numpy(log_a), torch.from_numpy(b))
     assert float(np.abs(got.numpy() - seq).max()) <= 1e-5 * np.abs(seq).max()
+
+
+def _k10_order(log_a, b, segments, steps):
+    """h by K10's order (csrc/rg_lru.cu), in plain torch: per tile of
+    ``segments * steps`` steps, each segment scanned from 0 to its (A,
+    h_end); the tile's carry-in pushed through the segments' pairs in
+    ascending order gives each segment's entering state and the next
+    tile's carry; each segment scanned again from its entering state.
+    Steps past S are the identity step (log_a, b) = (0, 0)."""
+    bsz, s, c = log_a.shape
+    tile = segments * steps
+    sp = -(-s // tile) * tile
+    a = torch.ones(bsz, sp, c)
+    a[:, :s] = torch.exp(log_a)
+    bp = torch.zeros(bsz, sp, c)
+    bp[:, :s] = b
+    y = torch.empty(bsz, sp, c)
+    carry = torch.zeros(bsz, c)
+    for t0 in range(0, sp, tile):
+        at = a[:, t0:t0 + tile].reshape(bsz, segments, steps, c)
+        bt = bp[:, t0:t0 + tile].reshape(bsz, segments, steps, c)
+        big_a = torch.ones(bsz, segments, c)
+        h = torch.zeros(bsz, segments, c)
+        for i in range(steps):
+            h = at[:, :, i] * h + bt[:, :, i]
+            big_a = big_a * at[:, :, i]
+        enter = []
+        for seg in range(segments):
+            enter.append(carry)
+            carry = big_a[:, seg] * carry + h[:, seg]
+        h = torch.stack(enter, dim=1)
+        for i in range(steps):
+            h = at[:, :, i] * h + bt[:, :, i]
+            y[:, t0:t0 + tile].view(bsz, segments, steps, c)[:, :, i] = h
+    return y[:, :s]
+
+
+# (segments, steps) of the kernel's tile and of a wider and a narrower one
+K10_TILES = [(lru.SEGMENTS, lru.SEGMENT_STEPS), (4, 16), (2, 4)]
+WEAK_LOG_A = (-1.3e-2, -1.25e-4)     # Griffin's trained decay, r = 1
+
+
+@pytest.mark.parametrize("segments,steps", K10_TILES)
+@pytest.mark.parametrize("s", [7, 3 * 128 + 5])
+@pytest.mark.parametrize("weak", [False, True])
+def test_rg_lru_kernel_order(segments, steps, s, weak):
+    """K10's composition against the oracle and the sequential Pallas walk
+    at lengths that are no multiple of the tile."""
+    rng = np.random.default_rng(s + 7 * steps + weak)
+    c = 24
+    if weak:
+        log_a = rng.uniform(*WEAK_LOG_A, (2, s, c)).astype(np.float32)
+    else:
+        x = rng.standard_normal((2, s, c)).astype(np.float32)
+        log_a = np.array(-jax.nn.softplus(jnp.asarray(x)))
+    b = rng.standard_normal((2, s, c)).astype(np.float32)
+    got = _k10_order(torch.from_numpy(log_a), torch.from_numpy(b), segments,
+                     steps)
+    want = rg_lru_ref(jnp.asarray(log_a), jnp.asarray(b))
+    pallas = jops.rg_lru(jnp.asarray(log_a), jnp.asarray(b), chunk=s,
+                         c_tile=c)
+    tol = 5 * s * 2.0 ** -24 if weak else 1e-5
+    assert _rel(got, want) <= tol
+    assert _rel(got, pallas) <= tol
 
 
 # ------------------------------------------------------------ wrappers

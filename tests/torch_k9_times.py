@@ -1,7 +1,8 @@
-"""Time K7, K8 or K9 on one NVIDIA card, in one source tree or several.
+"""Time K3, K7, K8, K9 or K10 on one NVIDIA card, in one source tree or
+several.
 
-    python3 tests/torch_k9_times.py [--kernel k7|k8|k9] [--src DIR ...]
-                                    [--rounds N]
+    python3 tests/torch_k9_times.py [--kernel k3|k7|k8|k9|k10]
+                                    [--src DIR ...] [--rounds N]
 
 Each ``--src`` is the ``src`` directory of a checkout (default: this
 one's), for example a ``git archive`` of an earlier commit unpacked into
@@ -21,6 +22,13 @@ B, then B, A, per pair of rounds). Each time is the mean of 10 launches
   (``rmsnorm.noop``) gives the launch floor.
 * ``k8``: flash attention in bf16 at recurrentgemma_9b's prefill, q (4,
   16, 4096, 256), one kv head, window 2048 and 0 (causal).
+* ``k10``: the RG-LRU scan in f32 at recurrentgemma_9b's prefill shapes
+  (4, 4096, 4096) and (2, 1000, 4096) (calls A and B), log_a = -softplus
+  of a normal draw, as ``chip_smoke.py`` draws it.
+* ``k3``: the batched stage increment in f32 with HeunEuler's one stage
+  (every trial) at the serving state (8, 393,218) and the batched block
+  state (8, 393,216), and K1, which shares its row code, with the same
+  stage at the node18 block state N = 3,145,728.
 
 Prints one JSON line per tree and round, then the card's name and power
 limit.
@@ -50,20 +58,18 @@ def time_ms(fn, prep=None) -> float:
 
 
 def load_tree(src: str):
-    """The ``ops``, ``ssd_scan`` and ``rmsnorm`` modules of the port under
-    ``src``, imported afresh (the modules of an earlier tree stay in use by
-    the functions that hold them)."""
+    """The ``ops``, ``ssd_scan``, ``rmsnorm`` and ``rk_stage`` modules of
+    the port under ``src``, imported afresh (the modules of an earlier tree
+    stay in use by the functions that hold them)."""
     for name in list(sys.modules):
         if name == "repro_torch" or name.startswith("repro_torch."):
             del sys.modules[name]
     sys.path.insert(0, src)
     try:
-        ops = importlib.import_module("repro_torch.kernels.ops")
-        k9 = importlib.import_module("repro_torch.kernels.ssd_scan")
-        k7 = importlib.import_module("repro_torch.kernels.rmsnorm")
+        return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
+                     for m in ("ops", "ssd_scan", "rmsnorm", "rk_stage"))
     finally:
         sys.path.remove(src)
-    return ops, k9, k7
 
 
 def inputs(seed: int):
@@ -128,9 +134,52 @@ def time_k8(ops, q, k, v) -> dict:
         for w in K8_WINDOWS}
 
 
+K10_SHAPES = ((4, 4096, 4096), (2, 1000, 4096))
+
+
+def k10_inputs(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(-torch.nn.functional.softplus(torch.randn(
+        *shape, generator=gen, device="cuda")), torch.randn(
+        *shape, generator=gen, device="cuda")) for shape in K10_SHAPES]
+
+
+def time_k10(ops, data) -> dict:
+    return {f"{'x'.join(map(str, la.shape))}_ms": time_ms(
+        lambda la=la, x=x: ops.rg_lru(la, x)) for la, x in data}
+
+
+K3_ROWS, K3_NS, K1_N = 8, (393_218, 393_216), 3_145_728
+HEUN_STAGE = (1.0,)   # HeunEuler's a[1]: the stage of every trial
+
+
+def k3_inputs(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data = []
+    for n in K3_NS:
+        z = torch.randn(K3_ROWS, n, generator=gen, device="cuda")
+        k = torch.randn(1, K3_ROWS, n, generator=gen, device="cuda")
+        data.append((z, k, torch.linspace(0.01, 0.08, K3_ROWS,
+                                          device="cuda")))
+    z = torch.randn(K1_N, generator=gen, device="cuda")
+    k = torch.randn(1, K1_N, generator=gen, device="cuda")
+    return data, (z, k, torch.full((), 0.05, device="cuda"))
+
+
+def time_k3(rk, data) -> dict:
+    rows, solo = data
+    out = {f"k3_{z.shape[0]}x{z.shape[1]}_ms": _time_ms(
+        torch, lambda z=z, k=k, h=h: rk.rk_stage_increment_batched(
+            z, k, h, HEUN_STAGE)) for z, k, h in rows}
+    z, k, h = solo
+    out[f"k1_{z.shape[0]}_ms"] = _time_ms(
+        torch, lambda: rk.rk_stage_increment(z, k, h, HEUN_STAGE))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("k7", "k8", "k9"),
+    parser.add_argument("--kernel", choices=("k3", "k7", "k8", "k9", "k10"),
                         default="k9")
     parser.add_argument("--src", action="append",
                         help="src directory of a tree (repeatable)")
@@ -142,28 +191,40 @@ def main(argv=None) -> int:
         return 2
     srcs = args.src or [str(ROOT / "src")]
     trees = [load_tree(str(Path(s).resolve())) for s in srcs]
+    dtype = "bfloat16"
     if args.kernel == "k9":
         data = inputs(args.seed)
         what = {"shape": list(SHAPE), "state": STATE, "chunk": CHUNK}
     elif args.kernel == "k7":
         data = k7_inputs(args.seed)
         what = {"shapes": [list(s) for s in K7_SHAPES]}
-    else:
+    elif args.kernel == "k8":
         data = k8_inputs(args.seed)
         what = {"shape": list(K8_SHAPE), "kv_heads": 1,
                 "windows": list(K8_WINDOWS)}
+    elif args.kernel == "k10":
+        data, dtype = k10_inputs(args.seed), "float32"
+        what = {"shapes": [list(s) for s in K10_SHAPES]}
+    else:
+        data, dtype = k3_inputs(args.seed), "float32"
+        what = {"rows": K3_ROWS, "ns": list(K3_NS), "k1_n": K1_N,
+                "stage": list(HEUN_STAGE)}
     for r in range(args.rounds):
         order = list(range(len(trees)))
         for i in (order if r % 2 == 0 else order[::-1]):
-            ops, k9, k7 = trees[i]
+            ops, k9, k7, rk = trees[i]
             if args.kernel == "k9":
                 times = time_tree(ops, k9, *data)
             elif args.kernel == "k7":
                 times = time_k7(ops, k7, data)
-            else:
+            elif args.kernel == "k8":
                 times = time_k8(ops, *data)
+            elif args.kernel == "k10":
+                times = time_k10(ops, data)
+            else:
+                times = time_k3(rk, data)
             print(json.dumps({"kernel": args.kernel, "tree": srcs[i],
-                              "round": r, **what, "dtype": "bfloat16",
+                              "round": r, **what, "dtype": dtype,
                               **times}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
