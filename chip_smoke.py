@@ -31,8 +31,12 @@ printing one JSON line (``"phase": ...``):
                       f32 and bf16, HeunEuler and Dopri5 rows: z_next
                       bitwise, per-row norms within a relative tolerance,
                       h = 0 rows bitwise, K5 at K4's tolerance bitwise
-                      K4; times beside the byte bound, the plain version
-                      and ``torch.baddbmm``.
+                      K4; K4's and K5's partials bitwise the plain tile
+                      partials (one per 2048 elements of a row), and one
+                      row's partials, z_next and per-row sum the same bits
+                      at B = 8, 3 and 1 and on views 0-3 elements into
+                      larger buffers; times beside the byte bound, the plain
+                      version and ``torch.baddbmm``, K5 also at B = 1.
 6. ``serve_node18``  — ``NodeServeEngine`` over the node18 block's residual
                       branch at full width: 8 slots, HeunEuler, 16 seeded
                       requests with per-request tolerances and Poisson
@@ -111,9 +115,10 @@ printing one JSON line (``"phase": ...``):
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K7 with its decode times and the launches of
    each of its two kernels over both LM paths, K8 with its window-0 time
-   and SDPA's causal time, K10 with its time at call B's shape, K3 with
-   its time at the batched block's aligned rows), the card's name and
-   power limit,
+   and SDPA's causal time, K10 with its time at call B's shape, K3 and
+   K5 with their times at the batched block's aligned rows, K5 also on
+   one serving row, K4 at the serving row), the card's name and power
+   limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
@@ -602,7 +607,7 @@ def phase_node18(torch, seed: int):
 
 def phase_kernels_batched(torch, seed: int):
     from repro_torch.core.tableaus import DOPRI5, HEUN_EULER
-    from repro_torch.kernels import rk_stage
+    from repro_torch.kernels import ops, rk_stage
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     worst = {"rk_stage_increment_batched": 0.0,
              "rk_stage_combine_err_batched": 0.0,
@@ -618,6 +623,52 @@ def phase_kernels_batched(torch, seed: int):
         check(not bool(bad.any()),
               f"{what}: per-row norms {sq.tolist()} vs plain "
               f"{sq_plain.tolist()}")
+
+    def k4_k5(tab, z, k, sel):
+        """K4's and K5's (z_next, partials), then the per-row sums the
+        solver reads (``ops``: partials.sum(-1))."""
+        args = (z, k, h[sel], tab.b, tab.b_err)
+        return (*rk_stage.rk_stage_combine_err_batched(*args, 1e-2, 1e-2),
+                *rk_stage.rk_stage_combine_err_batched_rowtol(
+                    *args, rt[sel], at[sel]),
+                ops.rk_stage_combine_err_batched(*args, 1e-2, 1e-2)[1],
+                ops.rk_stage_combine_err_batched(*args, rt[sel],
+                                                 at[sel])[1])
+
+    def tile_checks(tab, z, kk, tag):
+        """K4's and K5's partials bitwise the plain tile partials; row 5's
+        partials, z_next and per-row sums the same bits at B = 8, 3 and 1
+        and on views 0-3 elements into larger buffers. Returns the paths
+        taken (vector or not)."""
+        n = z.shape[1]
+        got = k4_k5(tab, z, kk, slice(None))
+        for part, tols in ((got[1], (1e-2, 1e-2)), (got[3], (rt, at))):
+            want = rk_stage.combine_err_batched_tile_partials(
+                z, kk, h, tab.b, tab.b_err, *tols, rk_stage.NORM_TILE)
+            check(tuple(part.shape) == (B, rk_stage.norm_tiles(n))
+                  and torch.equal(part, want),
+                  f"K4/K5 {tab.name} {tag}: partials {tuple(part.shape)} "
+                  "not bitwise the plain tile partials")
+        row = 5
+        want = [x[row] for x in got]
+        paths = set()
+        for lo, hi in ((0, B), (4, 7), (5, 6)):
+            b = hi - lo
+            for shift in range(4):
+                zv = torch.empty(b * n + shift, dtype=z.dtype,
+                                 device="cuda")[shift:].view(b, n)
+                kv = torch.empty(kk.shape[0] * b * n + shift, dtype=z.dtype,
+                                 device="cuda")[shift:].view(
+                                     kk.shape[0], b, n)
+                zv.copy_(z[lo:hi])
+                kv.copy_(kk[:, lo:hi])
+                paths.add(rk_stage.row_vectorized(b, n, z.dtype, zv, kv))
+                got = k4_k5(tab, zv, kv, slice(lo, hi))
+                check(all(torch.equal(g[row - lo], w)
+                          for g, w in zip(got, want)),
+                      f"K4/K5 {tab.name} {tag}: row {row} at B = {b}, "
+                      f"{shift} elements in, not the bits of B = {B}")
+        return sorted(paths)
 
     for n in (ROW_N, SERVE_ROW_N):
         for dtype in (torch.float32, torch.bfloat16):
@@ -681,11 +732,15 @@ def phase_kernels_batched(torch, seed: int):
                       f"K5 {tab.name} {tag}: z_next not bitwise equal "
                       f"(max |diff| {diff})")
                 norms_close(p5, sqp, f"K5 {tab.name} {tag}")
+                paths = tile_checks(tab, z, kk, tag)
             cases.append({"rows": B, "n": n,
                           "dtype": str(dtype).replace("torch.", ""),
                           "k3_rows": len(rows), "bitwise": True,
                           "frozen_row_bitwise": True,
-                          "k5_equal_tol_is_k4": True})
+                          "k5_equal_tol_is_k4": True,
+                          "tile_partials_bitwise": True,
+                          "k4_k5_row_same_bits_at_b_8_3_1_and_offsets_0_3":
+                          True, "k4_k5_vector_path": paths})
     emit({"phase": "kernels_batched", "ok": True, "cases": cases,
           "max_abs_err": worst, "row_norm_rtol": ROW_NORM_RTOL})
 
@@ -715,23 +770,29 @@ def phase_kernels_batched(torch, seed: int):
                 "flops": 2 * B * n * (len(used) + 1),
             }
 
-        def comb_entry(label, tab, row_tol):
-            kk = k[:tab.stages].contiguous()
+        def comb_entry(label, tab, row_tol, rows=B):
+            zz = z[:rows].contiguous()
+            kk = k[:tab.stages, :rows].contiguous()
+            hh = h[:rows].contiguous()
             used = used_rows([tab.b, tab.b_err])
-            tols = (rt, at) if row_tol else (1e-2, 1e-2)
+            tols = (rt[:rows].contiguous(), at[:rows].contiguous()) \
+                if row_tol else (1e-2, 1e-2)
             fn = rk_stage.rk_stage_combine_err_batched_rowtol if row_tol \
                 else rk_stage.rk_stage_combine_err_batched
             timings[f"{label}_{n}"] = {
-                "n": n,
-                "ms": time_ms(torch, lambda: fn(z, kk, h, tab.b, tab.b_err,
+                "n": n, "rows": rows,
+                "ms": time_ms(torch, lambda: fn(zz, kk, hh, tab.b, tab.b_err,
                                                 *tols)),
                 "plain_ms": time_ms(torch, lambda: rk_stage.
                                     combine_err_batched_plain(
-                                        z, kk, h, tab.b, tab.b_err, *tols)),
+                                        zz, kk, hh, tab.b, tab.b_err, *tols)),
                 "library_ms": None,
-                "bytes": 4 * B * n * (len(used) + 2)
-                + 4 * B * (3 if row_tol else 1),
-                "flops": B * n * (4 * len(used) + 12),
+                # z and the used stages read, z_next and the partials
+                # written, h (and K5's tolerances) read
+                "bytes": 4 * rows * n * (len(used) + 2)
+                + 4 * rows * rk_stage.norm_tiles(n)
+                + 4 * rows * (3 if row_tol else 1),
+                "flops": rows * n * (4 * len(used) + 12),
             }
 
         k3_entry("k3_heun_stage", HEUN_EULER.a[1], 1)   # every trial
@@ -741,6 +802,7 @@ def phase_kernels_batched(torch, seed: int):
         comb_entry("k4_dopri5", DOPRI5, False)
         comb_entry("k5_heun", HEUN_EULER, True)
         comb_entry("k5_dopri5", DOPRI5, True)
+        comb_entry("k5_heun_b1", HEUN_EULER, True, rows=1)  # one request
     for t in timings.values():
         t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
                                   t["flops"] / F32_FLOP_PER_S)
@@ -1803,14 +1865,22 @@ def main(argv=None) -> int:
          timings_lm["rg_lru"]),
     ]
     # K7's decode rows and the launches of each of its two kernels, K8 at
-    # window 0 beside SDPA's causal call, K10 at call B's shape, K3 at the
-    # batched block's aligned rows beside the serving row's "ms"
+    # window 0 beside SDPA's causal call, K10 at call B's shape, K3 and K5
+    # at the batched block's aligned rows beside the serving row's "ms"
+    # (K4 the other way round), K5 also on one serving row
     extras = {
         "rg_lru": {
             "call_b_ms": timings_lm["rg_lru_call_b"]["ms"],
             "call_b_bound_ms": timings_lm["rg_lru_call_b"]["bound_ms"]},
         "rk_stage_increment_batched": {
             "aligned_rows_ms": timings_b[f"k3_heun_stage_{ROW_N}"]["ms"]},
+        "rk_stage_combine_err_batched": {
+            "serving_row_ms": timings_b[f"k4_heun_{SERVE_ROW_N}"]["ms"]},
+        "rk_stage_combine_err_batched_rowtol": {
+            "aligned_rows_ms": timings_b[f"k5_heun_{ROW_N}"]["ms"],
+            "one_row_ms": timings_b[f"k5_heun_b1_{SERVE_ROW_N}"]["ms"],
+            "one_row_bound_ms":
+            timings_b[f"k5_heun_b1_{SERVE_ROW_N}"]["bound_ms"]},
         "rmsnorm": {
             "kernel_launches": k7_variants,
             "decode_ms": {str(timings_lm[k]["shape"][1]): timings_lm[k]["ms"]

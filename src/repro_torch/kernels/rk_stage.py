@@ -27,6 +27,13 @@ launches the kernel or raises. ``launches`` counts kernel launches per
 wrapper. The plain versions accumulate in the Pallas body's order (zero
 weights skipped, f32 accumulation, output in z's dtype), which the
 kernels reproduce bit for bit; only the norm's summation order differs.
+K4 and K5 write one norm partial per tile of ``NORM_TILE`` elements of a
+row, as the reference does, each summed in one fixed order by position
+(``combine_err_batched_tile_partials`` adds them the same way): a row's
+partials depend on N and its own values alone, not on B, the other rows,
+where its buffer starts or which path the kernel took; each row of them
+starts 16-byte aligned (``norm_partials``), so their per-row sum does
+not depend on the row's index either.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ MAX_BLOCKS = 132 * 8
 MAX_ROWS = 65535
 # K3's 16-byte vectors a thread and pass (csrc/rk_stage.cu's RK_UNROLL)
 UNROLL = 1
+# K4/K5: elements of a row per norm partial (csrc/rk_stage.cu's RK_TILE,
+# the reference's _BLOCK)
+NORM_TILE = 2048
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_WIDTH = {torch.float32: 4, torch.bfloat16: 8}   # 16-byte vectors
@@ -125,16 +135,8 @@ def increment_batched_plain(z: torch.Tensor, k: torch.Tensor,
     return (z.float() + h.float()[:, None] * acc).to(z.dtype)
 
 
-def combine_err_batched_plain(z: torch.Tensor, k: torch.Tensor,
-                              h: torch.Tensor, b: Sequence[float],
-                              e: Sequence[float], rtol, atol
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(z_next (B, N), (B,) per-row sums of squared scaled errors).
-
-    ``rtol``/``atol`` are floats (K4) or (B,) tensors (K5): a row's
-    tolerance enters its scale exactly as the float does, so a row at
-    tolerance τ gives the bits of the all-τ scalar form.
-    """
+def _combine_batched_f32(z, k, h, b, e, rtol, atol):
+    """(z_next f32 (B, N), the scaled errors err / scale (B, N))."""
     zf = z.float()
     acc = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
     err = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
@@ -152,8 +154,43 @@ def combine_err_batched_plain(z: torch.Tensor, k: torch.Tensor,
     if isinstance(atol, torch.Tensor):
         atol = atol.float()[:, None]
     scale = atol + rtol * torch.maximum(zf.abs(), zn.abs())
-    r = err / scale
+    return zn, err / scale
+
+
+def combine_err_batched_plain(z: torch.Tensor, k: torch.Tensor,
+                              h: torch.Tensor, b: Sequence[float],
+                              e: Sequence[float], rtol, atol
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_next (B, N), (B,) per-row sums of squared scaled errors).
+
+    ``rtol``/``atol`` are floats (K4) or (B,) tensors (K5): a row's
+    tolerance enters its scale exactly as the float does, so a row at
+    tolerance τ gives the bits of the all-τ scalar form.
+    """
+    zn, r = _combine_batched_f32(z, k, h, b, e, rtol, atol)
     return zn.to(z.dtype), torch.sum(r * r, dim=-1)
+
+
+def combine_err_batched_tile_partials(z: torch.Tensor, k: torch.Tensor,
+                                      h: torch.Tensor, b: Sequence[float],
+                                      e: Sequence[float], rtol, atol,
+                                      tile: int) -> torch.Tensor:
+    """K4's and K5's norm partials (B, P), P = ceil(N / tile): the squared
+    scaled errors of each tile of ``tile`` elements of a row (zeros past
+    the row's end), added pairwise by position with the stride halving
+    from tile / 2 to 1, the kernels' order. ``tile`` is a power of two."""
+    if tile < 1 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two; got {tile}")
+    _, r = _combine_batched_f32(z, k, h, b, e, rtol, atol)
+    rows, n = r.shape
+    sq = torch.zeros(rows, max(1, -(-n // tile)) * tile, dtype=torch.float32,
+                     device=r.device)
+    sq[:, :n] = r * r
+    sq = sq.view(rows, -1, tile)
+    while sq.shape[-1] > 1:
+        half = sq.shape[-1] // 2
+        sq = sq[..., :half] + sq[..., half:]
+    return sq[..., 0]
 
 
 # ------------------------------------------------------------------ wrappers
@@ -195,14 +232,14 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_float,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
     "rk_stage_combine_err_batched_rowtol": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.POINTER(_Row), ctypes.POINTER(_Row), ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
 }
 
 
@@ -218,13 +255,16 @@ def _lib() -> ctypes.CDLL:
         lib.rk_max_stages.restype = ctypes.c_int
         lib.rk_max_rows.restype = ctypes.c_int
         lib.rk_unroll.restype = ctypes.c_int
+        lib.rk_norm_tile.restype = ctypes.c_int
         if (lib.rk_threads_per_block() != THREADS
                 or lib.rk_max_stages() != MAX_STAGES
                 or lib.rk_max_rows() != MAX_ROWS
-                or lib.rk_unroll() != UNROLL):
+                or lib.rk_unroll() != UNROLL
+                or lib.rk_norm_tile() != NORM_TILE):
             raise RuntimeError(
                 "rk_stage.cu and rk_stage.py disagree on the block size, "
-                "the stage limit, the row limit or K3's unroll")
+                "the stage limit, the row limit, K3's unroll or K4/K5's "
+                "norm tile")
         lib._repro_bound = True
     return lib
 
@@ -279,8 +319,9 @@ def grid_blocks(n: int, dtype: torch.dtype, vec: bool) -> int:
 
 def row_vectorized(rows: int, n: int, dtype: torch.dtype,
                    *tensors: torch.Tensor) -> bool:
-    """K3's vector path: every row of every tensor starts at one offset
-    modulo 16 bytes, so each row peels the same scalar head."""
+    """The vector path of K3, K4 and K5: row r of every tensor (and of
+    every stage of k) starts at one offset modulo 16 bytes, so it peels
+    the same scalar head."""
     return (rows * n) % _VEC_WIDTH[dtype] == 0 and len(
         {t.data_ptr() % 16 for t in tensors}) == 1
 
@@ -292,6 +333,24 @@ def increment_blocks(n: int, dtype: torch.dtype, vec: bool) -> int:
     if not vec:
         return grid_blocks(n, dtype, False)
     return max(1, -(-(n // _VEC_WIDTH[dtype]) // (THREADS * UNROLL)))
+
+
+def norm_tiles(n: int) -> int:
+    """K4's and K5's norm partials per row: ceil(N / NORM_TILE), one for
+    N = 0."""
+    return max(1, -(-n // NORM_TILE))
+
+
+def norm_partials(rows: int, n: int, device) -> torch.Tensor:
+    """K4's and K5's partials buffer, uninitialized: a (rows, P) f32 view
+    whose rows lie P rounded up to 4 floats apart. Every row then starts
+    16-byte aligned, and torch's per-row sum, whose order follows a row's
+    alignment, adds every row alike: a row's sum does not depend on its
+    index in the batch."""
+    p = norm_tiles(n)
+    buf = torch.empty((rows, -(-p // 4) * 4), dtype=torch.float32,
+                      device=device)
+    return buf[:, :p]
 
 
 def empty_at_offset_of(z: torch.Tensor) -> torch.Tensor:
@@ -489,17 +548,16 @@ def _combine_err_batched(what: str, z, k, h, b, e, rtol, atol, row_tol):
     lib = _lib()
     rows, n = z.shape
     hd = _rows_device(h)
-    zn = torch.empty_like(z)
-    vec = _vectorized(n, z.dtype, z, k, zn)
-    n_blocks = grid_blocks(n, z.dtype, vec)
-    partials = torch.empty((rows, n_blocks), dtype=torch.float32,
-                           device=z.device)
+    zn = empty_at_offset_of(z)
+    vec = row_vectorized(rows, n, z.dtype, z, k, zn)
+    partials = norm_partials(rows, n, z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         common = (z.data_ptr(), k.data_ptr(), hd.data_ptr(), zn.data_ptr(),
                   partials.data_ptr(), n, rows, ctypes.byref(_row(b)),
                   ctypes.byref(_row(e)))
-        tail = (_DTYPE_CODE[z.dtype], int(vec), n_blocks, stream)
+        tail = (_DTYPE_CODE[z.dtype], int(vec), partials.shape[1],
+                partials.stride(0), stream)
         if row_tol:
             rt, at = _rows_device(rtol), _rows_device(atol)
             code = lib.rk_stage_combine_err_batched_rowtol(
@@ -518,8 +576,9 @@ def rk_stage_combine_err_batched(z: torch.Tensor, k: torch.Tensor,
                                  atol: float
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (z_next (B, N), norm partials (B, P) f32) with scalar rtol and
-    atol. Summing a row's partials and dividing by N gives that row's
-    ``error_ratio`` squared."""
+    atol; on the card P = ``norm_tiles(N)``, one partial per tile of
+    ``NORM_TILE`` elements of a row, on the CPU P = 1. Summing a row's
+    partials and dividing by N gives that row's ``error_ratio`` squared."""
     return _combine_err_batched("rk_stage_combine_err_batched", z, k, h, b,
                                 e, float(rtol), float(atol), False)
 

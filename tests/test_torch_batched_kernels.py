@@ -19,6 +19,13 @@ element-wise relative bound would be set by the smallest entries'
 rounding, not by the arithmetic. Inside the port,
 bitwise: an h = 0 row passes through, and K5's form at equal tolerance
 is K4's.
+
+K4's and K5's card layout, one norm partial per tile of 2048 elements of
+a row: the plain tile partials (``combine_err_batched_tile_partials``)
+sum to the plain norm within 1e-6 and match the reference's
+interpret-mode tile partials within 1e-6 (summation order); an emulation
+of the kernels' work split and order gives them bit for bit for every
+head, B and ragged N.
 """
 
 import jax
@@ -326,3 +333,203 @@ def test_k3_path_decision_and_output_offset():
     assert not rk_stage.row_vectorized(3, 4098, torch.float32, zb, zb, zb)
     assert rk_stage.row_vectorized(3, 4096, torch.float32, zb, zb, zb)
     assert rk_stage.empty_at_offset_of(zb).data_ptr() % 16 == 0
+
+
+# ------------------------------------- K4/K5's norm tiles (card layout)
+
+ROW_NORM_RTOL = 1e-6
+TILE_NS = (1003, 4097, 393_218)
+
+
+@pytest.mark.parametrize("tab,dtype,rows,n",
+                         [(t, d, r, n) for t in sorted(TABS)
+                          for d in sorted(DTYPES) for r in (1, 3)
+                          for n in (1003, 4097)])
+def test_tile_partials_sum_to_the_plain_norm(tab, dtype, rows, n):
+    """Each row's tile partials (K4's and K5's layout on the card) add up
+    to the plain version's one-sum norm within ROW_NORM_RTOL (summation
+    order), at the kernels' tile and at a tile of 256 (many tiles a
+    row); P = ceil(N / tile)."""
+    tab = TABS[tab]
+    _, tdt = DTYPES[dtype]
+    z, k, h = _inputs(rows * n + 2, tab.stages, rows, n)
+    zt, kt, ht = torch.from_numpy(z).to(tdt), torch.from_numpy(k).to(tdt), \
+        torch.from_numpy(h)
+    rt = torch.from_numpy(np.geomspace(1e-2, 1e-4, rows).astype(np.float32))
+    for tols in ((RTOL, ATOL), (rt, 0.1 * rt)):
+        _, sq = rk_stage.combine_err_batched_plain(zt, kt, ht, tab.b,
+                                                   tab.b_err, *tols)
+        for tile in (rk_stage.NORM_TILE, 256):
+            part = rk_stage.combine_err_batched_tile_partials(
+                zt, kt, ht, tab.b, tab.b_err, *tols, tile)
+            assert part.dtype == torch.float32
+            assert tuple(part.shape) == (rows, -(-n // tile))
+            assert _rel(part.sum(-1).numpy(), sq.numpy()) <= ROW_NORM_RTOL
+
+
+@pytest.mark.parametrize("tab", sorted(TABS))
+@pytest.mark.parametrize("n", [1003, 4097])
+def test_tile_partials_match_the_reference_tiles(tab, n):
+    """At the kernels' tile (the reference's _BLOCK = 2048) the partials
+    have the reference's (B, n_tiles) shape, and each matches the
+    reference's interpret-mode Pallas tile partial (K4's kernel at scalar
+    tolerances, K5's at (B,) ones) within ROW_NORM_RTOL: the same terms,
+    summed in another order."""
+    tab = TABS[tab]
+    rows = 3
+    z, k, h = _inputs(n + 5, tab.stages, rows, n)
+    zt, kt, ht = (torch.from_numpy(x) for x in (z, k, h))
+    rt = np.geomspace(1e-2, 1e-4, rows).astype(np.float32)
+    at = (rt * 1e-2).astype(np.float32)
+    assert rk_stage.NORM_TILE == 2048
+    forms = [((RTOL, ATOL), (RTOL, ATOL),
+              jrk.rk_stage_combine_err_batched_pallas),
+             ((torch.from_numpy(rt), torch.from_numpy(at)),
+              (jnp.asarray(rt), jnp.asarray(at)),
+              jrk.rk_stage_combine_err_batched_rowtol_pallas)]
+    for tols_t, tols_j, pallas_fn in forms:
+        part = rk_stage.combine_err_batched_tile_partials(
+            zt, kt, ht, tab.b, tab.b_err, *tols_t, rk_stage.NORM_TILE)
+        _, part_pal = pallas_fn(jnp.asarray(z), jnp.asarray(k),
+                                jnp.asarray(h), tab.b, tab.b_err, *tols_j,
+                                interpret=True)
+        part_pal = np.asarray(part_pal)
+        assert part.shape == part_pal.shape == (rows, -(-n // 2048))
+        assert _rel(part.numpy(), part_pal) <= ROW_NORM_RTOL
+
+
+def _tile_writes(length, head, v, unroll, tile, threads):
+    """K4/K5's shared-memory map of one tile (``rk_stage_combine_err_
+    batched_kernel`` in csrc/rk_stage.cu): for each slot of its
+    ``tile + 8`` floats, the element of the tile written there (-2 never
+    written, -1 a zero past the row's end), and how often each slot was
+    written. ``head`` is the scalar head, ``length`` the tile's length."""
+    src = np.full(tile + 8, -2, np.int64)
+    count = np.zeros(tile + 8, np.int64)
+    pad = (v - head) % v
+    units = (length - head) // v
+    tail = head + units * v
+    tid = np.arange(threads)
+
+    def write(slots, elems):
+        np.add.at(count, slots, 1)
+        src[slots] = elems
+
+    q = np.arange(length, tile)
+    write(pad + q, np.full(q.shape, -1))                 # zero fill
+    for u0 in range(0, max(units, 1), threads * unroll):
+        for j in range(unroll):
+            u = u0 + j * threads + tid
+            u = u[u < units]
+            if v > 1:
+                assert ((pad + head + u * v) % 4 == 0).all()   # float4
+            for i in range(v):
+                write(pad + head + u * v + i, head + u * v + i)
+    write(pad + tid[tid < head], tid[tid < head])
+    rest = tid[tid < length - tail]
+    write(pad + tail + rest, tail + rest)
+    return src, count, pad
+
+
+def _emulate_tiles(x, off, v, unroll, tile, threads=rk_stage.THREADS):
+    """A row's partials as the kernel forms them, from its squared scaled
+    errors ``x`` (N,) f32, its first element ``off`` elements past a
+    16-byte boundary, on the vector path of width v (1: the scalar path):
+    the tile split above, then thread i's register tree over slots
+    i + threads * m, warp 0's over i + 32 * m, and the shuffles."""
+    n = x.shape[0]
+    n_tiles = max(1, -(-n // tile))
+    out = np.empty(n_tiles, np.float32)
+    maps = {}
+    for t in range(n_tiles):
+        lo = t * tile
+        length = min(tile, n - lo)
+        head = min((v - (off + lo) % v) % v, length)
+        if (length, head) not in maps:
+            maps[(length, head)] = _tile_writes(length, head, v, unroll,
+                                                tile, threads)
+        src, count, pad = maps[(length, head)]
+        assert (count[pad:pad + tile] == 1).all()
+        assert (src[pad:pad + length] == np.arange(length)).all()
+        slots = np.where(src >= 0, x[lo + np.maximum(src, 0)],
+                         np.float32(0.0)).astype(np.float32)
+        s = slots[pad:pad + tile]
+        val = s.reshape(tile // threads, threads)           # [m, i]
+        while val.shape[0] > 1:
+            w = val.shape[0] // 2
+            val = val[:w] + val[w:]
+        c = val[0].reshape(threads // 32, 32)               # [m, lane]
+        while c.shape[0] > 1:
+            w = c.shape[0] // 2
+            c = c[:w] + c[w:]
+        lanes = c[0]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + np.concatenate([lanes[o:], lanes[32 - o:]])
+        out[t] = lanes[0]
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", TILE_NS)
+def test_k4_k5_tile_split_gives_one_rows_partials_bitwise(dtype, n):
+    """The kernels' work split and order give one row's partials bit for
+    bit the plain tile partials, whatever the row's head (every length 0
+    to V - 1), B (1, 3, 8: its place in the batch, and the vector or
+    scalar path by (B * N) % V) and the vectors a thread and pass (1, 2):
+    each element lands once at its tile position, and the order is by
+    position alone."""
+    _, tdt = DTYPES[dtype]
+    v = 16 // torch.empty((), dtype=tdt).element_size()
+    tile = rk_stage.NORM_TILE
+    z, k, h = _inputs(n, HEUN_EULER.stages, 1, n)
+    zt, kt, ht = torch.from_numpy(z).to(tdt), torch.from_numpy(k).to(tdt), \
+        torch.from_numpy(h)
+    want = rk_stage.combine_err_batched_tile_partials(
+        zt, kt, ht, HEUN_EULER.b, HEUN_EULER.b_err, RTOL, ATOL, tile)[0]
+    _, r = rk_stage._combine_batched_f32(zt, kt, ht, HEUN_EULER.b,
+                                         HEUN_EULER.b_err, RTOL, ATOL)
+    x = (r * r)[0].numpy()
+    want = want.numpy()
+    seen = set()
+    for rows in (1, 3, 8):
+        vec = (rows * n) % v == 0
+        for lead in range(v):
+            for row in range(rows):
+                off = (lead + row * n) % v
+                for unroll in ((1, 2) if vec else (tile // rk_stage.THREADS,)):
+                    key = (off if vec else 0, vec, unroll)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    got = _emulate_tiles(x, off, v if vec else 1, unroll,
+                                         tile)
+                    np.testing.assert_array_equal(got, want, err_msg=str(
+                        (rows, lead, row, unroll)))
+    heads = {(v - o) % v for o, vec, _ in seen if vec}
+    assert heads == set(range(v))
+
+
+def test_tile_partials_pass_an_h0_row_and_refuse_odd_tiles():
+    z, k, h = _inputs(11, DOPRI5.stages, 3, 1003)
+    h[1] = 0.0
+    zt, kt, ht = (torch.from_numpy(x) for x in (z, k, h))
+    part = rk_stage.combine_err_batched_tile_partials(
+        zt, kt, ht, DOPRI5.b, DOPRI5.b_err, RTOL, ATOL, 256)
+    assert part.shape == (3, 4) and bool((part[1] == 0).all())
+    assert bool((part[0] > 0).all())
+    with pytest.raises(ValueError, match="power of two"):
+        rk_stage.combine_err_batched_tile_partials(
+            zt, kt, ht, DOPRI5.b, DOPRI5.b_err, RTOL, ATOL, 1000)
+    assert [rk_stage.norm_tiles(m) for m in (0, 1, 2048, 2049, 393_218)] \
+        == [1, 1, 1, 2, 193]
+
+
+@pytest.mark.parametrize("n,p,stride", [(393_218, 193, 196),
+                                        (393_216, 192, 192), (65, 1, 4)])
+def test_norm_partials_rows_start_16_bytes_apart(n, p, stride):
+    """K4/K5's partials: (B, P) with rows P rounded up to 4 floats apart, so
+    every row starts 16-byte aligned and torch's per-row sum adds each
+    row in the same order whatever its index."""
+    part = rk_stage.norm_partials(3, n, "cpu")
+    assert part.shape == (3, p) and part.stride() == (stride, 1)
+    assert part.dtype == torch.float32

@@ -15,8 +15,14 @@ within rtol 1e-6 (rows of at most 100,003 terms), an h = 0 row bit for
 bit, and K5 at K4's tolerance K4's bits; K3 also on rows that start at
 every offset modulo 16 bytes (its vector path peels a scalar head per
 row), on views one element into larger buffers, and where (rows * N) % V
-!= 0 sends it down the scalar path. TF32 is off, so matmuls run in full
-f32 on both sides.
+!= 0 sends it down the scalar path. K4's and K5's partials are bitwise
+the plain tile partials (``combine_err_batched_tile_partials``: one per
+2048 elements of a row, summed in the kernels' order), and a row's
+partials and z_next are the same bits at B = 1, 3 and 8 and on views 0-3
+elements into larger buffers, at the serving row (8, 393,218) and the
+batched block's (8, 393,216), f32 and bf16; the serving engine gives a
+request alone its bits in a mix on a ragged row too (odd dim). TF32 is
+off, so matmuls run in full f32 on both sides.
 
 The serving kernels against their plain versions, as max |difference| /
 max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
@@ -262,6 +268,81 @@ def test_combine_err_batched_kernels_match_their_plain_version(card, rows,
             assert torch.equal(zn4[1], z[1]) and float(p4[1].sum()) == 0.0
 
 
+TILE_ROWS = [393_218, 393_216]    # the serving row, the batched block's
+
+
+def _k4_k5(z, k, h, rt, at, tab=HEUN_EULER):
+    """K4 at (1e-3, 1e-4) and K5 at (rt, at): (z_next, partials) each,
+    then the per-row sums the solver reads (``ops``: partials.sum(-1))."""
+    args = (z, k, h, tab.b, tab.b_err)
+    return (*rk_stage.rk_stage_combine_err_batched(*args, 1e-3, 1e-4),
+            *rk_stage.rk_stage_combine_err_batched_rowtol(*args, rt, at),
+            ops.rk_stage_combine_err_batched(*args, 1e-3, 1e-4)[1],
+            ops.rk_stage_combine_err_batched(*args, rt, at)[1])
+
+
+@pytest.mark.parametrize("n", TILE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_err_batched_partials_are_the_tile_partials(card, n, dtype):
+    """K4's and K5's partials: ceil(N / 2048) a row, bitwise the plain tile
+    partials; z_next bitwise the plain version's; the h = 0 row passes
+    through with zero partials; K5 at K4's tolerance is K4."""
+    rows = 8
+    z, k, h = _batched_inputs(card, rows, n, dtype, seed=2)
+    rt = torch.logspace(-2, -5, rows).to(card)
+    at = 0.1 * rt
+    for tab in (HEUN_EULER, DOPRI5):
+        kk = k[:tab.stages].contiguous()
+        args = (z, kk, h, tab.b, tab.b_err)
+        zn4, p4, zn5, p5, _, _ = _k4_k5(z, kk, h, rt, at, tab)
+        assert tuple(p4.shape) == (rows, -(-n // 2048)) == (
+            rows, rk_stage.norm_tiles(n))
+        assert p4.stride(0) % 4 == 0 and p4.data_ptr() % 16 == 0
+        for zn, p, tols in ((zn4, p4, (1e-3, 1e-4)), (zn5, p5, (rt, at))):
+            assert torch.equal(p, rk_stage.combine_err_batched_tile_partials(
+                *args, *tols, rk_stage.NORM_TILE))
+            assert torch.equal(zn, rk_stage.combine_err_batched_plain(
+                *args, *tols)[0])
+            assert torch.equal(zn[1], z[1]) and not bool(p[1].any())
+        eq = rk_stage.rk_stage_combine_err_batched_rowtol(
+            *args, torch.full((rows,), 1e-3, device=card),
+            torch.full((rows,), 1e-4, device=card))
+        assert torch.equal(eq[0], zn4) and torch.equal(eq[1], p4)
+
+
+@pytest.mark.parametrize("n", TILE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_err_batched_row_does_not_depend_on_b_or_offset(card, n,
+                                                               dtype):
+    """Row 5's K4/K5 partials and z_next, and the per-row sums the solver
+    reads, are the same bits solved at B = 8, 3 (rows 4-6) and 1, and with
+    z, k (and so z_next) views 0-3 elements into larger buffers, though B
+    and the offset move the row's head and, at N = 393,218, send B = 1
+    down the scalar path."""
+    z, k, h = _batched_inputs(card, 8, n, dtype, seed=3)
+    k = k[:HEUN_EULER.stages].contiguous()
+    rt = torch.logspace(-2, -5, 8).to(card)
+    at = 0.1 * rt
+    row = 5
+    want = [x[row] for x in _k4_k5(z, k, h, rt, at)]
+    paths = set()
+    for lo, hi in ((0, 8), (4, 7), (5, 6)):
+        b = hi - lo
+        for shift in range(4):
+            zv = torch.empty(b * n + shift, dtype=dtype,
+                             device=card)[shift:].view(b, n)
+            kv = torch.empty(k.shape[0] * b * n + shift, dtype=dtype,
+                             device=card)[shift:].view(k.shape[0], b, n)
+            zv.copy_(z[lo:hi])
+            kv.copy_(k[:, lo:hi])
+            paths.add(rk_stage.row_vectorized(b, n, dtype, zv, kv))
+            got = _k4_k5(zv, kv, h[lo:hi], rt[lo:hi], at[lo:hi])
+            assert got[0].data_ptr() % 16 == zv.data_ptr() % 16
+            for g, w in zip(got, want):
+                assert torch.equal(g[row - lo], w), (b, shift)
+    assert paths == ({True, False} if n % 4 else {True})
+
+
 def test_batched_solve_fused_matches_plain_on_the_card(card):
     rng = np.random.default_rng(0)
     w = torch.tensor((rng.standard_normal((64, 64)) * 0.2).astype(
@@ -283,20 +364,20 @@ def test_batched_solve_fused_matches_plain_on_the_card(card):
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-6)
 
 
-def test_node_serve_engine_on_the_card(card):
-    """A small engine run through K3 and K5: every request OK, and one
-    request alone gives its bits in the mix."""
+def _serve_alone_and_in_a_mix(card, dim):
+    """A small engine run through K3 and K5 on rows of dim + 2: every
+    request OK, and one request alone gives its bits in the mix."""
     w = torch.tensor(1.3, device=card)
 
     def field(t, z, ww):
         return torch.tanh(ww * z) - 0.1 * z * torch.sin(t)
 
     rng = np.random.default_rng(3)
-    reqs = [NodeRequest(z0=rng.standard_normal(64).astype(np.float32),
+    reqs = [NodeRequest(z0=rng.standard_normal(dim).astype(np.float32),
                         t1=float(t1), rtol=tol, atol=tol)
             for t1, tol in zip([0.5, 1.0, 1.5, 1.0, 0.5],
                                [1e-3, 1e-4, 1e-3, 1e-5, 1e-4])]
-    eng = NodeServeEngine(field, 64, (w,),
+    eng = NodeServeEngine(field, dim, (w,),
                           NodeEngineConfig(slots=4, use_pallas=True),
                           device=card)
     rk_stage.reset_launches()
@@ -311,6 +392,23 @@ def test_node_serve_engine_on_the_card(card):
     alone = eng.run()[0]
     assert np.array_equal(alone.z_final, res[1].z_final)
     assert alone.n_trials == res[1].n_trials
+
+
+def test_node_serve_engine_on_the_card(card):
+    _serve_alone_and_in_a_mix(card, 64)
+
+
+def test_node_serve_engine_on_a_ragged_row_on_the_card(card):
+    """dim 63: rows of 65, so every slot starts at another offset modulo
+    16 bytes (its own head on the vector path)."""
+    _serve_alone_and_in_a_mix(card, 63)
+
+
+def test_node_serve_engine_on_the_serving_row_on_the_card(card):
+    """node18's width: rows of 393,218, 193 norm partials a row (not a
+    multiple of 4), so a slot's partials would start at another offset
+    modulo 16 bytes but for their padded row stride."""
+    _serve_alone_and_in_a_mix(card, 393_216)
 
 
 # ------------------------------------------------ serving kernels K7/K8/K10

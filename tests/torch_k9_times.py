@@ -1,7 +1,7 @@
-"""Time K3, K7, K8, K9 or K10 on one NVIDIA card, in one source tree or
-several.
+"""Time K3, K4, K5, K7, K8, K9 or K10 on one NVIDIA card, in one source
+tree or several.
 
-    python3 tests/torch_k9_times.py [--kernel k3|k7|k8|k9|k10]
+    python3 tests/torch_k9_times.py [--kernel k3|k4|k5|k7|k8|k9|k10]
                                     [--src DIR ...] [--rounds N]
 
 Each ``--src`` is the ``src`` directory of a checkout (default: this
@@ -29,6 +29,10 @@ B, then B, A, per pair of rounds). Each time is the mean of 10 launches
   (every trial) at the serving state (8, 393,218) and the batched block
   state (8, 393,216), and K1, which shares its row code, with the same
   stage at the node18 block state N = 3,145,728.
+* ``k4``, ``k5``: the batched combine with its norm partials in f32 with
+  HeunEuler's weights at the serving state (8, 393,218) and the batched
+  block state (8, 393,216): K4 at scalar tolerances (1e-2), K5 at (B,)
+  tolerances from 1e-2 to 1e-4.
 
 Prints one JSON line per tree and round, then the card's name and power
 limit.
@@ -177,9 +181,40 @@ def time_k3(rk, data) -> dict:
     return out
 
 
+HEUN_B, HEUN_E = (0.5, 0.5), (-0.5, 0.5)   # HeunEuler's b and b - b_hat
+
+
+def k45_inputs(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data = []
+    for n in K3_NS:
+        z = torch.randn(K3_ROWS, n, generator=gen, device="cuda")
+        k = torch.randn(2, K3_ROWS, n, generator=gen, device="cuda")
+        h = torch.linspace(0.01, 0.08, K3_ROWS, device="cuda")
+        rt = torch.logspace(-2, -4, K3_ROWS, device="cuda")
+        data.append((z, k, h, rt, 0.1 * rt))
+    return data
+
+
+def time_k45(rk, data, kernel: str) -> dict:
+    out = {}
+    for z, k, h, rt, at in data:
+        if kernel == "k4":
+            def fn(z=z, k=k, h=h):
+                return rk.rk_stage_combine_err_batched(
+                    z, k, h, HEUN_B, HEUN_E, 1e-2, 1e-2)
+        else:
+            def fn(z=z, k=k, h=h, rt=rt, at=at):
+                return rk.rk_stage_combine_err_batched_rowtol(
+                    z, k, h, HEUN_B, HEUN_E, rt, at)
+        out[f"{kernel}_{z.shape[0]}x{z.shape[1]}_ms"] = _time_ms(torch, fn)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("k3", "k7", "k8", "k9", "k10"),
+    parser.add_argument("--kernel",
+                        choices=("k3", "k4", "k5", "k7", "k8", "k9", "k10"),
                         default="k9")
     parser.add_argument("--src", action="append",
                         help="src directory of a tree (repeatable)")
@@ -205,10 +240,14 @@ def main(argv=None) -> int:
     elif args.kernel == "k10":
         data, dtype = k10_inputs(args.seed), "float32"
         what = {"shapes": [list(s) for s in K10_SHAPES]}
-    else:
+    elif args.kernel == "k3":
         data, dtype = k3_inputs(args.seed), "float32"
         what = {"rows": K3_ROWS, "ns": list(K3_NS), "k1_n": K1_N,
                 "stage": list(HEUN_STAGE)}
+    else:
+        data, dtype = k45_inputs(args.seed), "float32"
+        what = {"rows": K3_ROWS, "ns": list(K3_NS), "b": list(HEUN_B),
+                "e": list(HEUN_E)}
     for r in range(args.rounds):
         order = list(range(len(trees)))
         for i in (order if r % 2 == 0 else order[::-1]):
@@ -221,8 +260,10 @@ def main(argv=None) -> int:
                 times = time_k8(ops, *data)
             elif args.kernel == "k10":
                 times = time_k10(ops, data)
-            else:
+            elif args.kernel == "k3":
                 times = time_k3(rk, data)
+            else:
+                times = time_k45(rk, data, args.kernel)
             print(json.dumps({"kernel": args.kernel, "tree": srcs[i],
                               "round": r, **what, "dtype": dtype,
                               **times}), flush=True)
