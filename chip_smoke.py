@@ -17,9 +17,13 @@ printing one JSON line (``"phase": ...``):
                       within a relative tolerance; times by CUDA events
                       beside the byte bound. K6 is on no solver path: its
                       launches are this phase's own.
-3. ``toy_gradient`` — paper Fig. 6, the ACA column: dz/dt = kz through
-                      ``odeint(..., use_pallas=True)``, against the
-                      analytic gradient and the reference's step counts.
+3. ``toy_gradient`` — paper Fig. 6, all three columns (aca, adjoint,
+                      naive): dz/dt = kz through
+                      ``repro_torch.benchmarks.toy_gradient`` (Dopri5
+                      1e-5, ``use_pallas=True``), against the analytic
+                      gradient (<= 2 x the reference's error + 1e-6) and
+                      the reference's step counts; the adjoint/ACA error
+                      ratio per (k, T).
 4. ``node18_block`` — one node18_cifar NODE block at full width (d_model
                       768, 12 heads, d_ff 3072, x (8, 512, 768) f32),
                       NODE_TRAIN's solver on the full checkpoint buffer,
@@ -46,6 +50,20 @@ printing one JSON line (``"phase": ...``):
 7. ``node18_batched`` — the node18 block with NodeConfig(batch_axis=0) on x
                       (8, 512, 768): every sample on its own grid, two SGD
                       steps; then fused against plain at the same width.
+7b. ``node18_methods`` — the node18 block at full width (x (8, 512,
+                      768) f32, NODE_TRAIN's HeunEuler 1e-2, full buffer):
+                      one SGD step each of aca, adjoint and naive from the
+                      same weights and input on K1/K2 (equal n_steps, the
+                      adjoint's z(T) bitwise ACA's, the naive's within
+                      NODE_RTOL, finite gradients; step, forward and
+                      backward ms, peak memory, trials, the adjoint's
+                      reverse steps, gradients against ACA's), each against
+                      its plain path; the fixed regime (rk2) with ACA and
+                      naive (gradients within 2e-4); adjoint and naive
+                      under batch_axis=0 on K3/K4; K1/K2 at the adjoint's
+                      augmented state (2 x 3,145,728 + the block's
+                      parameters) and K3/K4 at (8, 2 x 393,216 + the
+                      parameters) against their plain versions, timed.
 8. ``kernels_lm``   — K7 (RMSNorm), K8 (windowed GQA flash attention) and
                       K10 (RG-LRU scan) against their plain versions on the
                       card at the recurrentgemma_9b serving shapes: K7 at
@@ -122,9 +140,11 @@ printing one JSON line (``"phase": ...``):
    and the last line ``{"ok": true, "device": {...}}``.
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
-node18_batched for K3/K4, each serve_recurrentgemma call for K7/K8/K10,
-each serve_mamba2 call for K7/K9) runs with every launch count set to 0
-just before it and read just after.
+node18_batched for K3/K4, node18_methods' solo steps and fixed-regime
+steps for K1/K2 and its batched steps for K3/K4, each
+serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
+K7/K9) runs with every launch count set to 0 just before it and read just
+after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -170,6 +190,36 @@ TOY_REFERENCE = {
     (2.0, 2.0): (1.1e-5, 11, 11, 69), (2.0, 3.0): (1.6e-5, 16, 16, 99),
     (2.0, 4.0): (2.3e-5, 21, 21, 129),
 }
+
+# paper Fig. 6, the adjoint and naive columns: the reference on the CPU,
+# (rel err, n_steps) from benchmarks/bench_toy_gradient.grad_rel_error and
+# its forward solve (tests/torch_toy_reference.py prints this table)
+TOY_REFERENCE_METHODS = {
+    ('adjoint', -2.0, 0.5): (5.24e-06, 4),
+    ('adjoint', -2.0, 1.0): (3.71e-05, 6),
+    ('adjoint', -2.0, 2.0): (4.32e-04, 10),
+    ('adjoint', -2.0, 3.0): (4.37e-03, 13),
+    ('adjoint', -2.0, 4.0): (5.18e-02, 15),
+    ('adjoint', 2.0, 0.5): (1.26e-06, 4),
+    ('adjoint', 2.0, 1.0): (2.69e-06, 6),
+    ('adjoint', 2.0, 2.0): (7.65e-06, 11),
+    ('adjoint', 2.0, 3.0): (1.16e-05, 16),
+    ('adjoint', 2.0, 4.0): (1.77e-05, 21),
+    ('naive', -2.0, 0.5): (4.13e-06, 4),
+    ('naive', -2.0, 1.0): (1.49e-05, 6),
+    ('naive', -2.0, 2.0): (5.54e-05, 10),
+    ('naive', -2.0, 3.0): (8.93e-05, 13),
+    ('naive', -2.0, 4.0): (6.66e-04, 15),
+    ('naive', 2.0, 0.5): (1.86e-06, 4),
+    ('naive', 2.0, 1.0): (4.00e-06, 6),
+    ('naive', 2.0, 2.0): (1.01e-05, 11),
+    ('naive', 2.0, 3.0): (1.53e-05, 16),
+    ('naive', 2.0, 4.0): (2.18e-05, 21),
+}
+# ACA against naive on one fixed grid, as max |dg| / max |g| per
+# parameter: tests/test_odeint_grad.py's
+# test_aca_equals_naive_discretize_then_optimize rtol
+FIXED_ACA_NAIVE_RTOL = 2e-4
 
 # K2's err is the plain version's arithmetic in the same order (expected
 # bitwise); its norm is summed per block then over blocks, the plain
@@ -472,32 +522,39 @@ def phase_kernels(torch, seed: int):
 
 
 def phase_toy_gradient(torch):
-    from repro_torch.core import odeint
+    from repro_torch.benchmarks.toy_gradient import toy_case
     from repro_torch.kernels import ops, rk_stage
-    z0v = 1.5
     rows = []
     ops.reset_launches()
     for (k, t_end), (ref_err, ref_steps, ref_trials, ref_nfe) in \
             TOY_REFERENCE.items():
-        z0 = torch.tensor(z0v, device="cuda", requires_grad=True)
-        kk = torch.tensor(k, device="cuda")
-        ys, st = odeint(lambda t, z, c: c * z, z0, [0.0, t_end], (kk,),
-                        solver="dopri5", grad_method="aca", rtol=1e-5,
-                        atol=1e-5, max_steps=512, use_pallas=True)
-        (ys[-1] ** 2).sum().backward()
-        analytic = 2 * z0v * math.exp(2 * k * t_end)
-        err = abs(float(z0.grad) - analytic) / abs(analytic)
-        row = {"k": k, "T": t_end, "rel_err": err, "ref_rel_err": ref_err,
-               "n_steps": int(st.n_steps), "n_trials": int(st.n_trials),
-               "nfe": int(st.nfe)}
-        rows.append(row)
-        check((row["n_steps"], row["n_trials"], row["nfe"])
-              == (ref_steps, ref_trials, ref_nfe),
-              f"toy k={k} T={t_end}: (n_steps, n_trials, nfe) "
-              f"{(row['n_steps'], row['n_trials'], row['nfe'])} != "
-              f"reference {(ref_steps, ref_trials, ref_nfe)}")
-        check(err <= 2 * ref_err + 1e-6,
-              f"toy k={k} T={t_end}: rel err {err} > 2 x {ref_err} + 1e-6")
+        errs = {}
+        for method in ("aca", "adjoint", "naive"):
+            err, st = toy_case(method, k, t_end, device="cuda",
+                               use_pallas=True)
+            if method != "aca":
+                ref_err, ref_steps = TOY_REFERENCE_METHODS[
+                    (method, k, t_end)]
+            row = {"method": method, "k": k, "T": t_end, "rel_err": err,
+                   "ref_rel_err": ref_err, "n_steps": int(st.n_steps),
+                   "n_trials": int(st.n_trials), "nfe": int(st.nfe)}
+            rows.append(row)
+            errs[method] = err
+            got = (row["n_steps"], row["n_trials"], row["nfe"])
+            if method == "aca":
+                check(got == (ref_steps, ref_trials, ref_nfe),
+                      f"toy aca k={k} T={t_end}: (n_steps, n_trials, nfe) "
+                      f"{got} != reference {(ref_steps, ref_trials, ref_nfe)}")
+            else:
+                check(row["n_steps"] == ref_steps,
+                      f"toy {method} k={k} T={t_end}: n_steps "
+                      f"{row['n_steps']} != reference {ref_steps}")
+            check(err <= 2 * ref_err + 1e-6,
+                  f"toy {method} k={k} T={t_end}: rel err {err} > 2 x "
+                  f"{ref_err} + 1e-6")
+        emit({"phase": "toy_gradient_ratio", "k": k, "T": t_end,
+              "adjoint_over_aca": errs["adjoint"] / max(errs["aca"], 1e-12),
+              "rel_err": errs})
     launches = {k: rk_stage.launches[k] for k in K1_K2}
     check(all(v > 0 for v in launches.values()),
           f"toy solves did not launch K1 and K2: {launches}")
@@ -941,6 +998,308 @@ def phase_node18_batched(torch, seed: int):
                                batch_axis=0)
     return _node18_train(torch, seed, ncfg, 2, BATCHED_KERNELS,
                          "node18_batched")
+
+
+def _aug_kernel_checks(torch, seed: int, n_aug: int, row_aug: int):
+    """K1/K2 at the solo adjoint's augmented state (n_aug,) and K3/K4 at
+    the batched adjoint's (8, row_aug), HeunEuler's rows, f32: outputs
+    bitwise their plain versions, norm sums within NORM_RTOL /
+    ROW_NORM_RTOL; times beside the byte bound and the plain version.
+    These launches compare, they are not a path's: the caller resets the
+    counts after."""
+    from repro_torch.core.tableaus import HEUN_EULER as tab
+    from repro_torch.kernels import rk_stage
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    worst, times = {}, {}
+    a1, b = tab.a[1], tab.b
+
+    def keep(name, diff):
+        worst[name] = max(worst.get(name, 0.0), diff)
+
+    def timing(label, fn, plain, nbytes, flops):
+        t = {"ms": time_ms(torch, fn, iters=10), "plain_ms":
+             time_ms(torch, plain, iters=10), "bytes": nbytes,
+             "flops": flops, "peak_flops": F32_FLOP_PER_S}
+        _bound(t)
+        times[label] = t
+
+    z = torch.randn(n_aug, generator=gen, device="cuda")
+    k = torch.randn(2, n_aug, generator=gen, device="cuda")
+    h = torch.full((), 0.0375, device="cuda")
+    for i, w in ((1, a1), (2, b)):
+        kk = k[:i].contiguous()
+        out = rk_stage.rk_stage_increment(z, kk, h, w)
+        ref = rk_stage.increment_plain(z, kk, h, w)
+        torch.cuda.synchronize()
+        keep("rk_stage_increment", float((out - ref).abs().max()))
+        check(torch.equal(out, ref), f"K1 at N = {n_aug}: not bitwise")
+    zn, _, part = rk_stage.rk_stage_combine_err(
+        z, k, h, b, tab.b_err, 1e-2, 1e-2, with_err=False)
+    zn_p, _, sq_p = rk_stage.combine_err_plain(z, k, h, b, tab.b_err, 1e-2,
+                                               1e-2, False)
+    torch.cuda.synchronize()
+    keep("rk_stage_combine_err", float((zn - zn_p).abs().max()))
+    check(torch.equal(zn, zn_p), f"K2 at N = {n_aug}: z_next not bitwise")
+    sq, sqp = float(part.sum()), float(sq_p.sum())
+    check(abs(sq - sqp) <= NORM_RTOL * abs(sqp),
+          f"K2 at N = {n_aug}: norm {sq} vs {sqp}")
+    k1 = k[:1].contiguous()
+    timing("k1", lambda: rk_stage.rk_stage_increment(z, k1, h, a1),
+           lambda: rk_stage.increment_plain(z, k1, h, a1),
+           4 * n_aug * 3 + 4, 2 * n_aug * 2)
+    timing("k2", lambda: rk_stage.rk_stage_combine_err(
+        z, k, h, b, tab.b_err, 1e-2, 1e-2, with_err=False),
+        lambda: rk_stage.combine_err_plain(z, k, h, b, tab.b_err, 1e-2,
+                                           1e-2, False),
+        4 * n_aug * 4 + 4, n_aug * (4 * 2 + 12))
+    del z, k
+
+    B = BATCH_ROWS
+    z = torch.randn(B, row_aug, generator=gen, device="cuda")
+    k = torch.randn(2, B, row_aug, generator=gen, device="cuda")
+    hb = torch.linspace(0.01, 0.08, B, device="cuda")
+    for i, w in ((1, a1), (2, b)):
+        kk = k[:i].contiguous()
+        out = rk_stage.rk_stage_increment_batched(z, kk, hb, w)
+        ref = rk_stage.increment_batched_plain(z, kk, hb, w)
+        torch.cuda.synchronize()
+        keep("rk_stage_increment_batched", float((out - ref).abs().max()))
+        check(torch.equal(out, ref), f"K3 at ({B}, {row_aug}): not bitwise")
+    zn, part = rk_stage.rk_stage_combine_err_batched(z, k, hb, b, tab.b_err,
+                                                     1e-2, 1e-2)
+    zn_p, sq_p = rk_stage.combine_err_batched_plain(z, k, hb, b, tab.b_err,
+                                                    1e-2, 1e-2)
+    torch.cuda.synchronize()
+    keep("rk_stage_combine_err_batched", float((zn - zn_p).abs().max()))
+    check(torch.equal(zn, zn_p), f"K4 at ({B}, {row_aug}): z_next not "
+          "bitwise")
+    sq, sqp = part.sum(dim=-1), sq_p.reshape(-1)
+    check(bool(((sq - sqp).abs() <= ROW_NORM_RTOL * sqp.abs()).all()),
+          f"K4 at ({B}, {row_aug}): per-row norms {sq.tolist()} vs "
+          f"{sqp.tolist()}")
+    k1 = k[:1].contiguous()
+    n = B * row_aug
+    timing("k3", lambda: rk_stage.rk_stage_increment_batched(z, k1, hb, a1),
+           lambda: rk_stage.increment_batched_plain(z, k1, hb, a1),
+           4 * n * 3 + 4 * B, 2 * n * 2)
+    timing("k4", lambda: rk_stage.rk_stage_combine_err_batched(
+        z, k, hb, b, tab.b_err, 1e-2, 1e-2),
+        lambda: rk_stage.combine_err_batched_plain(z, k, hb, b, tab.b_err,
+                                                   1e-2, 1e-2),
+        4 * n * 4 + 4 * B, n * (4 * 2 + 12))
+    return worst, times
+
+
+def phase_node18_methods(torch, seed: int):
+    """The paper's three gradient methods on one node18 block at full
+    width: one SGD step each from the same weights and input (the main
+    path, solo, kernels K1/K2), each against its plain path; the fixed
+    regime (rk2) with ACA and naive; adjoint and naive under
+    batch_axis=0 (K3/K4); K1-K4 at the adjoint's augmented shapes."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.kernels import ops, rk_stage
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import (TransformerBlock, full_buffer,
+                                                node_block)
+
+    adjoint_mod = importlib.import_module("repro_torch.core.odeint_adjoint")
+    base = full_buffer(node18_cifar.NODE_TRAIN)
+    rcfg = RunConfig(compute_dtype=torch.float32, node=base)
+    block = TransformerBlock(node18_cifar.CONFIG, rcfg, seed=seed,
+                             device="cuda")
+    init = {n: p.detach().clone() for n, p in block.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        NODE18_SHAPE).astype(np.float32)).cuda()
+    n_params = sum(p.numel() for p in block.parameters())
+    opt = torch.optim.SGD(block.parameters(), lr=1e-2)
+
+    # the adjoint's reverse segments: each engine call's stats, read
+    # around the backward (instrumentation; the solver is unchanged)
+    engine_stats = []
+
+    def recording(engine):
+        def wrapped(*a, **kw):
+            out = engine(*a, **kw)
+            engine_stats.append(out[2])
+            return out
+        return wrapped
+
+    for name in ("adaptive_while_solve", "batched_adaptive_while_solve"):
+        setattr(adjoint_mod, name, recording(getattr(adjoint_mod, name)))
+
+    def sgd_step(ncfg):
+        """One SGD step from the initial weights: z(T), stats, gradients,
+        times, peak memory, the reverse solve's segments."""
+        with torch.no_grad():
+            for n, p in block.named_parameters():
+                p.copy_(init[n])
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        zT, st = node_block(block, x, ncfg)
+        loss = torch.mean(zT ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_before = len(engine_stats)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        reverse = engine_stats[n_before:]
+        grads = {n: p.grad.detach().clone()
+                 for n, p in block.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return {"zT": zT.detach(), "st": st, "grads": grads,
+                "forward_ms": 1e3 * (t1 - t0),
+                "backward_ms": 1e3 * (t2 - t1),
+                "step_ms": 1e3 * (t3 - t0),
+                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_above_start_GB":
+                (torch.cuda.max_memory_allocated() - base_mem) / 1e9,
+                "reverse_steps": [s.n_steps.tolist() for s in reverse],
+                "reverse_trials": [s.n_trials.tolist() for s in reverse]}
+
+    def summary(r):
+        st = r["st"]
+        return {k: r[k] for k in ("forward_ms", "backward_ms", "step_ms",
+                                  "peak_mem_GB", "peak_above_start_GB",
+                                  "reverse_steps", "reverse_trials")} | {
+            "n_steps": st.n_steps.tolist(), "n_trials": st.n_trials.tolist(),
+            "nfe": st.nfe.tolist(), "status": st.status.tolist()}
+
+    def grad_rel(ra, rb):
+        return {n: _rel(ra["grads"][n], rb["grads"][n]) for n in rb["grads"]}
+
+    def finite(r):
+        return bool(torch.isfinite(r["zT"]).all()) and all(
+            bool(torch.isfinite(g).all()) for g in r["grads"].values())
+
+    methods = ("aca", "adjoint", "naive")
+    # a first step of each method grows the caching allocator to the
+    # method's peak (the naive's tape needs GBs more than ACA's): timed
+    # apart, as a training run's first step is
+    first_ms = {m: sgd_step(dataclasses.replace(base, grad_method=m))[
+        "step_ms"] for m in methods}
+    # the main path: one step of each method on the kernels
+    fused = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for m in methods:
+        before = dict(rk_stage.launches)
+        fused[m] = sgd_step(dataclasses.replace(base, grad_method=m))
+        fused[m]["launches"] = {k: rk_stage.launches[k] - before[k]
+                                for k in K1_K2}
+        emit({"phase": "node18_methods_step", "method": m,
+              **summary(fused[m]), "launches": fused[m]["launches"]})
+    launches = dict(rk_stage.launches)
+    check(all(launches[k] > 0 for k in K1_K2),
+          f"node18_methods did not launch K1 and K2: {launches}")
+    for m in methods:
+        check(finite(fused[m]), f"node18_methods {m}: non-finite z(T) or "
+              "gradients")
+        check(fused[m]["st"].status.tolist() == 0,
+              f"node18_methods {m}: status {fused[m]['st'].status.tolist()}")
+    steps = {m: fused[m]["st"].n_steps.tolist() for m in methods}
+    check(len(set(steps.values())) == 1,
+          f"node18_methods: n_steps differ across methods {steps}")
+    check(torch.equal(fused["adjoint"]["zT"], fused["aca"]["zT"]),
+          "node18_methods: the adjoint's z(T) is not ACA's bit for bit")
+    naive_z = _rel(fused["naive"]["zT"], fused["aca"]["zT"])
+    check(naive_z <= NODE_RTOL,
+          f"node18_methods: naive z(T) {naive_z} from ACA's > {NODE_RTOL}")
+
+    # each method on the plain path against its fused step
+    plain_rel = {}
+    for m in methods:
+        r = sgd_step(dataclasses.replace(base, grad_method=m,
+                                         use_pallas=False))
+        check(r["st"].n_steps.tolist() == steps[m],
+              f"node18_methods {m}: plain n_steps "
+              f"{r['st'].n_steps.tolist()} != fused {steps[m]}")
+        rel = {"z1": _rel(fused[m]["zT"], r["zT"]),
+               **grad_rel(fused[m], r)}
+        plain_rel[m] = rel
+        bad = {k: v for k, v in rel.items() if not v <= NODE_RTOL}
+        check(finite(r) and not bad,
+              f"node18_methods {m}: fused vs plain beyond {NODE_RTOL}: "
+              f"{bad}")
+        del r
+
+    # the fixed regime: ACA and naive differentiate one discrete solution
+    fixed, fixed_launches = {}, {}
+    ops.reset_launches()
+    for m in ("aca", "naive"):
+        fixed[m] = sgd_step(dataclasses.replace(base, grad_method=m,
+                                                regime="fixed"))
+        check(finite(fixed[m]), f"node18_methods fixed {m}: non-finite")
+    fixed_launches = {k: rk_stage.launches[k] for k in K1_K2}
+    check(fixed_launches["rk_stage_increment"] > 0,
+          f"the fixed regime did not launch K1: {fixed_launches}")
+    fixed_rel = grad_rel(fixed["naive"], fixed["aca"])
+    fixed_z = _rel(fixed["naive"]["zT"], fixed["aca"]["zT"])
+    bad = {k: v for k, v in fixed_rel.items()
+           if not v <= FIXED_ACA_NAIVE_RTOL}
+    check(not bad, f"node18_methods fixed: ACA vs naive gradients beyond "
+          f"{FIXED_ACA_NAIVE_RTOL}: {bad}")
+
+    # batch_axis=0: the adjoint and naive methods per row on K3/K4
+    batched = {}
+    ops.reset_launches()
+    for m in ("adjoint", "naive"):
+        batched[m] = sgd_step(dataclasses.replace(base, grad_method=m,
+                                                  batch_axis=0))
+        check(finite(batched[m]), f"node18_methods batched {m}: non-finite")
+        check(not any(batched[m]["st"].status.tolist()),
+              f"node18_methods batched {m}: status "
+              f"{batched[m]['st'].status.tolist()}")
+    batched_launches = {k: rk_stage.launches[k] for k in BATCHED_KERNELS}
+    check(all(v > 0 for v in batched_launches.values()),
+          f"the batched methods did not launch K3 and K4: "
+          f"{batched_launches}")
+    batched_rel = grad_rel(batched["naive"], batched["adjoint"])
+
+    n_aug = 2 * x.numel() + n_params
+    row_aug = 2 * ROW_N + n_params
+    worst, aug_times = _aug_kernel_checks(torch, seed, n_aug, row_aug)
+    ops.reset_launches()
+
+    emit({"phase": "node18_methods", "ok": True,
+          "shape": list(NODE18_SHAPE), "n_params": n_params,
+          "solver": base.solver, "rtol": base.rtol, "atol": base.atol,
+          "methods": {m: summary(fused[m]) for m in methods},
+          "first_step_ms": first_ms,
+          "launches": {m: fused[m]["launches"] for m in methods},
+          "naive_z1_vs_aca": naive_z,
+          "naive_z1_bitwise_aca": torch.equal(fused["naive"]["zT"],
+                                              fused["aca"]["zT"]),
+          "grad_rel_vs_aca": {m: grad_rel(fused[m], fused["aca"])
+                              for m in ("adjoint", "naive")},
+          "fused_vs_plain": {"max_rel": plain_rel, "rtol": NODE_RTOL},
+          "fixed": {"solver": "rk2",
+                    "steps_per_interval": base.steps_per_interval,
+                    "methods": {m: summary(fixed[m]) for m in fixed},
+                    "naive_vs_aca_grad_rel": fixed_rel,
+                    "naive_vs_aca_z1": fixed_z,
+                    "rtol": FIXED_ACA_NAIVE_RTOL,
+                    "launches": fixed_launches},
+          "batched": {"methods": {m: summary(batched[m]) for m in batched},
+                      "naive_vs_adjoint_grad_rel": batched_rel,
+                      "launches": batched_launches},
+          "aug_kernels": {"n_aug": n_aug, "row_aug": row_aug,
+                          "max_abs_err": worst, "timings": aug_times}})
+    path_launches = {
+        k: launches.get(k, 0) + fixed_launches.get(k, 0)
+        + batched_launches.get(k, 0)
+        for k in K1_K2 + BATCHED_KERNELS}
+    return path_launches, worst, aug_times
 
 
 def _rel(a, b) -> float:
@@ -1793,6 +2152,9 @@ def main(argv=None) -> int:
         serve_launches, _ = phase_serve_node18(torch, args.seed)
         phase = "node18_batched"
         batched_launches, _ = phase_node18_batched(torch, args.seed)
+        phase = "node18_methods"
+        methods_launches, worst_m, aug_times = phase_node18_methods(
+            torch, args.seed)
         phase = "kernels_lm"
         worst_lm, timings_lm = phase_kernels_lm(torch, args.seed)
         phase = "serve_recurrentgemma"
@@ -1806,22 +2168,28 @@ def main(argv=None) -> int:
               "error": f"{type(exc).__name__}: {exc}"})
         raise
 
-    # launches: K1/K2 from the node18 block steps, K3 from the serve rounds
-    # and the batched block steps, K4 from the batched block steps, K5 from
-    # the serve rounds; times at each path's shape (K3 and K5 at the
-    # serving row, K4 at the batched block row)
+    # launches: K1/K2 from the node18 block steps and the three methods'
+    # steps (solo and fixed regime), K3 from the serve rounds, the batched
+    # block steps and the batched methods' steps, K4 from the batched
+    # block and methods' steps, K5 from the serve rounds; times at each
+    # path's shape (K3 and K5 at the serving row, K4 at the batched block
+    # row; K1-K4 also at the adjoint's augmented shapes)
     worst.update(worst_b)
+    for k, v in worst_m.items():
+        worst[k] = max(worst[k], v)
     batch_launch = {
         "rk_stage_increment_batched":
         serve_launches["rk_stage_increment_batched"]
-        + batched_launches["rk_stage_increment_batched"],
+        + batched_launches["rk_stage_increment_batched"]
+        + methods_launches["rk_stage_increment_batched"],
         "rk_stage_combine_err_batched":
-        batched_launches["rk_stage_combine_err_batched"],
+        batched_launches["rk_stage_combine_err_batched"]
+        + methods_launches["rk_stage_combine_err_batched"],
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"],
     }
-    launches = {**{k: launches[k] for k in K1_K2}, **batch_launch,
-                "rk_stage_combine": k6_launches}
+    launches = {**{k: launches[k] + methods_launches[k] for k in K1_K2},
+                **batch_launch, "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
          timings["k1_heun_stage"]),
@@ -1868,14 +2236,23 @@ def main(argv=None) -> int:
     # window 0 beside SDPA's causal call, K10 at call B's shape, K3 and K5
     # at the batched block's aligned rows beside the serving row's "ms"
     # (K4 the other way round), K5 also on one serving row
+    def aug(label):
+        t = aug_times[label]
+        return {"adjoint_aug_ms": t["ms"], "adjoint_aug_plain_ms":
+                t["plain_ms"], "adjoint_aug_bound_ms": t["bound_ms"]}
+
     extras = {
+        "rk_stage_increment": aug("k1"),
+        "rk_stage_combine_err": aug("k2"),
         "rg_lru": {
             "call_b_ms": timings_lm["rg_lru_call_b"]["ms"],
             "call_b_bound_ms": timings_lm["rg_lru_call_b"]["bound_ms"]},
         "rk_stage_increment_batched": {
-            "aligned_rows_ms": timings_b[f"k3_heun_stage_{ROW_N}"]["ms"]},
+            "aligned_rows_ms": timings_b[f"k3_heun_stage_{ROW_N}"]["ms"],
+            **aug("k3")},
         "rk_stage_combine_err_batched": {
-            "serving_row_ms": timings_b[f"k4_heun_{SERVE_ROW_N}"]["ms"]},
+            "serving_row_ms": timings_b[f"k4_heun_{SERVE_ROW_N}"]["ms"],
+            **aug("k4")},
         "rk_stage_combine_err_batched_rowtol": {
             "aligned_rows_ms": timings_b[f"k5_heun_{ROW_N}"]["ms"],
             "one_row_ms": timings_b[f"k5_heun_b1_{SERVE_ROW_N}"]["ms"],

@@ -1,17 +1,28 @@
-"""The ``odeint`` front door of the port (adaptive ACA, solo or batched).
+"""The ``odeint`` front door of the port: ACA, adjoint and naive
+gradients, adaptive and fixed grids, solo or batched.
 
-Port of ``repro/core/api.py::odeint`` / ``odeint_final`` for one state
-tensor::
+Port of ``repro/core/api.py::odeint`` / ``odeint_final``::
 
     ys, stats = odeint(f, z0, ts, args, solver="dopri5", grad_method="aca",
                        rtol=1e-6, atol=1e-6, max_steps=256, max_trials=12,
+                       steps_per_interval=8, trial_budget=None,
                        use_pallas=False, h0=None, on_failure="status")
 
-``f(t, z, *args) -> dz/dt``; ``ts`` strictly monotone — ascending, or
-descending for a reverse-time solve (solved as the time-negated ascending
-problem); ``ys[k] = z(ts[k])`` with ``ys[0] = z0``. The solve runs on
-``z0``'s device; ``ts`` moves there. Gradients flow to ``z0`` and to the
-floating tensors of ``args`` through the ACA backward sweep.
+``f(t, z, *args) -> dz/dt``; ``z0`` one floating tensor or a pytree
+(dict, tuple, list, NamedTuple) of tensors of one floating dtype, raveled
+once per solve; ``ts`` strictly monotone — ascending, or descending for a
+reverse-time solve (solved as the time-negated ascending problem);
+``ys[k] = z(ts[k])`` with ``ys[0] = z0`` (``ys`` has z0's structure, each
+leaf stacked over ``ts``). The solve runs on ``z0``'s device; ``ts`` moves
+there. Gradients flow to ``z0`` and to the floating tensors of ``args``.
+
+``grad_method`` picks how: ``"aca"`` (the paper's checkpoint replay),
+``"adjoint"`` (Chen et al.'s reverse solve of the augmented system, O(N_f)
+memory) or ``"naive"`` (autograd through the whole solver, the stepsize
+search included; ``trial_budget`` bounds its trials). A fixed-step
+``solver`` (``"euler"``, ``"midpoint"``, ``"rk2"``, ``"rk4"``) integrates
+``steps_per_interval`` uniform steps between eval times, with any of the
+three methods.
 
 ``batch_axis=a`` solves every slice of ``z0`` along axis ``a`` as its own
 problem (``f`` is the per-sample field), each on its own adaptive grid;
@@ -22,8 +33,10 @@ There ``rtol``/``atol`` may be (B,) arrays, one tolerance per row, and
     ys, stats = odeint(f, z0, ts, args, batch_axis=0,
                        rtol=torch.tensor([1e-3, 1e-5]), atol=1e-6)
 
-Options of later slices keep the reference's signature and raise a
-``ValueError`` naming the slice (ROADMAP queue 1) that brings them.
+Fixed grids are shared by every row: the batch runs as one system with
+the field vmapped over it. Options of later slices keep the reference's
+signature and raise a ``ValueError`` naming the slice (ROADMAP queue 1)
+that brings them.
 """
 
 from __future__ import annotations
@@ -32,15 +45,35 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import vmap
+from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
 from .integrate import SolveStats
-from .odeint_aca import odeint_aca, odeint_aca_batched
+from .odeint_aca import odeint_aca, odeint_aca_batched, odeint_aca_fixed
+from .odeint_adjoint import (
+    odeint_adjoint,
+    odeint_adjoint_batched,
+    odeint_adjoint_fixed,
+)
+from .odeint_naive import (
+    odeint_naive,
+    odeint_naive_batched,
+    odeint_naive_fixed,
+)
+from .stepper import state_leaves
 from .tableaus import Tableau, get_tableau
 
-GRAD_METHODS = ("aca",)
+GRAD_METHODS = ("aca", "adjoint", "naive")
 
 ON_FAILURE_POLICIES = ("status",)
+
+_ADAPTIVE = {"aca": odeint_aca, "adjoint": odeint_adjoint,
+             "naive": odeint_naive}
+_BATCHED = {"aca": odeint_aca_batched, "adjoint": odeint_adjoint_batched,
+            "naive": odeint_naive_batched}
+_FIXED = {"aca": odeint_aca_fixed, "adjoint": odeint_adjoint_fixed,
+          "naive": odeint_naive_fixed}
 
 
 def _later(what: str, slice_: str) -> ValueError:
@@ -66,14 +99,14 @@ def _negate_time(f: Callable) -> Callable:
     """dz/ds = -f(-s, z) over ascending s = -t is the reverse-time solve
     over descending t."""
     def f_neg(s, z, *a):
-        return -f(-s, z, *a)
+        return pytree.tree_map(torch.neg, f(-s, z, *a))
 
     return f_neg
 
 
 def odeint(
     f: Callable,
-    z0: torch.Tensor,
+    z0: Any,
     ts,
     args: Any = (),
     *,
@@ -93,24 +126,22 @@ def odeint(
     on_failure: str = "status",
     mesh: Optional[Any] = None,
     shard_rules: Optional[Any] = None,
-) -> Tuple[torch.Tensor, SolveStats]:
+) -> Tuple[Any, SolveStats]:
     """Solve dz/dt = f(t, z, *args) through ``ts``; see the module
     docstring.
 
     ``max_steps`` caps the accepted steps (the checkpoint capacity;
     ``stats.overflow`` is set when the solve runs out before the last
-    eval time) and ``max_trials`` the stepsize search per step.
-    ``use_pallas=True`` flattens the state once per solve and runs every
-    trial's stage sums and error norm through kernels K1 and K2, or K3
-    and K4/K5 under ``batch_axis`` (their plain versions for a CPU
-    state). ``h0`` overrides the initial-stepsize heuristic.
-    ``stats.status`` carries a ``SolveStatus`` code
-    (``on_failure="status"``). ``steps_per_interval`` and
-    ``trial_budget`` belong to the fixed-grid and naive methods and are
-    not read yet.
+    eval time) and ``max_trials`` the stepsize search per step; the naive
+    method's trials are bounded by ``trial_budget`` (default ``max_steps
+    * max_trials``). ``steps_per_interval`` sets a fixed-step solver's
+    grid. ``use_pallas=True`` flattens the state once per solve and runs
+    every stage sum and error norm through kernels K1 and K2, or K3 and
+    K4/K5 under ``batch_axis`` (their plain versions for a CPU state).
+    ``h0`` overrides the initial-stepsize heuristic of an adaptive
+    solver. ``stats.status`` carries a ``SolveStatus`` code
+    (``on_failure="status"``).
     """
-    if grad_method == "adjoint" or grad_method == "naive":
-        raise _later(f"grad_method={grad_method!r}", "slice B")
     if grad_method == "mali":
         raise _later("grad_method='mali'", "slice F")
     if grad_method not in GRAD_METHODS:
@@ -123,22 +154,34 @@ def odeint(
         raise _later("solver='alf' (the reversible pair integrator)",
                      "slice F")
     tab = get_tableau(solver) if isinstance(solver, str) else solver
-    if not isinstance(z0, torch.Tensor):
+    leaves, _ = state_leaves(z0)
+    device = leaves[0].device
+    if checkpoint_segments is not None and (
+            grad_method != "aca" or not tab.adaptive):
         raise ValueError(
-            f"z0 must be one torch.Tensor; got {type(z0).__name__}. Pytree "
-            "(nested) states are not ported yet: they come with the "
-            "remainder of slice A (ROADMAP queue 1)")
-    rtol, atol = _tolerances(rtol, atol, batch_axis, mesh, tab, z0.device)
+            "checkpoint_segments requires grad_method='aca' with an "
+            f"adaptive solver (got {grad_method!r} / {tab.name!r}): only "
+            "the ACA trajectory checkpoint stores per-step states to "
+            "segment")
+    if interpolate_ts and not tab.adaptive:
+        raise ValueError(
+            "interpolate_ts requires an adaptive solver (got "
+            f"{tab.name!r}): fixed grids land on every eval time by "
+            "construction, there is no stepsize search to relieve")
+    if h0 is not None and not tab.adaptive:
+        raise ValueError(
+            f"h0 overrides the adaptive initial-stepsize heuristic; "
+            f"fixed-grid solver {tab.name!r} has no stepsize controller "
+            "— use steps_per_interval to refine its grid instead")
+    rtol, atol = _tolerances(rtol, atol, batch_axis, mesh, tab, device)
     if mesh is not None or shard_rules is not None:
         raise _later("mesh / shard_rules (sharded solving)", "slice I")
     if checkpoint_segments is not None:
         raise _later("checkpoint_segments (segmented ACA)", "slice D")
     if interpolate_ts:
         raise _later("interpolate_ts (dense output)", "slice D")
-    if not tab.adaptive:
-        raise _later(f"fixed-grid solver {tab.name!r}", "slice B")
 
-    ts = torch.as_tensor(ts, device=z0.device)
+    ts = torch.as_tensor(ts, device=device)
     if not ts.is_floating_point():
         ts = ts.to(torch.float32)
     if ts.dim() != 1 or ts.shape[0] < 2:
@@ -149,13 +192,22 @@ def odeint(
 
     cfg = ControllerConfig(max_steps=max_steps, max_trials=max_trials)
     if h0 is not None:
-        h0 = torch.as_tensor(h0, dtype=ts.dtype, device=z0.device)
+        h0 = torch.as_tensor(h0, dtype=ts.dtype, device=device)
     if batch_axis is not None:
         return _odeint_batched(f, z0, ts, args, tab=tab,
+                               grad_method=grad_method,
                                batch_axis=batch_axis, rtol=rtol, atol=atol,
-                               cfg=cfg, h0=h0, use_pallas=use_pallas)
-    return odeint_aca(f, z0, ts, args, solver=tab, rtol=rtol, atol=atol,
-                      cfg=cfg, h0=h0, use_pallas=use_pallas)
+                               cfg=cfg, steps_per_interval=steps_per_interval,
+                               trial_budget=trial_budget, h0=h0,
+                               use_pallas=use_pallas)
+    if not tab.adaptive:
+        return _FIXED[grad_method](f, z0, ts, args, solver=tab,
+                                   steps_per_interval=steps_per_interval,
+                                   use_pallas=use_pallas)
+    kw = dict(trial_budget=trial_budget) if grad_method == "naive" else {}
+    return _ADAPTIVE[grad_method](f, z0, ts, args, solver=tab, rtol=rtol,
+                                  atol=atol, cfg=cfg, h0=h0,
+                                  use_pallas=use_pallas, **kw)
 
 
 def _tolerances(rtol, atol, batch_axis, mesh, tab: Tableau, device):
@@ -193,20 +245,30 @@ def _rank(x) -> int:
     return x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
 
 
-def _odeint_batched(f: Callable, z0: torch.Tensor, ts: torch.Tensor,
-                    args: Any, *, tab: Tableau, batch_axis: int, rtol, atol,
-                    cfg: ControllerConfig, h0: Optional[torch.Tensor],
-                    use_pallas: bool) -> Tuple[torch.Tensor, SolveStats]:
-    """``odeint(..., batch_axis=a)``: moves the batch to axis 0, solves
-    every row on its own grid (``odeint_aca_batched``) and moves the batch
-    back in ``ys``, where it sits one axis deeper under the time axis."""
-    if z0.dim() == 0:
+def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
+                    tab: Tableau, grad_method: str, batch_axis: int, rtol,
+                    atol, cfg: ControllerConfig, steps_per_interval: int,
+                    trial_budget: Optional[int], h0: Optional[torch.Tensor],
+                    use_pallas: bool) -> Tuple[Any, SolveStats]:
+    """``odeint(..., batch_axis=a)``: moves the batch to axis 0 of every
+    state leaf, routes adaptive tableaus to the per-sample batched solvers
+    and fixed grids to the shared grid with the field vmapped over the
+    batch, and moves the batch back in ``ys``, where it sits one axis
+    deeper under the time axis."""
+    leaves, _ = state_leaves(z0)
+    for leaf in leaves:
+        if leaf.dim() == 0:
+            raise ValueError(
+                f"batch_axis={batch_axis} requires every state leaf to "
+                "carry a batch dimension, but a leaf is rank-0 (a scalar "
+                "has no axis to batch over)")
+    axes = pytree.tree_map(lambda x: batch_axis % x.dim(), z0)
+    sizes = {x.shape[a] for x, a in zip(leaves, pytree.tree_leaves(axes))}
+    if len(sizes) != 1:
         raise ValueError(
-            f"batch_axis={batch_axis} requires the state to carry a batch "
-            "dimension, but it is rank-0 (a scalar has no axis to batch "
-            "over)")
-    ax = batch_axis % z0.dim()
-    B = z0.shape[ax]
+            f"all state leaves must share one batch size at axis "
+            f"{batch_axis}; got {sorted(sizes)}")
+    B = sizes.pop()
     for name, tol in (("rtol", rtol), ("atol", atol)):
         if isinstance(tol, torch.Tensor) and tol.dim() == 1 \
                 and tol.shape[0] not in (1, B):
@@ -218,27 +280,39 @@ def _odeint_batched(f: Callable, z0: torch.Tensor, ts: torch.Tensor,
                                                                    (B,)):
         raise ValueError(
             f"a per-row h0 must have shape ({B},); got {tuple(h0.shape)}")
-    z0 = z0.movedim(ax, 0)
-    ys, stats = odeint_aca_batched(f, z0, ts, args, solver=tab, rtol=rtol,
-                                   atol=atol, cfg=cfg, h0=h0,
-                                   use_pallas=use_pallas)
-    return ys.movedim(1, ax + 1), stats
+    z0 = pytree.tree_map(lambda x, a: x.movedim(a, 0), z0, axes)
+    if tab.adaptive:
+        kw = dict(trial_budget=trial_budget) if grad_method == "naive" \
+            else {}
+        ys, stats = _BATCHED[grad_method](
+            f, z0, ts, args, solver=tab, rtol=rtol, atol=atol, cfg=cfg,
+            h0=h0, use_pallas=use_pallas, **kw)
+    else:
+        # a fixed grid is the same for every row: lockstep is the
+        # per-sample grid, so the batch runs as one system
+        def fb(t, z, *a):
+            return vmap(lambda zi: f(t, zi, *a))(z)
+
+        ys, stats = _FIXED[grad_method](
+            fb, z0, ts, args, solver=tab,
+            steps_per_interval=steps_per_interval, use_pallas=use_pallas)
+        stats = SolveStats(*(s.expand(B) for s in stats))
+    ys = pytree.tree_map(lambda y, a: y.movedim(1, a + 1), ys, axes)
+    return ys, stats
 
 
 def odeint_final(
     f: Callable,
-    z0: torch.Tensor,
+    z0: Any,
     t0: float,
     t1: float,
     args: Any = (),
     **kw,
-) -> Tuple[torch.Tensor, SolveStats]:
+) -> Tuple[Any, SolveStats]:
     """Integrate [t0, t1] and return only z(t1) (the NODE block's use);
     ``t0 > t1`` runs the solve in reverse time. Takes every ``odeint``
     keyword."""
-    if not isinstance(z0, torch.Tensor):
-        raise ValueError(
-            f"z0 must be one torch.Tensor; got {type(z0).__name__}")
-    ts = torch.tensor([t0, t1], dtype=torch.float32, device=z0.device)
+    leaves, _ = state_leaves(z0)
+    ts = torch.tensor([t0, t1], dtype=torch.float32, device=leaves[0].device)
     ys, stats = odeint(f, z0, ts, args, **kw)
-    return ys[-1], stats
+    return pytree.tree_map(lambda y: y[-1], ys), stats

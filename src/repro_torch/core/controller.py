@@ -58,11 +58,24 @@ def propose_stepsize(cfg: ControllerConfig, h: torch.Tensor,
     return h * factor
 
 
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt`` with the same values and a zero gradient at 0.
+
+    The naive method differentiates the error norm and the initial
+    stepsize: at an exact zero (a field or an error estimate that
+    vanishes) sqrt's infinite slope meets a zero cotangent and gives NaN,
+    which the reference's naive gradient returns there. NaN and Inf
+    inputs keep their values, so failure detection still reads them."""
+    zero = x == 0
+    return torch.where(zero, torch.zeros_like(x),
+                       torch.sqrt(torch.where(zero, torch.ones_like(x), x)))
+
+
 def _rms(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
-    return torch.sqrt(torch.sum(xf * xf) / torch.full((), x.numel(),
-                                                      dtype=torch.float32,
-                                                      device=x.device))
+    return sqrt0(torch.sum(xf * xf) / torch.full((), x.numel(),
+                                                 dtype=torch.float32,
+                                                 device=x.device))
 
 
 def initial_stepsize(f: Callable, t0: torch.Tensor, z0: torch.Tensor,
@@ -77,8 +90,11 @@ def initial_stepsize(f: Callable, t0: torch.Tensor, z0: torch.Tensor,
     f0 = f(t0, z0, *args)
     d0 = _rms(z0 / scale)
     d1 = _rms(f0 / scale)
-    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5),
-                     torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
+    # each unselected branch divides by a value kept away from 0, so its
+    # gradient cannot turn into NaN (the naive method differentiates h0)
+    small = (d0 < 1e-5) | (d1 < 1e-5)
+    h0 = torch.where(small, torch.full_like(d0, 1e-6),
+                     0.01 * d0 / torch.where(small, torch.ones_like(d1), d1))
     # as in JAX, the f32 h0 promotes a lower-precision state here
     pt = torch.promote_types(h0.dtype, z0.dtype)
     z1 = z0.to(pt) + h0 * f0.to(pt)
@@ -86,9 +102,11 @@ def initial_stepsize(f: Callable, t0: torch.Tensor, z0: torch.Tensor,
     d2 = _rms((f1 - f0) / scale) / h0
     dmax = torch.maximum(d1, d2)
     # Hairer I.4 step (f): h1 = (0.01 / max(d1, d2))^(1/(p+1))
+    flat = dmax <= 1e-15
     h1 = torch.where(
-        dmax <= 1e-15,
+        flat,
         torch.clamp(h0 * 1e-3, min=1e-6),
-        _div(0.01, dmax) ** (1.0 / (float(order) + 1.0)),
+        _div(0.01, torch.where(flat, torch.ones_like(dmax), dmax))
+        ** (1.0 / (float(order) + 1.0)),
     )
     return torch.minimum(100.0 * h0, h1)

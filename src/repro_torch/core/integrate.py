@@ -9,8 +9,13 @@ batched loop reads one, ``any(live)``, and keeps every per-row decision
 in masks. Everything else stays in tensors on the state's device.
 Accepted points (t_i, h_i, z_i) go into a ``Checkpoints`` buffer
 preallocated at ``max_steps`` (per row when batched), which the ACA
-backward sweep replays. The solve-health guard (``guard_nonfinite``) and
-the ``SolveStatus`` codes are kept, per row when batched.
+backward sweep replays; ``checkpoint=False`` (the adjoint's forward)
+allocates none. The solve-health guard (``guard_nonfinite``) and the
+``SolveStatus`` codes are kept, per row when batched.
+
+``fixed_grid_solve`` integrates on the uniform grid of ``make_fixed_grid``
+with one ψ per grid step; autograd through its loop is the naive method
+for fixed-step solvers.
 """
 
 from __future__ import annotations
@@ -21,7 +26,13 @@ import torch
 from torch.func import vmap
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
-from .stepper import batched_field, error_ratio, rk_step, rk_step_batched
+from .stepper import (
+    batched_field,
+    error_ratio,
+    maybe_flatten,
+    rk_step,
+    rk_step_batched,
+)
 from .tableaus import Tableau
 
 
@@ -127,6 +138,19 @@ def _freeze_fill(ys: torch.Tensor, mask: torch.Tensor,
     return torch.where(m, z_frozen.unsqueeze(0), ys)
 
 
+def mask_failed_cotangents(g_ys: torch.Tensor, status: torch.Tensor,
+                           batched: bool = False) -> torch.Tensor:
+    """Zero the output cotangents of a solve (or of the batch rows, ``g_ys``
+    (n_eval, B, ...)) whose status is ``NONFINITE_STATE``: a frozen
+    solve's outputs are placeholders and carry no gradient. Every backward
+    sweep is linear in ``g_ys``, so the failed rows get exact zeros and the
+    others keep their bits."""
+    ok = status != SolveStatus.NONFINITE_STATE
+    if batched:
+        ok = ok.reshape((1, -1) + (1,) * (g_ys.dim() - 2))
+    return torch.where(ok, g_ys, torch.zeros_like(g_ys))
+
+
 @torch.no_grad()
 def adaptive_while_solve(
     tab: Tableau,
@@ -140,13 +164,16 @@ def adaptive_while_solve(
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
     guard_nonfinite: bool = True,
-) -> Tuple[torch.Tensor, Checkpoints, SolveStats]:
+    checkpoint: bool = True,
+) -> Tuple[torch.Tensor, Optional[Checkpoints], SolveStats]:
     """Integrate dz/dt = f(t, z, *args) through increasing times ``ts``.
 
     Returns (ys, checkpoints, stats); ``ys`` is stacked over len(ts) with
     ys[0] = z0. Runs without autograd: the ACA Function differentiates it
     by replaying the checkpoints. ``use_pallas`` selects the fused flat
     stepper path (callers pass an already-flat (N,) state).
+    ``checkpoint=False`` keeps no per-step buffer and returns None for
+    the checkpoints (the adjoint method's O(N_f) forward).
 
     ``guard_nonfinite`` (default on): a trial whose error ratio is not
     finite is never accepted, and once the stepsize has railed at
@@ -154,10 +181,8 @@ def adaptive_while_solve(
     last accepted state with ``SolveStatus.NONFINITE_STATE``.
     """
     if not tab.adaptive:
-        raise ValueError(
-            f"adaptive_while_solve needs an embedded adaptive tableau; "
-            f"{tab.name!r} is fixed-step (fixed grids are slice B, "
-            "ROADMAP queue 1)")
+        raise ValueError("adaptive_while_solve requires an embedded "
+                         "adaptive tableau")
     dev = z0.device
     n_eval = ts.shape[0]
     tdt = ts.dtype
@@ -172,11 +197,13 @@ def adaptive_while_solve(
 
     ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
     ys[0] = z0
-    ckpt_t = torch.zeros(max_steps, dtype=tdt, device=dev)
-    ckpt_h = torch.zeros_like(ckpt_t)
-    ckpt_z = torch.zeros((max_steps,) + tuple(z0.shape), dtype=z0.dtype,
-                         device=dev)
-    ckpt_oi = torch.full((max_steps,), -1, dtype=torch.int32, device=dev)
+    if checkpoint:
+        ckpt_t = torch.zeros(max_steps, dtype=tdt, device=dev)
+        ckpt_h = torch.zeros_like(ckpt_t)
+        ckpt_z = torch.zeros((max_steps,) + tuple(z0.shape), dtype=z0.dtype,
+                             device=dev)
+        ckpt_oi = torch.full((max_steps,), -1, dtype=torch.int32,
+                             device=dev)
 
     k0 = f(ts[0], z0, *args)
     nfe = 1 + hinit_evals
@@ -237,11 +264,12 @@ def adaptive_while_solve(
 
         # host read 2 of 2 per trial: accept / reject
         if accept:
-            # write the trajectory checkpoint (t_i, h_i, z_i)
-            ckpt_t[i] = t
-            ckpt_h[i] = h_use
-            ckpt_z[i] = z
-            ckpt_oi[i] = torch.where(hit, eval_idx[0], -1)
+            if checkpoint:
+                # write the trajectory checkpoint (t_i, h_i, z_i)
+                ckpt_t[i] = t
+                ckpt_h[i] = h_use
+                ckpt_z[i] = z
+                ckpt_oi[i] = torch.where(hit, eval_idx[0], -1)
             # record the output at an eval-time hit
             cur = ys.index_select(0, eval_idx)
             ys.index_copy_(0, eval_idx,
@@ -266,7 +294,8 @@ def adaptive_while_solve(
     # frozen solve: repeat the last accepted state into un-reached slots
     karr = torch.arange(n_eval, device=dev)
     ys_out = _freeze_fill(ys, failed & (karr >= eval_idx[0]), z)
-    ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi, n=i)
+    ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi,
+                        n=i) if checkpoint else None
 
     def count(v):
         return torch.full((), v, dtype=torch.int32, device=dev)
@@ -308,7 +337,8 @@ def batched_adaptive_while_solve(
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
     guard_nonfinite: bool = True,
-) -> Tuple[torch.Tensor, Checkpoints, SolveStats]:
+    checkpoint: bool = True,
+) -> Tuple[torch.Tensor, Optional[Checkpoints], SolveStats]:
     """Per-sample batched adaptive solve: one loop, one stepsize controller
     per batch row.
 
@@ -331,12 +361,11 @@ def batched_adaptive_while_solve(
     controller (initial stepsize, error norm, accept/reject) targets its
     own tolerance, and a row at tolerance τ gives the bits of the all-τ
     batch's row. ``h0`` is a scalar or (B,) initial stepsize.
+    ``checkpoint`` as in ``adaptive_while_solve``.
     """
     if not tab.adaptive:
-        raise ValueError(
-            f"batched_adaptive_while_solve needs an embedded adaptive "
-            f"tableau; {tab.name!r} is fixed-step (fixed grids are slice B, "
-            "ROADMAP queue 1)")
+        raise ValueError("batched_adaptive_while_solve requires an "
+                         "embedded adaptive tableau")
     dev = z0.device
     B = z0.shape[0]
     rows = torch.arange(B, device=dev)
@@ -360,11 +389,13 @@ def batched_adaptive_while_solve(
 
     ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
     ys[0] = z0
-    ckpt_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
-    ckpt_h = torch.zeros_like(ckpt_t)
-    ckpt_z = torch.zeros((B, max_steps) + tuple(z0.shape[1:]),
-                         dtype=z0.dtype, device=dev)
-    ckpt_oi = torch.full((B, max_steps), -1, dtype=torch.int32, device=dev)
+    if checkpoint:
+        ckpt_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
+        ckpt_h = torch.zeros_like(ckpt_t)
+        ckpt_z = torch.zeros((B, max_steps) + tuple(z0.shape[1:]),
+                             dtype=z0.dtype, device=dev)
+        ckpt_oi = torch.full((B, max_steps), -1, dtype=torch.int32,
+                             device=dev)
 
     fb = batched_field(f, args)
     t = ts[0].expand(B).clone()
@@ -424,13 +455,16 @@ def batched_adaptive_while_solve(
         else:
             k0_acc, nfe_acc = fb(t_new, res.z_next), 1
 
-        # on accept: write each row's own checkpoint slot
-        i_c = i.clamp(max=max_steps - 1).long()
-        ckpt_t[rows, i_c] = torch.where(accept, t, ckpt_t[rows, i_c])
-        ckpt_h[rows, i_c] = torch.where(accept, h_use, ckpt_h[rows, i_c])
-        ckpt_z[rows, i_c] = _bwhere(accept, z, ckpt_z[rows, i_c])
-        oi_val = torch.where(hit, eval_idx.to(torch.int32), minus_one)
-        ckpt_oi[rows, i_c] = torch.where(accept, oi_val, ckpt_oi[rows, i_c])
+        if checkpoint:
+            # on accept: write each row's own checkpoint slot
+            i_c = i.clamp(max=max_steps - 1).long()
+            ckpt_t[rows, i_c] = torch.where(accept, t, ckpt_t[rows, i_c])
+            ckpt_h[rows, i_c] = torch.where(accept, h_use,
+                                            ckpt_h[rows, i_c])
+            ckpt_z[rows, i_c] = _bwhere(accept, z, ckpt_z[rows, i_c])
+            oi_val = torch.where(hit, eval_idx.to(torch.int32), minus_one)
+            ckpt_oi[rows, i_c] = torch.where(accept, oi_val,
+                                             ckpt_oi[rows, i_c])
         # on an eval-time hit: record that row's output
         e_c = eval_idx.clamp(max=n_eval - 1)
         ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
@@ -464,7 +498,76 @@ def batched_adaptive_while_solve(
     karr = torch.arange(n_eval, device=dev)
     fill = failed[None, :] & (karr[:, None] >= eval_idx[None, :])
     ys_out = _freeze_fill(ys, fill, z)
-    ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi, n=i)
+    ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi,
+                        n=i) if checkpoint else None
     stats = SolveStats(n_steps=i, n_trials=trials, nfe=nfe,
                        overflow=overflow, status=status)
     return ys_out, ckpts, stats
+
+
+# ------------------------------------------------------------- fixed grids
+
+def make_fixed_grid(ts: torch.Tensor, steps_per_interval: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform sub-grid with ``steps_per_interval`` steps between each
+    pair of eval times: (t_grid, h_grid), each (n_intervals * steps,)."""
+    t_lo, t_hi = ts[:-1], ts[1:]
+    frac = torch.arange(steps_per_interval, device=ts.device).to(
+        ts.dtype) / steps_per_interval
+    t_grid = t_lo[:, None] + (t_hi - t_lo)[:, None] * frac[None, :]
+    h_grid = ((t_hi - t_lo) / steps_per_interval)[:, None].expand(
+        t_grid.shape)
+    return t_grid.reshape(-1), h_grid.reshape(-1)
+
+
+def fixed_status(ys: torch.Tensor) -> torch.Tensor:
+    """A fixed grid has no trial loop to guard: one finite check of the
+    outputs after the solve gives its ``SolveStatus``."""
+    return torch.where(nonfinite_any(ys.detach()),
+                       SolveStatus.NONFINITE_STATE,
+                       SolveStatus.OK).to(torch.int32)
+
+
+def fixed_stats(tab: Tableau, n_steps: int, status: torch.Tensor
+                ) -> SolveStats:
+    """``SolveStats`` of a fixed-grid solve of ``n_steps`` steps."""
+    def count(v):
+        return torch.full((), v, dtype=torch.int32, device=status.device)
+
+    return SolveStats(n_steps=count(n_steps), n_trials=count(n_steps),
+                      nfe=count(n_steps * tab.stages),
+                      overflow=torch.zeros((), dtype=torch.bool,
+                                           device=status.device),
+                      status=status)
+
+
+def fixed_grid_solve(
+    tab: Tableau,
+    f: Callable,
+    z0,
+    ts: torch.Tensor,
+    args: Tuple,
+    steps_per_interval: int,
+    use_pallas: bool = False,
+):
+    """Integration on the uniform grid of ``make_fixed_grid``, outputs at
+    every ``ts`` (ys[0] = z0); returns (ys, stats).
+
+    Runs under the caller's autograd mode: differentiated, it is the
+    naive method for fixed-step solvers (every stage on the tape).
+    ``use_pallas`` ravels the state once (``stepper.maybe_flatten``) and
+    runs every stage argument and the ``b`` combine through K1; a pytree
+    state is raveled on either path and unraveled in ``ys``.
+    """
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    t_grid, h_grid = make_fixed_grid(ts, steps_per_interval)
+    z = z0
+    ys = [z0]
+    for j in range(t_grid.shape[0]):
+        z = rk_step(tab, f, t_grid[j], z, h_grid[j], args,
+                    use_pallas=use_pallas).z_next
+        if (j + 1) % steps_per_interval == 0:
+            ys.append(z)
+    ys = torch.stack(ys)
+    stats = fixed_stats(tab, t_grid.shape[0], fixed_status(ys))
+    return (ys if unravel is None else unravel(ys)), stats

@@ -1,10 +1,11 @@
 """Continuous-depth (NODE) block: the paper's ResNet → NODE transformation.
 
-Port of ``repro/core/node_block.py`` for the adaptive regime. A residual
-block ``y = x + f(x, θ)`` becomes ``z(1) = z(0) + ∫₀¹ f(z(t), θ) dt`` with
-the same parameters, solved with the configured solver and differentiated
-with ACA. The parameters reach the solve as ``args``, so the ACA backward
-returns their gradients.
+Port of ``repro/core/node_block.py``. A residual block ``y = x + f(x, θ)``
+becomes ``z(1) = z(0) + ∫₀¹ f(z(t), θ) dt`` with the same parameters,
+solved with the configured solver — adaptive, or a fixed grid of
+``steps_per_interval`` steps of the pair's advancing method — and
+differentiated with ACA, the adjoint or the naive method. The parameters
+reach the solve as ``args``, so the backward returns their gradients.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ class NodeConfig:
     """Solver/gradient configuration of one continuous-depth block.
 
     Defaults follow the paper's training setup (HeunEuler, ACA,
-    rtol=atol=1e-2). The fields of later slices keep the reference's
-    names and defaults; a non-default value raises in ``odeint`` (or
-    here, for ``regime="fixed"``) naming the slice that brings it.
+    rtol=atol=1e-2). ``regime="fixed"`` integrates ``steps_per_interval``
+    uniform steps with the advancing method of ``solver``
+    (``_fixed_solver_for``). The fields of later slices keep the
+    reference's names and defaults; a non-default value raises in
+    ``odeint`` naming the slice that brings it.
     """
     enabled: bool = False
     solver: str = "heun_euler"      # the paper trains with HeunEuler
@@ -33,7 +36,7 @@ class NodeConfig:
     rtol: float = 1e-2              # paper Appendix D: rtol=atol=1e-2
     atol: float = 1e-2
     max_steps: int = 32
-    steps_per_interval: int = 4     # fixed-grid regime (slice B)
+    steps_per_interval: int = 4     # fixed-grid regime
     regime: str = "adaptive"        # adaptive | fixed
     # integration window [t0, t1]; t0 > t1 runs the block in reverse time
     t0: float = 0.0
@@ -47,34 +50,31 @@ class NodeConfig:
 
 
 def node_block_apply(
-    block_fn: Callable[[Dict[str, torch.Tensor], torch.Tensor,
-                        torch.Tensor], torch.Tensor],
+    block_fn: Callable[[Dict[str, torch.Tensor], Any,
+                        torch.Tensor], Any],
     params: Dict[str, torch.Tensor],
-    z0: torch.Tensor,
+    z0: Any,
     cfg: NodeConfig,
-) -> torch.Tensor:
-    """z(t1) = z(t0) + ∫ f(z, t; θ) dt with ACA gradients.
+) -> Any:
+    """z(t1) = z(t0) + ∫ f(z, t; θ) dt with ACA, adjoint or naive
+    gradients.
 
-    ``block_fn(params, z, t) -> dz/dt`` must keep z's shape and dtype;
-    ``params`` (e.g. ``dict(module.named_parameters())``) is passed to the
-    solve as ``args``.
+    ``block_fn(params, z, t) -> dz/dt`` must keep z's structure, shapes
+    and dtype; ``params`` (e.g. ``dict(module.named_parameters())``) is
+    passed to the solve as ``args``.
     """
     return node_block_solve(block_fn, params, z0, cfg)[0]
 
 
 def node_block_solve(
-    block_fn: Callable[[Dict[str, torch.Tensor], torch.Tensor,
-                        torch.Tensor], torch.Tensor],
+    block_fn: Callable[[Dict[str, torch.Tensor], Any,
+                        torch.Tensor], Any],
     params: Dict[str, torch.Tensor],
-    z0: torch.Tensor,
+    z0: Any,
     cfg: NodeConfig,
-) -> Tuple[torch.Tensor, SolveStats]:
+) -> Tuple[Any, SolveStats]:
     """``node_block_apply`` that also returns the solve's ``SolveStats``."""
-    if cfg.regime == "fixed":
-        raise ValueError(
-            "NodeConfig(regime='fixed') is not ported yet: the fixed-grid "
-            "regime comes with slice B (ROADMAP queue 1)")
-    if cfg.regime != "adaptive":
+    if cfg.regime not in ("adaptive", "fixed"):
         raise ValueError(
             f"NodeConfig.regime must be 'adaptive' or 'fixed'; got "
             f"{cfg.regime!r}")
@@ -82,15 +82,30 @@ def node_block_solve(
     def f(t, z, p):
         return block_fn(p, z, t)
 
-    return odeint_final(
-        f, z0, cfg.t0, cfg.t1, (params,),
-        solver=cfg.solver,
-        grad_method=cfg.grad_method,
-        rtol=cfg.rtol, atol=cfg.atol,
-        max_steps=cfg.max_steps,
-        use_pallas=cfg.use_pallas,
-        batch_axis=cfg.batch_axis,
-        checkpoint_segments=cfg.checkpoint_segments,
-        on_failure=cfg.on_failure,
-        mesh=cfg.mesh, shard_rules=cfg.shard_rules,
-    )
+    common = dict(grad_method=cfg.grad_method, use_pallas=cfg.use_pallas,
+                  batch_axis=cfg.batch_axis,
+                  # threaded so a segmented config on the fixed regime
+                  # raises the api's error instead of being ignored
+                  checkpoint_segments=cfg.checkpoint_segments,
+                  on_failure=cfg.on_failure, mesh=cfg.mesh,
+                  shard_rules=cfg.shard_rules)
+    if cfg.regime == "fixed":
+        return odeint_final(f, z0, cfg.t0, cfg.t1, (params,),
+                            solver=_fixed_solver_for(cfg.solver),
+                            steps_per_interval=cfg.steps_per_interval,
+                            **common)
+    return odeint_final(f, z0, cfg.t0, cfg.t1, (params,), solver=cfg.solver,
+                        rtol=cfg.rtol, atol=cfg.atol,
+                        max_steps=cfg.max_steps, **common)
+
+
+def _fixed_solver_for(name: str) -> str:
+    """Map an adaptive pair to its advancing fixed-step method."""
+    return {
+        "heun_euler": "rk2",
+        "heuneuler": "rk2",
+        "bosh3": "rk2",
+        "rk23": "rk2",
+        "dopri5": "rk4",
+        "rk45": "rk4",
+    }.get(name.lower().replace("-", "_"), name)

@@ -17,6 +17,10 @@ the gradient is that of the numerical solution.
 Batched (``odeint_aca_batched``): every row records its own grid and the
 backward replays each row's grid in reverse, all rows in one batched ψ
 per replayed step; a row shorter than the longest is frozen with h = 0.
+
+Fixed grid (``odeint_aca_fixed``): the forward checkpoints every grid
+state and the same backward sweep replays the grid — the naive fixed-grid
+gradient, with {z_i} stored in place of every stage.
 """
 
 from __future__ import annotations
@@ -30,10 +34,13 @@ from .controller import ControllerConfig
 from .integrate import (
     Checkpoints,
     SolveStats,
-    SolveStatus,
     adaptive_while_solve,
     as_tuple,
     batched_adaptive_while_solve,
+    fixed_stats,
+    fixed_status,
+    make_fixed_grid,
+    mask_failed_cotangents,
 )
 from .stepper import (
     maybe_flatten,
@@ -47,11 +54,15 @@ from .tableaus import Tableau
 class _Problem:
     """What the autograd Function needs besides its tensor inputs."""
 
-    def __init__(self, tab, f, rtol, atol, cfg, h0, use_pallas, args_spec):
+    def __init__(self, tab, f, rtol, atol, cfg, h0, use_pallas, args_spec,
+                 steps_per_interval: Optional[int] = None):
         self.tab, self.f = tab, f
         self.rtol, self.atol, self.cfg, self.h0 = rtol, atol, cfg, h0
         self.use_pallas = use_pallas
         self.args_spec = args_spec
+        # None: the adaptive engine; else the fixed grid's steps per
+        # interval
+        self.steps_per_interval = steps_per_interval
         self.stats: Optional[SolveStats] = None
 
     def args(self, leaves) -> Tuple:
@@ -108,13 +119,46 @@ def _aca_backward_sweep(tab: Tableau, f: Callable, ckpts: Checkpoints,
     return lam, [next(out) if d else None for d in diff]
 
 
+@torch.no_grad()
+def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0: torch.Tensor,
+                            ts: torch.Tensor, args: Tuple,
+                            steps_per_interval: int, use_pallas: bool):
+    """The fixed grid without autograd, every grid step's start state
+    checkpointed: (ys, checkpoints, stats)."""
+    t_grid, h_grid = make_fixed_grid(ts, steps_per_interval)
+    n_steps = t_grid.shape[0]
+    ckpt_z = torch.empty((n_steps,) + tuple(z0.shape), dtype=z0.dtype,
+                         device=z0.device)
+    ys = [z0]
+    z = z0
+    for j in range(n_steps):
+        ckpt_z[j] = z
+        z = rk_step(tab, f, t_grid[j], z, h_grid[j], args,
+                    use_pallas=use_pallas).z_next
+        if (j + 1) % steps_per_interval == 0:
+            ys.append(z)
+    ys = torch.stack(ys)
+    # step j's endpoint lands on ts[(j + 1) / steps] at an interval's end
+    j1 = torch.arange(1, n_steps + 1, device=z0.device)
+    out_idx = torch.where(j1 % steps_per_interval == 0,
+                          j1 // steps_per_interval, -1).to(torch.int32)
+    ckpts = Checkpoints(t=t_grid, h=h_grid, z=ckpt_z, out_idx=out_idx,
+                        n=n_steps)
+    return ys, ckpts, fixed_stats(tab, n_steps, fixed_status(ys))
+
+
 class _AcaSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
         args = prob.args(arg_leaves)
-        ys, ckpts, stats = adaptive_while_solve(
-            prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol, prob.cfg,
-            h0=prob.h0, use_pallas=prob.use_pallas)
+        if prob.steps_per_interval is None:
+            ys, ckpts, stats = adaptive_while_solve(
+                prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol,
+                prob.cfg, h0=prob.h0, use_pallas=prob.use_pallas)
+        else:
+            ys, ckpts, stats = _fixed_checkpoint_solve(
+                prob.tab, prob.f, z0, ts, args, prob.steps_per_interval,
+                prob.use_pallas)
         prob.stats = stats
         ctx.prob = prob
         ctx.ckpts = ckpts
@@ -127,8 +171,7 @@ class _AcaSolve(torch.autograd.Function):
         prob = ctx.prob
         # a frozen (NONFINITE_STATE) solve's placeholder outputs carry no
         # gradient: zero the cotangents before the replay sweep
-        ok = ctx.status != SolveStatus.NONFINITE_STATE
-        g_ys = torch.where(ok, g_ys, torch.zeros_like(g_ys))
+        g_ys = mask_failed_cotangents(g_ys, ctx.status)
         dz0, dargs = _aca_backward_sweep(prob.tab, prob.f, ctx.ckpts, prob,
                                          list(ctx.arg_leaves),
                                          list(ctx.needs_input_grad[3:]),
@@ -207,9 +250,7 @@ class _AcaSolveBatched(torch.autograd.Function):
         prob = ctx.prob
         # failed rows: their frozen placeholder outputs carry no gradient,
         # into neither their own dz0 nor the shared args
-        ok = (ctx.status != SolveStatus.NONFINITE_STATE).reshape(
-            (1, -1) + (1,) * (g_ys.dim() - 2))
-        g_ys = torch.where(ok, g_ys, torch.zeros_like(g_ys))
+        g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=True)
         dz0, dargs = _aca_backward_sweep_batched(
             prob.tab, prob.f, ctx.ckpts, prob, list(ctx.arg_leaves),
             list(ctx.needs_input_grad[3:]), g_ys, prob.use_pallas)
@@ -244,7 +285,7 @@ def odeint_aca_batched(
     if not solver.adaptive:
         raise ValueError(
             "odeint_aca_batched requires an embedded adaptive tableau; "
-            "fixed grids are slice B, ROADMAP queue 1")
+            "fixed grids batch losslessly through odeint_aca_fixed")
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec)
@@ -270,22 +311,48 @@ def odeint_aca(
     """Solve dz/dt = f(t, z, *args) with ACA gradients.
 
     Returns (ys, stats) with ys stacked over ``ts`` (ys[0] = z0).
-    Differentiable with respect to ``z0`` and every floating tensor in
-    ``args`` (a tensor, or a tuple/list/dict nesting of tensors); ``ts``
-    is a constant, as in the paper. ``use_pallas`` flattens the state
-    once per solve and runs the trial loop and the backward replay on the
-    fused kernel path; the flatten and unflatten sit outside the autograd
+    Differentiable with respect to ``z0`` (a tensor, or a pytree of
+    tensors of one floating dtype) and every floating tensor in ``args``
+    (a tensor, or a tuple/list/dict nesting of tensors); ``ts`` is a
+    constant, as in the paper. ``use_pallas`` flattens the state once per
+    solve and runs the trial loop and the backward replay on the fused
+    kernel path; the flatten and unflatten sit outside the autograd
     Function, so cotangents pass through them as reshapes.
     """
     if cfg is None:
         cfg = ControllerConfig()
     if not solver.adaptive:
         raise ValueError(
-            "odeint_aca requires an embedded adaptive tableau; fixed-grid "
-            "ACA (odeint_aca_fixed) is slice B, ROADMAP queue 1")
+            "odeint_aca requires an embedded adaptive tableau; fixed grids "
+            "take odeint_aca_fixed")
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec)
+    ys = _AcaSolve.apply(prob, z0, ts, *leaves)
+    if unravel is not None:
+        ys = unravel(ys)
+    return ys, prob.stats
+
+
+def odeint_aca_fixed(
+    f: Callable,
+    z0,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    steps_per_interval: int = 8,
+    use_pallas: bool = False,
+):
+    """Fixed-grid ACA: the forward checkpoints every grid state without
+    autograd; the backward replays one ψ per grid step in reverse. The
+    gradient is the naive fixed-grid one (the same discrete solution),
+    storing {z_i} instead of every stage. Returns (ys, stats).
+    """
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    leaves, spec = pytree.tree_flatten(as_tuple(args))
+    prob = _Problem(solver, f, None, None, None, None, use_pallas, spec,
+                    steps_per_interval=steps_per_interval)
     ys = _AcaSolve.apply(prob, z0, ts, *leaves)
     if unravel is not None:
         ys = unravel(ys)

@@ -1,0 +1,243 @@
+"""The adjoint method of Chen et al. 2018 — the paper's primary baseline.
+
+Port of ``repro/core/odeint_adjoint.py``. Memory O(N_f): the forward
+solve keeps no per-step buffer (``checkpoint=False``), only the outputs;
+the backward re-integrates the augmented system
+
+    d/dt [ z̄, λ, ḡ ] = [ f(t, z̄),  -(∂f/∂z)ᵀλ,  -(∂f/∂θ)ᵀλ ]
+
+in reverse time from (z(T), ∂J/∂z(T), 0), segment by segment between the
+eval times, injecting each output's cotangent into λ at its ``ts[k]``
+(paper Eqs. 6-8; λ = +∂J/∂z). Each evaluation of the augmented field is
+one evaluation of f and one vector-Jacobian product over (z, the floating
+args leaves) by ``torch.func.vjp``. The augmented state (z̄, λ, ḡ) is
+raveled into one vector, so the reverse solve runs on the same engines and
+kernels as the forward (K1/K2, or K3/K4/K5 per row when batched).
+
+Because z̄(t) is a fresh solve backwards, it drifts from the forward
+trajectory by the truncation error of Theorem 3.2: the systematic
+gradient error that ACA removes. ḡ covers every floating tensor leaf of
+``args`` whether or not it takes a gradient, as the reference's does, so
+the reverse solve's error norm (and grid) is the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import torch
+from torch.func import vjp
+from torch.utils import _pytree as pytree
+
+from .controller import ControllerConfig
+from .integrate import (
+    adaptive_while_solve,
+    as_tuple,
+    batched_adaptive_while_solve,
+    fixed_grid_solve,
+    mask_failed_cotangents,
+)
+from .odeint_aca import _Problem as _AcaProblem
+from .stepper import maybe_flatten, maybe_flatten_batched
+from .tableaus import Tableau
+
+
+class _Problem(_AcaProblem):
+    """ACA's problem record (a fixed grid where ``steps_per_interval`` is
+    set) with the adjoint's solves."""
+
+    def __init__(self, *a, batched: bool = False, **kw):
+        super().__init__(*a, **kw)
+        self.batched = batched
+
+    @torch.no_grad()
+    def solve(self, f, z0, ts, args, forward: bool):
+        """(ys, stats) of one solve without autograd and without a
+        checkpoint buffer: the forward solve (its state already flat where
+        it should be; it takes ``h0``), or a reverse segment of the
+        augmented pytree, raveled here."""
+        if self.steps_per_interval is not None:
+            return fixed_grid_solve(self.tab, f, z0, ts, args,
+                                    self.steps_per_interval,
+                                    use_pallas=self.use_pallas)
+        up, unravel = self.use_pallas, None
+        if not forward:
+            flatten = maybe_flatten_batched if self.batched else \
+                maybe_flatten
+            f, z0, unravel, up = flatten(f, z0, up)
+        engine = batched_adaptive_while_solve if self.batched else \
+            adaptive_while_solve
+        ys, _, stats = engine(self.tab, f, z0, ts, args, self.rtol,
+                              self.atol, self.cfg,
+                              h0=self.h0 if forward else None,
+                              use_pallas=up, checkpoint=False)
+        return (ys if unravel is None else unravel(ys)), stats
+
+
+def _aug_dynamics(f: Callable, args_of: Callable):
+    """The reverse-time augmented field over s = -t: (z̄, λ, ḡ) ->
+    (-f, (∂f/∂z)ᵀλ, (∂f/∂θ)ᵀλ), θ the floating args leaves. Per sample
+    under the batched engine's vmap, so ḡ is per row there."""
+
+    def g(s, aug, *theta):
+        z, lam, _ = aug
+        t = -s
+        fz, pullback = vjp(lambda zz, *th: f(t, zz, *args_of(th)), z,
+                           *theta)
+        cots = pullback(lam)
+        return (-fz, cots[0], tuple(cots[1:]))
+
+    return g
+
+
+def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
+                      needs: List[bool]):
+    """Reverse sweep: (dL/dz0, [dL/d leaf], None where not needed)."""
+    batched = prob.batched
+    g_ys = mask_failed_cotangents(g_ys, prob.stats.status, batched=batched)
+    floating = [i for i, a in enumerate(arg_leaves)
+                if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    theta = tuple(arg_leaves[i].detach() for i in floating)
+
+    def args_of(th):
+        leaves = list(arg_leaves)
+        for i, x in zip(floating, th):
+            leaves[i] = x
+        return prob.args(leaves)
+
+    g = _aug_dynamics(prob.f, args_of)
+    rows = (ys.shape[1],) if batched else ()
+    aug = (ys[-1], g_ys[-1],
+           tuple(torch.zeros(rows + tuple(x.shape), dtype=x.dtype,
+                             device=x.device) for x in theta))
+    for k in range(ts.shape[0] - 2, -1, -1):
+        s_seg = torch.stack([-ts[k + 1], -ts[k]])
+        ys_seg, _ = prob.solve(g, aug, s_seg, theta, forward=False)
+        z_k, lam, gargs = pytree.tree_map(lambda y: y[-1], ys_seg)
+        aug = (z_k, lam + g_ys[k], gargs)
+    _, lam, gargs = aug
+    if batched:
+        # args are shared by the rows: their cotangents add up
+        gargs = tuple(x.sum(dim=0) for x in gargs)
+    dargs: List[Optional[torch.Tensor]] = [None] * len(arg_leaves)
+    for i, ga in zip(floating, gargs):
+        if needs[i]:
+            dargs[i] = ga
+    return lam, dargs
+
+
+class _AdjointSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+        ys, stats = prob.solve(prob.f, z0, ts, prob.args(arg_leaves),
+                               forward=True)
+        prob.stats = stats
+        ctx.prob = prob
+        # residuals: the outputs alone (z(T) and the other eval times)
+        ctx.ys, ctx.ts, ctx.arg_leaves = ys, ts, arg_leaves
+        return ys
+
+    @staticmethod
+    def backward(ctx, g_ys):
+        dz0, dargs = _adjoint_backward(ctx.prob, ctx.ys, ctx.ts, g_ys,
+                                       list(ctx.arg_leaves),
+                                       list(ctx.needs_input_grad[3:]))
+        return (None, dz0, None, *dargs)
+
+
+def _run(f, z0, ts, args, unravel, tab, rtol=None, atol=None, cfg=None,
+         h0=None, use_pallas=False, steps_per_interval=None, batched=False):
+    leaves, spec = pytree.tree_flatten(as_tuple(args))
+    prob = _Problem(tab, f, rtol, atol, cfg, h0, use_pallas, spec,
+                    steps_per_interval=steps_per_interval, batched=batched)
+    ys = _AdjointSolve.apply(prob, z0, ts, *leaves)
+    if unravel is not None:
+        ys = unravel(ys)
+    return ys, prob.stats
+
+
+def _adaptive_only(solver: Tableau) -> None:
+    if not solver.adaptive:
+        raise ValueError("adjoint baseline expects an adaptive tableau; "
+                         "fixed-grid adjoint == ANODE-style, see "
+                         "odeint_adjoint_fixed")
+
+
+def odeint_adjoint(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    rtol: float = 1e-6,
+    atol: float = 1e-6,
+    cfg: Optional[ControllerConfig] = None,
+    h0: Optional[torch.Tensor] = None,
+    use_pallas: bool = False,
+):
+    """Adjoint-method odeint: O(N_f) memory, reverse-time numerical error.
+    Returns (ys, stats) of the forward solve.
+
+    ``h0`` overrides the forward solve's initial stepsize. A failed
+    (``NONFINITE_STATE``) forward solve gets zero cotangents, so its
+    gradients are exact zeros. ``use_pallas`` runs the forward solve on
+    the raveled state and each backward segment on the raveled augmented
+    state, both through K1/K2.
+    """
+    if cfg is None:
+        cfg = ControllerConfig()
+    _adaptive_only(solver)
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    return _run(f, z0, ts, args, unravel, solver, rtol, atol, cfg, h0,
+                use_pallas)
+
+
+def odeint_adjoint_batched(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    rtol=1e-6,
+    atol=1e-6,
+    cfg: Optional[ControllerConfig] = None,
+    h0: Optional[torch.Tensor] = None,
+    use_pallas: bool = False,
+):
+    """Per-sample batched adjoint: ``odeint(..., batch_axis=0)``'s adjoint
+    path.
+
+    Forward: ``batched_adaptive_while_solve`` over the per-sample state,
+    every row on its own grid, the outputs kept. Backward: each row's
+    augmented system (z̄_b, λ_b, ḡ_b), raveled to one (B, N_aug) state,
+    is solved in reverse by the same batched engine (K3 and K4/K5), each
+    row on its own reverse grid; ḡ is carried per row and summed over the
+    rows at the end. Returns (ys (len(ts), B, ...), stats with (B,)
+    fields). ``rtol``/``atol`` may be (B,) tensors, used forward and back.
+    """
+    if cfg is None:
+        cfg = ControllerConfig()
+    _adaptive_only(solver)
+    f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
+    return _run(f, z0, ts, args, unravel, solver, rtol, atol, cfg, h0,
+                use_pallas, batched=True)
+
+
+def odeint_adjoint_fixed(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    steps_per_interval: int = 8,
+    use_pallas: bool = False,
+):
+    """Fixed-grid adjoint (the ANODE-family baseline): the augmented system
+    re-integrated in reverse on the same uniform grid, O(N_f) memory; the
+    reverse z̄ still drifts from the forward one. Returns (ys, stats)."""
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    return _run(f, z0, ts, args, unravel, solver, use_pallas=use_pallas,
+                steps_per_interval=steps_per_interval)

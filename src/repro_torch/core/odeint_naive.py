@@ -1,0 +1,337 @@
+"""The naive method — direct back-propagation through the ODE solver.
+
+Port of ``repro/core/odeint_naive.py``, the paper's second baseline (Sec.
+3.3): every solver operation, *including the stepsize search*, stays on
+the autograd tape. The stepsize chain h_{i+1} = h_i · decay(ê_i) is itself
+differentiated, so the graph has depth O(N_f · N_t · m) and autograd keeps
+the stage intermediates of every trial — the paper's memory blow-up.
+
+The trial loop runs eagerly under the caller's autograd mode. The
+reference encodes it as a ``lax.scan`` over the whole trial budget with
+the finished iterations masked (JAX cannot reverse-differentiate a loop
+of dynamic length); here the loop stops when the last eval time is
+reached or the budget runs out, so the tape holds only the trials taken.
+Masked trials carry a zero cotangent in the reference, so the gradient is
+the same. ``SolveStats`` count the trials taken (``n_trials``) and their
+evaluations without first-stage reuse (``nfe`` = trials × stages), where
+the reference reports the budget.
+
+As in the reference: the initial stepsize stays on the tape, the first
+stage is evaluated afresh every trial (no FSAL reuse), failure detection
+reads detached values, and a trial with a non-finite error norm feeds
+``propose_stepsize`` a neutral ratio. On the fused path (``use_pallas``)
+the ratio comes from K2's (K4/K5's) norm sum, differentiated through the
+kernels' plain versions.
+
+The batched form keeps one controller per row: each trial stacks the
+rows still running into one batched ψ, so a finished row takes no trial
+and adds nothing to the tape.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import torch
+from torch.func import vmap
+
+from .controller import ControllerConfig, initial_stepsize, propose_stepsize
+from .integrate import (
+    SolveStats,
+    _compose_status,
+    _row_tolerances,
+    as_tuple,
+    fixed_grid_solve,
+    nonfinite_any,
+    nonfinite_rows,
+)
+from .stepper import (
+    error_ratio,
+    maybe_flatten,
+    maybe_flatten_batched,
+    rk_step,
+    rk_step_batched,
+)
+from .tableaus import Tableau
+
+
+def _budget(cfg: ControllerConfig, trial_budget: Optional[int]) -> int:
+    return trial_budget if trial_budget is not None else (
+        cfg.max_steps * cfg.max_trials)
+
+
+def _trial_step(h, h_min, t, t_target):
+    """The trial stepsize clip(h, h_min, max(t_target - t, h_min)), on the
+    tape."""
+    return torch.minimum(torch.maximum(h, h_min),
+                         torch.maximum(t_target - t, h_min))
+
+
+def _hit(t_new, t_target, tiny, one):
+    return t_new >= t_target - 16.0 * tiny * torch.maximum(
+        torch.abs(t_target), one)
+
+
+def odeint_naive(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    rtol: float = 1e-6,
+    atol: float = 1e-6,
+    cfg: Optional[ControllerConfig] = None,
+    trial_budget: Optional[int] = None,
+    use_pallas: bool = False,
+    h0: Optional[torch.Tensor] = None,
+):
+    """Differentiable adaptive solve (naive method); returns (ys, stats).
+
+    ``trial_budget`` bounds the trials (accepted or rejected), by default
+    ``cfg.max_steps * cfg.max_trials``; ``h0`` overrides the initial
+    stepsize heuristic. A fixed-step tableau falls back to
+    ``fixed_grid_solve`` with ``cfg.max_steps`` steps per interval, as in
+    the reference.
+
+    Solve health: a non-finite trial is never accepted; once the stepsize
+    rails at ``h_min`` with the trial still non-finite the solve freezes
+    at its last accepted state (``SolveStatus.NONFINITE_STATE``), the
+    un-reached outputs repeat it off the tape. The failing trial stays on
+    the tape, so gradients after a fault need not be finite.
+    """
+    if cfg is None:
+        cfg = ControllerConfig()
+    if not solver.adaptive:
+        return fixed_grid_solve(solver, f, z0, ts, as_tuple(args),
+                                steps_per_interval=cfg.max_steps,
+                                use_pallas=use_pallas)
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    dev = z0.device
+    n_eval = ts.shape[0]
+    tdt = ts.dtype
+    budget = _budget(cfg, trial_budget)
+    targs = as_tuple(args)
+    tiny = torch.full((), torch.finfo(tdt).eps, dtype=tdt, device=dev)
+    one = torch.ones((), dtype=tdt, device=dev)
+
+    if h0 is None:
+        h = initial_stepsize(f, ts[0], z0, targs, solver.order, rtol, atol)
+    else:
+        h = torch.as_tensor(h0, device=dev)
+    h = h.to(tdt).reshape(())
+
+    t, z = ts[0], z0
+    prev_ratio = torch.ones((), dtype=torch.float32, device=dev)
+    ys: List[Optional[torch.Tensor]] = [z0] + [None] * (n_eval - 1)
+    eval_idx, n_acc, trials = 1, 0, 0
+    failed = bool(nonfinite_any(z0.detach(), h.detach()))
+    uflow = False
+    # one host read per trial: the trial's four decisions
+    while eval_idx < n_eval and not failed and trials < budget:
+        t_target = ts[eval_idx]
+        h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
+        h_use = _trial_step(h, h_min, t, t_target)
+        # no first-stage reuse: the whole trial goes on the tape
+        res = rk_step(solver, f, t, z, h_use, targs, use_pallas=use_pallas,
+                      err_scale=(rtol, atol))
+        ratio = res.err_ratio if res.err_ratio is not None else \
+            error_ratio(res.err, z, res.z_next, rtol, atol)
+        railed = h_use <= h_min * (1 + 1e-3)
+        # detection reads detached values: no edges added to the tape
+        bad = nonfinite_any(res.z_next.detach(), ratio.detach())
+        accept = ((ratio <= 1.0) | railed) & ~bad
+        t_new = t + h_use
+        hit = accept & _hit(t_new, t_target, tiny, one)
+        # the differentiated stepsize chain; a non-finite ratio enters it
+        # as a neutral 1
+        ratio_h = torch.where(bad, torch.ones_like(ratio), ratio)
+        h_next = propose_stepsize(cfg, h_use, ratio_h, prev_ratio,
+                                  solver.order).to(tdt)
+        acc, hit_now, fail_now, uflow_now = torch.stack(
+            [accept, hit, bad & railed,
+             accept & railed & (ratio > 1.0)]).tolist()
+        trials += 1
+        if acc:
+            t, z = t_new, res.z_next
+            prev_ratio = torch.clamp(ratio, min=1e-10)
+            n_acc += 1
+            if hit_now:
+                ys[eval_idx] = z
+                eval_idx += 1
+        failed = failed or fail_now
+        uflow = uflow or uflow_now
+        h = h_next
+
+    # un-reached slots: a frozen solve repeats its last state off the tape
+    fill = z.detach() if failed else torch.zeros_like(z0)
+    ys_out = torch.stack([y if y is not None else fill for y in ys])
+    if unravel is not None:
+        ys_out = unravel(ys_out)
+
+    def flag(v):
+        return torch.full((), v, dtype=torch.bool, device=dev)
+
+    def count(v):
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    overflow = flag(eval_idx < n_eval)
+    status = _compose_status(flag(failed), flag(uflow), ~overflow,
+                             flag(trials >= budget))
+    stats = SolveStats(n_steps=count(n_acc), n_trials=count(trials),
+                       nfe=count(trials * solver.stages), overflow=overflow,
+                       status=status)
+    return ys_out, stats
+
+
+def odeint_naive_batched(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    rtol=1e-6,
+    atol=1e-6,
+    cfg: Optional[ControllerConfig] = None,
+    trial_budget: Optional[int] = None,
+    use_pallas: bool = False,
+    h0: Optional[torch.Tensor] = None,
+):
+    """Per-sample batched naive method: ``odeint(..., batch_axis=0)``
+    with autograd through each row's own trial loop.
+
+    Every leaf of ``z0`` carries a leading batch dimension B and ``f`` is
+    the per-sample field. Each trial advances the rows still running in
+    one batched ψ (``rk_step_batched``: K3 and K4/K5 on the fused path),
+    each with its own stepsize, accept/reject decision and differentiated
+    stepsize chain; a row that reached its last eval time, failed or ran
+    out of ``trial_budget`` (shared, per row) takes no further trial.
+    ``rtol``/``atol`` may be (B,) tensors; ``h0`` a scalar or (B,).
+    Returns (ys (len(ts), B, ...), stats with (B,) fields).
+    """
+    if cfg is None:
+        cfg = ControllerConfig()
+    if not solver.adaptive:
+        raise ValueError(
+            "odeint_naive_batched requires an embedded adaptive tableau; "
+            "fixed grids batch losslessly through odeint_naive_fixed")
+    f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
+    dev = z0.device
+    B = z0.shape[0]
+    n_eval = ts.shape[0]
+    tdt = ts.dtype
+    budget = _budget(cfg, trial_budget)
+    targs = as_tuple(args)
+    tiny = torch.full((), torch.finfo(tdt).eps, dtype=tdt, device=dev)
+    one = torch.ones((), dtype=tdt, device=dev)
+
+    row_tol = _row_tolerances(rtol, atol, B, dev)
+    if h0 is not None:
+        h_init = torch.as_tensor(h0, device=dev).broadcast_to((B,))
+    elif row_tol is not None:
+        h_init = vmap(lambda z, rt, at: initial_stepsize(
+            f, ts[0], z, targs, solver.order, rt, at))(z0, *row_tol)
+    else:
+        h_init = vmap(lambda z: initial_stepsize(
+            f, ts[0], z, targs, solver.order, rtol, atol))(z0)
+    h_init = h_init.to(tdt)
+
+    # per-row carries as lists of tensors on the tape
+    z_rows = list(z0.unbind(0))
+    t_rows = [ts[0]] * B
+    h_rows = list(h_init.unbind(0))
+    prev_rows = [torch.ones((), dtype=torch.float32, device=dev)] * B
+    ys: List[List[Optional[torch.Tensor]]] = [z_rows[:]] + [
+        [None] * B for _ in range(n_eval - 1)]
+    eval_idx = [1] * B
+    n_acc = [0] * B
+    trials = [0] * B
+    failed = nonfinite_rows(z0.detach(), h_init.detach()).tolist()
+    uflow = [False] * B
+
+    def running():
+        return [b for b in range(B) if eval_idx[b] < n_eval
+                and not failed[b] and trials[b] < budget]
+
+    live = running()
+    # one host read per trial: the running rows' four decisions
+    while live:
+        sel = torch.tensor(live, device=dev)
+        z = torch.stack([z_rows[b] for b in live])
+        t = torch.stack([t_rows[b] for b in live])
+        h = torch.stack([h_rows[b] for b in live])
+        prev_ratio = torch.stack([prev_rows[b] for b in live])
+        t_target = ts[torch.tensor([eval_idx[b] for b in live], device=dev)]
+        h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
+        h_use = _trial_step(h, h_min, t, t_target)
+        tol = (rtol, atol) if row_tol is None else (
+            row_tol[0][sel], row_tol[1][sel])
+        res = rk_step_batched(solver, f, t, z, h_use, targs,
+                              use_pallas=use_pallas, err_scale=tol)
+        ratio = res.err_ratio
+        railed = h_use <= h_min * (1 + 1e-3)
+        bad = nonfinite_rows(res.z_next.detach()) | \
+            ~torch.isfinite(ratio.detach())
+        accept = ((ratio <= 1.0) | railed) & ~bad
+        t_new = t + h_use
+        hit = accept & _hit(t_new, t_target, tiny, one)
+        ratio_h = torch.where(bad, torch.ones_like(ratio), ratio)
+        h_next = propose_stepsize(cfg, h_use, ratio_h, prev_ratio,
+                                  solver.order).to(tdt)
+        acc, hits, fails, uflows = torch.stack(
+            [accept, hit, bad & railed,
+             accept & railed & (ratio > 1.0)]).tolist()
+        zn, tn, hn = res.z_next.unbind(0), t_new.unbind(0), h_next.unbind(0)
+        rn = torch.clamp(ratio, min=1e-10).unbind(0)
+        for j, b in enumerate(live):
+            trials[b] += 1
+            h_rows[b] = hn[j]
+            if acc[j]:
+                z_rows[b], t_rows[b], prev_rows[b] = zn[j], tn[j], rn[j]
+                n_acc[b] += 1
+                if hits[j]:
+                    ys[eval_idx[b]][b] = zn[j]
+                    eval_idx[b] += 1
+            failed[b] = failed[b] or fails[j]
+            uflow[b] = uflow[b] or uflows[j]
+        live = running()
+
+    zero = torch.zeros_like(z0[0])
+    ys_out = torch.stack([
+        torch.stack([y if y is not None else
+                     (z_rows[b].detach() if failed[b] else zero)
+                     for b, y in enumerate(row)]) for row in ys])
+    if unravel is not None:
+        ys_out = unravel(ys_out)
+
+    def per_row(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    overflow = per_row([e < n_eval for e in eval_idx], torch.bool)
+    status = _compose_status(per_row(failed, torch.bool),
+                             per_row(uflow, torch.bool), ~overflow,
+                             per_row([n >= budget for n in trials],
+                                     torch.bool))
+    stats = SolveStats(n_steps=per_row(n_acc, torch.int32),
+                       n_trials=per_row(trials, torch.int32),
+                       nfe=per_row([n * solver.stages for n in trials],
+                                   torch.int32),
+                       overflow=overflow, status=status)
+    return ys_out, stats
+
+
+def odeint_naive_fixed(
+    f: Callable,
+    z0: Any,
+    ts: torch.Tensor,
+    args: Any = (),
+    *,
+    solver: Tableau,
+    steps_per_interval: int = 8,
+    use_pallas: bool = False,
+):
+    """Naive fixed grid: autograd through the grid loop (every stage on the
+    tape, O(N_f · N_t) memory, no recompute). Returns (ys, stats)."""
+    return fixed_grid_solve(solver, f, z0, ts, as_tuple(args),
+                            steps_per_interval, use_pallas=use_pallas)

@@ -19,7 +19,13 @@ batch dimension B: per-row times and stepsizes (B,), the per-sample
 field evaluated over the batch with ``torch.func.vmap``, per-row error
 norms, and kernels K3 and K4/K5 on the flat (B, N) path.
 
-Pytree (nested) states belong to a later slice and raise ``ValueError``.
+Pytree (nested) states — dicts, tuples, lists, NamedTuples of tensors of
+one floating dtype — are raveled once per solve by ``maybe_flatten`` /
+``maybe_flatten_batched`` on both paths, so the engines carry one
+tensor; outputs unravel back to the caller's structure. The error norm
+then sums over the raveled vector, where the reference's plain path sums
+leaf by leaf: the same norm in another order. Mixed-dtype pytrees (the
+reference's per-leaf path) raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,23 +34,34 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.func import vmap
+from torch.utils import _pytree as pytree
 
 from ..kernels import ops
+from .controller import sqrt0
 from .tableaus import Tableau
 
 VecField = Callable[..., torch.Tensor]  # f(t, z, *args) -> dz/dt
 Tol = Union[float, torch.Tensor]        # scalar, or (B,) under batching
 
 
-def check_state(z0: Any) -> None:
-    """The state of this slice is one floating tensor."""
-    if not isinstance(z0, torch.Tensor):
+def state_leaves(z0: Any):
+    """``(leaves, spec)`` of a state: one floating tensor, or a pytree of
+    tensors sharing one floating dtype."""
+    leaves, spec = pytree.tree_flatten(z0)
+    if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
         raise ValueError(
-            f"the state must be one torch.Tensor; got {type(z0).__name__}. "
-            "Pytree (nested) states are not ported yet: they come with the "
-            "remainder of slice A (ROADMAP queue 1)")
-    if not z0.is_floating_point():
-        raise ValueError(f"the state must be floating; got {z0.dtype}")
+            "the state must be a torch.Tensor or a pytree (dict, tuple, "
+            f"list, NamedTuple) of tensors; got {type(z0).__name__}")
+    dtypes = {x.dtype for x in leaves}
+    if len(dtypes) > 1:
+        names = sorted(str(d) for d in dtypes)
+        raise ValueError(
+            f"a pytree state whose leaves mix dtypes ({names}) is not "
+            "ported yet: the per-leaf stepper path comes with slice J "
+            "(ROADMAP queue 1); cast the leaves to one floating dtype")
+    if not leaves[0].is_floating_point():
+        raise ValueError(f"the state must be floating; got {leaves[0].dtype}")
+    return leaves, spec
 
 
 def _promoted(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -86,33 +103,51 @@ def _is_flat(z: torch.Tensor) -> bool:
     return z.dim() == 1 and z.is_floating_point()
 
 
-def flatten_problem(f: VecField, z0: torch.Tensor):
-    """Per-solve flat-state adapter for the fused kernel path.
+def _ravel(tree: Any, batch_dims: int = 0) -> torch.Tensor:
+    """The leaves of ``tree`` concatenated along one last axis, keeping
+    ``batch_dims`` leading axes."""
+    leaves = pytree.tree_leaves(tree)
+    if len(leaves) == 1:
+        x = leaves[0]
+        return x.reshape(tuple(x.shape[:batch_dims]) + (-1,))
+    return torch.cat([x.reshape(tuple(x.shape[:batch_dims]) + (-1,))
+                      for x in leaves], dim=-1)
+
+
+def flatten_problem(f: VecField, z0: Any):
+    """Per-solve flat-state adapter.
 
     Returns ``(f_flat, z0_flat, unravel)``: the vector field over the
-    (N,) state, the flattened initial state, and ``unravel`` mapping a
-    (..., N) tensor back to (..., *z0.shape).
+    raveled (N,) state, the raveled initial state (one tensor of any
+    shape, or a pytree of tensors of one floating dtype), and ``unravel``
+    mapping a (..., N) tensor back to z0's structure with (...) leading
+    every leaf.
     """
-    check_state(z0)
-    shape = tuple(z0.shape)
-
-    def f_flat(t, zf, *args):
-        return f(t, zf.reshape(shape), *args).reshape(-1)
+    leaves, spec = state_leaves(z0)
+    shapes = [tuple(x.shape) for x in leaves]
+    sizes = [x.numel() for x in leaves]
 
     def unravel(x):
-        return x.reshape(tuple(x.shape[:-1]) + shape)
+        lead = tuple(x.shape[:-1])
+        parts = [x] if len(sizes) == 1 else torch.split(x, sizes, dim=-1)
+        return pytree.tree_unflatten(
+            [p.reshape(lead + s) for p, s in zip(parts, shapes)], spec)
 
-    return f_flat, z0.reshape(-1), unravel
+    def f_flat(t, zf, *args):
+        return _ravel(f(t, unravel(zf), *args))
+
+    return f_flat, _ravel(z0), unravel
 
 
-def maybe_flatten(f: VecField, z0: torch.Tensor, use_pallas: bool):
+def maybe_flatten(f: VecField, z0: Any, use_pallas: bool):
     """``(f, z0, unravel, use_pallas)``: the flat problem when the fused
-    path is requested, else the inputs unchanged with ``unravel=None``."""
-    check_state(z0)
-    if not use_pallas:
+    path is requested or the state is a pytree, else the one-tensor
+    inputs unchanged with ``unravel=None``."""
+    state_leaves(z0)
+    if not use_pallas and isinstance(z0, torch.Tensor):
         return f, z0, None, False
     f_flat, z0_flat, unravel = flatten_problem(f, z0)
-    return f_flat, z0_flat, unravel, True
+    return f_flat, z0_flat, unravel, use_pallas
 
 
 def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
@@ -149,7 +184,7 @@ def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
         z_next, err, sq_sum = ops.rk_stage_combine_err(
             z, rows(tab.stages), h, tab.b, tab.b_err, rtol, atol,
             with_err=False)
-        ratio = torch.sqrt(sq_sum / torch.full_like(sq_sum, z.numel()))
+        ratio = sqrt0(sq_sum / torch.full_like(sq_sum, z.numel()))
     else:
         # no consumer for err here (the ACA replay reads only z_next): the
         # solution combine is K1 with the b row, without the err store
@@ -201,7 +236,7 @@ def error_ratio(err: torch.Tensor, z0: torch.Tensor, z1: torch.Tensor,
     scale = atol + rtol * torch.maximum(torch.abs(z0), torch.abs(z1))
     r = (err / scale).float()
     total = torch.sum(r * r)
-    return torch.sqrt(total / torch.full_like(total, r.numel()))
+    return sqrt0(total / torch.full_like(total, r.numel()))
 
 
 # ------------------------------------------------------------ batched form
@@ -210,22 +245,24 @@ def _is_flat_batched(z: torch.Tensor) -> bool:
     return z.dim() == 2 and z.is_floating_point()
 
 
-def maybe_flatten_batched(f: VecField, z0: torch.Tensor, use_pallas: bool):
-    """Batched twin of ``maybe_flatten``: ``z0`` carries a leading batch
-    dimension B and ``f`` is the *per-sample* field.
+def maybe_flatten_batched(f: VecField, z0: Any, use_pallas: bool):
+    """Batched twin of ``maybe_flatten``: every leaf of ``z0`` carries a
+    leading batch dimension B and ``f`` is the *per-sample* field.
 
-    Returns ``(f, z0, unravel, use_pallas)``: with the fused path, ``f``
-    is the per-sample field over the flat (N,) state, ``z0`` the (B, N)
-    batch and ``unravel`` maps (..., N) back to (..., *sample_shape);
-    otherwise the inputs unchanged with ``unravel=None``.
+    Returns ``(f, z0, unravel, use_pallas)``: with the fused path or a
+    pytree state, ``f`` is the per-sample field over the raveled (N,)
+    state, ``z0`` the (B, N) batch and ``unravel`` maps (..., N) back to
+    the sample structure with (...) leading every leaf; otherwise the
+    one-tensor inputs unchanged with ``unravel=None``.
     """
-    check_state(z0)
-    if z0.dim() < 1:
+    leaves, _ = state_leaves(z0)
+    if any(x.dim() < 1 for x in leaves):
         raise ValueError("a batched state needs a leading batch dimension")
-    if not use_pallas:
+    if not use_pallas and isinstance(z0, torch.Tensor):
         return f, z0, None, False
-    f_flat, _, unravel = flatten_problem(f, z0[0])
-    return f_flat, z0.reshape(z0.shape[0], -1), unravel, True
+    f_flat, _, unravel = flatten_problem(
+        f, pytree.tree_map(lambda x: x[0], z0))
+    return f_flat, _ravel(z0, batch_dims=1), unravel, use_pallas
 
 
 def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -271,7 +308,7 @@ def _rk_step_flat_batched(tab: Tableau, fb: Callable, t: torch.Tensor,
         rtol, atol = err_scale
         z_next, sq_sum = ops.rk_stage_combine_err_batched(
             z, rows(tab.stages), h, tab.b, tab.b_err, rtol, atol)
-        ratio = torch.sqrt(sq_sum / torch.full_like(sq_sum, z.shape[-1]))
+        ratio = sqrt0(sq_sum / torch.full_like(sq_sum, z.shape[-1]))
     else:
         z_next = ops.rk_stage_increment_batched(z, rows(tab.stages), h,
                                                 tab.b)

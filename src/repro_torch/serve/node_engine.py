@@ -248,8 +248,11 @@ class NodeEngineConfig:
     ``slots`` and ``chunk_dt`` fix the solve's shapes: every round solves
     a (slots, dim+2) canonical batch regardless of occupancy.
     ``static_batch=True`` is the baseline scheduler: admit only when *all*
-    slots are free. ``grad_method`` is ``"aca"``; ``"mali"`` comes with
-    slice F and the other methods with slice B.
+    slots are free. ``grad_method`` is ``"aca"``, ``"adjoint"`` or
+    ``"naive"``: a round is a forward solve, on ACA's engine for the
+    adjoint and on its own trial loop for the naive method, whose
+    ``n_trials`` count the trials taken (the reference's count its
+    budget); ``"mali"`` comes with slice F.
     """
     slots: int = 4
     chunk_dt: float = 0.5
@@ -275,11 +278,6 @@ class NodeEngineConfig:
             raise ValueError(
                 "NodeEngineConfig(grad_method='mali') is not ported yet: "
                 "it comes with slice F (ROADMAP queue 1)")
-        if self.grad_method != "aca":
-            raise ValueError(
-                f"NodeEngineConfig(grad_method={self.grad_method!r}) is not "
-                "ported yet: the adjoint and naive methods come with "
-                "slice B (ROADMAP queue 1)")
 
 
 # ------------------------------------------------------------------- engine

@@ -232,9 +232,12 @@ def test_batched_api_errors():
     with pytest.raises(ValueError, match="per-row h0"):
         todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
                 h0=torch.full((3,), 1e-2))
-    with pytest.raises(ValueError, match="slice B"):
+    with pytest.raises(ValueError, match="slice F"):
         todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
-                grad_method="adjoint")
+                grad_method="mali")
+    with pytest.raises(ValueError, match="adaptive solver"):
+        todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
+                solver="rk4", rtol=torch.full((4,), 1e-3))
     with pytest.raises(ValueError, match="slice D"):
         todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
                 checkpoint_segments=4)

@@ -22,7 +22,15 @@ partials and z_next are the same bits at B = 1, 3 and 8 and on views 0-3
 elements into larger buffers, at the serving row (8, 393,218) and the
 batched block's (8, 393,216), f32 and bf16; the serving engine gives a
 request alone its bits in a mix on a ragged row too (odd dim). TF32 is
-off, so matmuls run in full f32 on both sides.
+off, so matmuls run in full f32 on both sides. The adjoint and naive
+methods (toy, batch_axis=0 and fixed-grid solves, ACA's too where
+batched or fixed) through K1-K4 on the card against the same solves on
+CPU tensors: steps equal; the toy's gradient within 1e-5, the fixed
+grid's outputs within rtol 1e-5 and gradients within 1e-4, the batched
+adaptive solve's outputs within 10 x its tolerance and gradients within
+1e-4 of their scale (its grids drift with the fields' rounding; the
+test says why), and the batched solve against its plain path on the
+card as the ACA test above.
 
 The serving kernels against their plain versions, as max |difference| /
 max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
@@ -173,6 +181,103 @@ def test_toy_gradient_on_the_card(card):
     analytic = 2 * 1.5 * np.exp(4.0)
     assert abs(float(z0.grad) - analytic) / analytic < 1e-4
     assert ys.device.type == "cuda"
+
+
+def _card_and_cpu(run):
+    """``run(device)`` on the card and on CPU tensors (the kernels' plain
+    versions), the card's K1-K4 launches counted."""
+    rk_stage.reset_launches()
+    on_card = run(torch.device("cuda"))
+    launched = dict(rk_stage.launches)
+    return on_card, run(torch.device("cpu")), launched
+
+
+@pytest.mark.parametrize("method", ["adjoint", "naive"])
+def test_toy_gradient_methods_on_the_card(card, method):
+    """The adjoint and naive toy solves through K1/K2 on the card: the
+    analytic gradient within 1e-4 (the reference test's), and the CPU
+    solve's steps and gradient within 1e-5 (K2's norm sums in another
+    order, which moves a stepsize by ulps)."""
+    def run(dev):
+        z0 = torch.tensor(1.5, device=dev, requires_grad=True)
+        ys, st = odeint(lambda t, z, c: c * z, z0, [0.0, 1.0],
+                        (torch.tensor(2.0, device=dev),), solver="dopri5",
+                        grad_method=method, rtol=1e-6, atol=1e-6,
+                        use_pallas=True)
+        (ys[-1] ** 2).sum().backward()
+        return float(z0.grad), int(st.n_steps)
+
+    (g, n), (g_cpu, n_cpu), launched = _card_and_cpu(run)
+    analytic = 2 * 1.5 * np.exp(4.0)
+    assert abs(g - analytic) / analytic < 1e-4
+    assert n == n_cpu and abs(g - g_cpu) <= 1e-5 * abs(g_cpu)
+    assert launched["rk_stage_increment"] > 0
+    assert launched["rk_stage_combine_err"] > 0
+
+
+@pytest.mark.parametrize("method", ["aca", "adjoint", "naive"])
+def test_batched_methods_on_the_card(card, method):
+    """A small batch_axis=0 solve of each method through K3/K4 on the
+    card, against its plain path on the card (steps equal, ys within
+    rtol 1e-5, gradients within rtol 1e-4: the norm sums in another order)
+    and against the same solve on CPU tensors: per-row steps equal, ys
+    within 10 x the solve tolerance and gradients within 1e-4 of their
+    scale. The two devices' fields round differently and the error
+    estimate, a difference of nearly equal stage sums, carries that
+    rounding into the stepsizes, so the grids drift apart by a fraction
+    of the local error the controller allows (measured on an H100: 2.3e-6
+    at tolerance 1e-6, 4.2e-5 at 1e-4)."""
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((64, 64)) * 0.2).astype(np.float32)
+    z0 = rng.standard_normal((4, 64)).astype(np.float32)
+    tol = 1e-6
+
+    def run(dev, use_pallas=True):
+        zz = torch.tensor(z0, device=dev, requires_grad=True)
+        ww = torch.tensor(w, device=dev, requires_grad=True)
+        ys, st = odeint(lambda t, z, m: torch.tanh(m @ z), zz, [0.0, 1.0],
+                        (ww,), solver="dopri5", grad_method=method,
+                        rtol=tol, atol=tol, batch_axis=0,
+                        use_pallas=use_pallas)
+        torch.sum(ys[-1] ** 2).backward()
+        return (ys.detach().cpu(), st.n_steps.tolist(), zz.grad.cpu(),
+                ww.grad.cpu())
+
+    (y1, s1, gz1, gw1), (y0, s0, gz0, gw0), launched = _card_and_cpu(run)
+    assert launched["rk_stage_increment_batched"] > 0
+    assert launched["rk_stage_combine_err_batched"] > 0
+    assert s1 == s0
+    torch.testing.assert_close(y1, y0, rtol=0.0, atol=10 * tol)
+    for g1, g0 in ((gz1, gz0), (gw1, gw0)):
+        assert float((g1 - g0).abs().max() / g0.abs().max()) <= 1e-4
+    yp, sp, gzp, gwp = run(card, use_pallas=False)
+    assert sp == s1
+    torch.testing.assert_close(y1, yp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gz1, gzp, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gw1, gwp, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["aca", "adjoint", "naive"])
+def test_fixed_grid_methods_on_the_card(card, method):
+    """rk4 on a fixed grid through K1 on the card against CPU tensors:
+    ys within rtol 1e-5, gradients within rtol 1e-4."""
+    rng = np.random.default_rng(1)
+    w = (rng.standard_normal((64, 64)) * 0.2).astype(np.float32)
+    z0 = rng.standard_normal(64).astype(np.float32)
+
+    def run(dev):
+        ww = torch.tensor(w, device=dev, requires_grad=True)
+        ys, _ = odeint(lambda t, z, m: torch.tanh(m @ z),
+                       torch.tensor(z0, device=dev), [0.0, 0.5, 1.0], (ww,),
+                       solver="rk4", grad_method=method,
+                       steps_per_interval=8, use_pallas=True)
+        torch.sum(ys ** 2).backward()
+        return ys.detach().cpu(), ww.grad.cpu()
+
+    (y1, g1), (y0, g0), launched = _card_and_cpu(run)
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-6)
+    assert launched["rk_stage_increment"] > 0
 
 
 def _batched_inputs(card, rows, n, dtype, seed=0):

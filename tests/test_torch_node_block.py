@@ -155,9 +155,15 @@ def _nest(flat):
 
 def test_fixed_regime_and_unported_kinds_raise():
     from repro_torch.core.node_block import NodeConfig, node_block_apply
-    with pytest.raises(ValueError, match="slice B"):
+    # the fixed regime runs: rk2 (HeunEuler's advancing method) on 4 steps
+    # of dz/dt = -z
+    zT = node_block_apply(lambda p, z, t: -z, {}, torch.ones(2),
+                          NodeConfig(regime="fixed"))
+    np.testing.assert_allclose(zT.numpy(), [(1 - 0.25 + 0.25 ** 2 / 2) ** 4]
+                               * 2, rtol=1e-6)
+    with pytest.raises(ValueError, match="slice F"):
         node_block_apply(lambda p, z, t: z, {}, torch.ones(2),
-                         NodeConfig(regime="fixed"))
+                         NodeConfig(grad_method="mali"))
     with pytest.raises(ValueError, match="slice G"):
         TransformerBlock(dataclasses.replace(tcfg.SMOKE, family="moe"),
                          TRun(), device="cpu")

@@ -267,8 +267,8 @@ class TestQueueAndClock:
             NodeEngineConfig(chunk_dt=0.0)
         with pytest.raises(ValueError, match="slice F"):
             NodeEngineConfig(grad_method="mali")
-        with pytest.raises(ValueError, match="slice B"):
-            NodeEngineConfig(grad_method="adjoint")
+        for method in ("adjoint", "naive"):
+            assert NodeEngineConfig(grad_method=method).grad_method == method
 
     def test_submit_shape_check(self, eng):
         with pytest.raises(ValueError, match="shape"):
@@ -294,6 +294,29 @@ class TestEngineServing:
         ref = ys[-1].numpy()
         assert np.abs(res[0].z_final - ref).max() <= _parity_bound(
             res[0], req, ref)
+
+    @pytest.mark.parametrize("method", ["adjoint", "naive"])
+    def test_adjoint_and_naive_engines_serve_aca_trajectories(self, method):
+        """The adjoint's rounds run ACA's forward engine (bitwise the ACA
+        engine's results); the naive method's own trial loop takes the same
+        trials to within rounding, on both stepper paths."""
+        for up in (False, True):
+            out = {}
+            for m in ("aca", method):
+                e = _engine(slots=2, chunk_dt=0.5, grad_method=m,
+                            use_pallas=up)
+                for i in range(3):
+                    e.submit(NodeRequest(z0=_z0(40 + i), t1=0.6 + 0.4 * i,
+                                         rtol=1e-5, atol=1e-7),
+                             arrival=0.0)
+                out[m] = e.run()
+            for a, b in zip(out["aca"], out[method]):
+                assert b.ok and a.n_trials == b.n_trials
+                if method == "adjoint":
+                    assert np.array_equal(a.z_final, b.z_final)
+                else:
+                    np.testing.assert_allclose(b.z_final, a.z_final,
+                                               rtol=1e-6, atol=1e-7)
 
     def test_drain_returns_every_request(self, eng):
         for i in range(7):

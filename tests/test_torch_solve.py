@@ -203,12 +203,12 @@ def test_state_of_any_shape_keeps_its_shape():
     (dict(mesh=object()), "slice I"),
     (dict(checkpoint_segments="auto"), "slice D"),
     (dict(interpolate_ts=True), "slice D"),
-    (dict(grad_method="adjoint"), "slice B"),
-    (dict(grad_method="naive"), "slice B"),
+    (dict(grad_method="adjoint", interpolate_ts=True), "slice D"),
+    (dict(grad_method="naive", batch_axis=0, mesh=object()), "slice I"),
     (dict(grad_method="mali"), "slice F"),
     (dict(solver="alf"), "slice F"),
-    (dict(solver="rk4"), "slice B"),
-    (dict(solver="euler"), "slice B"),
+    (dict(solver="rk4", on_failure="warn"), "slice E"),
+    (dict(solver="euler", grad_method="alf"), "grad_method must be one of"),
     (dict(rtol=torch.tensor([1e-3, 1e-4])), "require batch_axis"),
     (dict(on_failure="raise"), "slice E"),
 ])
@@ -222,8 +222,12 @@ def test_invalid_inputs_raise():
         todeint(lambda t, z: -z, torch.tensor(1.0), [0.0, 1.0, 1.0])
     with pytest.raises(ValueError, match="at least 2 times"):
         todeint(lambda t, z: -z, torch.tensor(1.0), [0.0])
-    with pytest.raises(ValueError, match="slice A"):
-        todeint(lambda t, z: z, {"a": torch.ones(2)}, [0.0, 1.0])
+    with pytest.raises(ValueError, match="slice J"):
+        todeint(lambda t, z: z, {"a": torch.ones(2),
+                                 "b": torch.ones(2, dtype=torch.bfloat16)},
+                [0.0, 1.0])
+    with pytest.raises(ValueError, match="pytree"):
+        todeint(lambda t, z: z, {"a": 1.0}, [0.0, 1.0])
     with pytest.raises(ValueError, match="grad_method"):
         todeint(lambda t, z: -z, torch.ones(2), [0.0, 1.0],
                 grad_method="nope")

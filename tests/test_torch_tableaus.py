@@ -1,12 +1,17 @@
 """The port's Butcher tableaus equal the reference's, entry for entry.
 
-Mirrors ``tests/test_tableaus.py`` (registry, aliases, groups, errors);
-the convergence-order checks need fixed-grid solving, which is slice B.
+Mirrors ``tests/test_tableaus.py``: registry, aliases, groups, errors,
+and the empirical convergence order of every tableau through the port's
+``fixed_grid_solve`` (halving h divides the error of an order-p method by
+about 2^p; the reference test's step counts and slack).
 """
 
+import numpy as np
 import pytest
+import torch
 
 from repro.core import tableaus as jt
+from repro_torch.core import fixed_grid_solve
 from repro_torch.core import tableaus as tt
 
 
@@ -53,3 +58,42 @@ def test_validate_rejects_inconsistent_tableau():
                      c=(0.0, 1.0), order=2)
     with pytest.raises(ValueError, match="row sums"):
         bad.validate()
+
+
+def _solve_err(tab, steps):
+    """Error of z' = z·cos(t), z(0)=1 (exact: exp(sin t)) at T=2, f32."""
+    ys, _ = fixed_grid_solve(tab, lambda t, z: z * torch.cos(t),
+                             torch.tensor(1.0), torch.tensor([0.0, 2.0]),
+                             (), steps)
+    return abs(float(ys[-1]) - float(np.exp(np.sin(2.0))))
+
+
+@pytest.mark.parametrize("name,order", [
+    ("euler", 1), ("midpoint", 2), ("rk2", 2), ("rk4", 4),
+    ("heun_euler", 2), ("bosh3", 3), ("dopri5", 5),
+])
+def test_convergence_order(name, order):
+    tab = tt.get_tableau(name)
+    # step counts where the error is well above f32 noise
+    n0 = {1: 64, 2: 16, 3: 8, 4: 4, 5: 2}[order]
+    e1 = _solve_err(tab, n0)
+    e2 = _solve_err(tab, 2 * n0)
+    rate = np.log2(max(e1, 1e-12) / max(e2, 1e-12))
+    assert rate > order - 0.7, (name, rate, order, e1, e2)
+
+
+@pytest.mark.parametrize("name", tt.FIXED_SOLVERS)
+def test_fixed_grid_equals_reference(name):
+    """The port's fixed grid against the reference's on the same problem:
+    the same steps at f32 rounding."""
+    from repro.core import fixed_grid_solve as jfixed
+    import jax.numpy as jnp
+    ys_r, st_r = jfixed(jt.get_tableau(name), lambda t, z: z * jnp.cos(t),
+                        jnp.float32(1.0), jnp.array([0.0, 1.0, 2.0]), (), 8)
+    ys, st = fixed_grid_solve(tt.get_tableau(name),
+                              lambda t, z: z * torch.cos(t),
+                              torch.tensor(1.0),
+                              torch.tensor([0.0, 1.0, 2.0]), (), 8)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_r), rtol=2e-6)
+    for field in ("n_steps", "n_trials", "nfe", "status"):
+        assert int(getattr(st, field)) == int(getattr(st_r, field)), field
