@@ -1,0 +1,68 @@
+"""Benchmark runner of the port — one function per paper table/figure.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.run \\
+        [--full] [--only NAME] [--device cuda|cpu]
+
+Port of ``benchmarks/run.py`` for the paper's experiments (Fig. 4/5/6,
+Tables 1-7). Quick mode (the reference's smaller sizes) is the default;
+``--full`` uses the larger settings. Output: the reference's
+``name,value,derived`` CSV rows, a ``bench_runtime_s/<name>`` row per
+benchmark, and a non-zero exit naming the benchmarks that failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+import traceback
+
+from . import (classification, method_costs, reliability, reverse_error,
+               solver_robustness, threebody, timeseries, toy_gradient)
+from .common import emit
+
+BENCHES = [
+    ("toy_gradient (Fig.6)", toy_gradient.run),
+    ("reverse_error (Fig.4/5)", reverse_error.run),
+    ("method_costs (Table 1)", method_costs.run),
+    ("classification (Table 2/Fig.7)", classification.run),
+    ("reliability (Table 3)", reliability.run),
+    ("solver_robustness (Tables 6/7)", solver_robustness.run),
+    ("timeseries (Table 4)", timeseries.run),
+    ("threebody (Table 5/Fig.8)", threebody.run),
+]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="device of every benchmark (default: the card)")
+    args = ap.parse_args(argv)
+
+    failed = []
+    for name, fn in BENCHES:
+        if args.only and args.only not in name:
+            continue
+        print(f"# === {name} ===", flush=True)
+        t0 = time.monotonic()
+        try:
+            fn(quick=not args.full, device=args.device)
+            emit(f"bench_runtime_s/{name.split(' ')[0]}",
+                 f"{time.monotonic() - t0:.1f}", "")
+        except Exception:
+            # per-bench isolation: one crashing bench reports and the
+            # suite continues; the summary and exit code carry the failure
+            failed.append(name)
+            traceback.print_exc()
+            emit(f"bench_failed/{name.split(' ')[0]}", "1", "")
+    if failed:
+        print(f"# {len(failed)} benchmark(s) failed: "
+              + ", ".join(failed), flush=True)
+        raise SystemExit(f"{len(failed)} benchmarks failed: "
+                         + ", ".join(n.split(" ")[0] for n in failed))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

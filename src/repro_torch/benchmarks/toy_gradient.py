@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.core import SolveStats, odeint
 
+from .common import emit
+
 Z0 = 1.5
 METHODS = ("aca", "adjoint", "naive")
 
@@ -49,10 +51,6 @@ def grad_rel_error(method: str, k: float, t_end: float, *, device="cuda",
     """Relative error of dL/dz0 against the analytic gradient (Eq. 29)."""
     return toy_case(method, k, t_end, device=device,
                     use_pallas=use_pallas)[0]
-
-
-def emit(name: str, value, derived: str = "") -> None:
-    print(f"{name},{value},{derived}", flush=True)
 
 
 def run(quick: bool = False, device="cuda", use_pallas: bool = False

@@ -27,8 +27,10 @@ three methods.
 ``batch_axis=a`` solves every slice of ``z0`` along axis ``a`` as its own
 problem (``f`` is the per-sample field), each on its own adaptive grid;
 ``ys[k]`` keeps the batch at axis ``a`` and ``stats`` fields are (B,).
-There ``rtol``/``atol`` may be (B,) arrays, one tolerance per row, and
-``h0`` a (B,) array::
+There ``rtol``/``atol`` may be (B,) arrays, one tolerance per row,
+``h0`` a (B,) array, and ``ts`` a (B, T) array, one row of eval times per
+sample (every row strictly monotone in one direction; ``ys[k]`` then
+holds row b's state at ``ts[b, k]``)::
 
     ys, stats = odeint(f, z0, ts, args, batch_axis=0,
                        rtol=torch.tensor([1e-3, 1e-5]), atol=1e-6)
@@ -83,8 +85,9 @@ def _later(what: str, slice_: str) -> ValueError:
 
 def _ts_direction(ts: torch.Tensor) -> int:
     """+1 for strictly ascending ``ts``, -1 for strictly descending;
-    ValueError for anything else (repeated times included)."""
-    d = ts[1:] - ts[:-1]
+    ValueError for anything else (repeated times included). Every row of
+    a (B, T) ``ts`` must run in the same direction."""
+    d = ts[..., 1:] - ts[..., :-1]
     if bool((d > 0).all()):
         return 1
     if bool((d < 0).all()):
@@ -92,7 +95,9 @@ def _ts_direction(ts: torch.Tensor) -> int:
     raise ValueError(
         "ts must be strictly monotone: ascending (forward solve) or "
         "descending (reverse-time solve); got neither — sort your eval "
-        "times (and deduplicate repeats) before calling odeint")
+        "times (and deduplicate repeats) before calling odeint"
+        + ("; per-row ts must all run in one direction"
+           if ts.dim() == 2 else ""))
 
 
 def _negate_time(f: Callable) -> Callable:
@@ -184,8 +189,14 @@ def odeint(
     ts = torch.as_tensor(ts, device=device)
     if not ts.is_floating_point():
         ts = ts.to(torch.float32)
-    if ts.dim() != 1 or ts.shape[0] < 2:
-        raise ValueError("ts must be a 1D array of at least 2 times")
+    if ts.dim() == 2 and batch_axis is None:
+        raise ValueError(
+            "ts of shape (B, T) gives every batch row its own eval times "
+            "and requires batch_axis; pass batch_axis=a, or a 1D ts for a "
+            "single-sample solve")
+    if ts.dim() not in (1, 2) or ts.shape[-1] < 2:
+        raise ValueError("ts must be a 1D array of at least 2 times (or, "
+                         "under batch_axis, (B, T) per-row times)")
     if _ts_direction(ts) < 0:
         # reverse time: solve the time-negated problem over ascending -ts
         f, ts = _negate_time(f), -ts
@@ -269,6 +280,15 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
             f"all state leaves must share one batch size at axis "
             f"{batch_axis}; got {sorted(sizes)}")
     B = sizes.pop()
+    if ts.dim() == 2:
+        if ts.shape[0] != B:
+            raise ValueError(
+                f"per-row ts must carry one row of eval times per batch "
+                f"row (B={B}); got shape {tuple(ts.shape)}")
+        if not tab.adaptive:
+            raise ValueError(
+                f"per-row ts require an adaptive solver (got {tab.name!r}): "
+                "a fixed grid is shared by every row")
     for name, tol in (("rtol", rtol), ("atol", atol)):
         if isinstance(tol, torch.Tensor) and tol.dim() == 1 \
                 and tol.shape[0] not in (1, B):

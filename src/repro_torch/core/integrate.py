@@ -324,6 +324,22 @@ def _bwhere(pred: torch.Tensor, a: torch.Tensor,
     return torch.where(pred.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
+def batched_initial_stepsize(f: Callable, ts: torch.Tensor, z0: torch.Tensor,
+                             args: Tuple, order: int, rtol, atol
+                             ) -> torch.Tensor:
+    """(B,) Hairer initial stepsizes of the rows of ``z0``, vmapped over
+    the rows and, where they are per row, over the tolerances ((B,)
+    tensors) and the start times (a (B, T) ``ts``'s first column; a 1-D
+    ``ts``'s ``ts[0]`` is shared)."""
+    def dim(x):
+        return 0 if isinstance(x, torch.Tensor) and x.dim() > 0 else None
+
+    t0 = ts[..., 0]
+    return vmap(lambda z, t, rt, at: initial_stepsize(
+        f, t, z, args, order, rt, at),
+        in_dims=(0, dim(t0), dim(rtol), dim(atol)))(z0, t0, rtol, atol)
+
+
 @torch.no_grad()
 def batched_adaptive_while_solve(
     tab: Tableau,
@@ -362,6 +378,10 @@ def batched_adaptive_while_solve(
     own tolerance, and a row at tolerance τ gives the bits of the all-τ
     batch's row. ``h0`` is a scalar or (B,) initial stepsize.
     ``checkpoint`` as in ``adaptive_while_solve``.
+
+    ``ts`` is (T,), shared by every row, or (B, T): row b starts at
+    ``ts[b, 0]`` and lands on its own eval times ``ts[b]`` (the
+    counterpart of ``vmap`` over per-sample eval times).
     """
     if not tab.adaptive:
         raise ValueError("batched_adaptive_while_solve requires an "
@@ -369,7 +389,8 @@ def batched_adaptive_while_solve(
     dev = z0.device
     B = z0.shape[0]
     rows = torch.arange(B, device=dev)
-    n_eval = ts.shape[0]
+    n_eval = ts.shape[-1]
+    ts_rows = ts.expand(B, n_eval)
     tdt = ts.dtype
     max_steps = cfg.max_steps
     max_total_trials = max_steps * cfg.max_trials
@@ -379,12 +400,7 @@ def batched_adaptive_while_solve(
         rtol, atol = row_tol
     hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals per row
     if h0 is None:
-        if row_tol is not None:
-            h0 = vmap(lambda z, rt, at: initial_stepsize(
-                f, ts[0], z, args, tab.order, rt, at))(z0, rtol, atol)
-        else:
-            h0 = vmap(lambda z: initial_stepsize(
-                f, ts[0], z, args, tab.order, rtol, atol))(z0)
+        h0 = batched_initial_stepsize(f, ts, z0, args, tab.order, rtol, atol)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).broadcast_to((B,)).clone()
 
     ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
@@ -398,7 +414,7 @@ def batched_adaptive_while_solve(
                              device=dev)
 
     fb = batched_field(f, args)
-    t = ts[0].expand(B).clone()
+    t = ts_rows[:, 0].clone()
     k0 = fb(t, z0)
     nfe = torch.full((B,), 1 + hinit_evals, dtype=torch.int32, device=dev)
     # rows starting from a non-finite state/derivative/h0 fail at once
@@ -425,7 +441,7 @@ def batched_adaptive_while_solve(
     # the one host read per trial: any row still live (the while_loop's
     # cond)
     while live.any():
-        t_target = ts[eval_idx.clamp(max=n_eval - 1)]           # (B,)
+        t_target = ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]  # (B,)
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         # dead rows step with h = 0: ψ degenerates to the identity
         h_use = torch.where(live, torch.clamp(h, h_min, t_target - t),

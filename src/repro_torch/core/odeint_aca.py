@@ -147,6 +147,17 @@ def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0: torch.Tensor,
     return ys, ckpts, fixed_stats(tab, n_steps, fixed_status(ys))
 
 
+def _save_checkpoints(ctx, ckpts: Checkpoints) -> None:
+    """Keep the trajectory checkpoint for the backward through
+    ``save_for_backward``, where autograd's saved-tensor hooks see it."""
+    ctx.save_for_backward(ckpts.t, ckpts.h, ckpts.z, ckpts.out_idx)
+    ctx.n = ckpts.n
+
+
+def _saved_checkpoints(ctx) -> Checkpoints:
+    return Checkpoints(*ctx.saved_tensors, n=ctx.n)
+
+
 class _AcaSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
@@ -161,7 +172,7 @@ class _AcaSolve(torch.autograd.Function):
                 prob.use_pallas)
         prob.stats = stats
         ctx.prob = prob
-        ctx.ckpts = ckpts
+        _save_checkpoints(ctx, ckpts)
         ctx.status = stats.status
         ctx.arg_leaves = arg_leaves
         return ys
@@ -172,7 +183,8 @@ class _AcaSolve(torch.autograd.Function):
         # a frozen (NONFINITE_STATE) solve's placeholder outputs carry no
         # gradient: zero the cotangents before the replay sweep
         g_ys = mask_failed_cotangents(g_ys, ctx.status)
-        dz0, dargs = _aca_backward_sweep(prob.tab, prob.f, ctx.ckpts, prob,
+        dz0, dargs = _aca_backward_sweep(prob.tab, prob.f,
+                                         _saved_checkpoints(ctx), prob,
                                          list(ctx.arg_leaves),
                                          list(ctx.needs_input_grad[3:]),
                                          g_ys, prob.use_pallas)
@@ -240,7 +252,7 @@ class _AcaSolveBatched(torch.autograd.Function):
             h0=prob.h0, use_pallas=prob.use_pallas)
         prob.stats = stats
         ctx.prob = prob
-        ctx.ckpts = ckpts
+        _save_checkpoints(ctx, ckpts)
         ctx.status = stats.status
         ctx.arg_leaves = arg_leaves
         return ys
@@ -252,7 +264,8 @@ class _AcaSolveBatched(torch.autograd.Function):
         # into neither their own dz0 nor the shared args
         g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=True)
         dz0, dargs = _aca_backward_sweep_batched(
-            prob.tab, prob.f, ctx.ckpts, prob, list(ctx.arg_leaves),
+            prob.tab, prob.f, _saved_checkpoints(ctx), prob,
+            list(ctx.arg_leaves),
             list(ctx.needs_input_grad[3:]), g_ys, prob.use_pallas)
         return (None, dz0, None, *dargs)
 

@@ -110,8 +110,9 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
     aug = (ys[-1], g_ys[-1],
            tuple(torch.zeros(rows + tuple(x.shape), dtype=x.dtype,
                              device=x.device) for x in theta))
-    for k in range(ts.shape[0] - 2, -1, -1):
-        s_seg = torch.stack([-ts[k + 1], -ts[k]])
+    # per-row eval times ((B, T) ts) give per-row (B, 2) segments
+    for k in range(ts.shape[-1] - 2, -1, -1):
+        s_seg = torch.stack([-ts[..., k + 1], -ts[..., k]], dim=-1)
         ys_seg, _ = prob.solve(g, aug, s_seg, theta, forward=False)
         z_k, lam, gargs = pytree.tree_map(lambda y: y[-1], ys_seg)
         aug = (z_k, lam + g_ys[k], gargs)
@@ -134,12 +135,14 @@ class _AdjointSolve(torch.autograd.Function):
         prob.stats = stats
         ctx.prob = prob
         # residuals: the outputs alone (z(T) and the other eval times)
-        ctx.ys, ctx.ts, ctx.arg_leaves = ys, ts, arg_leaves
+        ctx.save_for_backward(ys)
+        ctx.ts, ctx.arg_leaves = ts, arg_leaves
         return ys
 
     @staticmethod
     def backward(ctx, g_ys):
-        dz0, dargs = _adjoint_backward(ctx.prob, ctx.ys, ctx.ts, g_ys,
+        ys, = ctx.saved_tensors
+        dz0, dargs = _adjoint_backward(ctx.prob, ys, ctx.ts, g_ys,
                                        list(ctx.arg_leaves),
                                        list(ctx.needs_input_grad[3:]))
         return (None, dz0, None, *dargs)

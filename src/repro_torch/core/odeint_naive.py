@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import Any, Callable, List, Optional
 
 import torch
-from torch.func import vmap
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
 from .integrate import (
@@ -41,6 +40,7 @@ from .integrate import (
     _compose_status,
     _row_tolerances,
     as_tuple,
+    batched_initial_stepsize,
     fixed_grid_solve,
     nonfinite_any,
     nonfinite_rows,
@@ -208,7 +208,8 @@ def odeint_naive_batched(
     stepsize chain; a row that reached its last eval time, failed or ran
     out of ``trial_budget`` (shared, per row) takes no further trial.
     ``rtol``/``atol`` may be (B,) tensors; ``h0`` a scalar or (B,).
-    Returns (ys (len(ts), B, ...), stats with (B,) fields).
+    ``ts`` is (T,), or (B, T) with each row's own eval times. Returns
+    (ys (T, B, ...), stats with (B,) fields).
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -219,7 +220,8 @@ def odeint_naive_batched(
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
     dev = z0.device
     B = z0.shape[0]
-    n_eval = ts.shape[0]
+    n_eval = ts.shape[-1]
+    ts_rows = ts.expand(B, n_eval)
     tdt = ts.dtype
     budget = _budget(cfg, trial_budget)
     targs = as_tuple(args)
@@ -229,17 +231,15 @@ def odeint_naive_batched(
     row_tol = _row_tolerances(rtol, atol, B, dev)
     if h0 is not None:
         h_init = torch.as_tensor(h0, device=dev).broadcast_to((B,))
-    elif row_tol is not None:
-        h_init = vmap(lambda z, rt, at: initial_stepsize(
-            f, ts[0], z, targs, solver.order, rt, at))(z0, *row_tol)
     else:
-        h_init = vmap(lambda z: initial_stepsize(
-            f, ts[0], z, targs, solver.order, rtol, atol))(z0)
+        h_init = batched_initial_stepsize(
+            f, ts, z0, targs, solver.order,
+            *((rtol, atol) if row_tol is None else row_tol))
     h_init = h_init.to(tdt)
 
     # per-row carries as lists of tensors on the tape
     z_rows = list(z0.unbind(0))
-    t_rows = [ts[0]] * B
+    t_rows = list(ts_rows[:, 0].unbind(0))
     h_rows = list(h_init.unbind(0))
     prev_rows = [torch.ones((), dtype=torch.float32, device=dev)] * B
     ys: List[List[Optional[torch.Tensor]]] = [z_rows[:]] + [
@@ -262,7 +262,8 @@ def odeint_naive_batched(
         t = torch.stack([t_rows[b] for b in live])
         h = torch.stack([h_rows[b] for b in live])
         prev_ratio = torch.stack([prev_rows[b] for b in live])
-        t_target = ts[torch.tensor([eval_idx[b] for b in live], device=dev)]
+        t_target = ts_rows[sel, torch.tensor([eval_idx[b] for b in live],
+                                             device=dev)]
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = _trial_step(h, h_min, t, t_target)
         tol = (rtol, atol) if row_tol is None else (

@@ -30,7 +30,12 @@ grid's outputs within rtol 1e-5 and gradients within 1e-4, the batched
 adaptive solve's outputs within 10 x its tolerance and gradients within
 1e-4 of their scale (its grids drift with the fields' rounding; the
 test says why), and the batched solve against its plain path on the
-card as the ACA test above.
+card as the ACA test above. Per-row (B, T) eval times through K3/K4
+against the plain path on the card: steps equal, ys within rtol 1e-5,
+gradients within 1e-4 of their scale (the naive method differentiates
+the stepsize chain through K4's reordered norm); Table 1's
+``aca_pallas`` (K1/K2) against ``aca`` on the card: z(1) bitwise,
+gradients within 1e-5.
 
 The serving kernels against their plain versions, as max |difference| /
 max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
@@ -255,6 +260,62 @@ def test_batched_methods_on_the_card(card, method):
     torch.testing.assert_close(y1, yp, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(gz1, gzp, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(gw1, gwp, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["aca", "adjoint", "naive"])
+def test_per_row_ts_on_the_card(card, method):
+    """(B, T) eval times, every row on its own times and start, through
+    K3/K4 on the card against the plain path on the card: per-row steps
+    equal, ys within rtol 1e-5, gradients within 1e-4 of their max |value|.
+    K4 sums each row's norm in another order than the plain path, which
+    moves the error ratio by an ulp or two; the naive method
+    differentiates the stepsize chain through that ratio, and on the CPU a
+    ratio scaled by 1 +- 1e-7 or 1 + 3e-7 moves its z0 gradient by up to
+    3.7e-5 of max |g| (2.6e-4 of one element's own value)."""
+    rng = np.random.default_rng(1)
+    w = (rng.standard_normal((16, 16)) * 0.3).astype(np.float32)
+    z0 = rng.standard_normal((5, 16)).astype(np.float32)
+    ts = np.sort(rng.uniform(0.0, 2.0, (5, 6)), axis=1).astype(np.float32)
+    ts[:, 0] = rng.uniform(0.0, 0.2, 5)
+
+    def run(use_pallas):
+        zz = torch.tensor(z0, device=card, requires_grad=True)
+        ww = torch.tensor(w, device=card, requires_grad=True)
+        ys, st = odeint(lambda t, z, m: torch.tanh(m @ z), zz,
+                        torch.tensor(ts, device=card), (ww,),
+                        solver="dopri5", grad_method=method, rtol=1e-4,
+                        atol=1e-4, batch_axis=0, use_pallas=use_pallas)
+        torch.sum(ys ** 2).backward()
+        return ys.detach(), st.n_steps.tolist(), zz.grad, ww.grad
+
+    rk_stage.reset_launches()
+    y1, s1, gz1, gw1 = run(True)
+    assert rk_stage.launches["rk_stage_increment_batched"] > 0
+    assert rk_stage.launches["rk_stage_combine_err_batched"] > 0
+    y0, s0, gz0, gw0 = run(False)
+    assert s1 == s0 and len(set(s1)) > 1
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
+    for g1, g0 in ((gz1, gz0), (gw1, gw0)):
+        assert float((g1 - g0).abs().max() / g0.abs().max()) <= 1e-4
+
+
+def test_method_costs_aca_pallas_matches_aca_on_the_card(card):
+    """Table 1's aca_pallas row (K1/K2) against its aca row on the card:
+    the same trials on the same bits, so z(1) bitwise; gradients within
+    1e-5 of their scale (the replay differentiates through the plain
+    versions)."""
+    from repro_torch.benchmarks import method_costs
+
+    w1, w2, z0 = method_costs.init(card)
+    rk_stage.reset_launches()
+    _, g1, z1, st1 = method_costs.value_and_grad("aca_pallas", w1, w2, z0, 32)
+    assert rk_stage.launches["rk_stage_increment"] > 0
+    assert rk_stage.launches["rk_stage_combine_err"] > 0
+    _, g0, z0_, st0 = method_costs.value_and_grad("aca", w1, w2, z0, 32)
+    assert int(st1.n_steps) == int(st0.n_steps)
+    assert torch.equal(z1, z0_)
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("method", ["aca", "adjoint", "naive"])

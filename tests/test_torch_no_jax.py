@@ -39,3 +39,12 @@ def test_the_port_has_modules():
     assert port / "kernels" / "ssd_scan.py" in FILES
     assert port / "models" / "mamba2.py" in FILES
     assert port / "configs" / "mamba2_2_7b.py" in FILES
+    for name in ("__init__", "synthetic", "timeseries", "threebody"):
+        assert port / "data" / f"{name}.py" in FILES
+    for name in ("__init__", "adamw", "schedule"):
+        assert port / "optim" / f"{name}.py" in FILES
+    for name in ("run", "common", "reverse_error", "method_costs",
+                 "classification", "reliability", "solver_robustness",
+                 "timeseries", "threebody"):
+        assert port / "benchmarks" / f"{name}.py" in FILES
+    assert port / "examples" / "three_body.py" in FILES
