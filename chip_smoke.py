@@ -64,7 +64,29 @@ printing one JSON line (``"phase": ...``):
                       augmented state (2 x 3,145,728 + the block's
                       parameters) and K3/K4 at (8, 2 x 393,216 + the
                       parameters) against their plain versions, timed.
-7c. ``paper_benchmarks`` — the paper's training benchmarks on the card
+7c. ``segmented_dense`` — slice D. (a) The node18 block at full width with
+                      ``NODE_TRAIN`` as published (segmented ACA "auto": K
+                      = 6, seg_len 6, K1/K2), one SGD step, and again
+                      under batch_axis=0 (K3/K4), each from the same
+                      weights as two steps of the full buffer: equal
+                      n_steps, z(1) and every gradient within the full
+                      buffer's own run-to-run gap (bitwise where it
+                      repeats itself); forward, backward and step ms, peak
+                      memory, the backward's extra launches. (b) ACA's
+                      peak memory on the method_costs field at 65,536 x 64
+                      (Dopri5 1e-5), full buffer and "auto" at max_steps
+                      64 and 512, gradients bitwise. (c) K1 with Dopri5's
+                      b_mid row at N = 3,145,728 and K3 with it at (8,
+                      393,216) and (8, 393,218), f32 and bf16, bitwise
+                      their plain versions, timed beside the byte bound;
+                      ``odeint_dense`` (K1/K2) read at 1,000 times against
+                      a landing solve (5e-4); the latent-ODE union-grid
+                      decode and its gradient at Table 4's widths (batch
+                      48, K3/K4, rtol 1e-5) against the (B, T) landing
+                      solve (5e-4, fewer steps) and against its plain path
+                      (2e-5, gradients 1e-5); ``dense_eval`` with the
+                      reference's gates.
+7d. ``paper_benchmarks`` — the paper's training benchmarks on the card
                       through ``repro_torch.benchmarks``: reverse_error
                       (Fig. 4/5), method_costs (Table 1; its aca_pallas
                       row on K1/K2), classification (Table 2),
@@ -163,8 +185,9 @@ printing one JSON line (``"phase": ...``):
 
 Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
 node18_batched for K3/K4, node18_methods' solo steps and fixed-regime
-steps for K1/K2 and its batched steps for K3/K4, paper_benchmarks' runs
-for K1/K2, each
+steps for K1/K2 and its batched steps for K3/K4, segmented_dense's
+NODE_TRAIN steps, dense solve and latent decode for K1-K4,
+paper_benchmarks' runs for K1/K2, each
 serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9) runs with every launch count set to 0 just before it and read just
 after.
@@ -1455,6 +1478,353 @@ def phase_node18_methods(torch, seed: int):
     return path_launches, worst, aug_times
 
 
+# ------------------------------------------ slice D: segments, dense output
+
+DENSE_LANDED_ATOL = 5e-4         # tests/test_dense_output.py:126, rtol 1e-5
+DENSE_PALLAS_ATOL = 2e-5         # tests/test_dense_output.py:163-164
+DENSE_QUERIES = 1000
+LATENT_BATCH = 48
+
+
+def _bmid_kernel_checks(torch, seed: int):
+    """K1 with Dopri5's 7-weight ``b_mid`` row at N = 3,145,728 and K3 with
+    it at (8, 393,216) and (8, 393,218), f32 and bf16: bitwise their plain
+    versions; f32 times beside the byte bound, the plain version and the
+    library call (``torch.addmv``, ``torch.baddbmm``). These launches
+    compare: the caller resets the counts after."""
+    from repro_torch.core.tableaus import DOPRI5
+    from repro_torch.kernels import rk_stage
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    a = DOPRI5.b_mid
+    used = used_rows([a])
+    worst = {"rk_stage_increment": 0.0, "rk_stage_increment_batched": 0.0}
+    times = {}
+    n1 = math.prod(NODE18_SHAPE)
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(n1, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(7, n1, generator=gen, device="cuda").to(dtype)
+        h = torch.full((), 0.0375, device="cuda")
+        out = rk_stage.rk_stage_increment(z, k, h, a)
+        ref = rk_stage.increment_plain(z, k, h, a)
+        torch.cuda.synchronize()
+        diff = float((out.float() - ref.float()).abs().max())
+        worst["rk_stage_increment"] = max(worst["rk_stage_increment"], diff)
+        check(torch.equal(out, ref), f"K1 b_mid n={n1} {dtype}: not bitwise "
+              f"(max |diff| {diff})")
+        if dtype == torch.float32:
+            hw = h * torch.tensor(a, dtype=torch.float32, device="cuda")
+            kt = k.t()
+            t = {"n": n1, "ms": time_ms(torch, lambda: rk_stage.
+                                        rk_stage_increment(z, k, h, a)),
+                 "plain_ms": time_ms(torch, lambda: rk_stage.increment_plain(
+                     z, k, h, a)),
+                 "library_ms": time_ms(torch, lambda: torch.addmv(z, kt, hw)),
+                 "bytes": 4 * n1 * (len(used) + 2) + 4,
+                 "flops": 2 * n1 * (len(used) + 1),
+                 "peak_flops": F32_FLOP_PER_S}
+            _bound(t)
+            times["k1_b_mid"] = t
+        del z, k
+    B = BATCH_ROWS
+    for n in (ROW_N, SERVE_ROW_N):
+        for dtype in (torch.float32, torch.bfloat16):
+            z = torch.randn(B, n, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(7, B, n, generator=gen, device="cuda").to(dtype)
+            h = torch.linspace(0.01, 0.08, B, device="cuda")
+            h[B // 2] = 0.0                          # a frozen row
+            out = rk_stage.rk_stage_increment_batched(z, k, h, a)
+            ref = rk_stage.increment_batched_plain(z, k, h, a)
+            torch.cuda.synchronize()
+            diff = float((out.float() - ref.float()).abs().max())
+            worst["rk_stage_increment_batched"] = max(
+                worst["rk_stage_increment_batched"], diff)
+            check(torch.equal(out, ref) and torch.equal(out[B // 2],
+                                                        z[B // 2]),
+                  f"K3 b_mid ({B}, {n}) {dtype}: not bitwise (max |diff| "
+                  f"{diff}) or the h = 0 row moved")
+            if dtype == torch.float32:
+                hw = (h[:, None] * torch.tensor(a, device="cuda"))[:, None]
+                kt, zb = k.permute(1, 0, 2), z[:, None]
+                t = {"n": n, "rows": B,
+                     "ms": time_ms(torch, lambda: rk_stage.
+                                   rk_stage_increment_batched(z, k, h, a)),
+                     "plain_ms": time_ms(torch, lambda: rk_stage.
+                                         increment_batched_plain(z, k, h, a)),
+                     "library_ms": time_ms(torch, lambda: torch.baddbmm(
+                         zb, hw, kt)),
+                     "bytes": 4 * B * n * (len(used) + 2) + 4 * B,
+                     "flops": 2 * B * n * (len(used) + 1),
+                     "peak_flops": F32_FLOP_PER_S}
+                _bound(t)
+                times[f"k3_b_mid_{n}"] = t
+            del z, k
+    return worst, times
+
+
+def _grad_gap(torch, seg: dict, full_a: dict, full_b: dict, what: str):
+    """Hold a segmented run to the full buffer's: z(1) and every gradient
+    within the full buffer's own run-to-run gap (max |full_a - full_b|, 0
+    where the card repeats itself bit for bit: then bitwise). Returns
+    {name: [max |seg - full_a|, gap]}."""
+    out = {}
+    pairs = [("z1", seg["zT"], full_a["zT"], full_b["zT"])]
+    pairs += [(n, seg["grads"][n], full_a["grads"][n], full_b["grads"][n])
+              for n in full_a["grads"]]
+    for name, s_, a_, b_ in pairs:
+        gap = float((a_ - b_).abs().max())
+        d = float((s_ - a_).abs().max())
+        out[name] = [d, gap]
+        check(d <= gap, f"{what} {name}: segmented differs from the full "
+              f"buffer by {d}, beyond its run-to-run gap {gap}")
+    return out
+
+
+def phase_segmented_dense(torch, seed: int):
+    """Slice D on the card. (a) node18 at full width with ``NODE_TRAIN`` as
+    published (segmented ACA, "auto": K = 6, seg_len 6), one SGD step solo
+    on K1/K2 and one under batch_axis=0 on K3/K4, each held to the full
+    buffer from the same weights; (b) peak memory of ACA at 65,536 x 64
+    with the full buffer and "auto" at max_steps 64 and 512, gradients
+    bitwise; (c) K1/K3 with the b_mid row against their plain versions,
+    ``repro_torch.benchmarks.dense_eval`` with the reference's gates,
+    ``odeint_dense`` read at 1,000 times against a landing solve, and the
+    latent-ODE union-grid decode at Table 4's widths against its (B, T)
+    landing solve and against its plain path. The main path (K1-K4
+    counted): the two NODE_TRAIN steps, the dense solve and the decode."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks import dense_eval, method_costs, timeseries
+    from repro_torch.configs import node18_cifar
+    from repro_torch.core import odeint, odeint_dense
+    from repro_torch.core.integrate import resolve_segmentation
+    from repro_torch.data import irregular_series_batch, merged_time_grid
+    from repro_torch.examples.latent_timeseries import union_decode
+    from repro_torch.kernels import ops, rk_stage
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import (TransformerBlock, full_buffer,
+                                                node_block)
+
+    worst, bmid_times = _bmid_kernel_checks(torch, seed)
+    ops.reset_launches()
+
+    # (a) node18 as published against the full buffer
+    seg_cfg = node18_cifar.NODE_TRAIN
+    full_cfg = full_buffer(seg_cfg)
+    n_seg, seg_len = resolve_segmentation(seg_cfg.checkpoint_segments,
+                                          seg_cfg.max_steps)
+    rcfg = RunConfig(compute_dtype=torch.float32, node=seg_cfg)
+    block = TransformerBlock(node18_cifar.CONFIG, rcfg, seed=seed,
+                             device="cuda")
+    init = {n: p.detach().clone() for n, p in block.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        NODE18_SHAPE).astype(np.float32)).cuda()
+    opt = torch.optim.SGD(block.parameters(), lr=1e-2)
+
+    def sgd_step(ncfg):
+        with torch.no_grad():
+            for n, p in block.named_parameters():
+                p.copy_(init[n])
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        zT, st = node_block(block, x, ncfg)
+        loss = torch.mean(zT ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        k_before = dict(rk_stage.launches)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bwd_launches = {k: rk_stage.launches[k] - k_before[k]
+                        for k in K1_K2 + BATCHED_KERNELS}
+        grads = {n: p.grad.detach().clone()
+                 for n, p in block.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        finite = bool(torch.isfinite(zT).all()) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values())
+        check(finite, f"segmented_dense node18 {ncfg.checkpoint_segments} "
+              f"batch_axis={ncfg.batch_axis}: non-finite z(1) or gradients")
+        check(not any(st.status.reshape(-1).tolist()),
+              f"segmented_dense node18: status {st.status.tolist()}")
+        return {"zT": zT.detach(), "grads": grads,
+                "n_steps": st.n_steps.tolist(),
+                "n_trials": st.n_trials.tolist(), "nfe": st.nfe.tolist(),
+                "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+                "step_ms": 1e3 * (t3 - t0),
+                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_above_start_GB":
+                (torch.cuda.max_memory_allocated() - base_mem) / 1e9,
+                "backward_launches": bwd_launches}
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("zT", "grads")}
+
+    cfgs = {"solo": (full_cfg, seg_cfg),
+            "batched": (dataclasses.replace(full_cfg, batch_axis=0),
+                        dataclasses.replace(seg_cfg, batch_axis=0))}
+    # an untimed first step each grows the allocator to its peak
+    first_ms = {f"{mode}_{name}": sgd_step(c)["step_ms"]
+                for mode, pair in cfgs.items()
+                for name, c in zip(("full", "segmented"), pair)}
+    full = {mode: (sgd_step(pair[0]), sgd_step(pair[0]))
+            for mode, pair in cfgs.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()                   # the main path starts here
+    seg = {mode: sgd_step(pair[1]) for mode, pair in cfgs.items()}
+    node18 = {}
+    for mode in cfgs:
+        fa, fb = full[mode]
+        check(seg[mode]["n_steps"] == fa["n_steps"],
+              f"segmented_dense node18 {mode}: n_steps "
+              f"{seg[mode]['n_steps']} != full buffer's {fa['n_steps']}")
+        gaps = _grad_gap(torch, seg[mode], fa, fb, f"node18 {mode}")
+        node18[mode] = {
+            "full": summary(fa), "full_again": summary(fb),
+            "segmented": summary(seg[mode]),
+            "bitwise": all(d == 0.0 for d, _ in gaps.values()),
+            "full_run_to_run_gap": max(g for _, g in gaps.values()),
+            "max_abs_vs_full": max(d for d, _ in gaps.values()),
+            "extra_backward_launches": {
+                k: seg[mode]["backward_launches"][k]
+                - fa["backward_launches"][k] for k in fa["backward_launches"]}}
+        emit({"phase": "segmented_dense_node18", "mode": mode,
+              **node18[mode]})
+    del full, seg, block, opt, init
+
+    # (c) the dense solve and the latent decode on the kernels (main path)
+    dev = "cuda"
+    z0 = torch.tensor([2.0, 0.0], device=dev)
+    mu = torch.tensor(dense_eval.MU, device=dev)
+    tq = torch.linspace(0.0, dense_eval.T1, DENSE_QUERIES, device=dev)
+    dkw = dict(rtol=dense_eval.TOL, atol=dense_eval.TOL, max_steps=4096,
+               max_trials=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, dst = odeint_dense(dense_eval._vdp, z0, 0.0, dense_eval.T1, (mu,),
+                            use_pallas=True, **dkw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vals = sol.evaluate(tq)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    p = timeseries.init_params(torch.Generator().manual_seed(0), dev)
+    data = irregular_series_batch(batch=LATENT_BATCH, n_obs=timeseries.N_OBS,
+                                  obs_dim=timeseries.OBS, seed=123,
+                                  device=dev)
+    n_union = int(merged_time_grid(data["ts"])["t_union"].shape[0])
+
+    def decode_grad(use_pallas):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, st = union_decode(p, data, rtol=1e-5, use_pallas=use_pallas)
+        loss = ((pred - data["ys"]) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        return pred.detach(), st, grads, 1e3 * (time.perf_counter() - t0)
+
+    pred_k, st_k, g_k, decode_ms = decode_grad(True)
+    launches = {k: rk_stage.launches[k] for k in K1_K2 + BATCHED_KERNELS}
+    check(all(v > 0 for v in launches.values()),
+          f"segmented_dense did not launch K1-K4: {launches}")
+    # the main path ends here
+
+    with torch.no_grad():
+        t3 = time.perf_counter()
+        ys_land, lst = odeint(dense_eval._vdp, z0, tq, (mu,),
+                              solver="dopri5", **dkw)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    dense_err = float((vals - ys_land).abs().max())
+    check(not bool(dst.overflow) and dense_err <= DENSE_LANDED_ATOL,
+          f"odeint_dense at {DENSE_QUERIES} times vs landing: {dense_err} > "
+          f"{DENSE_LANDED_ATOL} (overflow {bool(dst.overflow)})")
+
+    pred_p, st_p, g_p, decode_plain_ms = decode_grad(False)
+    with torch.no_grad():
+        zl = timeseries.gru_encode(p, data["ts"], data["ys"])
+        ys_l, st_l = odeint(timeseries._f, zl, data["ts"], (p["f1"],
+                                                            p["f2"]),
+                            solver="dopri5", rtol=1e-5, atol=1e-5,
+                            max_steps=256, batch_axis=0, use_pallas=True)
+        landed = ys_l.transpose(0, 1) @ p["dec"]
+    latent = {
+        "batch": LATENT_BATCH, "union_times": n_union,
+        "steps_union": int(st_k.n_steps.sum()),
+        "steps_landing": int(st_l.n_steps.sum()),
+        "trials_union": int(st_k.n_trials.sum()),
+        "trials_landing": int(st_l.n_trials.sum()),
+        "max_abs_vs_landing": float((pred_k - landed).abs().max()),
+        "bound": DENSE_LANDED_ATOL,
+        "kernel_vs_plain": {
+            "n_steps_equal": st_k.n_steps.tolist() == st_p.n_steps.tolist(),
+            "max_abs": float((pred_k - pred_p).abs().max()),
+            "grad_rel": [_rel(a, b) for a, b in zip(g_k, g_p)],
+            "atol": DENSE_PALLAS_ATOL, "grad_rtol": PALLAS_GRAD_RTOL},
+        "decode_and_grad_ms": decode_ms,
+        "decode_and_grad_plain_ms": decode_plain_ms}
+    check(latent["max_abs_vs_landing"] <= DENSE_LANDED_ATOL,
+          f"latent union decode vs landing {latent['max_abs_vs_landing']} > "
+          f"{DENSE_LANDED_ATOL}")
+    check(latent["steps_union"] < latent["steps_landing"],
+          f"latent union decode took {latent['steps_union']} steps, not "
+          f"fewer than the landing solve's {latent['steps_landing']}")
+    kvp = latent["kernel_vs_plain"]
+    check(kvp["n_steps_equal"] and kvp["max_abs"] <= DENSE_PALLAS_ATOL
+          and max(kvp["grad_rel"]) <= PALLAS_GRAD_RTOL
+          and all(bool(torch.isfinite(g).all()) for g in g_k),
+          f"latent union decode, kernels vs plain: {kvp}")
+
+    common_rows = dense_eval.run(device="cuda")   # raises on a failed gate
+
+    # (b) memory where the state dominates: the method_costs field
+    memory = {}
+    for ms in (64, 512):
+        runs = {}
+        for segs in (None, "auto"):
+            runs[segs] = method_costs.peak_memory(
+                "aca", MEMORY_ROWS, ms, device="cuda",
+                checkpoint_segments=segs, with_grads=True)
+        ga, gs = runs[None].pop("grads"), runs["auto"].pop("grads")
+        bitwise = all(torch.equal(a, b) for a, b in zip(ga, gs))
+        check(bitwise and runs[None]["n_steps"] == runs["auto"]["n_steps"],
+              f"65,536 x 64 at max_steps {ms}: segmented gradients not "
+              "bitwise the full buffer's")
+        k, sl = resolve_segmentation("auto", ms)
+        slot = MEMORY_ROWS * method_costs.D * 4
+        memory[ms] = {"full": runs[None], "auto": runs["auto"],
+                      "grads_bitwise": bitwise, "K": k, "seg_len": sl,
+                      "full_buffer_bytes": ms * slot,
+                      "auto_state_bytes": (2 * k + sl) * slot}
+        del ga, gs
+    ops.reset_launches()
+
+    emit({"phase": "segmented_dense", "ok": True,
+          "node18": {"K": n_seg, "seg_len": seg_len,
+                     "first_step_ms": first_ms,
+                     **{m: {k: v for k, v in node18[m].items()
+                            if k not in ("full", "full_again")}
+                        for m in node18}},
+          "memory_65536x64": memory,
+          "odeint_dense": {"queries": DENSE_QUERIES, "n_steps":
+                           int(dst.n_steps), "solve_ms": 1e3 * (t1 - t0),
+                           "evaluate_ms": 1e3 * (t2 - t1),
+                           "landing_steps": int(lst.n_steps),
+                           "landing_ms": 1e3 * (t4 - t3),
+                           "max_abs_vs_landing": dense_err,
+                           "bound": DENSE_LANDED_ATOL},
+          "latent_union_decode": latent, "dense_eval": common_rows,
+          "b_mid_kernels": {"max_abs_err": worst, "timings": bmid_times},
+          "launches": launches})
+    return launches, worst, bmid_times
+
+
 # ------------------------------------------------- the paper's benchmarks
 
 def _check_paper_rows(bench: str, out: dict, rows: list) -> None:
@@ -2436,6 +2806,9 @@ def main(argv=None) -> int:
         phase = "node18_methods"
         methods_launches, worst_m, aug_times = phase_node18_methods(
             torch, args.seed)
+        phase = "segmented_dense"
+        dense_launches, worst_d, bmid_times = phase_segmented_dense(
+            torch, args.seed)
         phase = "paper_benchmarks"
         paper_launches = phase_paper_benchmarks(torch)
         phase = "kernels_lm"
@@ -2459,21 +2832,23 @@ def main(argv=None) -> int:
     # path's shape (K3 and K5 at the serving row, K4 at the batched block
     # row; K1-K4 also at the adjoint's augmented shapes)
     worst.update(worst_b)
-    for k, v in worst_m.items():
+    for k, v in list(worst_m.items()) + list(worst_d.items()):
         worst[k] = max(worst[k], v)
     batch_launch = {
         "rk_stage_increment_batched":
         serve_launches["rk_stage_increment_batched"]
         + batched_launches["rk_stage_increment_batched"]
-        + methods_launches["rk_stage_increment_batched"],
+        + methods_launches["rk_stage_increment_batched"]
+        + dense_launches["rk_stage_increment_batched"],
         "rk_stage_combine_err_batched":
         batched_launches["rk_stage_combine_err_batched"]
-        + methods_launches["rk_stage_combine_err_batched"],
+        + methods_launches["rk_stage_combine_err_batched"]
+        + dense_launches["rk_stage_combine_err_batched"],
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"],
     }
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
-                   for k in K1_K2},
+                   + dense_launches[k] for k in K1_K2},
                 **batch_launch, "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
@@ -2526,15 +2901,22 @@ def main(argv=None) -> int:
         return {"adjoint_aug_ms": t["ms"], "adjoint_aug_plain_ms":
                 t["plain_ms"], "adjoint_aug_bound_ms": t["bound_ms"]}
 
+    def b_mid(label):
+        t = bmid_times[label]
+        return {"b_mid_ms": t["ms"], "b_mid_plain_ms": t["plain_ms"],
+                "b_mid_bound_ms": t["bound_ms"],
+                "b_mid_library_ms": t["library_ms"]}
+
     extras = {
-        "rk_stage_increment": aug("k1"),
+        "rk_stage_increment": {**aug("k1"), **b_mid("k1_b_mid")},
         "rk_stage_combine_err": aug("k2"),
         "rg_lru": {
             "call_b_ms": timings_lm["rg_lru_call_b"]["ms"],
             "call_b_bound_ms": timings_lm["rg_lru_call_b"]["bound_ms"]},
         "rk_stage_increment_batched": {
             "aligned_rows_ms": timings_b[f"k3_heun_stage_{ROW_N}"]["ms"],
-            **aug("k3")},
+            **aug("k3"), **b_mid(f"k3_b_mid_{SERVE_ROW_N}"),
+            "b_mid_aligned_rows_ms": bmid_times[f"k3_b_mid_{ROW_N}"]["ms"]},
         "rk_stage_combine_err_batched": {
             "serving_row_ms": timings_b[f"k4_heun_{SERVE_ROW_N}"]["ms"],
             **aug("k4")},

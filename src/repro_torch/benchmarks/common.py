@@ -16,7 +16,7 @@ import os
 import pathlib
 import re
 import time
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
@@ -69,6 +69,34 @@ def fit(p, steps: int, lr: float, loss_of: Callable):
         up, st = opt.update(g, st, p)
         p = apply_updates(p, up)
     return p, float(loss.detach())
+
+
+class GateFailed(RuntimeError):
+    """A benchmark's acceptance gate did not hold."""
+
+
+def gate(ok: bool, *what) -> None:
+    """Raise ``GateFailed`` naming ``what`` unless ``ok``."""
+    if not ok:
+        raise GateFailed(*what)
+
+
+def saved_bytes(fn: Callable, inputs) -> Tuple[int, object]:
+    """(bytes, fn()): the bytes of the distinct storages autograd saves for
+    the backward while ``fn`` runs (every saved-tensor hook of every op and
+    Function), the storages of ``inputs`` left out."""
+    skip = {x.untyped_storage().data_ptr() for x in inputs}
+    seen: Dict[int, int] = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return sum(seen.values()), out
 
 
 def emit_json(bench: str, metrics: Mapping) -> None:

@@ -36,7 +36,8 @@ import torch
 from repro_torch.core import SolveStats, odeint
 from repro_torch.device import resolve_device
 
-from .common import device_name, emit_json, record, settings, timed
+from .common import (device_name, emit_json, record, saved_bytes,
+                     settings, timed)
 
 D = 64
 ROWS = 32
@@ -63,22 +64,28 @@ def init(device="cuda", rows: int = ROWS):
             (randn((D, D), 1) * 0.4).to(dev), randn((rows, D), 2).to(dev))
 
 
-def loss_and_stats(label: str, w1, w2, z0, max_steps: int
+def loss_and_stats(label: str, w1, w2, z0, max_steps: int,
+                   checkpoint_segments=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, SolveStats]:
-    """(loss, z(1), stats) of one variant: mean z(1)² of the solve."""
+    """(loss, z(1), stats) of one variant: mean z(1)² of the solve.
+    ``checkpoint_segments`` segments ACA's buffer (aca variants only)."""
     ts = torch.tensor([0.0, 1.0], device=z0.device)
+    kw = {} if checkpoint_segments is None else dict(
+        checkpoint_segments=checkpoint_segments)
     ys, stats = odeint(_f, z0, ts, (w1, w2), solver="dopri5",
                        grad_method=label.split("_")[0], rtol=1e-5,
                        atol=1e-5, max_steps=max_steps, max_trials=8,
-                       use_pallas=label == "aca_pallas")
+                       use_pallas=label == "aca_pallas", **kw)
     return (ys[-1] ** 2).mean(), ys[-1], stats
 
 
-def value_and_grad(label: str, w1, w2, z0, max_steps: int):
+def value_and_grad(label: str, w1, w2, z0, max_steps: int,
+                   checkpoint_segments=None):
     """(loss, (dL/dw1, dL/dw2), z(1), stats) of one variant."""
     w1 = w1.detach().requires_grad_()
     w2 = w2.detach().requires_grad_()
-    loss, z1, stats = loss_and_stats(label, w1, w2, z0, max_steps)
+    loss, z1, stats = loss_and_stats(label, w1, w2, z0, max_steps,
+                                     checkpoint_segments)
     return loss, torch.autograd.grad(loss, (w1, w2)), z1.detach(), stats
 
 
@@ -87,19 +94,8 @@ def residual_bytes(label: str, w1, w2, z0, max_steps: int) -> int:
     variant, the inputs' own left out (see the module docstring)."""
     w1 = w1.detach().requires_grad_()
     w2 = w2.detach().requires_grad_()
-    inputs = {x.untyped_storage().data_ptr() for x in (w1, w2, z0)}
-    seen: Dict[int, int] = {}
-
-    def pack(t):
-        st = t.untyped_storage()
-        if st.data_ptr() not in inputs:
-            seen[st.data_ptr()] = st.nbytes()
-        return t
-
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        loss, _, _ = loss_and_stats(label, w1, w2, z0, max_steps)
-    nbytes = sum(seen.values())
-    del loss
+    nbytes, _ = saved_bytes(
+        lambda: loss_and_stats(label, w1, w2, z0, max_steps), (w1, w2, z0))
     return nbytes
 
 
@@ -136,10 +132,12 @@ def run(quick: bool = False, device="cuda", **cuts) -> Dict[str, float]:
 
 
 def peak_memory(label: str, rows: int, max_steps: int = 64,
-                device="cuda") -> Dict[str, float]:
+                device="cuda", checkpoint_segments=None,
+                with_grads: bool = False) -> Dict[str, float]:
     """Peak device memory of one value-and-grad call of a variant at
     ``rows`` × 64, above the inputs (a card only): where the state
-    outnumbers the 8,192 parameters."""
+    outnumbers the 8,192 parameters. ``with_grads`` also returns the
+    gradients (``grads``), to compare two buffers."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("peak_memory reads torch.cuda's allocator; it "
@@ -148,13 +146,14 @@ def peak_memory(label: str, rows: int, max_steps: int = 64,
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    _, grads, _, stats = value_and_grad(label, w1, w2, z0, max_steps)
+    _, grads, _, stats = value_and_grad(label, w1, w2, z0, max_steps,
+                                        checkpoint_segments)
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev) - base
-    del grads
     return {"peak_bytes": peak, "n_steps": int(stats.n_steps),
             "n_trials": int(stats.n_trials), "nfe": int(stats.nfe),
-            "state_elements": rows * D, "parameters": 2 * D * D}
+            "state_elements": rows * D, "parameters": 2 * D * D,
+            **({"grads": grads} if with_grads else {})}
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ Port of ``repro/core/api.py::odeint`` / ``odeint_final``::
     ys, stats = odeint(f, z0, ts, args, solver="dopri5", grad_method="aca",
                        rtol=1e-6, atol=1e-6, max_steps=256, max_trials=12,
                        steps_per_interval=8, trial_budget=None,
-                       use_pallas=False, h0=None, on_failure="status")
+                       use_pallas=False, checkpoint_segments=None,
+                       interpolate_ts=False, h0=None, on_failure="status")
 
 ``f(t, z, *args) -> dz/dt``; ``z0`` one floating tensor or a pytree
 (dict, tuple, list, NamedTuple) of tensors of one floating dtype, raveled
@@ -36,14 +37,22 @@ holds row b's state at ``ts[b, k]``)::
                        rtol=torch.tensor([1e-3, 1e-5]), atol=1e-6)
 
 Fixed grids are shared by every row: the batch runs as one system with
-the field vmapped over it. Options of later slices keep the reference's
-signature and raise a ``ValueError`` naming the slice (ROADMAP queue 1)
-that brings them.
+the field vmapped over it.
+
+``checkpoint_segments=K`` (or ``"auto"``: ceil(sqrt(max_steps))) keeps
+K state snapshots in place of ACA's full trajectory buffer, with the same
+gradients bit for bit; ``interpolate_ts=True`` advances on the
+controller's natural grid and reads interior eval times off each step's
+interpolant (aca, adjoint, naive; solo or a 1-D ``ts`` under
+``batch_axis``). ``odeint_dense`` solves once and returns a
+``DenseSolution`` to read at any time. Options of later slices keep the
+reference's signature and raise a ``ValueError`` naming the slice
+(ROADMAP queue 1) that brings them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,7 +60,7 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
-from .integrate import SolveStats
+from .integrate import SolveStats, adaptive_while_solve, as_tuple
 from .odeint_aca import odeint_aca, odeint_aca_batched, odeint_aca_fixed
 from .odeint_adjoint import (
     odeint_adjoint,
@@ -63,7 +72,12 @@ from .odeint_naive import (
     odeint_naive_batched,
     odeint_naive_fixed,
 )
-from .stepper import state_leaves
+from .stepper import (
+    InterpCoeffs,
+    interp_eval_aligned,
+    maybe_flatten,
+    state_leaves,
+)
 from .tableaus import Tableau, get_tableau
 
 GRAD_METHODS = ("aca", "adjoint", "naive")
@@ -145,7 +159,9 @@ def odeint(
     K4/K5 under ``batch_axis`` (their plain versions for a CPU state).
     ``h0`` overrides the initial-stepsize heuristic of an adaptive
     solver. ``stats.status`` carries a ``SolveStatus`` code
-    (``on_failure="status"``).
+    (``on_failure="status"``). ``checkpoint_segments`` (ACA with an
+    adaptive solver) and ``interpolate_ts`` (adaptive solvers) as in the
+    module docstring.
     """
     if grad_method == "mali":
         raise _later("grad_method='mali'", "slice F")
@@ -181,10 +197,6 @@ def odeint(
     rtol, atol = _tolerances(rtol, atol, batch_axis, mesh, tab, device)
     if mesh is not None or shard_rules is not None:
         raise _later("mesh / shard_rules (sharded solving)", "slice I")
-    if checkpoint_segments is not None:
-        raise _later("checkpoint_segments (segmented ACA)", "slice D")
-    if interpolate_ts:
-        raise _later("interpolate_ts (dense output)", "slice D")
 
     ts = torch.as_tensor(ts, device=device)
     if not ts.is_floating_point():
@@ -197,6 +209,12 @@ def odeint(
     if ts.dim() not in (1, 2) or ts.shape[-1] < 2:
         raise ValueError("ts must be a 1D array of at least 2 times (or, "
                          "under batch_axis, (B, T) per-row times)")
+    if ts.dim() == 2 and interpolate_ts:
+        raise ValueError(
+            "interpolate_ts with per-row (B, T) ts is not ported (ROADMAP "
+            "queue 1, 'per-row ts with interpolate_ts'): pass the union of "
+            "the rows' times as one 1-D ts (data.merged_time_grid) and "
+            "gather each row's outputs, as the reference's route does")
     if _ts_direction(ts) < 0:
         # reverse time: solve the time-negated problem over ascending -ts
         f, ts = _negate_time(f), -ts
@@ -210,15 +228,27 @@ def odeint(
                                batch_axis=batch_axis, rtol=rtol, atol=atol,
                                cfg=cfg, steps_per_interval=steps_per_interval,
                                trial_budget=trial_budget, h0=h0,
-                               use_pallas=use_pallas)
+                               use_pallas=use_pallas,
+                               checkpoint_segments=checkpoint_segments,
+                               interpolate_ts=interpolate_ts)
     if not tab.adaptive:
         return _FIXED[grad_method](f, z0, ts, args, solver=tab,
                                    steps_per_interval=steps_per_interval,
                                    use_pallas=use_pallas)
-    kw = dict(trial_budget=trial_budget) if grad_method == "naive" else {}
-    return _ADAPTIVE[grad_method](f, z0, ts, args, solver=tab, rtol=rtol,
-                                  atol=atol, cfg=cfg, h0=h0,
-                                  use_pallas=use_pallas, **kw)
+    return _ADAPTIVE[grad_method](
+        f, z0, ts, args, solver=tab, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
+        use_pallas=use_pallas, interpolate_ts=interpolate_ts,
+        **_method_kw(grad_method, trial_budget, checkpoint_segments))
+
+
+def _method_kw(grad_method: str, trial_budget: Optional[int],
+               checkpoint_segments) -> dict:
+    """The keywords one gradient method takes beyond the common ones."""
+    if grad_method == "naive":
+        return dict(trial_budget=trial_budget)
+    if grad_method == "aca":
+        return dict(checkpoint_segments=checkpoint_segments)
+    return {}
 
 
 def _tolerances(rtol, atol, batch_axis, mesh, tab: Tableau, device):
@@ -260,7 +290,8 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
                     tab: Tableau, grad_method: str, batch_axis: int, rtol,
                     atol, cfg: ControllerConfig, steps_per_interval: int,
                     trial_budget: Optional[int], h0: Optional[torch.Tensor],
-                    use_pallas: bool) -> Tuple[Any, SolveStats]:
+                    use_pallas: bool, checkpoint_segments=None,
+                    interpolate_ts: bool = False) -> Tuple[Any, SolveStats]:
     """``odeint(..., batch_axis=a)``: moves the batch to axis 0 of every
     state leaf, routes adaptive tableaus to the per-sample batched solvers
     and fixed grids to the shared grid with the field vmapped over the
@@ -302,11 +333,10 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
             f"a per-row h0 must have shape ({B},); got {tuple(h0.shape)}")
     z0 = pytree.tree_map(lambda x, a: x.movedim(a, 0), z0, axes)
     if tab.adaptive:
-        kw = dict(trial_budget=trial_budget) if grad_method == "naive" \
-            else {}
         ys, stats = _BATCHED[grad_method](
             f, z0, ts, args, solver=tab, rtol=rtol, atol=atol, cfg=cfg,
-            h0=h0, use_pallas=use_pallas, **kw)
+            h0=h0, use_pallas=use_pallas, interpolate_ts=interpolate_ts,
+            **_method_kw(grad_method, trial_budget, checkpoint_segments))
     else:
         # a fixed grid is the same for every row: lockstep is the
         # per-sample grid, so the batch runs as one system
@@ -336,3 +366,90 @@ def odeint_final(
     ts = torch.tensor([t0, t1], dtype=torch.float32, device=leaves[0].device)
     ys, stats = odeint(f, z0, ts, args, **kw)
     return pytree.tree_map(lambda y: y[-1], ys), stats
+
+
+class DenseSolution(NamedTuple):
+    """A solution to read at any time (``odeint_dense``).
+
+    Every accepted step's interpolant: ``t``/``h`` the intervals' start
+    times and stepsizes in internal (ascending) time, ``coeffs`` their
+    ``InterpCoeffs`` (leading step axis, the flat state where the solve
+    raveled it), ``n`` the valid steps (a host int), ``sign`` +1.0 or
+    -1.0 (user time = sign × internal time; -1 for t1 < t0) and
+    ``unravel`` the map from a flat (..., N) state back to z0's structure
+    (None when the state was solved as it is). Slots past ``n`` are
+    unused. Forward only: no gradient flows through it.
+    """
+    t: torch.Tensor
+    h: torch.Tensor
+    coeffs: InterpCoeffs
+    n: int
+    sign: float
+    unravel: Optional[Callable] = None
+
+    def evaluate(self, t) -> Any:
+        """The state at time(s) ``t``, a scalar or a tensor of any shape
+        (the outputs lead with its shape); times outside [t0, t1] clamp to
+        the nearest end."""
+        tq = torch.as_tensor(t, dtype=self.t.dtype,
+                             device=self.t.device) * self.sign
+        qshape = tuple(tq.shape)
+        tq = tq.reshape(-1)
+        knots = self.t[:max(self.n, 1)].contiguous()
+        idx = torch.clamp(torch.searchsorted(knots, tq, right=True) - 1,
+                          0, max(self.n - 1, 0))
+        t_i, h_i = self.t[idx], self.h[idx]
+        tiny = torch.finfo(self.t.dtype).eps
+        theta = torch.clamp((tq - t_i) / torch.clamp(h_i, min=tiny), 0.0,
+                            1.0)
+        vals = interp_eval_aligned(InterpCoeffs(*(c[idx]
+                                                  for c in self.coeffs)),
+                                   theta)
+        vals = vals.reshape(qshape + tuple(vals.shape[1:]))
+        return vals if self.unravel is None else self.unravel(vals)
+
+
+def odeint_dense(
+    f: Callable,
+    z0: Any,
+    t0: float,
+    t1: float,
+    args: Any = (),
+    *,
+    solver: Union[str, Tableau] = "dopri5",
+    rtol: float = 1e-6,
+    atol: float = 1e-6,
+    max_steps: int = 256,
+    max_trials: int = 12,
+    use_pallas: bool = False,
+) -> Tuple[DenseSolution, SolveStats]:
+    """Solve dz/dt = f(t, z, *args) over [t0, t1] once and return a
+    ``DenseSolution`` to read at any time.
+
+    The controller advances on its natural grid and every accepted step's
+    interpolant is kept (memory 5 × max_steps states), so
+    ``sol.evaluate(t)`` is one binary search and one polynomial per query,
+    with ``interpolate_ts``'s accuracy. ``t1 < t0`` solves in reverse
+    time; ``evaluate`` then takes the user's times. Forward only.
+    ``stats.overflow`` means ``max_steps`` ran out before t1 (the solution
+    is then valid up to the last accepted step).
+    """
+    tab = get_tableau(solver) if isinstance(solver, str) else solver
+    if not tab.adaptive:
+        raise ValueError(
+            f"odeint_dense requires an adaptive solver (got {tab.name!r})")
+    leaves, _ = state_leaves(z0)
+    ts = torch.tensor([float(t0), float(t1)], dtype=torch.float32,
+                      device=leaves[0].device)
+    sign = 1.0
+    if _ts_direction(ts) < 0:
+        f, ts, sign = _negate_time(f), -ts, -1.0
+    cfg = ControllerConfig(max_steps=max_steps, max_trials=max_trials)
+    f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
+    with torch.no_grad():
+        _, ckpts, stats = adaptive_while_solve(
+            tab, f, z0, ts, as_tuple(args), rtol, atol, cfg,
+            use_pallas=use_pallas, store_coeffs=True)
+    sol = DenseSolution(t=ckpts.t, h=ckpts.h, coeffs=ckpts.coeffs,
+                        n=ckpts.n, sign=sign, unravel=unravel)
+    return sol, stats

@@ -1,7 +1,7 @@
 """Adaptive forward integration with the paper's trajectory checkpoint.
 
 Port of ``repro/core/integrate.py::adaptive_while_solve`` and
-``batched_adaptive_while_solve`` for the full checkpoint buffer. JAX's
+``batched_adaptive_while_solve``. JAX's
 ``lax.while_loop`` becomes a host loop. The solo loop reads two 0-d bool
 tensors on the host per trial — the loop condition (the counterpart of
 the while_loop's ``cond``) and the accept decision; the per-sample
@@ -10,8 +10,18 @@ in masks. Everything else stays in tensors on the state's device.
 Accepted points (t_i, h_i, z_i) go into a ``Checkpoints`` buffer
 preallocated at ``max_steps`` (per row when batched), which the ACA
 backward sweep replays; ``checkpoint=False`` (the adjoint's forward)
-allocates none. The solve-health guard (``guard_nonfinite``) and the
-``SolveStatus`` codes are kept, per row when batched.
+allocates none. With ``checkpoint_segments=K`` the state buffer shrinks
+to K snapshots, one every ``seg_len = ceil(max_steps / K)`` accepted
+steps, each beside the first-stage carry k0 it started with, while the
+scalar grids t, h, out_idx keep every step: the segmented ACA sweep
+re-integrates each segment from its snapshot. ``interpolate_ts`` is the
+natural-grid mode: the step is clamped only to ``ts[-1]``, interior
+outputs are read off each accepted step's interpolant
+(``stepper.interp_fit``) and every interval records the eval indices it
+covered (``ev_lo``, ``ev_hi``); ``store_coeffs`` also keeps every step's
+interpolant (``odeint_dense``). The solve-health guard
+(``guard_nonfinite``) and the ``SolveStatus`` codes are kept, per row
+when batched.
 
 ``fixed_grid_solve`` integrates on the uniform grid of ``make_fixed_grid``
 with one ψ per grid step; autograd through its loop is the naive method
@@ -27,8 +37,11 @@ from torch.func import vmap
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
 from .stepper import (
+    InterpCoeffs,
     batched_field,
     error_ratio,
+    interp_eval,
+    interp_fit,
     maybe_flatten,
     rk_step,
     rk_step_batched,
@@ -91,12 +104,116 @@ class Checkpoints(NamedTuple):
     are valid; ``n`` is a host int. A batched solve keeps one row per
     batch element — t, h, out_idx (B, max_steps), z (B, max_steps,
     *state) — and ``n`` is then a (B,) int32 tensor.
+
+    Segmented (``checkpoint_segments=K``): ``z`` holds K snapshots, slot s
+    the state at accepted step ``s * seg_len``, and ``k0`` the first-stage
+    derivative that step consumed, so a re-integration chains FSAL reuse
+    as the forward did and repeats its states bit for bit. Natural grid
+    (``interpolate_ts``): ``out_idx`` marks only the last eval time, and
+    ``ev_lo[i]``/``ev_hi[i]`` the half-open range of eval indices read off
+    interval i's interpolant; ``coeffs`` (``store_coeffs``) every
+    interval's interpolant, leaves (max_steps, *state).
     """
     t: torch.Tensor           # (max_steps,)
     h: torch.Tensor           # (max_steps,)
-    z: torch.Tensor           # (max_steps, *state)
+    z: torch.Tensor           # (max_steps, *state) or (K, *state)
     out_idx: torch.Tensor     # (max_steps,) int32
     n: Union[int, torch.Tensor]
+    k0: Optional[torch.Tensor] = None       # (K, *state) snapshots
+    ev_lo: Optional[torch.Tensor] = None    # (max_steps,) int32
+    ev_hi: Optional[torch.Tensor] = None    # (max_steps,) int32
+    coeffs: Optional[InterpCoeffs] = None
+
+
+def resolve_checkpoint_segments(spec, max_steps: int) -> Optional[int]:
+    """A ``checkpoint_segments`` spec as an int K, or None: None keeps the
+    full buffer, ``"auto"`` is K = ceil(sqrt(max_steps)) (the optimum of
+    the O(K + max_steps / K) cost), an int is clamped to [1, max_steps]."""
+    if spec is None:
+        return None
+    if spec == "auto":
+        return max(1, int(-(-max_steps ** 0.5 // 1)))  # ceil(sqrt)
+    k = int(spec)
+    if k < 1:
+        raise ValueError(
+            f"checkpoint_segments must be >= 1 or 'auto'; got {spec}")
+    return min(k, max_steps)
+
+
+def segment_length(n_segments: int, max_steps: int) -> int:
+    """Steps per checkpoint segment: ceil(max_steps / K)."""
+    return -(-max_steps // n_segments)
+
+
+def resolve_segmentation(spec, max_steps: int
+                         ) -> Tuple[Optional[int], Optional[int]]:
+    """``(n_seg, seg_len)`` of a ``checkpoint_segments`` spec; ``(None,
+    None)`` for the full buffer, which a spec with seg_len 1 (K >=
+    max_steps) also gets: every step would be a snapshot anyway."""
+    n_seg = resolve_checkpoint_segments(spec, max_steps)
+    if n_seg is None:
+        return None, None
+    seg_len = segment_length(n_seg, max_steps)
+    if seg_len == 1:
+        return None, None
+    return n_seg, seg_len
+
+
+def _snapshot_layout(n_seg: Optional[int], max_steps: int
+                     ) -> Tuple[int, int]:
+    """(state slots, seg_len) of an engine's buffer; ``n_seg=None`` is the
+    full buffer."""
+    if n_seg is None:
+        return max_steps, 1
+    return n_seg, segment_length(n_seg, max_steps)
+
+
+def eval_theta(ts: torch.Tensor, t: torch.Tensor,
+               h: torch.Tensor) -> torch.Tensor:
+    """Each eval time's position in the interval (t, h), clipped to [0, 1]:
+    (n_eval,) for a 0-d interval, (n_eval, B) for (B,) intervals."""
+    tiny = torch.full((), torch.finfo(ts.dtype).eps, dtype=ts.dtype,
+                      device=ts.device)
+    if t.dim():
+        ts, t, h = ts[:, None], t[None, :], h[None, :]
+    return torch.clamp((ts - t) / torch.maximum(h, tiny), 0.0, 1.0)
+
+
+def covered_evals(ts: torch.Tensor, eval_idx, t_new: torch.Tensor,
+                  hit: torch.Tensor) -> torch.Tensor:
+    """The interior eval times an accepted interval ending at ``t_new``
+    covers in natural-grid mode: not yet written (from ``eval_idx`` on),
+    before the last, at or before ``t_new``, or all of them on the final
+    landing, so none is skipped. (n_eval,) solo, (n_eval, B) for (B,)
+    ``eval_idx``, ``t_new`` and ``hit``."""
+    n_eval = ts.shape[0]
+    karr = torch.arange(n_eval, device=ts.device)
+    if t_new.dim():
+        karr, ts = karr[:, None], ts[:, None]
+    return ((karr >= eval_idx) & (karr < n_eval - 1)
+            & ((ts <= t_new) | hit))
+
+
+def natural_grid_outputs(ts, t, t_new, h_use, accept, hit, eval_idx, ys,
+                         z, z_next, k0, k1, z_mid):
+    """One trial's output writes in natural-grid (``interpolate_ts``) mode,
+    solo (0-d ``t``; (n_eval, ...) ``ys``) or batched ((B,) times, masks
+    and ``eval_idx``; (n_eval, B, ...) ``ys``): the interior eval times the
+    accepted interval covers (``covered_evals``) take its interpolant's
+    value; ``ts[-1]`` stays an exact landing. Returns (ys, coeffs, n_cov):
+    the fitted interpolant and the interior-cover count ((B,) when
+    batched); a masked no-op for a rejected trial."""
+    n_eval = ts.shape[0]
+    covered = covered_evals(ts, eval_idx, t_new, hit) & accept
+    coeffs = interp_fit(z, z_next, k0, k1, h_use, z_mid)
+    yint = interp_eval(coeffs, eval_theta(ts, t, h_use))
+    m = covered.reshape(tuple(covered.shape)
+                        + (1,) * (ys.dim() - covered.dim()))
+    ys = torch.where(m, yint, ys)
+    last = _bwhere(hit, z_next, ys[n_eval - 1]) if t.dim() else \
+        torch.where(hit, z_next, ys[n_eval - 1])
+    ys = torch.cat([ys[:n_eval - 1], last.unsqueeze(0)])
+    return ys, coeffs, covered.sum(dim=0, dtype=torch.int64)
 
 
 def nonfinite_any(*tensors: torch.Tensor) -> torch.Tensor:
@@ -165,6 +282,9 @@ def adaptive_while_solve(
     use_pallas: bool = False,
     guard_nonfinite: bool = True,
     checkpoint: bool = True,
+    checkpoint_segments: Optional[int] = None,
+    interpolate_ts: bool = False,
+    store_coeffs: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Checkpoints], SolveStats]:
     """Integrate dz/dt = f(t, z, *args) through increasing times ``ts``.
 
@@ -179,6 +299,13 @@ def adaptive_while_solve(
     finite is never accepted, and once the stepsize has railed at
     ``h_min`` with the trial still non-finite the solve freezes at its
     last accepted state with ``SolveStatus.NONFINITE_STATE``.
+
+    ``checkpoint_segments=K`` (a resolved int, ``resolve_segmentation``)
+    keeps K state snapshots and their k0 carries in place of every state;
+    ``interpolate_ts`` runs the natural grid and ``store_coeffs`` (which
+    implies it) keeps every step's interpolant; see the module docstring.
+    The natural grid's bookkeeping stays on the device: the trial loop
+    reads the host as often as in the landing mode.
     """
     if not tab.adaptive:
         raise ValueError("adaptive_while_solve requires an embedded "
@@ -189,6 +316,9 @@ def adaptive_while_solve(
     max_steps = cfg.max_steps
     # trial budget: every accepted step costs >= 1 trial
     max_total_trials = max_steps * cfg.max_trials
+    n_snap, seg_len = _snapshot_layout(checkpoint_segments, max_steps)
+    segmented = checkpoint_segments is not None
+    natural = interpolate_ts or store_coeffs
 
     hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals
     if h0 is None:
@@ -197,15 +327,29 @@ def adaptive_while_solve(
 
     ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
     ys[0] = z0
+    extra = {}
     if checkpoint:
         ckpt_t = torch.zeros(max_steps, dtype=tdt, device=dev)
         ckpt_h = torch.zeros_like(ckpt_t)
-        ckpt_z = torch.zeros((max_steps,) + tuple(z0.shape), dtype=z0.dtype,
+        ckpt_z = torch.zeros((n_snap,) + tuple(z0.shape), dtype=z0.dtype,
                              device=dev)
         ckpt_oi = torch.full((max_steps,), -1, dtype=torch.int32,
                              device=dev)
+        if natural:
+            # each interval's half-open range of interpolated eval indices
+            extra["ev_lo"] = torch.zeros(max_steps, dtype=torch.int32,
+                                         device=dev)
+            extra["ev_hi"] = torch.zeros_like(extra["ev_lo"])
+        if store_coeffs:
+            cf = [torch.zeros((max_steps,) + tuple(z0.shape),
+                              dtype=z0.dtype, device=dev) for _ in range(5)]
 
     k0 = f(ts[0], z0, *args)
+    if checkpoint and segmented:
+        # the k0 carry each snapshot's step consumed, for the re-chained
+        # re-integration
+        extra["k0"] = torch.zeros((n_snap,) + tuple(k0.shape),
+                                  dtype=k0.dtype, device=dev)
     nfe = 1 + hinit_evals
     false = torch.zeros((), dtype=torch.bool, device=dev)
     # a non-finite initial state / derivative / h0 fails before stepping
@@ -220,16 +364,21 @@ def adaptive_while_solve(
     tiny = torch.full((), torch.finfo(tdt).eps, dtype=tdt, device=dev)
     one = torch.ones((), dtype=tdt, device=dev)
     big_ratio = torch.full((), 1e10, dtype=torch.float32, device=dev)
+    karr = torch.arange(n_eval, device=dev)
+    final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
 
     # host read 1 of 2 per trial: the loop condition
     while (i < max_steps and trials < max_total_trials
            and bool((eval_idx[0] < n_eval) & ~failed)):
-        t_target = ts.index_select(0, eval_idx).reshape(())
+        # the natural grid lands on the last eval time only
+        t_target = ts[n_eval - 1] if natural else \
+            ts.index_select(0, eval_idx).reshape(())
         # clamp the trial step to land exactly on the target eval time
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = torch.clamp(h, h_min, t_target - t)
         res = rk_step(tab, f, t, z, h_use, args, k0=k0,
-                      use_pallas=use_pallas, err_scale=(rtol, atol))
+                      use_pallas=use_pallas, err_scale=(rtol, atol),
+                      dense=natural)
         nfe += tab.stages - 1
 
         # fused path: the scaled norm came out of the combine kernel
@@ -264,24 +413,46 @@ def adaptive_while_solve(
 
         # host read 2 of 2 per trial: accept / reject
         if accept:
+            # first-stage reuse: FSAL takes the accepted step's last
+            # stage, other tableaus evaluate f at the new point (before
+            # the outputs: on the natural grid it is the interpolant's
+            # end derivative)
+            if tab.fsal:
+                k0_acc = res.k_last
+            else:
+                k0_acc = f(t_new, res.z_next, *args)
+                nfe += 1
             if checkpoint:
                 # write the trajectory checkpoint (t_i, h_i, z_i)
                 ckpt_t[i] = t
                 ckpt_h[i] = h_use
-                ckpt_z[i] = z
-                ckpt_oi[i] = torch.where(hit, eval_idx[0], -1)
-            # record the output at an eval-time hit
-            cur = ys.index_select(0, eval_idx)
-            ys.index_copy_(0, eval_idx,
-                           torch.where(hit, res.z_next.unsqueeze(0), cur))
-            eval_idx = eval_idx + hit.to(torch.int64)
-            # first-stage reuse: FSAL takes the accepted step's last
-            # stage, other tableaus evaluate f at the new point
-            if tab.fsal:
-                k0 = res.k_last
+                if not segmented:
+                    ckpt_z[i] = z
+                elif i % seg_len == 0:
+                    # a segment starts: snapshot z and the k0 it consumed
+                    ckpt_z[min(i // seg_len, n_snap - 1)] = z
+                    extra["k0"][min(i // seg_len, n_snap - 1)] = k0
+                ckpt_oi[i] = torch.where(
+                    hit, final_idx if natural else eval_idx[0].int(), -1)
+            if natural:
+                ys, coeffs, n_cov = natural_grid_outputs(
+                    ts, t, t_new, h_use, accept, hit, eval_idx[0], ys, z,
+                    res.z_next, res.k_first, k0_acc, res.z_mid)
+                if checkpoint:
+                    extra["ev_lo"][i] = eval_idx[0]
+                    extra["ev_hi"][i] = eval_idx[0] + n_cov
+                    if store_coeffs:
+                        for buf, c in zip(cf, coeffs):
+                            buf[i] = c
+                eval_idx = eval_idx + n_cov + hit.to(torch.int64)
             else:
-                k0 = f(t_new, res.z_next, *args)
-                nfe += 1
+                # record the output at an eval-time hit
+                cur = ys.index_select(0, eval_idx)
+                ys.index_copy_(0, eval_idx,
+                               torch.where(hit, res.z_next.unsqueeze(0),
+                                           cur))
+                eval_idx = eval_idx + hit.to(torch.int64)
+            k0 = k0_acc
             t, z = t_new, res.z_next
             prev_ratio = torch.clamp(ratio, min=1e-10)
             i += 1
@@ -292,10 +463,11 @@ def adaptive_while_solve(
                             device=dev)
     status = _compose_status(failed, uflow, ~overflow, trials_out)
     # frozen solve: repeat the last accepted state into un-reached slots
-    karr = torch.arange(n_eval, device=dev)
     ys_out = _freeze_fill(ys, failed & (karr >= eval_idx[0]), z)
+    if checkpoint and store_coeffs:
+        extra["coeffs"] = InterpCoeffs(*cf)
     ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi,
-                        n=i) if checkpoint else None
+                        n=i, **extra) if checkpoint else None
 
     def count(v):
         return torch.full((), v, dtype=torch.int32, device=dev)
@@ -354,6 +526,8 @@ def batched_adaptive_while_solve(
     use_pallas: bool = False,
     guard_nonfinite: bool = True,
     checkpoint: bool = True,
+    checkpoint_segments: Optional[int] = None,
+    interpolate_ts: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Checkpoints], SolveStats]:
     """Per-sample batched adaptive solve: one loop, one stepsize controller
     per batch row.
@@ -382,10 +556,18 @@ def batched_adaptive_while_solve(
     ``ts`` is (T,), shared by every row, or (B, T): row b starts at
     ``ts[b, 0]`` and lands on its own eval times ``ts[b]`` (the
     counterpart of ``vmap`` over per-sample eval times).
+
+    ``checkpoint_segments`` as in ``adaptive_while_solve``, every row
+    writing its own K snapshots at its own segment starts;
+    ``interpolate_ts`` as there, every row on its own natural grid with
+    its own ``ev_lo``/``ev_hi`` rows (a 1-D ``ts`` only).
     """
     if not tab.adaptive:
         raise ValueError("batched_adaptive_while_solve requires an "
                          "embedded adaptive tableau")
+    if interpolate_ts and ts.dim() != 1:
+        raise ValueError("interpolate_ts reads every row off one shared "
+                         "1-D ts; per-row (B, T) ts are not supported")
     dev = z0.device
     B = z0.shape[0]
     rows = torch.arange(B, device=dev)
@@ -394,6 +576,8 @@ def batched_adaptive_while_solve(
     tdt = ts.dtype
     max_steps = cfg.max_steps
     max_total_trials = max_steps * cfg.max_trials
+    n_snap, seg_len = _snapshot_layout(checkpoint_segments, max_steps)
+    segmented = checkpoint_segments is not None
 
     row_tol = _row_tolerances(rtol, atol, B, dev)
     if row_tol is not None:
@@ -405,17 +589,25 @@ def batched_adaptive_while_solve(
 
     ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
     ys[0] = z0
+    extra = {}
     if checkpoint:
         ckpt_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
         ckpt_h = torch.zeros_like(ckpt_t)
-        ckpt_z = torch.zeros((B, max_steps) + tuple(z0.shape[1:]),
+        ckpt_z = torch.zeros((B, n_snap) + tuple(z0.shape[1:]),
                              dtype=z0.dtype, device=dev)
         ckpt_oi = torch.full((B, max_steps), -1, dtype=torch.int32,
                              device=dev)
+        if interpolate_ts:
+            extra["ev_lo"] = torch.zeros((B, max_steps), dtype=torch.int32,
+                                         device=dev)
+            extra["ev_hi"] = torch.zeros_like(extra["ev_lo"])
 
     fb = batched_field(f, args)
     t = ts_rows[:, 0].clone()
     k0 = fb(t, z0)
+    if checkpoint and segmented:
+        extra["k0"] = torch.zeros((B, n_snap) + tuple(k0.shape[1:]),
+                                  dtype=k0.dtype, device=dev)
     nfe = torch.full((B,), 1 + hinit_evals, dtype=torch.int32, device=dev)
     # rows starting from a non-finite state/derivative/h0 fail at once
     failed = nonfinite_rows(z0, k0, h) if guard_nonfinite else \
@@ -432,6 +624,8 @@ def batched_adaptive_while_solve(
     zero_h = torch.zeros((), dtype=tdt, device=dev)
     big_ratio = torch.full((), 1e10, dtype=torch.float32, device=dev)
     minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
+    final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
+    karr = torch.arange(n_eval, device=dev)
 
     def live_mask():
         return ((eval_idx < n_eval) & (i < max_steps)
@@ -441,13 +635,16 @@ def batched_adaptive_while_solve(
     # the one host read per trial: any row still live (the while_loop's
     # cond)
     while live.any():
-        t_target = ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]  # (B,)
+        # the natural grid lands on the last eval time only
+        t_target = ts[n_eval - 1].expand(B) if interpolate_ts else \
+            ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]       # (B,)
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         # dead rows step with h = 0: ψ degenerates to the identity
         h_use = torch.where(live, torch.clamp(h, h_min, t_target - t),
                             zero_h)
         res = rk_step_batched(tab, f, t, z, h_use, args, k0=k0,
-                              use_pallas=use_pallas, err_scale=(rtol, atol))
+                              use_pallas=use_pallas, err_scale=(rtol, atol),
+                              dense=interpolate_ts)
         ratio = res.err_ratio                                   # (B,)
         railed = h_use <= h_min * (1 + 1e-3)
         if guard_nonfinite:
@@ -471,19 +668,45 @@ def batched_adaptive_while_solve(
         else:
             k0_acc, nfe_acc = fb(t_new, res.z_next), 1
 
+        i_c = i.clamp(max=max_steps - 1).long()
         if checkpoint:
             # on accept: write each row's own checkpoint slot
-            i_c = i.clamp(max=max_steps - 1).long()
             ckpt_t[rows, i_c] = torch.where(accept, t, ckpt_t[rows, i_c])
             ckpt_h[rows, i_c] = torch.where(accept, h_use,
                                             ckpt_h[rows, i_c])
-            ckpt_z[rows, i_c] = _bwhere(accept, z, ckpt_z[rows, i_c])
-            oi_val = torch.where(hit, eval_idx.to(torch.int32), minus_one)
+            if not segmented:
+                ckpt_z[rows, i_c] = _bwhere(accept, z, ckpt_z[rows, i_c])
+            else:
+                # each row snapshots (z, the k0 it consumed) at its own
+                # segment starts
+                s = (i_c // seg_len).clamp(max=n_snap - 1)
+                snap = accept & (i_c % seg_len == 0)
+                ckpt_z[rows, s] = _bwhere(snap, z, ckpt_z[rows, s])
+                extra["k0"][rows, s] = _bwhere(snap, k0,
+                                               extra["k0"][rows, s])
+            oi_val = torch.where(
+                hit, final_idx if interpolate_ts else
+                eval_idx.to(torch.int32), minus_one)
             ckpt_oi[rows, i_c] = torch.where(accept, oi_val,
                                              ckpt_oi[rows, i_c])
-        # on an eval-time hit: record that row's output
-        e_c = eval_idx.clamp(max=n_eval - 1)
-        ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
+        if interpolate_ts:
+            # each row reads the eval times its interval covers off its
+            # own interpolant
+            ys, _, n_cov = natural_grid_outputs(
+                ts, t, t_new, h_use, accept, hit, eval_idx, ys, z,
+                res.z_next, res.k_first, k0_acc, res.z_mid)
+            if checkpoint:
+                for key, v in (("ev_lo", eval_idx), ("ev_hi",
+                                                     eval_idx + n_cov)):
+                    buf = extra[key]
+                    buf[rows, i_c] = torch.where(accept, v.to(torch.int32),
+                                                 buf[rows, i_c])
+            eval_adv = n_cov + hit.to(torch.int64)
+        else:
+            # on an eval-time hit: record that row's output
+            e_c = eval_idx.clamp(max=n_eval - 1)
+            ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
+            eval_adv = hit.to(torch.int64)
 
         # per-row stepsize control; a non-finite ratio shrinks at the
         # maximum rate instead of entering the h chain
@@ -502,7 +725,7 @@ def batched_adaptive_while_solve(
         prev_ratio = torch.where(accept, torch.clamp(ratio, min=1e-10),
                                  prev_ratio)
         i = i + accept.to(torch.int32)
-        eval_idx = eval_idx + hit.to(torch.int64)
+        eval_idx = eval_idx + eval_adv
         trials = trials + live.to(torch.int32)
         failed = failed | fail_now
         uflow = uflow | uflow_now
@@ -511,11 +734,10 @@ def batched_adaptive_while_solve(
     overflow = eval_idx < n_eval
     status = _compose_status(failed, uflow, ~overflow,
                              trials >= max_total_trials)
-    karr = torch.arange(n_eval, device=dev)
     fill = failed[None, :] & (karr[:, None] >= eval_idx[None, :])
     ys_out = _freeze_fill(ys, fill, z)
     ckpts = Checkpoints(t=ckpt_t, h=ckpt_h, z=ckpt_z, out_idx=ckpt_oi,
-                        n=i) if checkpoint else None
+                        n=i, **extra) if checkpoint else None
     stats = SolveStats(n_steps=i, n_trials=trials, nfe=nfe,
                        overflow=overflow, status=status)
     return ys_out, ckpts, stats

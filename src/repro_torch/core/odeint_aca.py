@@ -1,7 +1,7 @@
 """Adaptive Checkpoint Adjoint (ACA) — the paper's contribution, in torch.
 
 Port of ``repro/core/odeint_aca.py::odeint_aca``, ``odeint_aca_batched``
-and their backward sweeps for the full checkpoint buffer.
+and their backward sweeps.
 
 Forward (paper Algorithm 2): integrate with ``adaptive_while_solve``
 without autograd — the stepsize search never enters a graph — and keep
@@ -17,6 +17,22 @@ the gradient is that of the numerical solution.
 Batched (``odeint_aca_batched``): every row records its own grid and the
 backward replays each row's grid in reverse, all rows in one batched ψ
 per replayed step; a row shorter than the longest is frozen with h = 0.
+
+Segmented (``checkpoint_segments=K``): the forward keeps K state
+snapshots, the scalar grid still every step; the backward re-integrates
+each segment from its snapshot with the saved stepsizes and the saved k0
+carry (no search), into a ``seg_len``-slot replay buffer, then replays it
+in reverse. State memory O(K + N_f / K) for about one more ψ per step;
+the re-integrated states are the forward's bit for bit, so the gradients
+are the full buffer's bit for bit. Batched, the replay windows are
+end-aligned per row (row b replays step n_b - 1 - J at global iteration
+J, as the full sweep does), each refilled from the nearest snapshot at or
+before it (at most 2·seg_len ψ), so the rows pair and the args cotangent
+adds up in the full sweep's order.
+
+Natural grid (``interpolate_ts``): each replayed step also rebuilds its
+interpolant, and the cotangents of the eval times it covered
+(``[ev_lo, ev_hi)``) flow back through it.
 
 Fixed grid (``odeint_aca_fixed``): the forward checkpoints every grid
 state and the same backward sweep replays the grid — the naive fixed-grid
@@ -37,12 +53,17 @@ from .integrate import (
     adaptive_while_solve,
     as_tuple,
     batched_adaptive_while_solve,
+    eval_theta,
     fixed_stats,
     fixed_status,
     make_fixed_grid,
     mask_failed_cotangents,
+    resolve_segmentation,
 )
 from .stepper import (
+    batched_field,
+    interp_eval,
+    interp_fit,
     maybe_flatten,
     maybe_flatten_batched,
     rk_step,
@@ -55,7 +76,8 @@ class _Problem:
     """What the autograd Function needs besides its tensor inputs."""
 
     def __init__(self, tab, f, rtol, atol, cfg, h0, use_pallas, args_spec,
-                 steps_per_interval: Optional[int] = None):
+                 steps_per_interval: Optional[int] = None,
+                 checkpoint_segments=None, interpolate_ts: bool = False):
         self.tab, self.f = tab, f
         self.rtol, self.atol, self.cfg, self.h0 = rtol, atol, cfg, h0
         self.use_pallas = use_pallas
@@ -63,10 +85,18 @@ class _Problem:
         # None: the adaptive engine; else the fixed grid's steps per
         # interval
         self.steps_per_interval = steps_per_interval
+        self.n_seg, self.seg_len = (None, None) if cfg is None else \
+            resolve_segmentation(checkpoint_segments, cfg.max_steps)
+        self.interpolate_ts = interpolate_ts
         self.stats: Optional[SolveStats] = None
 
     def args(self, leaves) -> Tuple:
         return as_tuple(pytree.tree_unflatten(list(leaves), self.args_spec))
+
+    def engine_kw(self) -> dict:
+        return dict(h0=self.h0, use_pallas=self.use_pallas,
+                    checkpoint_segments=self.n_seg,
+                    interpolate_ts=self.interpolate_ts)
 
 
 def _diff_args(prob: _Problem, arg_leaves: List, needs: List[bool]):
@@ -80,43 +110,309 @@ def _diff_args(prob: _Problem, arg_leaves: List, needs: List[bool]):
     return prob.args(leaves), wrt_args, diff
 
 
-def _aca_backward_sweep(tab: Tableau, f: Callable, ckpts: Checkpoints,
-                        prob: _Problem, arg_leaves: List, needs: List[bool],
-                        g_ys: torch.Tensor, use_pallas: bool):
-    """Reverse sweep over the trajectory checkpoints.
+class _Sweep:
+    """One reverse sweep's state and its replay of one accepted step, shared
+    by the full and the segmented sweeps (solo or batched), which differ
+    only in where each step's start state comes from."""
 
-    Returns (dL/dz0, [dL/d leaf] for every args leaf, None where ``needs``
-    is False). ``g_ys[k]`` is injected into λ when the sweep crosses the
-    endpoint that landed on eval time ts[k].
-    """
-    args, wrt_args, diff = _diff_args(prob, arg_leaves, needs)
+    def __init__(self, prob: _Problem, ckpts: Checkpoints, arg_leaves: List,
+                 needs: List[bool], g_ys: torch.Tensor, ts: torch.Tensor,
+                 batched: bool):
+        self.prob, self.ckpts, self.g_ys, self.ts = prob, ckpts, g_ys, ts
+        self.batched = batched
+        self.args, self.wrt_args, self.diff = _diff_args(prob, arg_leaves,
+                                                         needs)
+        self.lam = torch.zeros_like(g_ys[0])
+        self.gargs = [torch.zeros_like(a) for a in self.wrt_args]
+        self.interp = ckpts.ev_lo is not None
+        self.karr = torch.arange(g_ys.shape[0], device=g_ys.device)
 
-    lam = torch.zeros_like(g_ys[0])
-    gargs = [torch.zeros_like(a) for a in wrt_args]
-    for i in range(ckpts.n - 1, -1, -1):
-        t_i, h_i = ckpts.t[i], ckpts.h[i]
-        oi = ckpts.out_idx[i]
-        # inject the cotangent of an output landing on this interval's
-        # endpoint: λ(t_{i+1}) += ∂J/∂y_k
-        g_k = g_ys.index_select(0, oi.clamp(min=0).reshape(1).long())[0]
-        lam = torch.where(oi >= 0, lam + g_k, lam)
+    def _local(self, t_i, h_i, z_i):
+        """ψ(t_i, z_i, h_i) with the saved stepsize, k0 recomputed so its
+        gradient flows; on the natural grid also the rebuilt interpolant
+        at every eval time (its k0, k1 are the forward's carries bitwise,
+        so it is the forward's interpolant)."""
+        tab, f, up = self.prob.tab, self.prob.f, self.prob.use_pallas
+        step = rk_step_batched if self.batched else rk_step
+        res = step(tab, f, t_i, z_i, h_i, self.args, use_pallas=up,
+                   dense=self.interp)
+        if not self.interp:
+            return res.z_next, None
+        if tab.fsal:
+            k1 = res.k_last
+        elif self.batched:
+            k1 = batched_field(f, self.args)(t_i + h_i, res.z_next)
+        else:
+            k1 = f(t_i + h_i, res.z_next, *self.args)
+        coeffs = interp_fit(z_i, res.z_next, res.k_first, k1, h_i,
+                            res.z_mid)
+        return res.z_next, interp_eval(coeffs,
+                                       eval_theta(self.ts, t_i, h_i))
 
-        # local forward + local backward (paper Algorithm 2, backward pass):
-        # one ψ with the SAVED stepsize; k0 is recomputed so its gradient
-        # flows
+    def replay(self, i, z_i, live=None) -> None:
+        """Back-propagate λ through accepted step ``i`` (an int, or (B,)
+        row indices with the ``live`` mask when batched) started at
+        ``z_i``, first injecting the cotangent of an output that landed on
+        its endpoint: λ(t_{i+1}) += ∂J/∂y_k."""
+        ck, g_ys = self.ckpts, self.g_ys
+        if self.batched:
+            rows = torch.arange(i.shape[0], device=i.device)
+            t_i = ck.t[rows, i]
+            h_i = torch.where(live, ck.h[rows, i], torch.zeros_like(t_i))
+            oi = torch.where(live, ck.out_idx[rows, i],
+                             torch.full_like(ck.out_idx[rows, i], -1))
+            g_k = g_ys[oi.clamp(min=0).long(), rows]
+            lam = torch.where((oi >= 0).reshape(
+                (-1,) + (1,) * (self.lam.dim() - 1)), self.lam + g_k,
+                self.lam)
+        else:
+            t_i, h_i, oi = ck.t[i], ck.h[i], ck.out_idx[i]
+            g_k = g_ys.index_select(0, oi.clamp(min=0).reshape(1).long())[0]
+            lam = torch.where(oi >= 0, self.lam + g_k, self.lam)
         with torch.enable_grad():
-            z_i = ckpts.z[i].detach().requires_grad_()
-            z_next = rk_step(tab, f, t_i, z_i, h_i, args,
-                             use_pallas=use_pallas).z_next
-            grads = torch.autograd.grad(z_next, [z_i] + wrt_args, lam,
+            z_i = z_i.detach().requires_grad_()
+            z_next, y_all = self._local(t_i, h_i, z_i)
+            outs, cots = [z_next], [lam]
+            if y_all is not None:
+                # the interpolated outputs' cotangents, masked to the eval
+                # times this interval covered
+                if self.batched:
+                    m = (live[None, :]
+                         & (self.karr[:, None] >= ck.ev_lo[rows, i][None, :])
+                         & (self.karr[:, None] < ck.ev_hi[rows, i][None, :]))
+                else:
+                    m = (self.karr >= ck.ev_lo[i]) & (self.karr < ck.ev_hi[i])
+                m = m.reshape(tuple(m.shape) + (1,) * (g_ys.dim() - m.dim()))
+                outs.append(y_all)
+                cots.append(torch.where(m, g_ys, torch.zeros_like(g_ys)))
+            grads = torch.autograd.grad(outs, [z_i] + self.wrt_args, cots,
                                         allow_unused=True)
-        lam = grads[0] if grads[0] is not None else torch.zeros_like(lam)
-        gargs = [ga if d is None else ga + d
-                 for ga, d in zip(gargs, grads[1:])]
-    # cotangent of ys[0] = z0 (identity path)
-    lam = lam + g_ys[0]
-    out = iter(gargs)
-    return lam, [next(out) if d else None for d in diff]
+        self.lam = grads[0] if grads[0] is not None else \
+            torch.zeros_like(lam)
+        self.gargs = [ga if d is None else ga + d
+                      for ga, d in zip(self.gargs, grads[1:])]
+
+    def result(self):
+        """(dL/dz0, [dL/d leaf], None where a leaf takes no gradient): the
+        cotangent of ys[0] = z0 enters on the identity path."""
+        out = iter(self.gargs)
+        return self.lam + self.g_ys[0], [next(out) if d else None
+                                         for d in self.diff]
+
+
+def _aca_backward_sweep(sw: _Sweep):
+    """Reverse sweep over the full checkpoint buffer: every accepted step
+    replayed from its stored start state."""
+    for i in range(sw.ckpts.n - 1, -1, -1):
+        sw.replay(i, sw.ckpts.z[i])
+    return sw.result()
+
+
+@torch.no_grad()
+def _reintegrate(prob: _Problem, args: Tuple, ckpts: Checkpoints, z, k0,
+                 i, h_i, batched: bool):
+    """One saved-stepsize ψ of the segment re-integration and the next k0
+    carry, chained as the forward chained it: (z_next, k0_next)."""
+    tab, f = prob.tab, prob.f
+    if batched:
+        rows = torch.arange(i.shape[0], device=i.device)
+        t_i = ckpts.t[rows, i]
+        res = rk_step_batched(tab, f, t_i, z, h_i, args, k0=k0,
+                              use_pallas=prob.use_pallas)
+        k0n = res.k_last if tab.fsal else \
+            batched_field(f, args)(t_i + h_i, res.z_next)
+    else:
+        t_i = ckpts.t[i]
+        res = rk_step(tab, f, t_i, z, h_i, args, k0=k0,
+                      use_pallas=prob.use_pallas)
+        k0n = res.k_last if tab.fsal else f(t_i + h_i, res.z_next, *args)
+    return res.z_next, k0n
+
+
+def _aca_backward_sweep_segmented(sw: _Sweep):
+    """Segmented reverse sweep (``checkpoint_segments=K``): segments last to
+    first, each re-integrated from its snapshot into the ``seg_len``-slot
+    replay buffer with the saved stepsizes and the re-chained k0 carry
+    (the states the forward took, bitwise), then replayed in reverse as
+    ``_aca_backward_sweep`` does. The step whose end no replay needs is
+    not re-taken."""
+    ck, seg_len = sw.ckpts, sw.prob.seg_len
+    n = ck.n
+    zbuf = torch.empty((seg_len,) + tuple(ck.z.shape[1:]), dtype=ck.z.dtype,
+                       device=ck.z.device)
+    for s in range(-(-n // seg_len) - 1, -1, -1):
+        i0, i1 = s * seg_len, min(s * seg_len + seg_len, n)
+        z, k0 = ck.z[s], ck.k0[s]
+        zbuf[0] = z
+        for i in range(i0, i1 - 1):
+            z, k0 = _reintegrate(sw.prob, sw.args, ck, z, k0, i, ck.h[i],
+                                 batched=False)
+            zbuf[i + 1 - i0] = z
+        for i in range(i1 - 1, i0 - 1, -1):
+            sw.replay(i, zbuf[i - i0])
+    return sw.result()
+
+
+def _save_checkpoints(ctx, ckpts: Checkpoints) -> None:
+    """Keep the trajectory checkpoint for the backward through
+    ``save_for_backward``, where autograd's saved-tensor hooks see it: the
+    scalar grids, the state buffer or snapshots, the snapshots' k0 and the
+    natural grid's eval ranges."""
+    names = [k for k in ("t", "h", "z", "out_idx", "k0", "ev_lo", "ev_hi")
+             if getattr(ckpts, k) is not None]
+    ctx.save_for_backward(*(getattr(ckpts, k) for k in names))
+    ctx.ckpt_names = names
+    ctx.n = ckpts.n
+
+
+def _saved_checkpoints(ctx) -> Checkpoints:
+    return Checkpoints(n=ctx.n, **dict(zip(ctx.ckpt_names,
+                                           ctx.saved_tensors)))
+
+
+class _AcaSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+        args = prob.args(arg_leaves)
+        if prob.steps_per_interval is None:
+            ys, ckpts, stats = adaptive_while_solve(
+                prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol,
+                prob.cfg, **prob.engine_kw())
+        else:
+            ys, ckpts, stats = _fixed_checkpoint_solve(
+                prob.tab, prob.f, z0, ts, args, prob.steps_per_interval,
+                prob.use_pallas)
+        prob.stats = stats
+        ctx.prob, ctx.ts = prob, ts
+        _save_checkpoints(ctx, ckpts)
+        ctx.status = stats.status
+        ctx.arg_leaves = arg_leaves
+        return ys
+
+    @staticmethod
+    def backward(ctx, g_ys):
+        prob = ctx.prob
+        # a frozen (NONFINITE_STATE) solve's placeholder outputs carry no
+        # gradient: zero the cotangents before the replay sweep
+        g_ys = mask_failed_cotangents(g_ys, ctx.status)
+        sw = _Sweep(prob, _saved_checkpoints(ctx), list(ctx.arg_leaves),
+                    list(ctx.needs_input_grad[3:]), g_ys, ctx.ts,
+                    batched=False)
+        sweep = _aca_backward_sweep if prob.n_seg is None else \
+            _aca_backward_sweep_segmented
+        dz0, dargs = sweep(sw)
+        return (None, dz0, None, *dargs)
+
+
+def _aca_backward_sweep_batched(sw: _Sweep):
+    """Per-row reverse sweep: each batch row replays its own grid.
+
+    ``ckpts`` rows are per row (t/h/out_idx (B, S), z (B, S, ...), n
+    (B,)); ``g_ys`` is (n_eval, B, ...). The sweep runs max(n) iterations;
+    at iteration j row b replays its slot n_b - 1 - j, and once j >= n_b it
+    replays slot 0 with h = 0, the identity in z with a zero cotangent for
+    args, so its λ is untouched. The args cotangent is summed over the
+    rows, since args are shared.
+    """
+    n = sw.ckpts.n
+    rows = torch.arange(n.shape[0], device=n.device)
+    n_max = n.max()
+    # the backward's one host read: the replay length max_b n_b
+    for j in range(int(n_max)):
+        i = n - 1 - j                        # (B,), negative when done
+        i_c = i.clamp(min=0).long()
+        sw.replay(i_c, sw.ckpts.z[rows, i_c], live=i >= 0)
+    return sw.result()
+
+
+def _aca_backward_sweep_segmented_batched(sw: _Sweep):
+    """Batched segmented reverse sweep (``checkpoint_segments`` with
+    ``batch_axis``).
+
+    Rows record different step counts n_b, so their segments do not
+    align. The replay windows are end-aligned per row: at global iteration
+    J = j·seg_len + r row b replays its step n_b − 1 − J, the pairing (and
+    so the order in which the args cotangent adds up over the rows) of
+    ``_aca_backward_sweep_batched``. Every seg_len iterations each row
+    refills its slots of the replay buffer by re-integrating from the
+    nearest snapshot at or before its window (at most 2·seg_len ψ, since a
+    window can straddle a snapshot stride), rows outside theirs frozen
+    with h = 0. The windows are planned on the host from one read of n.
+    """
+    ck, prob = sw.ckpts, sw.prob
+    seg_len, n_snap = prob.seg_len, ck.z.shape[1]
+    n_host = ck.n.tolist()               # the backward's one host read
+    B = len(n_host)
+    dev = ck.n.device
+    rows = torch.arange(B, device=dev)
+    n_max = max(n_host)
+    zbuf = torch.zeros((B, seg_len) + tuple(ck.z.shape[2:]), dtype=ck.z.dtype,
+                       device=ck.z.device)
+    for j in range(-(-n_max // seg_len)):
+        g_hi = [nb - j * seg_len for nb in n_host]      # window end (excl.)
+        g_lo = [max(g - seg_len, 0) for g in g_hi]      # window start
+        snap = [min(lo // seg_len, n_snap - 1) for lo in g_lo]
+        a0 = [s * seg_len for s in snap]                # snapshot's step
+        # the refill: each row steps from its snapshot to its window's
+        # last start state
+        span = max(g - a for g, a in zip(g_hi, a0) if g > 0)
+        g_hi_t, g_lo_t, a0_t = (torch.tensor(v, device=dev)
+                                for v in (g_hi, g_lo, a0))
+        snap_t = torch.tensor(snap, device=dev)
+        z, k0 = ck.z[rows, snap_t], ck.k0[rows, snap_t]
+        for q in range(span):
+            i = a0_t + q
+            in_win = (i >= g_lo_t) & (i < g_hi_t)
+            slot = (i - g_lo_t).clamp(0, seg_len - 1)
+            zbuf[rows, slot] = torch.where(
+                in_win.reshape((-1,) + (1,) * (z.dim() - 1)), z,
+                zbuf[rows, slot])
+            if q + 1 < span:
+                # rows whose next start state is past their window step
+                # with h = 0, the identity
+                i_c = i.clamp(max=ck.t.shape[1] - 1)
+                h_i = torch.where(i + 1 < g_hi_t, ck.h[rows, i_c],
+                                  torch.zeros_like(ck.h[rows, i_c]))
+                z, k0 = _reintegrate(prob, sw.args, ck, z, k0, i_c, h_i,
+                                     batched=True)
+        for r in range(seg_len):
+            jj = j * seg_len + r
+            if jj >= n_max:
+                break
+            i = ck.n - 1 - jj                        # (B,), < 0 when done
+            i_c = i.clamp(min=0).long()
+            slot = (i - g_lo_t).clamp(0, seg_len - 1)
+            sw.replay(i_c, zbuf[rows, slot], live=i >= 0)
+    return sw.result()
+
+
+class _AcaSolveBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+        args = prob.args(arg_leaves)
+        ys, ckpts, stats = batched_adaptive_while_solve(
+            prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol, prob.cfg,
+            **prob.engine_kw())
+        prob.stats = stats
+        ctx.prob, ctx.ts = prob, ts
+        _save_checkpoints(ctx, ckpts)
+        ctx.status = stats.status
+        ctx.arg_leaves = arg_leaves
+        return ys
+
+    @staticmethod
+    def backward(ctx, g_ys):
+        prob = ctx.prob
+        # failed rows: their frozen placeholder outputs carry no gradient,
+        # into neither their own dz0 nor the shared args
+        g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=True)
+        sw = _Sweep(prob, _saved_checkpoints(ctx), list(ctx.arg_leaves),
+                    list(ctx.needs_input_grad[3:]), g_ys, ctx.ts,
+                    batched=True)
+        sweep = _aca_backward_sweep_batched if prob.n_seg is None else \
+            _aca_backward_sweep_segmented_batched
+        dz0, dargs = sweep(sw)
+        return (None, dz0, None, *dargs)
 
 
 @torch.no_grad()
@@ -147,129 +443,6 @@ def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0: torch.Tensor,
     return ys, ckpts, fixed_stats(tab, n_steps, fixed_status(ys))
 
 
-def _save_checkpoints(ctx, ckpts: Checkpoints) -> None:
-    """Keep the trajectory checkpoint for the backward through
-    ``save_for_backward``, where autograd's saved-tensor hooks see it."""
-    ctx.save_for_backward(ckpts.t, ckpts.h, ckpts.z, ckpts.out_idx)
-    ctx.n = ckpts.n
-
-
-def _saved_checkpoints(ctx) -> Checkpoints:
-    return Checkpoints(*ctx.saved_tensors, n=ctx.n)
-
-
-class _AcaSolve(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
-        args = prob.args(arg_leaves)
-        if prob.steps_per_interval is None:
-            ys, ckpts, stats = adaptive_while_solve(
-                prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol,
-                prob.cfg, h0=prob.h0, use_pallas=prob.use_pallas)
-        else:
-            ys, ckpts, stats = _fixed_checkpoint_solve(
-                prob.tab, prob.f, z0, ts, args, prob.steps_per_interval,
-                prob.use_pallas)
-        prob.stats = stats
-        ctx.prob = prob
-        _save_checkpoints(ctx, ckpts)
-        ctx.status = stats.status
-        ctx.arg_leaves = arg_leaves
-        return ys
-
-    @staticmethod
-    def backward(ctx, g_ys):
-        prob = ctx.prob
-        # a frozen (NONFINITE_STATE) solve's placeholder outputs carry no
-        # gradient: zero the cotangents before the replay sweep
-        g_ys = mask_failed_cotangents(g_ys, ctx.status)
-        dz0, dargs = _aca_backward_sweep(prob.tab, prob.f,
-                                         _saved_checkpoints(ctx), prob,
-                                         list(ctx.arg_leaves),
-                                         list(ctx.needs_input_grad[3:]),
-                                         g_ys, prob.use_pallas)
-        return (None, dz0, None, *dargs)
-
-
-def _aca_backward_sweep_batched(tab: Tableau, f: Callable,
-                                ckpts: Checkpoints, prob: _Problem,
-                                arg_leaves: List, needs: List[bool],
-                                g_ys: torch.Tensor, use_pallas: bool):
-    """Per-row reverse sweep: each batch row replays its own grid.
-
-    ``ckpts`` rows are per row (t/h/out_idx (B, S), z (B, S, ...), n
-    (B,)); ``g_ys`` is (n_eval, B, ...). The sweep runs max(n) iterations;
-    at iteration j row b replays its slot n_b - 1 - j, and once j >= n_b it
-    replays slot 0 with h = 0, the identity in z with a zero cotangent for
-    args, so its λ is untouched. Returns (dL/dz0 (B, ...), [dL/d leaf]
-    summed over the rows, since args are shared).
-    """
-    args, wrt_args, diff = _diff_args(prob, arg_leaves, needs)
-    n = ckpts.n
-    B = n.shape[0]
-    rows = torch.arange(B, device=n.device)
-    zero_h = torch.zeros((), dtype=ckpts.h.dtype, device=n.device)
-    minus_one = torch.full((), -1, dtype=ckpts.out_idx.dtype,
-                           device=n.device)
-
-    lam = torch.zeros_like(g_ys[0])
-    gargs = [torch.zeros_like(a) for a in wrt_args]
-    n_max = n.max()
-    # the backward's one host read: the replay length max_b n_b
-    for j in range(int(n_max)):
-        i = n - 1 - j                        # (B,), negative when done
-        live = i >= 0
-        i_c = i.clamp(min=0).long()
-        t_i = ckpts.t[rows, i_c]
-        h_i = torch.where(live, ckpts.h[rows, i_c], zero_h)
-        oi = torch.where(live, ckpts.out_idx[rows, i_c], minus_one)
-        # inject each row's output cotangent where its interval's endpoint
-        # landed on an eval time: λ_b(t_{i+1}) += ∂J/∂y_{oi_b}
-        g_k = g_ys[oi.clamp(min=0).long(), rows]
-        lam = torch.where((oi >= 0).reshape((-1,) + (1,) * (lam.dim() - 1)),
-                          lam + g_k, lam)
-        with torch.enable_grad():
-            z_i = ckpts.z[rows, i_c].detach().requires_grad_()
-            z_next = rk_step_batched(tab, f, t_i, z_i, h_i, args,
-                                     use_pallas=use_pallas).z_next
-            grads = torch.autograd.grad(z_next, [z_i] + wrt_args, lam,
-                                        allow_unused=True)
-        lam = grads[0] if grads[0] is not None else torch.zeros_like(lam)
-        gargs = [ga if d is None else ga + d
-                 for ga, d in zip(gargs, grads[1:])]
-    # cotangent of ys[0] = z0 (identity path)
-    lam = lam + g_ys[0]
-    out = iter(gargs)
-    return lam, [next(out) if d else None for d in diff]
-
-
-class _AcaSolveBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
-        args = prob.args(arg_leaves)
-        ys, ckpts, stats = batched_adaptive_while_solve(
-            prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol, prob.cfg,
-            h0=prob.h0, use_pallas=prob.use_pallas)
-        prob.stats = stats
-        ctx.prob = prob
-        _save_checkpoints(ctx, ckpts)
-        ctx.status = stats.status
-        ctx.arg_leaves = arg_leaves
-        return ys
-
-    @staticmethod
-    def backward(ctx, g_ys):
-        prob = ctx.prob
-        # failed rows: their frozen placeholder outputs carry no gradient,
-        # into neither their own dz0 nor the shared args
-        g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=True)
-        dz0, dargs = _aca_backward_sweep_batched(
-            prob.tab, prob.f, _saved_checkpoints(ctx), prob,
-            list(ctx.arg_leaves),
-            list(ctx.needs_input_grad[3:]), g_ys, prob.use_pallas)
-        return (None, dz0, None, *dargs)
-
-
 def odeint_aca_batched(
     f: Callable,
     z0: torch.Tensor,
@@ -282,6 +455,8 @@ def odeint_aca_batched(
     cfg: Optional[ControllerConfig] = None,
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
+    checkpoint_segments=None,
+    interpolate_ts: bool = False,
 ) -> Tuple[torch.Tensor, SolveStats]:
     """Per-sample batched ACA: ``odeint(..., batch_axis=0)``'s path.
 
@@ -292,6 +467,10 @@ def odeint_aca_batched(
     its own numerical solution. Returns (ys (len(ts), B, ...), stats with
     (B,) fields). ``rtol``/``atol`` are floats or (B,) tensors (per-row
     tolerances; no gradient); ``h0`` a scalar or (B,).
+    ``checkpoint_segments`` (int, ``"auto"`` or None) bounds each row's
+    state buffer to K snapshots plus the replay buffer, with the full
+    buffer's gradients bit for bit; ``interpolate_ts`` as in
+    ``odeint_aca``, every row on its own natural grid.
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -301,7 +480,9 @@ def odeint_aca_batched(
             "fixed grids batch losslessly through odeint_aca_fixed")
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
-    prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec)
+    prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec,
+                    checkpoint_segments=checkpoint_segments,
+                    interpolate_ts=interpolate_ts)
     ys = _AcaSolveBatched.apply(prob, z0, ts, *leaves)
     if unravel is not None:
         ys = unravel(ys)
@@ -320,6 +501,8 @@ def odeint_aca(
     cfg: Optional[ControllerConfig] = None,
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
+    checkpoint_segments=None,
+    interpolate_ts: bool = False,
 ) -> Tuple[torch.Tensor, SolveStats]:
     """Solve dz/dt = f(t, z, *args) with ACA gradients.
 
@@ -331,6 +514,16 @@ def odeint_aca(
     solve and runs the trial loop and the backward replay on the fused
     kernel path; the flatten and unflatten sit outside the autograd
     Function, so cotangents pass through them as reshapes.
+
+    ``checkpoint_segments`` (int K, ``"auto"`` or None) keeps K state
+    snapshots in place of every accepted state; the backward re-integrates
+    each segment with the saved stepsizes before replaying it, so the
+    gradients are the full buffer's bit for bit at about one more ψ per
+    step. ``interpolate_ts`` advances on the controller's natural grid and
+    reads interior eval times off each accepted step's interpolant; the
+    backward replays each interval and its interpolant, so the gradient is
+    still that of the computed (interpolated) solution. ``ys[0]`` and
+    ``ys[-1]`` stay exact solver states.
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -340,7 +533,9 @@ def odeint_aca(
             "take odeint_aca_fixed")
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
-    prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec)
+    prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec,
+                    checkpoint_segments=checkpoint_segments,
+                    interpolate_ts=interpolate_ts)
     ys = _AcaSolve.apply(prob, z0, ts, *leaves)
     if unravel is not None:
         ys = unravel(ys)

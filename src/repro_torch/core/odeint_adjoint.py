@@ -70,7 +70,8 @@ class _Problem(_AcaProblem):
         ys, _, stats = engine(self.tab, f, z0, ts, args, self.rtol,
                               self.atol, self.cfg,
                               h0=self.h0 if forward else None,
-                              use_pallas=up, checkpoint=False)
+                              use_pallas=up, checkpoint=False,
+                              interpolate_ts=forward and self.interpolate_ts)
         return (ys if unravel is None else unravel(ys)), stats
 
 
@@ -149,10 +150,12 @@ class _AdjointSolve(torch.autograd.Function):
 
 
 def _run(f, z0, ts, args, unravel, tab, rtol=None, atol=None, cfg=None,
-         h0=None, use_pallas=False, steps_per_interval=None, batched=False):
+         h0=None, use_pallas=False, steps_per_interval=None, batched=False,
+         interpolate_ts=False):
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(tab, f, rtol, atol, cfg, h0, use_pallas, spec,
-                    steps_per_interval=steps_per_interval, batched=batched)
+                    steps_per_interval=steps_per_interval, batched=batched,
+                    interpolate_ts=interpolate_ts)
     ys = _AdjointSolve.apply(prob, z0, ts, *leaves)
     if unravel is not None:
         ys = unravel(ys)
@@ -178,6 +181,7 @@ def odeint_adjoint(
     cfg: Optional[ControllerConfig] = None,
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
+    interpolate_ts: bool = False,
 ):
     """Adjoint-method odeint: O(N_f) memory, reverse-time numerical error.
     Returns (ys, stats) of the forward solve.
@@ -186,14 +190,16 @@ def odeint_adjoint(
     (``NONFINITE_STATE``) forward solve gets zero cotangents, so its
     gradients are exact zeros. ``use_pallas`` runs the forward solve on
     the raveled state and each backward segment on the raveled augmented
-    state, both through K1/K2.
+    state, both through K1/K2. ``interpolate_ts`` puts the forward solve
+    on its natural grid; the backward is unchanged (the reverse solve
+    injects each output's cotangent at its ``ts[k]`` as before).
     """
     if cfg is None:
         cfg = ControllerConfig()
     _adaptive_only(solver)
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
     return _run(f, z0, ts, args, unravel, solver, rtol, atol, cfg, h0,
-                use_pallas)
+                use_pallas, interpolate_ts=interpolate_ts)
 
 
 def odeint_adjoint_batched(
@@ -208,6 +214,7 @@ def odeint_adjoint_batched(
     cfg: Optional[ControllerConfig] = None,
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
+    interpolate_ts: bool = False,
 ):
     """Per-sample batched adjoint: ``odeint(..., batch_axis=0)``'s adjoint
     path.
@@ -219,13 +226,14 @@ def odeint_adjoint_batched(
     row on its own reverse grid; ḡ is carried per row and summed over the
     rows at the end. Returns (ys (len(ts), B, ...), stats with (B,)
     fields). ``rtol``/``atol`` may be (B,) tensors, used forward and back.
+    ``interpolate_ts`` as in ``odeint_adjoint``.
     """
     if cfg is None:
         cfg = ControllerConfig()
     _adaptive_only(solver)
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
     return _run(f, z0, ts, args, unravel, solver, rtol, atol, cfg, h0,
-                use_pallas, batched=True)
+                use_pallas, batched=True, interpolate_ts=interpolate_ts)
 
 
 def odeint_adjoint_fixed(

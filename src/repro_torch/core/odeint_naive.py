@@ -26,6 +26,12 @@ kernels' plain versions.
 The batched form keeps one controller per row: each trial stacks the
 rows still running into one batched ψ, so a finished row takes no trial
 and adds nothing to the tape.
+
+``interpolate_ts`` runs the natural grid on the tape: the step is clamped
+to ``ts[-1]`` only and the interior eval times an accepted trial covers
+are read off its interpolant (``integrate.natural_grid_outputs``); a
+non-FSAL pair evaluates f at each trial's end for it, one more
+evaluation a trial in ``nfe``, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,12 +47,17 @@ from .integrate import (
     _row_tolerances,
     as_tuple,
     batched_initial_stepsize,
+    covered_evals,
+    eval_theta,
     fixed_grid_solve,
     nonfinite_any,
     nonfinite_rows,
 )
 from .stepper import (
+    batched_field,
     error_ratio,
+    interp_eval,
+    interp_fit,
     maybe_flatten,
     maybe_flatten_batched,
     rk_step,
@@ -72,6 +83,13 @@ def _hit(t_new, t_target, tiny, one):
         torch.abs(t_target), one)
 
 
+def _interpolant(ts, t, h_use, z, res, k1) -> torch.Tensor:
+    """The trial's interpolant at every eval time, on the tape: (n_eval,
+    ...) solo, (n_eval, L, ...) for the live rows' (L,) ``t``, ``h_use``."""
+    coeffs = interp_fit(z, res.z_next, res.k_first, k1, h_use, res.z_mid)
+    return interp_eval(coeffs, eval_theta(ts, t, h_use))
+
+
 def odeint_naive(
     f: Callable,
     z0: Any,
@@ -85,6 +103,7 @@ def odeint_naive(
     trial_budget: Optional[int] = None,
     use_pallas: bool = False,
     h0: Optional[torch.Tensor] = None,
+    interpolate_ts: bool = False,
 ):
     """Differentiable adaptive solve (naive method); returns (ys, stats).
 
@@ -127,14 +146,16 @@ def odeint_naive(
     eval_idx, n_acc, trials = 1, 0, 0
     failed = bool(nonfinite_any(z0.detach(), h.detach()))
     uflow = False
-    # one host read per trial: the trial's four decisions
+    natural = interpolate_ts
+    # one host read per trial: the trial's decisions
     while eval_idx < n_eval and not failed and trials < budget:
-        t_target = ts[eval_idx]
+        # the natural grid lands on the last eval time only
+        t_target = ts[n_eval - 1] if natural else ts[eval_idx]
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = _trial_step(h, h_min, t, t_target)
         # no first-stage reuse: the whole trial goes on the tape
         res = rk_step(solver, f, t, z, h_use, targs, use_pallas=use_pallas,
-                      err_scale=(rtol, atol))
+                      err_scale=(rtol, atol), dense=natural)
         ratio = res.err_ratio if res.err_ratio is not None else \
             error_ratio(res.err, z, res.z_next, rtol, atol)
         railed = h_use <= h_min * (1 + 1e-3)
@@ -148,11 +169,23 @@ def odeint_naive(
         ratio_h = torch.where(bad, torch.ones_like(ratio), ratio)
         h_next = propose_stepsize(cfg, h_use, ratio_h, prev_ratio,
                                   solver.order).to(tdt)
-        acc, hit_now, fail_now, uflow_now = torch.stack(
-            [accept, hit, bad & railed,
-             accept & railed & (ratio > 1.0)]).tolist()
+        flags = [accept, hit, bad & railed, accept & railed & (ratio > 1.0)]
+        if natural:
+            # the trial's end derivative for the interpolant (a non-FSAL
+            # pair evaluates it every trial, as the reference does)
+            k1 = res.k_last if solver.fsal else f(t_new, res.z_next, *targs)
+            flags.append(covered_evals(ts, eval_idx, t_new.detach(),
+                                       hit).sum(dim=0))
+        acc, hit_now, fail_now, uflow_now, *n_cov = torch.stack(
+            [x.to(torch.int64) for x in flags]).tolist()
         trials += 1
         if acc:
+            if natural and n_cov[0]:
+                # the interior eval times this step covers, interpolated
+                yint = _interpolant(ts, t, h_use, z, res, k1)
+                for k in range(eval_idx, eval_idx + n_cov[0]):
+                    ys[k] = yint[k]
+                eval_idx += n_cov[0]
             t, z = t_new, res.z_next
             prev_ratio = torch.clamp(ratio, min=1e-10)
             n_acc += 1
@@ -179,9 +212,16 @@ def odeint_naive(
     status = _compose_status(flag(failed), flag(uflow), ~overflow,
                              flag(trials >= budget))
     stats = SolveStats(n_steps=count(n_acc), n_trials=count(trials),
-                       nfe=count(trials * solver.stages), overflow=overflow,
-                       status=status)
+                       nfe=count(trials * _evals_per_trial(solver,
+                                                           interpolate_ts)),
+                       overflow=overflow, status=status)
     return ys_out, stats
+
+
+def _evals_per_trial(solver: Tableau, interpolate_ts: bool) -> int:
+    """A trial's evaluations: the stages, and on the natural grid a non-FSAL
+    pair's end derivative."""
+    return solver.stages + (1 if interpolate_ts and not solver.fsal else 0)
 
 
 def odeint_naive_batched(
@@ -197,6 +237,7 @@ def odeint_naive_batched(
     trial_budget: Optional[int] = None,
     use_pallas: bool = False,
     h0: Optional[torch.Tensor] = None,
+    interpolate_ts: bool = False,
 ):
     """Per-sample batched naive method: ``odeint(..., batch_axis=0)``
     with autograd through each row's own trial loop.
@@ -209,7 +250,8 @@ def odeint_naive_batched(
     out of ``trial_budget`` (shared, per row) takes no further trial.
     ``rtol``/``atol`` may be (B,) tensors; ``h0`` a scalar or (B,).
     ``ts`` is (T,), or (B, T) with each row's own eval times. Returns
-    (ys (T, B, ...), stats with (B,) fields).
+    (ys (T, B, ...), stats with (B,) fields). ``interpolate_ts`` as in
+    ``odeint_naive``, per row (a 1-D ``ts`` only).
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -217,6 +259,9 @@ def odeint_naive_batched(
         raise ValueError(
             "odeint_naive_batched requires an embedded adaptive tableau; "
             "fixed grids batch losslessly through odeint_naive_fixed")
+    if interpolate_ts and ts.dim() != 1:
+        raise ValueError("interpolate_ts reads every row off one shared "
+                         "1-D ts; per-row (B, T) ts are not supported")
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
     dev = z0.device
     B = z0.shape[0]
@@ -262,14 +307,17 @@ def odeint_naive_batched(
         t = torch.stack([t_rows[b] for b in live])
         h = torch.stack([h_rows[b] for b in live])
         prev_ratio = torch.stack([prev_rows[b] for b in live])
-        t_target = ts_rows[sel, torch.tensor([eval_idx[b] for b in live],
-                                             device=dev)]
+        e_live = torch.tensor([eval_idx[b] for b in live], device=dev)
+        # the natural grid lands on the last eval time only
+        t_target = ts_rows[sel, n_eval - 1] if interpolate_ts else \
+            ts_rows[sel, e_live]
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = _trial_step(h, h_min, t, t_target)
         tol = (rtol, atol) if row_tol is None else (
             row_tol[0][sel], row_tol[1][sel])
         res = rk_step_batched(solver, f, t, z, h_use, targs,
-                              use_pallas=use_pallas, err_scale=tol)
+                              use_pallas=use_pallas, err_scale=tol,
+                              dense=interpolate_ts)
         ratio = res.err_ratio
         railed = h_use <= h_min * (1 + 1e-3)
         bad = nonfinite_rows(res.z_next.detach()) | \
@@ -280,15 +328,28 @@ def odeint_naive_batched(
         ratio_h = torch.where(bad, torch.ones_like(ratio), ratio)
         h_next = propose_stepsize(cfg, h_use, ratio_h, prev_ratio,
                                   solver.order).to(tdt)
-        acc, hits, fails, uflows = torch.stack(
-            [accept, hit, bad & railed,
-             accept & railed & (ratio > 1.0)]).tolist()
+        flags = [accept, hit, bad & railed, accept & railed & (ratio > 1.0)]
+        if interpolate_ts:
+            k1 = res.k_last if solver.fsal else \
+                batched_field(f, targs)(t_new, res.z_next)
+            flags.append(covered_evals(ts, e_live, t_new.detach(),
+                                       hit).sum(dim=0))
+        acc, hits, fails, uflows, *n_cov = torch.stack(
+            [x.to(torch.int64) for x in flags]).tolist()
+        yint = None
+        if interpolate_ts and any(a and c for a, c in zip(acc, n_cov[0])):
+            yint = _interpolant(ts, t, h_use, z, res, k1)
         zn, tn, hn = res.z_next.unbind(0), t_new.unbind(0), h_next.unbind(0)
         rn = torch.clamp(ratio, min=1e-10).unbind(0)
         for j, b in enumerate(live):
             trials[b] += 1
             h_rows[b] = hn[j]
             if acc[j]:
+                if yint is not None:
+                    # this row's covered interior eval times
+                    for k in range(eval_idx[b], eval_idx[b] + n_cov[0][j]):
+                        ys[k][b] = yint[k, j]
+                    eval_idx[b] += n_cov[0][j]
                 z_rows[b], t_rows[b], prev_rows[b] = zn[j], tn[j], rn[j]
                 n_acc[b] += 1
                 if hits[j]:
@@ -316,8 +377,9 @@ def odeint_naive_batched(
                                      torch.bool))
     stats = SolveStats(n_steps=per_row(n_acc, torch.int32),
                        n_trials=per_row(trials, torch.int32),
-                       nfe=per_row([n * solver.stages for n in trials],
-                                   torch.int32),
+                       nfe=per_row([n * _evals_per_trial(solver,
+                                                         interpolate_ts)
+                                    for n in trials], torch.int32),
                        overflow=overflow, status=status)
     return ys_out, stats
 

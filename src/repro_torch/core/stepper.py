@@ -19,6 +19,11 @@ batch dimension B: per-row times and stepsizes (B,), the per-sample
 field evaluated over the batch with ``torch.func.vmap``, per-row error
 norms, and kernels K3 and K4/K5 on the flat (B, N) path.
 
+``dense=True`` also returns the first stage and, for Dopri5's ``b_mid``
+row, the step-midpoint solution (one more K1/K3 launch on the fused
+path); ``interp_fit``/``interp_eval`` build and read each step's
+interpolant (plain tensor arithmetic, as in the reference).
+
 Pytree (nested) states — dicts, tuples, lists, NamedTuples of tensors of
 one floating dtype — are raveled once per solve by ``maybe_flatten`` /
 ``maybe_flatten_batched`` on both paths, so the engines carry one
@@ -97,6 +102,11 @@ class StepResult(NamedTuple):
     # scaled error norm from the fused kernel (flat path with err_scale
     # only); None -> the caller computes error_ratio itself
     err_ratio: Optional[torch.Tensor] = None
+    # dense-output extras (``dense=True`` only): the first-stage
+    # derivative the step consumed and, for tableaus with ``b_mid``, the
+    # step-midpoint solution z + h·Σ b_mid_i k_i; they feed ``interp_fit``
+    k_first: Optional[torch.Tensor] = None
+    z_mid: Optional[torch.Tensor] = None
 
 
 def _is_flat(z: torch.Tensor) -> bool:
@@ -152,7 +162,8 @@ def maybe_flatten(f: VecField, z0: Any, use_pallas: bool):
 
 def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
                   args: Tuple, k0: Optional[torch.Tensor],
-                  err_scale: Optional[Tuple[float, float]]) -> StepResult:
+                  err_scale: Optional[Tuple[float, float]],
+                  dense: bool = False) -> StepResult:
     """Fused-kernel ψ over a flat (N,) state (see module docstring)."""
     k0v = k0 if k0 is not None else f(t, z, *args)
     stages = [k0v]
@@ -191,13 +202,19 @@ def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
         z_next = ops.rk_stage_increment(z, rows(tab.stages), h, tab.b)
         err = None
     k_last = stages[-1] if tab.fsal else stages[0]
-    return StepResult(z_next=z_next, err=err, k_last=k_last, err_ratio=ratio)
+    z_mid = None
+    if dense and tab.b_mid is not None:
+        # the midpoint combine is K1 with the b_mid row
+        z_mid = ops.rk_stage_increment(z, rows(tab.stages), h, tab.b_mid)
+    return StepResult(z_next=z_next, err=err, k_last=k_last, err_ratio=ratio,
+                      k_first=k0v if dense else None, z_mid=z_mid)
 
 
 def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
             args: Tuple = (), k0: Optional[torch.Tensor] = None, *,
             use_pallas: bool = False,
-            err_scale: Optional[Tuple[float, float]] = None) -> StepResult:
+            err_scale: Optional[Tuple[float, float]] = None,
+            dense: bool = False) -> StepResult:
     """One explicit RK step of ``tab`` from (t, z) with stepsize h.
 
     ``k0`` optionally supplies the first stage derivative (FSAL). Returns
@@ -206,9 +223,13 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
     1-D floating state to the fused kernels; there, with ``err_scale=(rtol,
     atol)``, the result carries the scaled error norm in ``err_ratio``,
     and without it ``err`` is None even for embedded tableaus.
+
+    ``dense=True`` also returns ``interp_fit``'s inputs: ``k_first`` and,
+    for tableaus with ``b_mid``, ``z_mid`` (one more K1 launch on the
+    fused path). z_next is bitwise the same with and without ``dense``.
     """
     if use_pallas and _is_flat(z):
-        return _rk_step_flat(tab, f, t, z, h, args, k0, err_scale)
+        return _rk_step_flat(tab, f, t, z, h, args, k0, err_scale, dense)
     ks = []
     for i in range(tab.stages):
         if i == 0:
@@ -224,7 +245,11 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
         e = _weighted_sum(ks, tab.b_err)
         err = h * _promoted(h, e)
     k_last = ks[-1] if tab.fsal else ks[0]
-    return StepResult(z_next=z_next, err=err, k_last=k_last)
+    z_mid = None
+    if dense and tab.b_mid is not None:
+        z_mid = _axpy(h, _weighted_sum(ks, tab.b_mid), z)
+    return StepResult(z_next=z_next, err=err, k_last=k_last,
+                      k_first=ks[0] if dense else None, z_mid=z_mid)
 
 
 def error_ratio(err: torch.Tensor, z0: torch.Tensor, z1: torch.Tensor,
@@ -279,8 +304,8 @@ def _baxpy(h: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def _rk_step_flat_batched(tab: Tableau, fb: Callable, t: torch.Tensor,
                           z: torch.Tensor, h: torch.Tensor,
                           k0: Optional[torch.Tensor],
-                          err_scale: Optional[Tuple[Tol, Tol]]
-                          ) -> StepResult:
+                          err_scale: Optional[Tuple[Tol, Tol]],
+                          dense: bool = False) -> StepResult:
     """Fused batched ψ over a (B, N) state: per-row stepsizes, per-row
     error norms. ``fb`` maps ((B,), (B, N)) -> (B, N)."""
     k0v = k0 if k0 is not None else fb(t, z)
@@ -313,8 +338,14 @@ def _rk_step_flat_batched(tab: Tableau, fb: Callable, t: torch.Tensor,
         z_next = ops.rk_stage_increment_batched(z, rows(tab.stages), h,
                                                 tab.b)
     k_last = stages[-1] if tab.fsal else stages[0]
+    z_mid = None
+    if dense and tab.b_mid is not None:
+        # each row's midpoint: K3 with the b_mid row
+        z_mid = ops.rk_stage_increment_batched(z, rows(tab.stages), h,
+                                               tab.b_mid)
     return StepResult(z_next=z_next, err=None, k_last=k_last,
-                      err_ratio=ratio)
+                      err_ratio=ratio, k_first=k0v if dense else None,
+                      z_mid=z_mid)
 
 
 def batched_field(f: VecField, args: Tuple) -> Callable:
@@ -339,15 +370,13 @@ def rk_step_batched(tab: Tableau, f: VecField, t: torch.Tensor,
     τ gives the bits of the all-τ scalar form. A row whose h_b is 0
     passes through unchanged: the masking the batched loop and the ACA
     replay use to freeze rows. ``use_pallas=True`` sends a (B, N)
-    floating state to kernels K3 and K4/K5.
+    floating state to kernels K3 and K4/K5. ``dense=True`` as in
+    ``rk_step`` (per-row ``k_first`` and ``z_mid``).
     """
-    if dense:
-        raise ValueError(
-            "rk_step_batched(dense=True) (per-row interpolants) is not "
-            "ported yet: it comes with slice D (ROADMAP queue 1)")
     fb = batched_field(f, args)
     if use_pallas and _is_flat_batched(z):
-        return _rk_step_flat_batched(tab, fb, t, z, h, k0, err_scale)
+        return _rk_step_flat_batched(tab, fb, t, z, h, k0, err_scale,
+                                     dense)
     ks = []
     for i in range(tab.stages):
         if i == 0:
@@ -366,8 +395,12 @@ def rk_step_batched(tab: Tableau, f: VecField, t: torch.Tensor,
             ratio = error_ratio_batched(err, z, z_next, *err_scale)
             err = None
     k_last = ks[-1] if tab.fsal else ks[0]
+    z_mid = None
+    if dense and tab.b_mid is not None:
+        z_mid = _baxpy(h, _weighted_sum(ks, tab.b_mid), z)
     return StepResult(z_next=z_next, err=err, k_last=k_last,
-                      err_ratio=ratio)
+                      err_ratio=ratio, k_first=ks[0] if dense else None,
+                      z_mid=z_mid)
 
 
 def error_ratio_batched(err: torch.Tensor, z0: torch.Tensor,
@@ -378,3 +411,76 @@ def error_ratio_batched(err: torch.Tensor, z0: torch.Tensor,
     dims = (0, 0, 0, 0 if isinstance(rtol, torch.Tensor) else None,
             0 if isinstance(atol, torch.Tensor) else None)
     return vmap(error_ratio, in_dims=dims)(err, z0, z1, rtol, atol)
+
+
+# ------------------------------------------------------------ dense output
+#
+# Every accepted step carries enough for a local polynomial z(t + θh) ≈
+# P(θ), θ in [0, 1], from quantities the loop already computed: the cubic
+# Hermite through z0, z1 and the endpoint derivatives k0 (the first stage)
+# and k1 (the FSAL last stage, or the post-accept evaluation of a non-FSAL
+# pair), and for tableaus with ``b_mid`` (Dopri5) the quartic that also
+# matches the midpoint solution. Both are one coefficient 5-tuple,
+# P(θ) = (((c4 θ + c3) θ + c2) θ + c1) θ + c0, with c0 = z0 (P(0) is z0
+# bitwise). Plain tensor arithmetic: the reference has no kernel here.
+
+
+class InterpCoeffs(NamedTuple):
+    """Coefficients of one step's interpolant, highest degree first:
+    P(θ) = c4 θ⁴ + c3 θ³ + c2 θ² + c1 θ + c0."""
+    c4: torch.Tensor
+    c3: torch.Tensor
+    c2: torch.Tensor
+    c1: torch.Tensor
+    c0: torch.Tensor
+
+
+def _hb(h, leaf: torch.Tensor) -> torch.Tensor:
+    """h (scalar or (B,)) in the state's dtype, shaped to broadcast over a
+    state (batch-leading when h is (B,))."""
+    h = torch.as_tensor(h, device=leaf.device).to(leaf.dtype)
+    return h.reshape(tuple(h.shape) + (1,) * (leaf.dim() - h.dim()))
+
+
+def interp_fit(z0: torch.Tensor, z1: torch.Tensor, k0: torch.Tensor,
+               k1: torch.Tensor, h, z_mid: Optional[torch.Tensor] = None
+               ) -> InterpCoeffs:
+    """The step interpolant from endpoint (and midpoint) data; ``h`` is the
+    accepted stepsize, a scalar or (B,) over batch-leading states. With
+    ``z_mid`` the 4th-order quartic matching z0, z1, z_mid, k0 and k1;
+    without it the cubic Hermite (c4 = 0). Differentiable throughout."""
+    hk0 = (_hb(h, z0) * k0).to(z0.dtype)
+    hk1 = (_hb(h, z0) * k1).to(z0.dtype)
+    if z_mid is None:
+        c4 = torch.zeros_like(z0)
+        c3 = 2.0 * (z0 - z1) + hk0 + hk1
+        c2 = 3.0 * (z1 - z0) - 2.0 * hk0 - hk1
+    else:
+        c4 = 2.0 * (hk1 - hk0) - 8.0 * (z0 + z1) + 16.0 * z_mid
+        c3 = 5.0 * hk0 - 3.0 * hk1 + 18.0 * z0 + 14.0 * z1 - 32.0 * z_mid
+        c2 = hk1 - 4.0 * hk0 - 11.0 * z0 - 5.0 * z1 + 16.0 * z_mid
+    return InterpCoeffs(c4=c4, c3=c3, c2=c2, c1=hk0, c0=z0)
+
+
+def _horner(c: InterpCoeffs, th: torch.Tensor) -> torch.Tensor:
+    return (((c.c4 * th + c.c3) * th + c.c2) * th + c.c1) * th + c.c0
+
+
+def interp_eval(coeffs: InterpCoeffs, theta: torch.Tensor) -> torch.Tensor:
+    """P at ``theta``, theta's leading axis stacked onto the output: theta
+    (T,) over a solo state (...) gives (T, ...); theta (T, B) over a
+    batch-leading state (B, ...) gives (T, B, ...)."""
+    c0 = coeffs.c0
+    th = theta.to(c0.dtype).reshape(
+        tuple(theta.shape) + (1,) * (c0.dim() - (theta.dim() - 1)))
+    return _horner(coeffs, th)
+
+
+def interp_eval_aligned(coeffs: InterpCoeffs,
+                        theta: torch.Tensor) -> torch.Tensor:
+    """P elementwise: theta's axes align with the coefficients' leading
+    axes (theta (T,) over coefficients (T, ...) gives (T, ...))."""
+    c0 = coeffs.c0
+    th = theta.to(c0.dtype).reshape(
+        tuple(theta.shape) + (1,) * (c0.dim() - theta.dim()))
+    return _horner(coeffs, th)

@@ -65,8 +65,10 @@ def merged_time_grid(ts, dtype=torch.float32) -> Dict[str, torch.Tensor]:
 
     The times are cast to ``dtype`` before deduplicating, so times whose
     gap is below its resolution collapse into one knot here rather than
-    into a repeat after a later cast. The batched dense-output solve that
-    reads this grid (``interpolate_ts``) comes with slice D.
+    into a repeat after a later cast. One batched dense-output solve,
+    ``odeint(f, z0, grid["t_union"], ..., batch_axis=0,
+    interpolate_ts=True)``, reads the whole batch through it; sample b's
+    outputs are then ``ys[idx[b], b]``.
     """
     dev = ts.device if isinstance(ts, torch.Tensor) else torch.device("cpu")
     tdt = np.float64 if dtype == torch.float64 else np.float32

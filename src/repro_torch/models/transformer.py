@@ -325,7 +325,7 @@ def node_block(block: TransformerBlock, x: torch.Tensor,
 
 
 def full_buffer(ncfg: NodeConfig) -> NodeConfig:
-    """``ncfg`` with the full checkpoint buffer (segmented ACA, which the
-    reference's ``checkpoint_segments="auto"`` asks for, is slice D; its
-    gradients are the same)."""
+    """``ncfg`` with the full checkpoint buffer in place of its segmented
+    one: the same gradients bit for bit at more memory, the comparison
+    for a segmented config such as ``NODE_TRAIN``."""
     return dataclasses.replace(ncfg, checkpoint_segments=None)

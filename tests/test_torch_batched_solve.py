@@ -238,6 +238,17 @@ def test_batched_api_errors():
     with pytest.raises(ValueError, match="adaptive solver"):
         todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
                 solver="rk4", rtol=torch.full((4,), 1e-3))
-    with pytest.raises(ValueError, match="slice D"):
-        todeint(f, torch.tensor(_hetero_batch()), TS, w, batch_axis=0,
-                checkpoint_segments=4)
+    # segmented ACA (slice D) runs: its gradients are the full buffer's
+    # bit for bit, and the reference's within the file's tolerances
+    z0 = _hetero_batch()
+    ys_s, st_s, gz_s, gw_s = _port_case(z0, False, checkpoint_segments=4)
+    ys_f, _, gz_f, gw_f = _port_case(z0, False)
+    np.testing.assert_array_equal(ys_s, ys_f)
+    np.testing.assert_array_equal(gz_s, gz_f)
+    np.testing.assert_array_equal(gw_s, gw_f)
+    ys_j, st_j, gz_j, gw_j = _ref_case(z0, False)
+    np.testing.assert_array_equal(st_s.n_steps.numpy(),
+                                  np.asarray(st_j.n_steps))
+    np.testing.assert_allclose(ys_s, ys_j, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gz_s, gz_j, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gw_s, gw_j, rtol=1e-5, atol=1e-6)

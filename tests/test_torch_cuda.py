@@ -35,7 +35,10 @@ against the plain path on the card: steps equal, ys within rtol 1e-5,
 gradients within 1e-4 of their scale (the naive method differentiates
 the stepsize chain through K4's reordered norm); Table 1's
 ``aca_pallas`` (K1/K2) against ``aca`` on the card: z(1) bitwise,
-gradients within 1e-5.
+gradients within 1e-5. K1 and K3 with Dopri5's b_mid row (the dense
+midpoint) bitwise their plain versions, and a small segmented ACA solve
+(solo and batched, with and without ``interpolate_ts``) on the kernels
+bitwise its full buffer.
 
 The serving kernels against their plain versions, as max |difference| /
 max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
@@ -297,6 +300,56 @@ def test_per_row_ts_on_the_card(card, method):
     torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
     for g1, g0 in ((gz1, gz0), (gw1, gw0)):
         assert float((g1 - g0).abs().max() / g0.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b_mid_kernels_are_bitwise_their_plain_versions(card, n, dtype):
+    """K1 and K3 with Dopri5's 7-weight b_mid row (the dense midpoint):
+    bitwise their plain versions; a K3 row with h = 0 passes through."""
+    z, k, h = _inputs(card, n, dtype, seed=5)
+    out = rk_stage.rk_stage_increment(z, k, h, DOPRI5.b_mid)
+    assert torch.equal(out, rk_stage.increment_plain(z, k, h, DOPRI5.b_mid))
+    zb = torch.stack([z, -z, 2 * z])
+    kb = torch.stack([k, k.flip(1), -k], dim=1).contiguous()
+    hb = torch.tensor([0.05, 0.0, 0.02], device=card)
+    out = rk_stage.rk_stage_increment_batched(zb, kb, hb, DOPRI5.b_mid)
+    assert torch.equal(out, rk_stage.increment_batched_plain(
+        zb, kb, hb, DOPRI5.b_mid))
+    assert torch.equal(out[1], zb[1])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("interpolate", [False, True])
+def test_segmented_solve_is_bitwise_its_full_buffer_on_the_card(
+        card, batched, interpolate):
+    """A small segmented ACA solve through K1/K2 (K3/K4 batched) on the
+    card: steps, outputs and gradients bitwise the full buffer's, with
+    and without interpolate_ts (the b_mid midpoint on the kernels)."""
+    rng = np.random.default_rng(2)
+    w = torch.tensor((rng.standard_normal((32, 32)) * 0.3).astype(
+        np.float32), device=card)
+    z0 = torch.tensor(rng.standard_normal((3, 32) if batched else 32)
+                      .astype(np.float32), device=card)
+    out = []
+    for segs in (None, 3):
+        rk_stage.reset_launches()
+        zz, ww = z0.clone().requires_grad_(), w.clone().requires_grad_()
+        ys, st = odeint(lambda t, z, m: torch.tanh(m @ z) - 0.2 * z, zz,
+                        torch.linspace(0.0, 2.0, 9), (ww,),
+                        solver="dopri5", rtol=1e-6, atol=1e-6, max_steps=48,
+                        use_pallas=True, checkpoint_segments=segs,
+                        interpolate_ts=interpolate,
+                        batch_axis=0 if batched else None)
+        torch.sum(ys ** 2).backward()
+        out.append((st.n_steps.tolist(), ys.detach(), zz.grad, ww.grad))
+        key = "rk_stage_increment_batched" if batched else \
+            "rk_stage_increment"
+        assert rk_stage.launches[key] > 0
+    (s0, *a), (s1, *b) = out
+    assert s0 == s1 and max(np.ravel(s0)) > 3
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_method_costs_aca_pallas_matches_aca_on_the_card(card):

@@ -153,7 +153,7 @@ def _nest(flat):
     return out
 
 
-def test_fixed_regime_and_unported_kinds_raise():
+def test_fixed_regime_and_unported_kinds_raise(cases):
     from repro_torch.core.node_block import NodeConfig, node_block_apply
     # the fixed regime runs: rk2 (HeunEuler's advancing method) on 4 steps
     # of dz/dt = -z
@@ -167,9 +167,20 @@ def test_fixed_regime_and_unported_kinds_raise():
     with pytest.raises(ValueError, match="slice G"):
         TransformerBlock(dataclasses.replace(tcfg.SMOKE, family="moe"),
                          TRun(), device="cpu")
-    with pytest.raises(ValueError, match="slice D"):
-        node_block(TransformerBlock(tcfg.SMOKE, TRun(), device="cpu"),
-                   torch.zeros(1, 4, 64), tcfg.NODE_TRAIN)
+    # NODE_TRAIN as published (segmented ACA, "auto") runs: gradients
+    # bitwise the full buffer's, and the reference's within TOL
+    blk = cases["blk"]
+    blk.zero_grad(set_to_none=True)
+    x = torch.tensor(np.random.default_rng(0).standard_normal(
+        (2, 16, 64)).astype(np.float32), requires_grad=True)
+    zt, st = node_block(blk, x, tcfg.NODE_TRAIN)
+    torch.mean(zt ** 2).backward()
+    assert int(st.n_steps) == int(cases["stt"].n_steps)
+    assert np.array_equal(zt.detach().numpy(), cases["zt"])
+    assert np.array_equal(x.grad.numpy(), cases["gxt"])
+    for n, p in blk.named_parameters():
+        assert np.array_equal(p.grad.numpy(), cases["gpt"][n]), n
+        assert _rel(p.grad.numpy(), cases["gpj"][n]) <= TOL, n
 
 
 # ------------------------------------------------ per-sample (batch_axis=0)

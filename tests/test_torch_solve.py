@@ -199,11 +199,11 @@ def test_state_of_any_shape_keeps_its_shape():
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    (dict(batch_axis=0, checkpoint_segments=4), "slice D"),
+    (dict(batch_axis=0, checkpoint_segments=4), None),
     (dict(mesh=object()), "slice I"),
-    (dict(checkpoint_segments="auto"), "slice D"),
-    (dict(interpolate_ts=True), "slice D"),
-    (dict(grad_method="adjoint", interpolate_ts=True), "slice D"),
+    (dict(checkpoint_segments="auto"), None),
+    (dict(interpolate_ts=True), None),
+    (dict(grad_method="adjoint", interpolate_ts=True), None),
     (dict(grad_method="naive", batch_axis=0, mesh=object()), "slice I"),
     (dict(grad_method="mali"), "slice F"),
     (dict(solver="alf"), "slice F"),
@@ -213,8 +213,37 @@ def test_state_of_any_shape_keeps_its_shape():
     (dict(on_failure="raise"), "slice E"),
 ])
 def test_later_slice_options_raise_named_errors(kw, slice_):
-    with pytest.raises(ValueError, match=slice_):
-        todeint(lambda t, z: -z, torch.ones(3), [0.0, 1.0], **kw)
+    """Options of later slices raise naming their slice. Slice D's
+    (``slice_`` None: segmented ACA, ``interpolate_ts``) run: dz/dt = -k z
+    through four eval times, held against the reference (steps equal,
+    outputs and gradients within rtol=1e-5, atol=1e-6)."""
+    if slice_ is not None:
+        with pytest.raises(ValueError, match=slice_):
+            todeint(lambda t, z: -z, torch.ones(3), [0.0, 1.0], **kw)
+        return
+    ts = [0.0, 0.3, 0.7, 1.0]
+    z0 = np.array([1.0, 0.5, -2.0], np.float32)
+    k = np.float32(1.3)
+    base = dict(rtol=1e-4, atol=1e-4, max_steps=64)
+    zt, kt = (torch.tensor(a, requires_grad=True) for a in (z0, k))
+    ys, st = todeint(lambda t, z, k: -k * z, zt, ts, (kt,), **base, **kw)
+    g = torch.autograd.grad(torch.sum(ys ** 2), [zt, kt])
+
+    def loss(z, k):
+        ys, st = jodeint(lambda t, z, k: -k * z, z, jnp.asarray(ts), (k,),
+                         **base, **kw)
+        return jnp.sum(ys ** 2), (ys, st)
+
+    (_, (jys, jst)), jg = jax.value_and_grad(loss, argnums=(0, 1),
+                                             has_aux=True)(jnp.asarray(z0),
+                                                           jnp.asarray(k))
+    np.testing.assert_array_equal(st.n_steps.numpy(),
+                                  np.asarray(jst.n_steps))
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(jys),
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(g, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_invalid_inputs_raise():
