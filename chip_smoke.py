@@ -86,7 +86,33 @@ printing one JSON line (``"phase": ...``):
                       solve (5e-4, fewer steps) and against its plain path
                       (2e-5, gradients 1e-5); ``dense_eval`` with the
                       reference's gates.
-7d. ``paper_benchmarks`` — the paper's training benchmarks on the card
+7d. ``solve_health_mali`` — slices E and F. (a) The node18 block at full
+                      width with ``NODE_TRAIN_MALI`` as published (the ALF
+                      pair stepper, MALI gradients, 1e-2, fused): one SGD
+                      step solo (the backward's half-drifts on K1) and one
+                      under batch_axis=0 (K3), then one of ``NODE_TRAIN``
+                      ("auto") and one of the full buffer from the same
+                      weights; steps, trials, evaluations, forward /
+                      backward / step ms, peak memory, K1/K3 launches,
+                      gradients against ACA's; the backward's
+                      reconstructed start pair bitwise the encoded one,
+                      finite gradients, the kernel route against the plain
+                      route (steps equal, z(1) and gradients within
+                      NODE_RTOL); K1 with the half-drift row (0.5,) at N =
+                      3,145,728 and K3 with it at (8, 393,218), f32 and
+                      bf16, bitwise their plain versions, timed beside the
+                      byte bound, the plain version and ``torch.addcmul``.
+                      (b) MALI's peak on the method_costs field at 65,536 x
+                      64 at max_steps 64 and 512, flat within 5%, beside
+                      ACA's full buffer. (c) NaN at t >= 0.5 on the fused
+                      path for aca, adjoint, naive and mali, solo and at B
+                      = 8 with one row faulted: NONFINITE_STATE, finite
+                      outputs, zero gradients where frozen, the other rows
+                      bitwise the clean batch; guard_nonfinite True
+                      bitwise False on clean solves of the three engines;
+                      the lattice's int32/int64 adds wrap on CUDA. (d)
+                      ``failure_overhead`` in quick mode with its 5% gate.
+7e. ``paper_benchmarks`` — the paper's training benchmarks on the card
                       through ``repro_torch.benchmarks``: reverse_error
                       (Fig. 4/5), method_costs (Table 1; its aca_pallas
                       row on K1/K2), classification (Table 2),
@@ -175,7 +201,8 @@ printing one JSON line (``"phase": ...``):
                       route on the same weights and one f32 prefill of
                       both routes on call B's prompts.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
-   with the launch floor, K7 with its decode times and the launches of
+   with the launch floor, K1 and K3 with their half-drift times, K7 with
+   its decode times and the launches of
    each of its two kernels over both LM paths, K8 with its window-0 time
    and SDPA's causal time, K10 with its time at call B's shape, K3 and
    K5 with their times at the batched block's aligned rows, K5 also on
@@ -187,6 +214,7 @@ Each main path (node18_block for K1/K2, serve_node18 for K3/K5,
 node18_batched for K3/K4, node18_methods' solo steps and fixed-regime
 steps for K1/K2 and its batched steps for K3/K4, segmented_dense's
 NODE_TRAIN steps, dense solve and latent decode for K1-K4,
+solve_health_mali's NODE_TRAIN_MALI steps for K1/K3,
 paper_benchmarks' runs for K1/K2, each
 serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9) runs with every launch count set to 0 just before it and read just
@@ -1822,7 +1850,392 @@ def phase_segmented_dense(torch, seed: int):
           "latent_union_decode": latent, "dense_eval": common_rows,
           "b_mid_kernels": {"max_abs_err": worst, "timings": bmid_times},
           "launches": launches})
-    return launches, worst, bmid_times
+    return launches, worst, bmid_times, memory
+
+
+# ------------------------------- slices E and F: solve health and MALI
+
+FAULT_T = 0.5
+FAULT_ROWS = 8
+FAULT_ROW = 3                    # the poisoned row of the batched case
+FAULT_N = 4096                   # per-sample state: 4096 values and a tag
+MALI_FLATNESS = 1.05             # benchmarks/bench_mali_memory.py's gate
+OVERHEAD_REPS = 5                # failure_overhead's back-to-back pairs
+
+
+def _half_drift_checks(torch, seed: int):
+    """K1 with MALI's half-drift row (0.5,) and one stage row at N =
+    3,145,728 and K3 with it at (8, 393,218), f32 and bf16: bitwise their
+    plain versions (K3's h = 0 row passing through); f32 times beside the
+    byte bound, the plain version and ``torch.addcmul``. These launches
+    compare: the caller resets the counts after."""
+    from repro_torch.core.stepper import HALF_DRIFT
+    from repro_torch.kernels import rk_stage
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    worst = {"rk_stage_increment": 0.0, "rk_stage_increment_batched": 0.0}
+    times = {}
+    n1 = math.prod(NODE18_SHAPE)
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(n1, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(1, n1, generator=gen, device="cuda").to(dtype)
+        h = torch.full((), 0.0375, device="cuda")
+        out = rk_stage.rk_stage_increment(z, v, h, HALF_DRIFT)
+        ref = rk_stage.increment_plain(z, v, h, HALF_DRIFT)
+        torch.cuda.synchronize()
+        diff = float((out.float() - ref.float()).abs().max())
+        worst["rk_stage_increment"] = max(worst["rk_stage_increment"], diff)
+        check(torch.equal(out, ref), f"K1 half-drift n={n1} {dtype}: not "
+              f"bitwise (max |diff| {diff})")
+        if dtype == torch.float32:
+            hw = 0.5 * h
+            t = {"n": n1, "ms": time_ms(torch, lambda: rk_stage.
+                                        rk_stage_increment(z, v, h,
+                                                           HALF_DRIFT)),
+                 "plain_ms": time_ms(torch, lambda: rk_stage.increment_plain(
+                     z, v, h, HALF_DRIFT)),
+                 "library_ms": time_ms(torch, lambda: torch.addcmul(
+                     z, v[0], hw)),
+                 "bytes": 4 * n1 * 3 + 4, "flops": 3 * n1,
+                 "peak_flops": F32_FLOP_PER_S}
+            _bound(t)
+            times["k1_half_drift"] = t
+        del z, v
+    B, n = BATCH_ROWS, SERVE_ROW_N
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(B, n, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(1, B, n, generator=gen, device="cuda").to(dtype)
+        h = torch.linspace(0.01, 0.08, B, device="cuda")
+        h[B // 2] = 0.0                              # a frozen row
+        out = rk_stage.rk_stage_increment_batched(z, v, h, HALF_DRIFT)
+        ref = rk_stage.increment_batched_plain(z, v, h, HALF_DRIFT)
+        torch.cuda.synchronize()
+        diff = float((out.float() - ref.float()).abs().max())
+        worst["rk_stage_increment_batched"] = max(
+            worst["rk_stage_increment_batched"], diff)
+        check(torch.equal(out, ref) and torch.equal(out[B // 2], z[B // 2]),
+              f"K3 half-drift ({B}, {n}) {dtype}: not bitwise (max |diff| "
+              f"{diff}) or the h = 0 row moved")
+        if dtype == torch.float32:
+            hw = (0.5 * h)[:, None]
+            t = {"n": n, "rows": B,
+                 "ms": time_ms(torch, lambda: rk_stage.
+                               rk_stage_increment_batched(z, v, h,
+                                                          HALF_DRIFT)),
+                 "plain_ms": time_ms(torch, lambda: rk_stage.
+                                     increment_batched_plain(z, v, h,
+                                                             HALF_DRIFT)),
+                 "library_ms": time_ms(torch, lambda: torch.addcmul(
+                     z, v[0], hw)),
+                 "bytes": 4 * B * n * 3 + 4 * B, "flops": 3 * B * n,
+                 "peak_flops": F32_FLOP_PER_S}
+            _bound(t)
+            times["k3_half_drift"] = t
+        del z, v
+    return worst, times
+
+
+def _fault_problem(torch):
+    """The fault-injection field on the fused path: a per-sample state of
+    FAULT_N values and a tag, dx = tanh(w·x) − x/2 and a constant tag;
+    NaN from t >= FAULT_T on, in every sample (``faulty``) or in the
+    sample tagged FAULT_ROW (``faulty_row``)."""
+    def field(t, z, w):
+        x = z[:-1]
+        return torch.cat([torch.tanh(w * x) - 0.5 * x, torch.zeros_like(
+            z[-1:])])
+
+    def poison(out, trig):
+        return torch.where(trig, torch.full_like(out, float("nan")), out)
+
+    def faulty(t, z, w):
+        return poison(field(t, z, w), t >= FAULT_T)
+
+    def faulty_row(t, z, w):
+        hit = torch.abs(z[-1] - FAULT_ROW) < 0.5
+        return poison(field(t, z, w), (t >= FAULT_T) & hit)
+
+    return field, faulty, faulty_row
+
+
+def _fault_injection(torch, seed: int):
+    """NaN at t >= 0.5 on the fused path for aca, adjoint, naive and mali,
+    solo and at B = 8 with one row faulted (see
+    ``phase_solve_health_mali``); guard_nonfinite True against False on
+    clean solves of the three engines; the lattice's integer adds wrap on
+    CUDA int32 and int64. Returns the report."""
+    import numpy as np
+
+    from repro_torch.core import (ControllerConfig, SolveStatus,
+                                  adaptive_while_solve,
+                                  batched_adaptive_while_solve,
+                                  mali_adaptive_solve, odeint)
+    from repro_torch.core.stepper import lattice_add, lattice_sub
+    from repro_torch.core.tableaus import DOPRI5
+
+    field, faulty, faulty_row = _fault_problem(torch)
+    rng = np.random.default_rng(seed + 23)
+    x0 = rng.standard_normal((FAULT_ROWS, FAULT_N)).astype(np.float32)
+    z0b = torch.from_numpy(np.concatenate(
+        [x0, np.arange(FAULT_ROWS, dtype=np.float32)[:, None]], 1)).cuda()
+    w = torch.tensor(0.9, device="cuda")
+    ts = torch.linspace(0.0, 1.0, 5, device="cuda")
+    n_pre = int((ts < FAULT_T).sum())
+    report = {}
+    for m in ("aca", "adjoint", "naive", "mali"):
+        kw = dict(grad_method=m, rtol=1e-4, atol=1e-4, use_pallas=True,
+                  solver=None if m == "mali" else "dopri5",
+                  max_steps=1024 if m == "mali" else 256)
+        # solo: the whole solve poisoned from t = 0.5
+        z_ok, _ = odeint(field, z0b[0], ts, (w,), **kw)
+        zg = z0b[0].clone().requires_grad_()
+        ys, st = odeint(faulty, zg, ts, (w,), **kw)
+        solo = {"status": int(st.status), "finite": bool(
+            torch.isfinite(ys).all()), "prefix_bitwise": torch.equal(
+                ys[:n_pre].detach(), z_ok[:n_pre])}
+        if m != "naive":
+            torch.sum(ys[-1] ** 2).backward()
+            solo["grad_zero"] = bool((zg.grad == 0).all())
+        check(solo["status"] == SolveStatus.NONFINITE_STATE
+              and solo["finite"] and solo["prefix_bitwise"]
+              and solo.get("grad_zero", True),
+              f"fault injection {m} solo: {solo}")
+        # batched: row FAULT_ROW poisoned, the others the clean batch's
+        ys_ok, st_ok = odeint(field, z0b, ts, (w,), batch_axis=0, **kw)
+        zg = z0b.clone().requires_grad_()
+        ys, st = odeint(faulty_row, zg, ts, (w,), batch_axis=0, **kw)
+        want = [SolveStatus.NONFINITE_STATE if b == FAULT_ROW else
+                SolveStatus.OK for b in range(FAULT_ROWS)]
+        others = [b for b in range(FAULT_ROWS) if b != FAULT_ROW]
+        batched = {"status": st.status.tolist(),
+                   "n_steps": st.n_steps.tolist(),
+                   "finite": bool(torch.isfinite(ys).all()),
+                   "others_bitwise": all(torch.equal(ys[:, b].detach(),
+                                                     ys_ok[:, b])
+                                         for b in others)}
+        if m != "naive":
+            torch.sum(ys[-1] ** 2).backward()
+            batched["grads_finite"] = bool(torch.isfinite(zg.grad).all())
+            batched["faulted_row_grad_zero"] = bool(
+                (zg.grad[FAULT_ROW] == 0).all())
+        check(batched["status"] == want and batched["finite"]
+              and batched["others_bitwise"]
+              and batched.get("grads_finite", True)
+              and batched.get("faulted_row_grad_zero", True),
+              f"fault injection {m} batched: {batched}")
+        report[m] = {"solo": solo, "batched": batched}
+
+    # the guards do nothing on a clean solve: True and False bitwise
+    cfg = ControllerConfig(max_steps=256)
+    guards = {}
+    runs = [adaptive_while_solve(DOPRI5, field, z0b[0], ts, (w,), 1e-4,
+                                 1e-4, cfg, use_pallas=True,
+                                 guard_nonfinite=g)
+            for g in (True, False)]
+    guards["solo"] = torch.equal(runs[0][0], runs[1][0]) and int(
+        runs[0][2].n_trials) == int(runs[1][2].n_trials)
+    runs = [batched_adaptive_while_solve(DOPRI5, field, z0b, ts, (w,),
+                                         1e-4, 1e-4, cfg, use_pallas=True,
+                                         guard_nonfinite=g)
+            for g in (True, False)]
+    guards["batched"] = torch.equal(runs[0][0], runs[1][0]) and torch.equal(
+        runs[0][2].n_trials, runs[1][2].n_trials)
+    runs = [mali_adaptive_solve(field, z0b[0], ts, (w,), 1e-4, 1e-4,
+                                ControllerConfig(max_steps=1024),
+                                guard_nonfinite=g) for g in (True, False)]
+    guards["mali"] = torch.equal(runs[0][0], runs[1][0]) and int(
+        runs[0][2].n_trials) == int(runs[1][2].n_trials)
+    check(all(guards.values()), f"guard_nonfinite changed a clean solve: "
+          f"{guards}")
+
+    wraps = {}
+    for dt, bits in ((torch.int32, 32), (torch.int64, 64)):
+        hi, lo = 2 ** (bits - 1) - 1, -2 ** (bits - 1)
+        a = torch.tensor([hi, lo, 0], dtype=dt, device="cuda")
+        b = torch.tensor([1, -1, hi], dtype=dt, device="cuda")
+        wraps[str(dt)] = (lattice_add(a, b).tolist() == [lo, hi, hi]
+                          and lattice_sub(a, b).tolist() == [hi - 1, lo + 1,
+                                                             -hi]
+                          and torch.equal(lattice_sub(lattice_add(a, b), b),
+                                          a))
+    check(all(wraps.values()), f"the lattice's adds do not wrap on CUDA: "
+          f"{wraps}")
+    return {"methods": report, "guards_bitwise": guards,
+            "lattice_wraps": wraps}
+
+
+def phase_solve_health_mali(torch, seed: int, aca_memory: dict):
+    """Slices E and F on the card. (1) node18 at full width with
+    ``NODE_TRAIN_MALI`` as published (ALF, rtol = atol = 1e-2, fused): one
+    SGD step solo (the backward's half-drifts on K1) and one under
+    batch_axis=0 (K3), the main path; one step each of ``NODE_TRAIN``
+    (ACA, "auto") and of the full buffer from the same weights as the
+    comparison; the backward's reconstructed start pair bitwise the
+    encoded one, finite gradients, the plain route against the kernel
+    route; K1 and K3 with the half-drift row bitwise their plain versions,
+    timed. (2) MALI's peak memory on the method_costs field at 65,536 x 64
+    at max_steps 64 and 512, flat within 5%, beside ACA's full buffer
+    (``aca_memory``, from segmented_dense). (3) NaN at t >= 0.5 on the
+    fused path for aca, adjoint, naive and mali, solo and at B = 8 with
+    one row faulted. (4) ``failure_overhead`` in quick mode with its 5%
+    gate."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+
+    from repro_torch.benchmarks import failure_overhead, method_costs
+    from repro_torch.configs import node18_cifar
+    from repro_torch.kernels import ops, rk_stage
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import (TransformerBlock, full_buffer,
+                                                node_block)
+
+    mali_mod = importlib.import_module("repro_torch.core.odeint_mali")
+    worst, drift_times = _half_drift_checks(torch, seed)
+    ops.reset_launches()
+
+    # (1) node18 with NODE_TRAIN_MALI against NODE_TRAIN and the full buffer
+    mali_cfg = node18_cifar.NODE_TRAIN_MALI
+    rcfg = RunConfig(compute_dtype=torch.float32, node=mali_cfg)
+    block = TransformerBlock(node18_cifar.CONFIG, rcfg, seed=seed,
+                             device="cuda")
+    init = {n: p.detach().clone() for n, p in block.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        NODE18_SHAPE).astype(np.float32)).cuda()
+    opt = torch.optim.SGD(block.parameters(), lr=1e-2)
+    starts = []
+    orig_sweep = mali_mod.mali_backward_sweep
+
+    def recording(sw):
+        out = orig_sweep(sw)
+        zq, vq = sw.encoded_start()
+        starts.append(torch.equal(sw.zq, zq) and torch.equal(sw.vq, vq))
+        return out
+
+    mali_mod.mali_backward_sweep = recording
+    kernels = ("rk_stage_increment", "rk_stage_increment_batched")
+
+    def sgd_step(ncfg):
+        with torch.no_grad():
+            for n, p in block.named_parameters():
+                p.copy_(init[n])
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        before = dict(rk_stage.launches)
+        t0 = time.perf_counter()
+        zT, st = node_block(block, x, ncfg)
+        loss = torch.mean(zT ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in block.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        finite = bool(torch.isfinite(zT).all()) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values())
+        check(finite, f"solve_health_mali node18 {ncfg.grad_method} "
+              f"batch_axis={ncfg.batch_axis}: non-finite z(1) or gradients")
+        check(not any(st.status.reshape(-1).tolist()),
+              f"solve_health_mali node18: status {st.status.tolist()}")
+        return {"zT": zT.detach(), "grads": grads,
+                "n_steps": st.n_steps.tolist(),
+                "n_trials": st.n_trials.tolist(), "nfe": st.nfe.tolist(),
+                "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+                "step_ms": 1e3 * (t3 - t0),
+                "peak_above_start_GB":
+                (torch.cuda.max_memory_allocated() - base_mem) / 1e9,
+                "launches": {k: rk_stage.launches[k] - before[k]
+                             for k in kernels}}
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("zT", "grads")}
+
+    def grad_gap(ra, rb):
+        return max(_rel(ra["grads"][n], rb["grads"][n]) for n in rb["grads"])
+
+    batched_cfg = dataclasses.replace(mali_cfg, batch_axis=0)
+    cfgs = {"mali_solo": mali_cfg, "mali_batched": batched_cfg,
+            "aca_auto": node18_cifar.NODE_TRAIN,
+            "aca_full": full_buffer(node18_cifar.NODE_TRAIN)}
+    try:
+        # an untimed first step each grows the allocator to its peak
+        first_ms = {k: sgd_step(c)["step_ms"] for k, c in cfgs.items()}
+        starts.clear()
+        torch.cuda.synchronize()
+        ops.reset_launches()               # the main path starts here
+        runs = {k: sgd_step(cfgs[k]) for k in ("mali_solo", "mali_batched")}
+        launches = {k: rk_stage.launches[k] for k in kernels}
+        # the main path ends here
+        check(launches["rk_stage_increment"] > 0
+              and launches["rk_stage_increment_batched"] > 0,
+              f"NODE_TRAIN_MALI did not launch K1 and K3: {launches}")
+        check(starts == [True, True], "the MALI backward did not end on the "
+              f"encoded start pair bit for bit: {starts}")
+        runs.update({k: sgd_step(cfgs[k]) for k in ("aca_auto", "aca_full")})
+        plain = {k: sgd_step(dataclasses.replace(cfgs[k], use_pallas=False))
+                 for k in ("mali_solo", "mali_batched")}
+    finally:
+        mali_mod.mali_backward_sweep = orig_sweep
+    route = {}
+    for k, r in plain.items():
+        route[k] = {"n_steps_equal": r["n_steps"] == runs[k]["n_steps"],
+                    "z1_bitwise": torch.equal(r["zT"], runs[k]["zT"]),
+                    "z1_rel": _rel(runs[k]["zT"], r["zT"]),
+                    "grads_bitwise": all(torch.equal(runs[k]["grads"][n],
+                                                     r["grads"][n])
+                                         for n in r["grads"]),
+                    "grad_rel": grad_gap(runs[k], r), "rtol": NODE_RTOL}
+        check(route[k]["n_steps_equal"] and route[k]["z1_rel"] <= NODE_RTOL
+              and route[k]["grad_rel"] <= NODE_RTOL,
+              f"solve_health_mali {k}: the kernel route vs the plain route "
+              f"{route[k]}")
+    node18 = {k: summary(r) for k, r in runs.items()}
+    vs_aca = {k: {"z1_rel": _rel(runs[k]["zT"], runs["aca_full"]["zT"]),
+                  "grad_rel": grad_gap(runs[k], runs["aca_full"])}
+              for k in ("mali_solo", "mali_batched")}
+    for k, v in node18.items():
+        emit({"phase": "solve_health_mali_node18", "config": k, **v})
+    del runs, plain, block, opt, init
+
+    # (2) memory where the state dominates: MALI flat in the step budget
+    memory = {}
+    for ms in (64, 512):
+        memory[ms] = method_costs.peak_memory("mali", MEMORY_ROWS, ms,
+                                              device="cuda")
+        memory[ms]["aca_full_peak_bytes"] = aca_memory[ms]["full"][
+            "peak_bytes"]
+    flat = memory[512]["peak_bytes"] / memory[64]["peak_bytes"]
+    check(flat <= MALI_FLATNESS, f"MALI's peak grew {flat:.4f}x from "
+          f"max_steps 64 to 512 at 65,536 x 64 (gate {MALI_FLATNESS}x)")
+    ops.reset_launches()
+
+    # (3) fault injection on the fused path
+    faults = _fault_injection(torch, seed)
+    ops.reset_launches()
+
+    # (4) the guards' cost gate in quick mode (raises when it fails)
+    overhead = failure_overhead.run(quick=True, device="cuda",
+                                    reps=OVERHEAD_REPS)
+    ops.reset_launches()
+
+    emit({"phase": "solve_health_mali", "ok": True,
+          "node18": {"shape": list(NODE18_SHAPE), "solver": mali_cfg.solver,
+                     "rtol": mali_cfg.rtol, "atol": mali_cfg.atol,
+                     "first_step_ms": first_ms, "start_pair_bitwise": True,
+                     "kernel_vs_plain": route, "vs_aca_full": vs_aca},
+          "memory_65536x64": {str(k): v for k, v in memory.items()},
+          "mali_peak_growth": flat, "flatness_gate": MALI_FLATNESS,
+          "fault_injection": faults, "failure_overhead": overhead,
+          "half_drift_kernels": {"max_abs_err": worst,
+                                 "timings": drift_times},
+          "launches": launches})
+    return launches, worst, drift_times
 
 
 # ------------------------------------------------- the paper's benchmarks
@@ -2807,8 +3220,11 @@ def main(argv=None) -> int:
         methods_launches, worst_m, aug_times = phase_node18_methods(
             torch, args.seed)
         phase = "segmented_dense"
-        dense_launches, worst_d, bmid_times = phase_segmented_dense(
-            torch, args.seed)
+        dense_launches, worst_d, bmid_times, aca_memory = \
+            phase_segmented_dense(torch, args.seed)
+        phase = "solve_health_mali"
+        mali_launches, worst_s, drift_times = phase_solve_health_mali(
+            torch, args.seed, aca_memory)
         phase = "paper_benchmarks"
         paper_launches = phase_paper_benchmarks(torch)
         phase = "kernels_lm"
@@ -2832,14 +3248,16 @@ def main(argv=None) -> int:
     # path's shape (K3 and K5 at the serving row, K4 at the batched block
     # row; K1-K4 also at the adjoint's augmented shapes)
     worst.update(worst_b)
-    for k, v in list(worst_m.items()) + list(worst_d.items()):
+    for k, v in (list(worst_m.items()) + list(worst_d.items())
+                 + list(worst_s.items())):
         worst[k] = max(worst[k], v)
     batch_launch = {
         "rk_stage_increment_batched":
         serve_launches["rk_stage_increment_batched"]
         + batched_launches["rk_stage_increment_batched"]
         + methods_launches["rk_stage_increment_batched"]
-        + dense_launches["rk_stage_increment_batched"],
+        + dense_launches["rk_stage_increment_batched"]
+        + mali_launches["rk_stage_increment_batched"],
         "rk_stage_combine_err_batched":
         batched_launches["rk_stage_combine_err_batched"]
         + methods_launches["rk_stage_combine_err_batched"]
@@ -2848,7 +3266,8 @@ def main(argv=None) -> int:
         serve_launches["rk_stage_combine_err_batched_rowtol"],
     }
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
-                   + dense_launches[k] for k in K1_K2},
+                   + dense_launches[k] + mali_launches.get(k, 0)
+                   for k in K1_K2},
                 **batch_launch, "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
@@ -2907,8 +3326,15 @@ def main(argv=None) -> int:
                 "b_mid_bound_ms": t["bound_ms"],
                 "b_mid_library_ms": t["library_ms"]}
 
+    def half_drift(label):
+        t = drift_times[label]
+        return {"half_drift_ms": t["ms"], "half_drift_plain_ms":
+                t["plain_ms"], "half_drift_bound_ms": t["bound_ms"],
+                "half_drift_library_ms": t["library_ms"]}
+
     extras = {
-        "rk_stage_increment": {**aug("k1"), **b_mid("k1_b_mid")},
+        "rk_stage_increment": {**aug("k1"), **b_mid("k1_b_mid"),
+                               **half_drift("k1_half_drift")},
         "rk_stage_combine_err": aug("k2"),
         "rg_lru": {
             "call_b_ms": timings_lm["rg_lru_call_b"]["ms"],
@@ -2916,6 +3342,7 @@ def main(argv=None) -> int:
         "rk_stage_increment_batched": {
             "aligned_rows_ms": timings_b[f"k3_heun_stage_{ROW_N}"]["ms"],
             **aug("k3"), **b_mid(f"k3_b_mid_{SERVE_ROW_N}"),
+            **half_drift("k3_half_drift"),
             "b_mid_aligned_rows_ms": bmid_times[f"k3_b_mid_{ROW_N}"]["ms"]},
         "rk_stage_combine_err_batched": {
             "serving_row_ms": timings_b[f"k4_heun_{SERVE_ROW_N}"]["ms"],

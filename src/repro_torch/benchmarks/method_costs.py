@@ -68,12 +68,15 @@ def loss_and_stats(label: str, w1, w2, z0, max_steps: int,
                    checkpoint_segments=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, SolveStats]:
     """(loss, z(1), stats) of one variant: mean z(1)² of the solve.
-    ``checkpoint_segments`` segments ACA's buffer (aca variants only)."""
+    ``checkpoint_segments`` segments ACA's buffer (aca variants only);
+    ``"mali"`` runs its ALF pair stepper in place of Dopri5."""
     ts = torch.tensor([0.0, 1.0], device=z0.device)
     kw = {} if checkpoint_segments is None else dict(
         checkpoint_segments=checkpoint_segments)
-    ys, stats = odeint(_f, z0, ts, (w1, w2), solver="dopri5",
-                       grad_method=label.split("_")[0], rtol=1e-5,
+    method = label.split("_")[0]
+    ys, stats = odeint(_f, z0, ts, (w1, w2),
+                       solver=None if method == "mali" else "dopri5",
+                       grad_method=method, rtol=1e-5,
                        atol=1e-5, max_steps=max_steps, max_trials=8,
                        use_pallas=label == "aca_pallas", **kw)
     return (ys[-1] ** 2).mean(), ys[-1], stats
@@ -134,9 +137,9 @@ def run(quick: bool = False, device="cuda", **cuts) -> Dict[str, float]:
 def peak_memory(label: str, rows: int, max_steps: int = 64,
                 device="cuda", checkpoint_segments=None,
                 with_grads: bool = False) -> Dict[str, float]:
-    """Peak device memory of one value-and-grad call of a variant at
-    ``rows`` × 64, above the inputs (a card only): where the state
-    outnumbers the 8,192 parameters. ``with_grads`` also returns the
+    """Peak device memory of one value-and-grad call of a variant (or
+    ``"mali"``) at ``rows`` × 64, above the inputs (a card only): where the
+    state outnumbers the 8,192 parameters. ``with_grads`` also returns the
     gradients (``grads``), to compare two buffers."""
     dev = resolve_device(device)
     if dev.type != "cuda":

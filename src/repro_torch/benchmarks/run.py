@@ -4,8 +4,10 @@
         [--full] [--only NAME] [--device cuda|cpu]
 
 Port of ``benchmarks/run.py`` for the paper's experiments (Fig. 4/5/6,
-Tables 1-7) and the segmented-memory and dense-output benchmarks
-(``memory``, ``dense_eval``). Quick mode (the reference's smaller sizes) is the default;
+Tables 1-7), the segmented-memory and dense-output benchmarks (``memory``,
+``dense_eval``), the solve-health guards' cost gate
+(``failure_overhead``) and MALI's memory (``mali_memory``). Quick mode
+(the reference's smaller sizes) is the default;
 ``--full`` uses the larger settings. Output: the reference's
 ``name,value,derived`` CSV rows, a ``bench_runtime_s/<name>`` row per
 benchmark, and a non-zero exit naming the benchmarks that failed.
@@ -17,9 +19,10 @@ import argparse
 import time
 import traceback
 
-from . import (classification, dense_eval, memory, method_costs,
-               reliability, reverse_error, solver_robustness, threebody,
-               timeseries, toy_gradient)
+from . import (classification, dense_eval, failure_overhead,
+               mali_memory, memory, method_costs, reliability,
+               reverse_error, solver_robustness, threebody, timeseries,
+               toy_gradient)
 from .common import emit
 
 BENCHES = [
@@ -33,6 +36,9 @@ BENCHES = [
     ("threebody (Table 5/Fig.8)", threebody.run),
     ("memory (beyond-paper: segmented ACA)", memory.run),
     ("dense_eval (beyond-paper: interpolate_ts)", dense_eval.run),
+    ("mali_memory (beyond-paper: reversible MALI)", mali_memory.run),
+    ("failure_overhead (solve-health guard gate)",
+     failure_overhead.run),
 ]
 
 

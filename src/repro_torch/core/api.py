@@ -45,13 +45,29 @@ gradients bit for bit; ``interpolate_ts=True`` advances on the
 controller's natural grid and reads interior eval times off each step's
 interpolant (aca, adjoint, naive; solo or a 1-D ``ts`` under
 ``batch_axis``). ``odeint_dense`` solves once and returns a
-``DenseSolution`` to read at any time. Options of later slices keep the
-reference's signature and raise a ``ValueError`` naming the slice
-(ROADMAP queue 1) that brings them.
+``DenseSolution`` to read at any time.
+
+``grad_method="mali"`` pairs with ``solver="alf"`` (its default): the
+reversible asynchronous-leapfrog pair stepper, whose backward inverts the
+accepted steps from the terminal pair, so no state is stored per step
+(``odeint_mali``); it takes neither ``checkpoint_segments`` nor
+``interpolate_ts``.
+
+Solve health: every adaptive solve guards its trials against non-finite
+states; a poisoned solve (or batch row) freezes at its last accepted
+state with finite outputs and zero cotangents, and ``stats.status``
+carries its ``SolveStatus`` code. ``on_failure`` picks the policy:
+``"status"`` (report only, no extra host read), ``"warn"`` (a
+``RuntimeWarning`` naming the codes) or ``"raise"`` (``SolveFailedError``;
+``odeint_checked``). ``solve_with_fallback`` retries a failed solve down
+``default_fallback_ladder``. Options of later slices keep the reference's
+signature and raise a ``ValueError`` naming the slice (ROADMAP queue 1)
+that brings them.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -60,13 +76,14 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
-from .integrate import SolveStats, adaptive_while_solve, as_tuple
+from .integrate import SolveStats, SolveStatus, adaptive_while_solve, as_tuple
 from .odeint_aca import odeint_aca, odeint_aca_batched, odeint_aca_fixed
 from .odeint_adjoint import (
     odeint_adjoint,
     odeint_adjoint_batched,
     odeint_adjoint_fixed,
 )
+from .odeint_mali import odeint_mali, odeint_mali_batched
 from .odeint_naive import (
     odeint_naive,
     odeint_naive_batched,
@@ -80,14 +97,14 @@ from .stepper import (
 )
 from .tableaus import Tableau, get_tableau
 
-GRAD_METHODS = ("aca", "adjoint", "naive")
+GRAD_METHODS = ("aca", "adjoint", "naive", "mali")
 
-ON_FAILURE_POLICIES = ("status",)
+ON_FAILURE_POLICIES = ("status", "warn", "raise")
 
 _ADAPTIVE = {"aca": odeint_aca, "adjoint": odeint_adjoint,
-             "naive": odeint_naive}
+             "naive": odeint_naive, "mali": odeint_mali}
 _BATCHED = {"aca": odeint_aca_batched, "adjoint": odeint_adjoint_batched,
-            "naive": odeint_naive_batched}
+            "naive": odeint_naive_batched, "mali": odeint_mali_batched}
 _FIXED = {"aca": odeint_aca_fixed, "adjoint": odeint_adjoint_fixed,
           "naive": odeint_naive_fixed}
 
@@ -95,6 +112,50 @@ _FIXED = {"aca": odeint_aca_fixed, "adjoint": odeint_adjoint_fixed,
 def _later(what: str, slice_: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet: it comes with {slice_} (ROADMAP queue 1)")
+
+
+class SolveFailedError(RuntimeError):
+    """A solve under ``on_failure="raise"`` (``odeint_checked``) ended with
+    a ``SolveStatus`` other than OK; the message names the codes."""
+
+
+def _failure_message(stats: SolveStats, what: str) -> Optional[str]:
+    """None for a healthy solve, else ``what`` with the status codes and
+    their names (one host read of ``stats.status``)."""
+    status = stats.status.tolist()
+    codes = sorted({c for c in np.ravel(status).tolist()
+                    if c != SolveStatus.OK})
+    if not codes:
+        return None
+    names = ", ".join(SolveStatus.describe(c) for c in codes)
+    return (f"odeint: {what}, status={status} ({names}; see "
+            "repro_torch.core.SolveStatus.describe)")
+
+
+def _apply_on_failure(ys, stats: SolveStats, on_failure: str):
+    """The solve-health policy on a finished solve. ``"status"`` returns
+    at once (callers read ``stats.status``; no host read); ``"warn"``
+    reads the status once and warns (``RuntimeWarning``) when any solve or
+    row failed; ``"raise"`` raises ``SolveFailedError`` there."""
+    if on_failure == "status":
+        return ys, stats
+    if on_failure == "warn":
+        msg = _failure_message(stats, "solve-health failure")
+        if msg is not None:
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        return ys, stats
+    msg = _failure_message(stats, "solve failed")
+    if msg is not None:
+        raise SolveFailedError(msg)
+    return ys, stats
+
+
+def _is_alf(solver) -> bool:
+    """True when ``solver`` names the reversible asynchronous-leapfrog pair
+    integrator, the only solver ``grad_method='mali'`` takes (it is not an
+    RK tableau)."""
+    return (isinstance(solver, str)
+            and solver.lower().replace("-", "_") == "alf")
 
 
 def _ts_direction(ts: torch.Tensor) -> int:
@@ -158,25 +219,45 @@ def odeint(
     every stage sum and error norm through kernels K1 and K2, or K3 and
     K4/K5 under ``batch_axis`` (their plain versions for a CPU state).
     ``h0`` overrides the initial-stepsize heuristic of an adaptive
-    solver. ``stats.status`` carries a ``SolveStatus`` code
-    (``on_failure="status"``). ``checkpoint_segments`` (ACA with an
-    adaptive solver) and ``interpolate_ts`` (adaptive solvers) as in the
-    module docstring.
+    solver (or of ``"alf"``). ``stats.status`` carries a ``SolveStatus``
+    code; ``on_failure`` (``"status"``, ``"warn"``, ``"raise"``), the
+    ``"mali"`` method, ``checkpoint_segments`` (ACA with an adaptive
+    solver) and ``interpolate_ts`` (adaptive solvers) as in the module
+    docstring.
     """
-    if grad_method == "mali":
-        raise _later("grad_method='mali'", "slice F")
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
-    if on_failure != "status":
-        raise _later(f"on_failure={on_failure!r}", "slice E")
+    if on_failure not in ON_FAILURE_POLICIES:
+        raise ValueError(
+            f"on_failure must be one of {ON_FAILURE_POLICIES}; got "
+            f"{on_failure!r}")
+    mali = grad_method == "mali"
     if solver is None:
-        solver = "dopri5"
-    if isinstance(solver, str) and solver.lower().replace("-", "_") == "alf":
-        raise _later("solver='alf' (the reversible pair integrator)",
-                     "slice F")
-    tab = get_tableau(solver) if isinstance(solver, str) else solver
+        # mali integrates with the ALF pair stepper; every other method
+        # defaults to the paper's Dopri5
+        solver = "alf" if mali else "dopri5"
+    if mali and not _is_alf(solver):
+        name = solver if isinstance(solver, str) else solver.name
+        raise ValueError(
+            f"grad_method='mali' integrates with the reversible "
+            f"asynchronous-leapfrog pair stepper (solver='alf'), not an "
+            f"RK tableau (got {name!r}); drop the solver argument or "
+            "pass solver='alf'")
+    if _is_alf(solver) and not mali:
+        raise ValueError(
+            f"solver='alf' is the reversible pair integrator whose "
+            f"inverse IS the gradient method — it pairs only with "
+            f"grad_method='mali' (got {grad_method!r})")
+    tab = None if mali else (
+        get_tableau(solver) if isinstance(solver, str) else solver)
     leaves, _ = state_leaves(z0)
     device = leaves[0].device
+    if checkpoint_segments is not None and mali:
+        raise ValueError(
+            "checkpoint_segments is meaningless with grad_method='mali': "
+            "MALI keeps no state checkpoints at all — its backward sweep "
+            "reconstructs every state by inverting steps from the "
+            "terminal pair in O(1) memory; drop checkpoint_segments")
     if checkpoint_segments is not None and (
             grad_method != "aca" or not tab.adaptive):
         raise ValueError(
@@ -184,12 +265,18 @@ def odeint(
             f"adaptive solver (got {grad_method!r} / {tab.name!r}): only "
             "the ACA trajectory checkpoint stores per-step states to "
             "segment")
+    if interpolate_ts and mali:
+        raise ValueError(
+            "interpolate_ts is not supported with grad_method='mali': "
+            "the reversible backward sweep reconstructs exact step "
+            "landings only (no interpolant cotangent routing); use "
+            "grad_method='aca' for dense-output gradients")
     if interpolate_ts and not tab.adaptive:
         raise ValueError(
             "interpolate_ts requires an adaptive solver (got "
             f"{tab.name!r}): fixed grids land on every eval time by "
             "construction, there is no stepsize search to relieve")
-    if h0 is not None and not tab.adaptive:
+    if h0 is not None and not mali and not tab.adaptive:
         raise ValueError(
             f"h0 overrides the adaptive initial-stepsize heuristic; "
             f"fixed-grid solver {tab.name!r} has no stepsize controller "
@@ -223,38 +310,47 @@ def odeint(
     if h0 is not None:
         h0 = torch.as_tensor(h0, dtype=ts.dtype, device=device)
     if batch_axis is not None:
-        return _odeint_batched(f, z0, ts, args, tab=tab,
-                               grad_method=grad_method,
-                               batch_axis=batch_axis, rtol=rtol, atol=atol,
-                               cfg=cfg, steps_per_interval=steps_per_interval,
-                               trial_budget=trial_budget, h0=h0,
-                               use_pallas=use_pallas,
-                               checkpoint_segments=checkpoint_segments,
-                               interpolate_ts=interpolate_ts)
-    if not tab.adaptive:
-        return _FIXED[grad_method](f, z0, ts, args, solver=tab,
-                                   steps_per_interval=steps_per_interval,
-                                   use_pallas=use_pallas)
-    return _ADAPTIVE[grad_method](
-        f, z0, ts, args, solver=tab, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
-        use_pallas=use_pallas, interpolate_ts=interpolate_ts,
-        **_method_kw(grad_method, trial_budget, checkpoint_segments))
+        ys, stats = _odeint_batched(
+            f, z0, ts, args, tab=tab, grad_method=grad_method,
+            batch_axis=batch_axis, rtol=rtol, atol=atol, cfg=cfg,
+            steps_per_interval=steps_per_interval, trial_budget=trial_budget,
+            h0=h0, use_pallas=use_pallas,
+            checkpoint_segments=checkpoint_segments,
+            interpolate_ts=interpolate_ts)
+    elif not mali and not tab.adaptive:
+        ys, stats = _FIXED[grad_method](
+            f, z0, ts, args, solver=tab,
+            steps_per_interval=steps_per_interval, use_pallas=use_pallas)
+    else:
+        ys, stats = _ADAPTIVE[grad_method](
+            f, z0, ts, args, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
+            use_pallas=use_pallas,
+            **_method_kw(grad_method, tab, trial_budget, checkpoint_segments,
+                         interpolate_ts))
+    return _apply_on_failure(ys, stats, on_failure)
 
 
-def _method_kw(grad_method: str, trial_budget: Optional[int],
-               checkpoint_segments) -> dict:
-    """The keywords one gradient method takes beyond the common ones."""
+def _method_kw(grad_method: str, tab: Optional[Tableau],
+               trial_budget: Optional[int], checkpoint_segments,
+               interpolate_ts: bool) -> dict:
+    """The keywords one adaptive gradient method takes beyond the common
+    ones (mali has no tableau and no dense output)."""
+    if grad_method == "mali":
+        return {}
+    kw = dict(solver=tab, interpolate_ts=interpolate_ts)
     if grad_method == "naive":
-        return dict(trial_budget=trial_budget)
-    if grad_method == "aca":
-        return dict(checkpoint_segments=checkpoint_segments)
-    return {}
+        kw.update(trial_budget=trial_budget)
+    elif grad_method == "aca":
+        kw.update(checkpoint_segments=checkpoint_segments)
+    return kw
 
 
-def _tolerances(rtol, atol, batch_axis, mesh, tab: Tableau, device):
+def _tolerances(rtol, atol, batch_axis, mesh, tab: Optional[Tableau],
+                device):
     """Floats, or (under ``batch_axis``) rank-1 f32 tensors on ``device``
     when either tolerance is an array: one tolerance per batch row. Raises
-    the reference's named errors for array tolerances elsewhere."""
+    the reference's named errors for array tolerances elsewhere (``tab``
+    None is mali's ALF, adaptive)."""
     if _rank(rtol) == 0 and _rank(atol) == 0:
         return float(rtol), float(atol)
     if batch_axis is None:
@@ -268,7 +364,7 @@ def _tolerances(rtol, atol, batch_axis, mesh, tab: Tableau, device):
             "per-element rtol/atol do not compose with mesh: the (B,) "
             "tolerance rows would have to be sharded with the batch; drop "
             "mesh or use a scalar tolerance")
-    if not tab.adaptive:
+    if tab is not None and not tab.adaptive:
         raise ValueError(
             f"per-element rtol/atol require an adaptive solver (got "
             f"{tab.name!r}): fixed grids have no error control to point a "
@@ -287,15 +383,16 @@ def _rank(x) -> int:
 
 
 def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
-                    tab: Tableau, grad_method: str, batch_axis: int, rtol,
+                    tab: Optional[Tableau], grad_method: str,
+                    batch_axis: int, rtol,
                     atol, cfg: ControllerConfig, steps_per_interval: int,
                     trial_budget: Optional[int], h0: Optional[torch.Tensor],
                     use_pallas: bool, checkpoint_segments=None,
                     interpolate_ts: bool = False) -> Tuple[Any, SolveStats]:
     """``odeint(..., batch_axis=a)``: moves the batch to axis 0 of every
-    state leaf, routes adaptive tableaus to the per-sample batched solvers
-    and fixed grids to the shared grid with the field vmapped over the
-    batch, and moves the batch back in ``ys``, where it sits one axis
+    state leaf, routes adaptive tableaus and mali (``tab`` None) to the
+    per-sample batched solvers and fixed grids to the shared grid with the
+    field vmapped over the batch, and moves the batch back in ``ys``, where it sits one axis
     deeper under the time axis."""
     leaves, _ = state_leaves(z0)
     for leaf in leaves:
@@ -316,7 +413,7 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
             raise ValueError(
                 f"per-row ts must carry one row of eval times per batch "
                 f"row (B={B}); got shape {tuple(ts.shape)}")
-        if not tab.adaptive:
+        if tab is not None and not tab.adaptive:
             raise ValueError(
                 f"per-row ts require an adaptive solver (got {tab.name!r}): "
                 "a fixed grid is shared by every row")
@@ -332,11 +429,12 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
         raise ValueError(
             f"a per-row h0 must have shape ({B},); got {tuple(h0.shape)}")
     z0 = pytree.tree_map(lambda x, a: x.movedim(a, 0), z0, axes)
-    if tab.adaptive:
+    if tab is None or tab.adaptive:
         ys, stats = _BATCHED[grad_method](
-            f, z0, ts, args, solver=tab, rtol=rtol, atol=atol, cfg=cfg,
-            h0=h0, use_pallas=use_pallas, interpolate_ts=interpolate_ts,
-            **_method_kw(grad_method, trial_budget, checkpoint_segments))
+            f, z0, ts, args, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
+            use_pallas=use_pallas,
+            **_method_kw(grad_method, tab, trial_budget, checkpoint_segments,
+                         interpolate_ts))
     else:
         # a fixed grid is the same for every row: lockstep is the
         # per-sample grid, so the batch runs as one system
@@ -366,6 +464,102 @@ def odeint_final(
     ts = torch.tensor([t0, t1], dtype=torch.float32, device=leaves[0].device)
     ys, stats = odeint(f, z0, ts, args, **kw)
     return pytree.tree_map(lambda y: y[-1], ys), stats
+
+
+def odeint_checked(f: Callable, z0: Any, ts, args: Any = (),
+                   **kw) -> Tuple[Any, SolveStats]:
+    """``odeint`` that raises on a failed solve instead of returning a
+    status code: ``odeint(..., on_failure="raise")``. A non-finite state,
+    a stepsize underflow or a spent budget raises ``SolveFailedError``
+    naming the status codes. Takes every ``odeint`` keyword but
+    ``on_failure``."""
+    kw.pop("on_failure", None)
+    return odeint(f, z0, ts, args, on_failure="raise", **kw)
+
+
+def default_fallback_ladder(ts, *, rtol: float = 1e-6,
+                            atol: float = 1e-6) -> list:
+    """The rungs ``solve_with_fallback`` tries after a failed solve,
+    mildest first, each a dict of ``odeint`` keyword overrides with a
+    ``"note"``: (1) a first step of span/1024; (2) tolerances loosened
+    100×; (3) the lower-order ``bosh3`` pair with ACA gradients; (4) a
+    fixed ``rk4`` grid of 64 steps an interval, with no stepsize search
+    left to fail."""
+    span = abs(float(ts[-1]) - float(ts[0]))
+    return [
+        {"note": "tighten h0", "h0": span / 1024.0},
+        {"note": "loosen tolerances 100x",
+         "rtol": rtol * 100.0, "atol": atol * 100.0},
+        {"note": "fall back to bosh3/aca",
+         "solver": "bosh3", "grad_method": "aca"},
+        {"note": "fixed rk4 grid", "solver": "rk4", "grad_method": "aca",
+         "steps_per_interval": 64},
+    ]
+
+
+# odeint keywords only adaptive solvers take: dropped from a rung that
+# falls back to a fixed-grid tableau
+_ADAPTIVE_ONLY_KW = ("h0", "checkpoint_segments", "interpolate_ts",
+                     "trial_budget")
+
+
+def _all_finite(ys) -> bool:
+    return all(bool(torch.isfinite(leaf).all())
+               for leaf in pytree.tree_leaves(ys))
+
+
+def solve_with_fallback(f: Callable, z0: Any, ts, args: Any = (), *,
+                        ladder: Optional[list] = None,
+                        **kw) -> Tuple[Any, SolveStats, list]:
+    """Retry a failed solve under ever more conservative settings.
+
+    Runs ``odeint(f, z0, ts, args, **kw)`` and reads ``stats.status`` on
+    the host; while any solve (or row) is unhealthy or an output is not
+    finite, walks ``ladder`` (default ``default_fallback_ladder``) until an
+    attempt comes back all OK. Returns ``(ys, stats, report)``, one report
+    dict per attempt (note, overrides, status, ok; error instead of
+    status for an attempt that raised). If no rung recovers, the first
+    attempt's (frozen, finite) outputs come back with every ``ok`` False;
+    if every attempt raised, ``RuntimeError``. Each status read is a host
+    synchronization: a serving-layer tool, not a training-step one (there,
+    ``on_failure="status"`` and the train loop's skip guard).
+    """
+    kw.pop("on_failure", None)
+    if ladder is None:
+        ladder = default_fallback_ladder(
+            torch.as_tensor(ts), rtol=kw.get("rtol", 1e-6),
+            atol=kw.get("atol", 1e-6))
+    report: list = []
+    first = None
+    for rung in [{"note": "original"}] + list(ladder):
+        over = {k: v for k, v in rung.items() if k != "note"}
+        akw = {**kw, **over}
+        solver = akw.get("solver")
+        if solver is not None and not _is_alf(solver):
+            tabl = get_tableau(solver) if isinstance(solver, str) else solver
+            if not tabl.adaptive:
+                for k in _ADAPTIVE_ONLY_KW:
+                    akw.pop(k, None)
+        entry = {"note": rung.get("note", "attempt"), "overrides": over}
+        try:
+            ys, stats = odeint(f, z0, ts, args, **akw)
+        except Exception as e:  # a rung invalid for this configuration
+            entry.update(error=repr(e), ok=False)
+            report.append(entry)
+            continue
+        status = stats.status.tolist()
+        ok = (not any(np.ravel(status).tolist())) and _all_finite(ys)
+        entry.update(status=status, ok=ok)
+        report.append(entry)
+        if first is None:
+            first = (ys, stats)
+        if ok:
+            return ys, stats, report
+    if first is None:
+        raise RuntimeError(
+            f"solve_with_fallback: every attempt errored: {report}")
+    ys, stats = first
+    return ys, stats, report
 
 
 class DenseSolution(NamedTuple):

@@ -26,6 +26,12 @@ when batched.
 ``fixed_grid_solve`` integrates on the uniform grid of ``make_fixed_grid``
 with one ψ per grid step; autograd through its loop is the naive method
 for fixed-step solvers.
+
+``mali_adaptive_solve`` and ``batched_mali_adaptive_solve`` run the same
+trial loop (the same host reads a trial) on the asynchronous-leapfrog pair
+of ``stepper.alf_step``: the carry is the integer-lattice pair (z, v) and
+the only per-step record is the scalar grid (``MaliGrid``), which the
+MALI backward sweep inverts from the terminal pair.
 """
 
 from __future__ import annotations
@@ -37,11 +43,19 @@ from torch.func import vmap
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
 from .stepper import (
+    ALF_ORDER,
     InterpCoeffs,
+    alf_lattice_exponent,
+    alf_lattice_exponent_batched,
+    alf_step,
+    alf_step_batched,
     batched_field,
     error_ratio,
+    error_ratio_batched,
     interp_eval,
     interp_fit,
+    lattice_decode,
+    lattice_encode,
     maybe_flatten,
     rk_step,
     rk_step_batched,
@@ -216,6 +230,13 @@ def natural_grid_outputs(ts, t, t_new, h_use, accept, hit, eval_idx, ys,
     return ys, coeffs, covered.sum(dim=0, dtype=torch.int64)
 
 
+def finite_mask(x: torch.Tensor) -> torch.Tensor:
+    """True where ``x`` is finite: x − x is 0 for a finite value and NaN
+    for NaN and ±Inf. Two tensor ops, where ``torch.isfinite`` takes four:
+    the trial loops' guard runs it once a trial."""
+    return (x - x) == 0
+
+
 def nonfinite_any(*tensors: torch.Tensor) -> torch.Tensor:
     """0-d bool: any of ``tensors`` holds a NaN or Inf."""
     out = None
@@ -352,6 +373,7 @@ def adaptive_while_solve(
                                   dtype=k0.dtype, device=dev)
     nfe = 1 + hinit_evals
     false = torch.zeros((), dtype=torch.bool, device=dev)
+    true = ~false
     # a non-finite initial state / derivative / h0 fails before stepping
     failed = nonfinite_any(z0, k0, h) if guard_nonfinite else false
     uflow = false
@@ -389,15 +411,15 @@ def adaptive_while_solve(
             # one read guards the whole trial: a NaN/Inf anywhere in the
             # stage sums poisons the embedded error, and an Inf state
             # makes the scaled norm Inf/Inf = NaN
-            bad = ~torch.isfinite(ratio)
+            ok = finite_mask(ratio)
             # forced-minimum steps are accepted (cannot shrink), unless bad
-            accept = ((ratio <= 1.0) | railed) & ~bad
+            accept = ((ratio <= 1.0) | railed) & ok
         else:
-            bad = false
+            ok = true
             accept = (ratio <= 1.0) | railed
-        # railed + still non-finite -> freeze; forced accept that still
-        # fails the error test -> underflow
-        failed = failed | (bad & railed)
+        # railed + still non-finite -> freeze (railed > ok: railed and not
+        # ok); forced accept that still fails the error test -> underflow
+        failed = failed | (railed > ok)
         uflow = uflow | (accept & railed & (ratio > 1.0))
 
         t_new = t + h_use
@@ -406,7 +428,7 @@ def adaptive_while_solve(
 
         # a non-finite ratio would poison the h chain; treat it as "error
         # way too large" so the retry shrinks at max rate
-        ratio_c = torch.where(bad, big_ratio, ratio)
+        ratio_c = torch.where(ok, ratio, big_ratio)
         h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
                                   tab.order).to(tdt)
         trials += 1
@@ -626,6 +648,7 @@ def batched_adaptive_while_solve(
     minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
     final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
     karr = torch.arange(n_eval, device=dev)
+    all_rows = torch.ones(B, dtype=torch.bool, device=dev)
 
     def live_mask():
         return ((eval_idx < n_eval) & (i < max_steps)
@@ -648,12 +671,12 @@ def batched_adaptive_while_solve(
         ratio = res.err_ratio                                   # (B,)
         railed = h_use <= h_min * (1 + 1e-3)
         if guard_nonfinite:
-            bad = ~torch.isfinite(ratio)
-            accept = live & ((ratio <= 1.0) | railed) & ~bad
+            ok = finite_mask(ratio)
+            accept = live & ((ratio <= 1.0) | railed) & ok
         else:
-            bad = torch.zeros_like(live)
+            ok = all_rows
             accept = live & ((ratio <= 1.0) | railed)
-        fail_now = live & bad & railed
+        fail_now = live & (railed > ok)
         uflow_now = accept & railed & (ratio > 1.0)
 
         t_new = t + h_use
@@ -710,7 +733,7 @@ def batched_adaptive_while_solve(
 
         # per-row stepsize control; a non-finite ratio shrinks at the
         # maximum rate instead of entering the h chain
-        ratio_c = torch.where(bad, big_ratio, ratio)
+        ratio_c = torch.where(ok, ratio, big_ratio)
         h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
                                   tab.order).to(tdt)
 
@@ -809,3 +832,286 @@ def fixed_grid_solve(
     ys = torch.stack(ys)
     stats = fixed_stats(tab, t_grid.shape[0], fixed_status(ys))
     return (ys if unravel is None else unravel(ys)), stats
+
+
+# ------------------------------------------------------------ MALI engines
+
+class MaliGrid(NamedTuple):
+    """The MALI solve's record for its backward: scalars and one pair.
+
+    ``t``/``h``/``out_idx`` are the accepted scalar grid (the
+    ``Checkpoints`` conventions: interval start, stepsize, eval index its
+    end landed on or -1; slots [0, n) valid), ``zT``/``vT`` the terminal
+    lattice pair the backward inverts from and ``scale_exp`` the lattice
+    exponent, so the backward decodes on the same quantum. ``n`` is a host
+    int solo; batched, the grids are (B, max_steps), ``n`` and
+    ``scale_exp`` (B,) and the pair batch-leading: every row on its own
+    lattice, as a solo solve of it would be.
+    """
+    t: torch.Tensor           # (max_steps,) interval start times
+    h: torch.Tensor           # (max_steps,) accepted stepsizes
+    out_idx: torch.Tensor     # (max_steps,) int32 eval landing (or -1)
+    n: Union[int, torch.Tensor]
+    zT: torch.Tensor          # terminal position, integer lattice
+    vT: torch.Tensor          # terminal velocity, integer lattice
+    scale_exp: torch.Tensor   # lattice scale exponent (f32)
+
+
+@torch.no_grad()
+def mali_adaptive_solve(
+    f: Callable,
+    z0: torch.Tensor,
+    ts: torch.Tensor,
+    args: Tuple,
+    rtol: float,
+    atol: float,
+    cfg: ControllerConfig,
+    h0: Optional[torch.Tensor] = None,
+    guard_nonfinite: bool = True,
+) -> Tuple[torch.Tensor, MaliGrid, SolveStats]:
+    """Adaptive asynchronous-leapfrog solve through increasing ``ts``.
+
+    The trial loop of ``adaptive_while_solve`` (two host reads a trial:
+    the loop condition and the accept decision) on the lattice pair of
+    ``stepper.alf_step``, whose embedded error is the Euler-comparator gap
+    h·(w − v): one evaluation of f a trial, accepted or not (+1 for v0 =
+    f(t0, z0), +2 for the initial-stepsize heuristic). Keeps no state per
+    step, only the scalar grid. Returns (ys, grid, stats); ``ys[0]`` is z0
+    itself, the later outputs the decoded lattice states (within one
+    quantum of the float trajectory).
+
+    ``guard_nonfinite``: the lattice encode turns a NaN into finite
+    integers, so the decoded state cannot show it; the error ratio, made
+    from the raw field evaluation, does, and is the guard. A trial whose
+    ratio is not finite is rejected, and one that stays so at ``h_min``
+    freezes the solve with ``SolveStatus.NONFINITE_STATE``.
+    """
+    dev = z0.device
+    n_eval = ts.shape[0]
+    tdt = ts.dtype
+    max_steps = cfg.max_steps
+    max_total_trials = max_steps * cfg.max_trials
+
+    v0 = f(ts[0], z0, *args)
+    scale_exp = alf_lattice_exponent(z0, v0)
+    zq, vq = lattice_encode(z0, scale_exp), lattice_encode(v0, scale_exp)
+
+    hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals
+    if h0 is None:
+        h0 = initial_stepsize(f, ts[0], z0, args, ALF_ORDER, rtol, atol)
+    h = torch.as_tensor(h0, dtype=tdt, device=dev).reshape(())
+
+    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
+    ys[0] = z0
+    grid_t = torch.zeros(max_steps, dtype=tdt, device=dev)
+    grid_h = torch.zeros_like(grid_t)
+    grid_oi = torch.full((max_steps,), -1, dtype=torch.int32, device=dev)
+
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    true = ~false
+    failed = nonfinite_any(z0, v0, h) if guard_nonfinite else false
+    uflow = false
+    nfe = 1 + hinit_evals                   # + the v0 evaluation
+    t = ts[0]
+    z = lattice_decode(zq, scale_exp, z0)   # the carry's decoded state
+    prev_ratio = torch.ones((), dtype=torch.float32, device=dev)
+    i = 0
+    trials = 0
+    eval_idx = torch.ones(1, dtype=torch.int64, device=dev)
+    tiny = torch.full((), torch.finfo(tdt).eps, dtype=tdt, device=dev)
+    one = torch.ones((), dtype=tdt, device=dev)
+    big_ratio = torch.full((), 1e10, dtype=torch.float32, device=dev)
+    karr = torch.arange(n_eval, device=dev)
+
+    # host read 1 of 2 per trial: the loop condition
+    while (i < max_steps and trials < max_total_trials
+           and bool((eval_idx[0] < n_eval) & ~failed)):
+        t_target = ts.index_select(0, eval_idx).reshape(())
+        h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
+        h_use = torch.clamp(h, h_min, t_target - t)
+        res = alf_step(f, t, h_use, zq, vq, scale_exp, z0, args)
+        nfe += 1                            # one midpoint evaluation
+        ratio = error_ratio(res.err, z, res.z_next, rtol, atol)
+        railed = h_use <= h_min * (1 + 1e-3)
+        if guard_nonfinite:
+            ok = finite_mask(ratio)
+            accept = ((ratio <= 1.0) | railed) & ok
+        else:
+            ok = true
+            accept = (ratio <= 1.0) | railed
+        failed = failed | (railed > ok)
+        uflow = uflow | (accept & railed & (ratio > 1.0))
+
+        t_new = t + h_use
+        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
+            torch.abs(t_target), one))
+        ratio_c = torch.where(ok, ratio, big_ratio)
+        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
+                                  ALF_ORDER).to(tdt)
+        trials += 1
+
+        # host read 2 of 2 per trial: accept / reject
+        if accept:
+            grid_t[i] = t
+            grid_h[i] = h_use
+            grid_oi[i] = torch.where(hit, eval_idx[0].int(), -1)
+            cur = ys.index_select(0, eval_idx)
+            ys.index_copy_(0, eval_idx,
+                           torch.where(hit, res.z_next.unsqueeze(0), cur))
+            eval_idx = eval_idx + hit.to(torch.int64)
+            t, z = t_new, res.z_next
+            zq, vq = res.zq_next, res.vq_next
+            prev_ratio = torch.clamp(ratio, min=1e-10)
+            i += 1
+        h = h_next
+
+    overflow = eval_idx[0] < n_eval
+    trials_out = torch.full((), trials >= max_total_trials, dtype=torch.bool,
+                            device=dev)
+    status = _compose_status(failed, uflow, ~overflow, trials_out)
+    ys_out = _freeze_fill(ys, failed & (karr >= eval_idx[0]), z)
+    grid = MaliGrid(t=grid_t, h=grid_h, out_idx=grid_oi, n=i, zT=zq, vT=vq,
+                    scale_exp=scale_exp)
+
+    def count(v):
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    stats = SolveStats(n_steps=count(i), n_trials=count(trials),
+                       nfe=count(nfe), overflow=overflow, status=status)
+    return ys_out, grid, stats
+
+
+@torch.no_grad()
+def batched_mali_adaptive_solve(
+    f: Callable,
+    z0: torch.Tensor,
+    ts: torch.Tensor,
+    args: Tuple,
+    rtol,
+    atol,
+    cfg: ControllerConfig,
+    h0: Optional[torch.Tensor] = None,
+    guard_nonfinite: bool = True,
+) -> Tuple[torch.Tensor, MaliGrid, SolveStats]:
+    """Per-sample batched MALI forward: one controller, one lattice and
+    one scalar grid per row, one host read a trial (``any(live)``).
+
+    Every trial steps all B rows (dead rows with h = 0) so each row's
+    field sees the shapes it sees in the inverse sweep. Frozen rows differ
+    from the RK engines': the h = 0 ALF step is not the identity in v, so
+    rejected, finished and failed rows keep their pair by masking alone
+    (an integer ``where`` keeps their bits). ``rtol``/``atol`` floats or
+    (B,) tensors, ``h0`` a scalar or (B,), ``ts`` (T,) or (B, T), as in
+    ``batched_adaptive_while_solve``.
+    """
+    dev = z0.device
+    B = z0.shape[0]
+    rows = torch.arange(B, device=dev)
+    n_eval = ts.shape[-1]
+    ts_rows = ts.expand(B, n_eval)
+    tdt = ts.dtype
+    max_steps = cfg.max_steps
+    max_total_trials = max_steps * cfg.max_trials
+
+    row_tol = _row_tolerances(rtol, atol, B, dev)
+    if row_tol is not None:
+        rtol, atol = row_tol
+    t = ts_rows[:, 0].clone()
+    v0 = batched_field(f, args)(t, z0)
+    scale_exp = alf_lattice_exponent_batched(z0, v0)          # (B,)
+    zq, vq = lattice_encode(z0, scale_exp), lattice_encode(v0, scale_exp)
+
+    hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals per row
+    if h0 is None:
+        h0 = batched_initial_stepsize(f, ts, z0, args, ALF_ORDER, rtol, atol)
+    h = torch.as_tensor(h0, dtype=tdt, device=dev).broadcast_to((B,)).clone()
+
+    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
+    ys[0] = z0
+    grid_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
+    grid_h = torch.zeros_like(grid_t)
+    grid_oi = torch.full((B, max_steps), -1, dtype=torch.int32, device=dev)
+
+    nfe = torch.full((B,), 1 + hinit_evals, dtype=torch.int32, device=dev)
+    failed = nonfinite_rows(z0, v0, h) if guard_nonfinite else \
+        torch.zeros(B, dtype=torch.bool, device=dev)
+    uflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    z = lattice_decode(zq, scale_exp, z0)
+    prev_ratio = torch.ones(B, dtype=torch.float32, device=dev)
+    i = torch.zeros(B, dtype=torch.int32, device=dev)
+    eval_idx = torch.ones(B, dtype=torch.int64, device=dev)
+    trials = torch.zeros(B, dtype=torch.int32, device=dev)
+    tiny = torch.full((), torch.finfo(tdt).eps, dtype=tdt, device=dev)
+    one = torch.ones((), dtype=tdt, device=dev)
+    zero_h = torch.zeros((), dtype=tdt, device=dev)
+    big_ratio = torch.full((), 1e10, dtype=torch.float32, device=dev)
+    minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
+    karr = torch.arange(n_eval, device=dev)
+    all_rows = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def live_mask():
+        return ((eval_idx < n_eval) & (i < max_steps)
+                & (trials < max_total_trials) & ~failed)
+
+    live = live_mask()
+    # the one host read per trial: any row still live
+    while live.any():
+        t_target = ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]   # (B,)
+        h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
+        h_use = torch.where(live, torch.clamp(h, h_min, t_target - t),
+                            zero_h)
+        res = alf_step_batched(f, t, h_use, zq, vq, scale_exp, z0, args)
+        ratio = error_ratio_batched(res.err, z, res.z_next, rtol, atol)
+        railed = h_use <= h_min * (1 + 1e-3)
+        if guard_nonfinite:
+            ok = finite_mask(ratio)
+            accept = live & ((ratio <= 1.0) | railed) & ok
+        else:
+            ok = all_rows
+            accept = live & ((ratio <= 1.0) | railed)
+        fail_now = live & (railed > ok)
+        uflow_now = accept & railed & (ratio > 1.0)
+
+        t_new = t + h_use
+        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
+            torch.abs(t_target), one))
+
+        # on accept: each row's scalar grid slot
+        i_c = i.clamp(max=max_steps - 1).long()
+        grid_t[rows, i_c] = torch.where(accept, t, grid_t[rows, i_c])
+        grid_h[rows, i_c] = torch.where(accept, h_use, grid_h[rows, i_c])
+        oi_val = torch.where(hit, eval_idx.to(torch.int32), minus_one)
+        grid_oi[rows, i_c] = torch.where(accept, oi_val, grid_oi[rows, i_c])
+        # on an eval-time hit: that row's decoded output
+        e_c = eval_idx.clamp(max=n_eval - 1)
+        ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
+
+        ratio_c = torch.where(ok, ratio, big_ratio)
+        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
+                                  ALF_ORDER).to(tdt)
+
+        t = torch.where(accept, t_new, t)
+        zq = _bwhere(accept, res.zq_next, zq)
+        vq = _bwhere(accept, res.vq_next, vq)
+        z = _bwhere(accept, res.z_next, z)
+        h = torch.where(live, h_next, h)
+        prev_ratio = torch.where(accept, torch.clamp(ratio, min=1e-10),
+                                 prev_ratio)
+        i = i + accept.to(torch.int32)
+        eval_idx = eval_idx + hit.to(torch.int64)
+        trials = trials + live.to(torch.int32)
+        nfe = nfe + live.to(torch.int32)    # one midpoint evaluation
+        failed = failed | fail_now
+        uflow = uflow | uflow_now
+        live = live_mask()
+
+    overflow = eval_idx < n_eval
+    status = _compose_status(failed, uflow, ~overflow,
+                             trials >= max_total_trials)
+    fill = failed[None, :] & (karr[:, None] >= eval_idx[None, :])
+    ys_out = _freeze_fill(ys, fill, z)
+    grid = MaliGrid(t=grid_t, h=grid_h, out_idx=grid_oi, n=i, zT=zq, vT=vq,
+                    scale_exp=scale_exp)
+    stats = SolveStats(n_steps=i, n_trials=trials, nfe=nfe,
+                       overflow=overflow, status=status)
+    return ys_out, grid, stats

@@ -4,8 +4,9 @@ Port of ``repro/core/node_block.py``. A residual block ``y = x + f(x, θ)``
 becomes ``z(1) = z(0) + ∫₀¹ f(z(t), θ) dt`` with the same parameters,
 solved with the configured solver — adaptive, or a fixed grid of
 ``steps_per_interval`` steps of the pair's advancing method — and
-differentiated with ACA, the adjoint or the naive method. The parameters
-reach the solve as ``args``, so the backward returns their gradients.
+differentiated with ACA, the adjoint, the naive method or MALI (the ALF
+pair integrator, adaptive only). The parameters reach the solve as
+``args``, so the backward returns their gradients.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ class NodeConfig:
     Defaults follow the paper's training setup (HeunEuler, ACA,
     rtol=atol=1e-2). ``regime="fixed"`` integrates ``steps_per_interval``
     uniform steps with the advancing method of ``solver``
-    (``_fixed_solver_for``). The fields of later slices keep the
-    reference's names and defaults; a non-default value raises in
-    ``odeint`` naming the slice that brings it.
+    (``_fixed_solver_for``). ``grad_method="mali"`` integrates with the
+    ALF pair stepper whatever ``solver`` says, and rejects the fixed
+    regime. ``on_failure`` is one of ``odeint``'s policies. The fields of
+    later slices keep the reference's names and defaults; a non-default
+    value raises in ``odeint`` naming the slice that brings it.
     """
     enabled: bool = False
     solver: str = "heun_euler"      # the paper trains with HeunEuler
@@ -56,7 +59,7 @@ def node_block_apply(
     z0: Any,
     cfg: NodeConfig,
 ) -> Any:
-    """z(t1) = z(t0) + ∫ f(z, t; θ) dt with ACA, adjoint or naive
+    """z(t1) = z(t0) + ∫ f(z, t; θ) dt with ACA, adjoint, naive or MALI
     gradients.
 
     ``block_fn(params, z, t) -> dz/dt`` must keep z's structure, shapes
@@ -78,6 +81,12 @@ def node_block_solve(
         raise ValueError(
             f"NodeConfig.regime must be 'adaptive' or 'fixed'; got "
             f"{cfg.regime!r}")
+    if cfg.grad_method == "mali" and cfg.regime == "fixed":
+        raise ValueError(
+            "NodeConfig(grad_method='mali', regime='fixed'): the "
+            "reversible pair integrator is adaptive-only — use "
+            "regime='adaptive', or a fixed RK grid with aca/adjoint/"
+            "naive for static pod-scale schedules")
 
     def f(t, z, p):
         return block_fn(p, z, t)
@@ -94,7 +103,10 @@ def node_block_solve(
                             solver=_fixed_solver_for(cfg.solver),
                             steps_per_interval=cfg.steps_per_interval,
                             **common)
-    return odeint_final(f, z0, cfg.t0, cfg.t1, (params,), solver=cfg.solver,
+    # mali pairs only with the ALF pair integrator: the RK solver name of
+    # the config does not apply to it
+    solver = "alf" if cfg.grad_method == "mali" else cfg.solver
+    return odeint_final(f, z0, cfg.t0, cfg.t1, (params,), solver=solver,
                         rtol=cfg.rtol, atol=cfg.atol,
                         max_steps=cfg.max_steps, **common)
 

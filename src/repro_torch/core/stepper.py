@@ -484,3 +484,312 @@ def interp_eval_aligned(coeffs: InterpCoeffs,
     th = theta.to(c0.dtype).reshape(
         tuple(theta.shape) + (1,) * (c0.dim() - theta.dim()))
     return _horner(coeffs, th)
+
+
+# --------------------------------------------------------------------------
+# Asynchronous-leapfrog (ALF): the reversible pair stepper of MALI
+# --------------------------------------------------------------------------
+#
+# One ALF step advances the pair (z, v), v ≈ dz/dt (MALI, Zhuang et al.
+# 2021):
+#
+#     u  = z + (h/2)·v        half-position drift
+#     w  = f(t + h/2, u)      one field evaluation
+#     v' = 2w − v             velocity reflection
+#     z' = u + (h/2)·v'       half-position drift with the new velocity
+#
+# Algebraically the step inverts itself (u = z' − (h/2)·v' recovers the
+# midpoint), but float addition loses bits, so the pair is carried on a
+# fixed-point integer lattice: z and v are int32 (f32/bf16 leaves) or
+# int64 (f64 leaves) multiples of a per-solve quantum δ = 2^(scale_exp −
+# frac), and every drift and reflection is an integer add or subtract of
+# an increment that both directions recompute from the same bits.
+# Integer addition wraps, so it is a bijection: ``alf_step_inverse``
+# recovers the previous pair bit for bit for any input, provided f gives
+# the same bits forward and backward. The quanta are exact powers of two
+# built from exponent bits (``_pow2``), and rounding is half to even, as
+# in the reference. ``alf_step_float`` is the differentiable twin the
+# backward sweep linearizes (the δ-rounding treated as the identity);
+# with ``use_pallas`` its two half-drifts are kernel K1 (K3 batched) with
+# the one-weight row (0.5,).
+
+ALF_ORDER = 2  # ALF is second order; its embedded Euler comparator first
+
+HALF_DRIFT = (0.5,)   # the K1/K3 weight row of one half-drift
+
+
+def _lattice_frac(fdt: torch.dtype) -> int:
+    """Fractional bits of the lattice of a float leaf dtype: the quantum
+    is δ = 2^(scale_exp − frac)."""
+    return 52 if fdt == torch.float64 else 24
+
+
+def _lattice_int_dtype(fdt: torch.dtype) -> torch.dtype:
+    return torch.int64 if fdt == torch.float64 else torch.int32
+
+
+def _lattice_clip_bound(fdt: torch.dtype) -> float:
+    """The largest coordinate a quantized leaf is clipped to: 2^62 for
+    f64 leaves, 2^31 − 128 (the largest f32 below 2^31) otherwise."""
+    return float(2 ** 62) if fdt == torch.float64 else float(2 ** 31 - 128)
+
+
+def _pow2(e: torch.Tensor, fdt: torch.dtype) -> torch.Tensor:
+    """2^e exactly, for an integer-valued f32 exponent tensor, in dtype
+    ``fdt``: built from the exponent bits, so no device's exp2 rounding
+    enters the quantum (normal range only, as every lattice needs)."""
+    if fdt == torch.float64:
+        return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32).to(fdt)
+
+
+def _ceil_log2(x: torch.Tensor) -> torch.Tensor:
+    """⌈log₂ x⌉ of f32 x >= 1 as f32, from ``frexp``'s exponent (exact on
+    every device: x = m·2^e with m in [0.5, 1), a power of two at m =
+    0.5)."""
+    m, e = torch.frexp(x)
+    return (e - (m == 0.5).to(e.dtype)).to(torch.float32)
+
+
+def alf_lattice_exponent(z0: Any, v0: Any) -> torch.Tensor:
+    """The per-solve lattice scale exponent ⌈log₂ max(|z0|, |v0|, 1)⌉: one
+    0-d f32 tensor shared by every leaf (the quantum is δ_leaf =
+    2^(scale_exp − frac(dtype))). The int32 lattice spans ±128× the
+    initial scale at one f32 ulp of it; states far beyond wrap
+    (deterministically; the error test rejects such steps first)."""
+    leaves = pytree.tree_leaves(z0) + pytree.tree_leaves(v0)
+    mx = torch.ones((), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        if leaf.numel():
+            mx = torch.maximum(mx, torch.abs(leaf.float()).max())
+    return _ceil_log2(mx)
+
+
+def alf_lattice_exponent_batched(z0: Any, v0: Any) -> torch.Tensor:
+    """Per-row lattice exponents (B,) over batch-leading leaves: each row
+    quantizes as a solo solve of it would."""
+    leaves = pytree.tree_leaves(z0) + pytree.tree_leaves(v0)
+    B = leaves[0].shape[0]
+    mx = torch.ones(B, dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        if leaf.numel():
+            mx = torch.maximum(mx, torch.abs(leaf.float()).reshape(
+                B, -1).amax(dim=1))
+    return _ceil_log2(mx)
+
+
+def _se_b(scale_exp: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A scale exponent, 0-d or (B,) over batch-leading leaves, shaped to
+    broadcast against ``leaf``."""
+    se = scale_exp.to(torch.float32)
+    return se.reshape(tuple(se.shape) + (1,) * (leaf.dim() - se.dim()))
+
+
+def _lattice_quantize_leaf(x: torch.Tensor,
+                           scale_exp: torch.Tensor) -> torch.Tensor:
+    """A float leaf rounded to its integer lattice coordinate: the one
+    quantization rule both directions call. The product x·(1/δ) rounds in
+    x's dtype (exact unless it leaves the dtype's range); a bf16 product
+    at the clip bound (2^31 in bf16) saturates to 2^31 − 1."""
+    fdt = x.dtype
+    frac = torch.full((), _lattice_frac(fdt), dtype=torch.float32,
+                      device=x.device)
+    q = torch.round(x * _pow2(frac - _se_b(scale_exp, x), fdt))
+    lim = _lattice_clip_bound(fdt)
+    q = torch.clamp(q, -lim, lim)
+    idt = _lattice_int_dtype(fdt)
+    if fdt == torch.bfloat16:
+        q = torch.clamp(q.double(), -2.0 ** 31, 2.0 ** 31 - 1)
+    return q.to(idt)
+
+
+def _lattice_decode_leaf(q: torch.Tensor, scale_exp: torch.Tensor,
+                         fdt: torch.dtype) -> torch.Tensor:
+    frac = torch.full((), _lattice_frac(fdt), dtype=torch.float32,
+                      device=q.device)
+    return q.to(fdt) * _pow2(_se_b(scale_exp, q) - frac, fdt)
+
+
+def lattice_encode(x: Any, scale_exp: torch.Tensor) -> Any:
+    """Float pytree -> integer-lattice pytree (int32 per f32/bf16 leaf,
+    int64 per f64 leaf), quantum δ = 2^(scale_exp − frac)."""
+    return pytree.tree_map(lambda l: _lattice_quantize_leaf(l, scale_exp),
+                           x)
+
+
+def lattice_decode(q: Any, scale_exp: torch.Tensor, proto: Any) -> Any:
+    """Integer-lattice pytree -> float pytree in ``proto``'s leaf dtypes
+    (the exact inverse scaling of ``lattice_encode``'s grid)."""
+    return pytree.tree_map(
+        lambda ql, pl: _lattice_decode_leaf(ql, scale_exp, pl.dtype), q,
+        proto)
+
+
+def lattice_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b on the lattice: two's-complement integer addition, which
+    wraps at the integer dtype's range on the CPU and on CUDA
+    (``tests/test_torch_mali.py`` and the card tests pin it)."""
+    return a + b
+
+
+def lattice_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a − b on the lattice, wrapping as ``lattice_add``."""
+    return a - b
+
+
+def _drift_increment(h, v_float: Any, scale_exp: torch.Tensor) -> Any:
+    """The quantized half-drift Q((h/2)·v) per leaf, as lattice integers;
+    ``h`` (0-d, or (B,) over batch-leading leaves) is cast to each
+    leaf's dtype first, as in the reference."""
+    def leaf(v):
+        hh = _hb(h, v) * torch.full((), 0.5, dtype=v.dtype, device=v.device)
+        return _lattice_quantize_leaf(hh * v, scale_exp)
+
+    return pytree.tree_map(leaf, v_float)
+
+
+def _tree_iadd(a: Any, b: Any) -> Any:
+    return pytree.tree_map(lattice_add, a, b)
+
+
+def _tree_isub(a: Any, b: Any) -> Any:
+    return pytree.tree_map(lattice_sub, a, b)
+
+
+def _alf_midpoint_t(t, h):
+    """t + h/2, written once so forward and inverse compute the same
+    bits."""
+    return t + 0.5 * h
+
+
+def _reflect(w: Any, vq: Any, scale_exp: torch.Tensor) -> Any:
+    """The reflection on the lattice, Q(2w) − vq (2w is exact)."""
+    return _tree_isub(pytree.tree_map(
+        lambda wl: _lattice_quantize_leaf(2.0 * wl, scale_exp), w), vq)
+
+
+class AlfResult(NamedTuple):
+    """One ALF trial over the lattice pair: the advanced coordinates
+    ``zq_next``/``vq_next`` (the carry), the decoded state ``z_next``
+    (outputs, error scale) and the embedded error h·(w − v), the gap
+    between the midpoint update z + h·w and the Euler predictor z + h·v."""
+    zq_next: Any
+    vq_next: Any
+    z_next: Any
+    err: Any
+
+
+def _alf_forward(fw: Callable, t, h, zq, vq, scale_exp, proto) -> AlfResult:
+    """``alf_step`` with the field already closed over its args (``fw(t,
+    u)``: solo, or vmapped over the rows)."""
+    vf = lattice_decode(vq, scale_exp, proto)
+    uq = _tree_iadd(zq, _drift_increment(h, vf, scale_exp))
+    w = fw(_alf_midpoint_t(t, h), lattice_decode(uq, scale_exp, proto))
+    vq_next = _reflect(w, vq, scale_exp)
+    vf_next = lattice_decode(vq_next, scale_exp, proto)
+    zq_next = _tree_iadd(uq, _drift_increment(h, vf_next, scale_exp))
+    err = pytree.tree_map(
+        lambda wl, vl: _hb(h, vl) * (wl.to(vl.dtype) - vl), w, vf)
+    return AlfResult(zq_next=zq_next, vq_next=vq_next,
+                     z_next=lattice_decode(zq_next, scale_exp, proto),
+                     err=err)
+
+
+def _alf_inverse(fw: Callable, t, h, zq_next, vq_next, scale_exp, proto):
+    """``alf_step_inverse`` with the field closed over its args."""
+    vf_next = lattice_decode(vq_next, scale_exp, proto)
+    uq = _tree_isub(zq_next, _drift_increment(h, vf_next, scale_exp))
+    w = fw(_alf_midpoint_t(t, h), lattice_decode(uq, scale_exp, proto))
+    vq = _reflect(w, vq_next, scale_exp)
+    vf = lattice_decode(vq, scale_exp, proto)
+    zq = _tree_isub(uq, _drift_increment(h, vf, scale_exp))
+    return zq, vq
+
+
+def alf_step(f: VecField, t, h, zq: Any, vq: Any, scale_exp: torch.Tensor,
+             proto: Any, args: Tuple = ()) -> AlfResult:
+    """One asynchronous-leapfrog step on the integer lattice.
+
+    ``zq``/``vq`` are lattice pytrees (``lattice_encode``), ``proto`` a
+    float pytree fixing the leaf dtypes, ``t``/``h`` 0-d tensors. Every
+    state update is an integer add, so ``alf_step_inverse(alf_step(s))
+    == s`` bit for bit for any state. One evaluation of f.
+    """
+    return _alf_forward(lambda tm, u: f(tm, u, *args), t, h, zq, vq,
+                        scale_exp, proto)
+
+
+def alf_step_inverse(f: VecField, t, h, zq_next: Any, vq_next: Any,
+                     scale_exp: torch.Tensor, proto: Any,
+                     args: Tuple = ()) -> Tuple[Any, Any]:
+    """The exact inverse of ``alf_step``: each quantized increment is
+    recomputed from the side the inverse already knows (v' for the second
+    drift, the recovered v for the first) and subtracted: the pre-step
+    pair, bit for bit."""
+    return _alf_inverse(lambda tm, u: f(tm, u, *args), t, h, zq_next,
+                        vq_next, scale_exp, proto)
+
+
+def _half_drift_plain(h, v, z, batched: bool):
+    """z + h·(v/2) on the plain path (``_axpy``, per row when batched)."""
+    axpy = _baxpy if batched else _axpy
+    return pytree.tree_map(lambda vl, zl: axpy(h, 0.5 * vl, zl), v, z)
+
+
+def alf_step_float(f: VecField, t, h, z: Any, v: Any, args: Tuple = (), *,
+                   use_pallas: bool = False) -> Tuple[Any, Any]:
+    """The differentiable float twin of ``alf_step`` (δ-rounding taken as
+    the identity): ``(z', v')``. The MALI backward sweep differentiates it
+    at the reconstructed pair. With ``use_pallas`` and a flat (N,) state
+    the two half-drifts are kernel K1 with the row (0.5,) (its plain
+    version on a CPU tensor); the reflection stays one tensor axpy."""
+    tm = _alf_midpoint_t(t, h)
+    if use_pallas and isinstance(z, torch.Tensor) and _is_flat(z):
+        u = ops.rk_stage_increment(z, v[None], h, HALF_DRIFT)
+        v_next = 2.0 * f(tm, u, *args) - v
+        return ops.rk_stage_increment(u, v_next[None], h, HALF_DRIFT), v_next
+    u = _half_drift_plain(h, v, z, batched=False)
+    w = f(tm, u, *args)
+    v_next = pytree.tree_map(lambda wl, vl: 2.0 * wl - vl, w, v)
+    return _half_drift_plain(h, v_next, u, batched=False), v_next
+
+
+def alf_step_batched(f: VecField, t: torch.Tensor, h: torch.Tensor,
+                     zq: Any, vq: Any, scale_exp: torch.Tensor, proto: Any,
+                     args: Tuple = ()) -> AlfResult:
+    """Per-row ALF trial over batch-leading lattice leaves: ``t``/``h``
+    (B,), ``scale_exp`` (B,), the per-sample field vmapped over the rows.
+    Callers keep a frozen row by masking its carry: the h = 0 ALF step is
+    not the identity in v (the reflection still fires)."""
+    return _alf_forward(batched_field(f, args), t, h, zq, vq, scale_exp,
+                        proto)
+
+
+def alf_step_inverse_batched(f: VecField, t: torch.Tensor, h: torch.Tensor,
+                             zq_next: Any, vq_next: Any,
+                             scale_exp: torch.Tensor, proto: Any,
+                             args: Tuple = ()) -> Tuple[Any, Any]:
+    """The batched twin of ``alf_step_inverse`` (per-row t, h and
+    lattice). Evaluate it on every row, as the forward did, so each row's
+    field rounds as it did forward."""
+    return _alf_inverse(batched_field(f, args), t, h, zq_next, vq_next,
+                        scale_exp, proto)
+
+
+def alf_step_float_batched(f: VecField, t: torch.Tensor, h: torch.Tensor,
+                           z: Any, v: Any, args: Tuple = (), *,
+                           use_pallas: bool = False) -> Tuple[Any, Any]:
+    """The batched differentiable twin (per-row t, h); with ``use_pallas``
+    and a (B, N) state the half-drifts are kernel K3 with the row
+    (0.5,)."""
+    fb = batched_field(f, args)
+    tm = _alf_midpoint_t(t, h)
+    if use_pallas and isinstance(z, torch.Tensor) and _is_flat_batched(z):
+        u = ops.rk_stage_increment_batched(z, v[None], h, HALF_DRIFT)
+        v_next = 2.0 * fb(tm, u) - v
+        return (ops.rk_stage_increment_batched(u, v_next[None], h,
+                                               HALF_DRIFT), v_next)
+    u = _half_drift_plain(h, v, z, batched=True)
+    w = fb(tm, u)
+    v_next = pytree.tree_map(lambda wl, vl: 2.0 * wl - vl, w, v)
+    return _half_drift_plain(h, v_next, u, batched=True), v_next

@@ -47,6 +47,7 @@ from torch.func import vmap
 from ..core.api import odeint
 from ..core.controller import initial_stepsize
 from ..core.integrate import SolveStatus
+from ..core.stepper import ALF_ORDER
 from ..core.tableaus import get_tableau
 from ..device import resolve_device
 
@@ -248,11 +249,11 @@ class NodeEngineConfig:
     ``slots`` and ``chunk_dt`` fix the solve's shapes: every round solves
     a (slots, dim+2) canonical batch regardless of occupancy.
     ``static_batch=True`` is the baseline scheduler: admit only when *all*
-    slots are free. ``grad_method`` is ``"aca"``, ``"adjoint"`` or
-    ``"naive"``: a round is a forward solve, on ACA's engine for the
-    adjoint and on its own trial loop for the naive method, whose
+    slots are free. ``grad_method`` is ``"aca"``, ``"adjoint"``,
+    ``"naive"`` or ``"mali"``: a round is a forward solve, on ACA's engine
+    for the adjoint, on its own trial loop for the naive method, whose
     ``n_trials`` count the trials taken (the reference's count its
-    budget); ``"mali"`` comes with slice F.
+    budget), and on the ALF pair stepper for mali (``solver`` None).
     """
     slots: int = 4
     chunk_dt: float = 0.5
@@ -274,10 +275,6 @@ class NodeEngineConfig:
         if self.retry_tol_factor < 1.0:
             raise ValueError("retry_tol_factor must be >= 1; got "
                              f"{self.retry_tol_factor}")
-        if self.grad_method == "mali":
-            raise ValueError(
-                "NodeEngineConfig(grad_method='mali') is not ported yet: "
-                "it comes with slice F (ROADMAP queue 1)")
 
 
 # ------------------------------------------------------------------- engine
@@ -313,7 +310,9 @@ class NodeServeEngine:
         #: per-round max_b n_trials_b (the round's straggler trials).
         self.trials_log: List[int] = []
         self._fa = augment_field(f)
-        self._order = get_tableau(self.cfg.solver or "dopri5").order
+        mali = self.cfg.grad_method == "mali"
+        self._order = ALF_ORDER if mali else get_tableau(
+            self.cfg.solver or "dopri5").order
         self._ts = torch.tensor([0.0, 1.0], dtype=torch.float32,
                                 device=self.device)
 

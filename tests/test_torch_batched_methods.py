@@ -1,8 +1,9 @@
-"""The adjoint and naive methods under ``batch_axis=0``, and every method's
-fixed grid and reverse time: the method-parametrized cases of
+"""The adjoint, naive and mali methods under ``batch_axis=0``, and every
+method's fixed grid and reverse time: the method-parametrized cases of
 ``tests/test_batched_solve.py`` and ``tests/test_time_handling.py``'s
-descending-``ts`` case, for aca, adjoint and naive (mali comes with a
-later slice).
+descending-``ts`` case, for aca, adjoint and naive, and their mali cases
+(the ALF pair integrator: no tableau, no fixed grid, a larger step
+budget, as the reference's ``_kw`` gives it).
 
 The same numpy inputs go through the reference (JAX on the CPU, Pallas in
 interpret mode) and the port (the kernels' plain versions on the CPU),
@@ -18,7 +19,10 @@ row its own grid. Tolerances:
 * fixed grids, batched against per-row solo: ``ys`` rtol=1e-6 atol=1e-7,
   gradients rtol=1e-5 atol=1e-7 (the reference test's);
 * descending ``ts`` against the hand-negated ascending problem: ``ys``
-  bitwise, gradients within 1e-6 of their scale (the reference test's).
+  bitwise, gradients within 1e-6 of their scale (the reference test's);
+* mali batched against the port's solo rows: the same bounds, outputs
+  bit for bit; against the reference, its statuses and steps (see
+  ``test_mali_matches_reference_and_solo_rows``).
 """
 
 import functools
@@ -32,7 +36,6 @@ from torch.utils import _pytree as pytree
 
 from repro.core import odeint as jodeint
 from repro.kernels import ops as jops
-from repro_torch.core import GRAD_METHODS
 from repro_torch.core import odeint as todeint
 
 TS = [0.0, 0.5, 1.0]
@@ -40,6 +43,14 @@ KW = dict(solver="dopri5", rtol=1e-5, atol=1e-5, max_steps=64)
 W = np.float32(0.7)
 # the ACA cases of tests that test_torch_batched_solve.py holds already
 BASELINES = ("adjoint", "naive")
+# the RK-tableau methods; mali's cases are the tests named for it
+RK_METHODS = ("aca", "adjoint", "naive")
+MALI_KW = dict(solver=None, rtol=1e-5, atol=1e-5, max_steps=2048)
+# against the reference mali runs at 1e-4: at 1e-5 the non-dissipative
+# ALF's stepsize on the stiffer rows follows rounding noise (row 1 of the
+# heterogeneous batch takes 356 steps here, 368 in the reference; ROADMAP
+# queue 3)
+MALI_REF_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _f_j(t, z, w):
@@ -157,7 +168,7 @@ def test_finished_elements_freeze_bit_stable(method):
         assert torch.equal(a, b[:2])
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_fixed_grid_batched(method):
     """A fixed grid is shared exactly: batch_axis=0 equals the per-row
     solo fixed-grid solves, with (B,)-broadcast stats."""
@@ -190,7 +201,7 @@ def _pair_j(t, z, w):
             "b": -0.5 * z["b"]}
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_pytree_state_batched(method):
     """Dict states batch too: raveled per sample into one (B, N) state on
     both paths; the fused path is the plain one bit for bit forward, and
@@ -260,6 +271,9 @@ def _reverse_case(method, use_pallas, batched):
     z0 = rng.standard_normal(6).astype(np.float32)
     kw = dict(solver="dopri5", grad_method=method, rtol=1e-6, atol=1e-6,
               max_steps=128, use_pallas=use_pallas)
+    if method == "mali":
+        # the ALF pair integrator: no tableau, a larger step budget
+        kw.update(solver=None, max_steps=4096)
     field = _field
     if batched:
         z0 = np.stack([z0, 1.5 * z0, -0.5 * z0])
@@ -280,9 +294,113 @@ def _reverse_case(method, use_pallas, batched):
 
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_descending_equals_negated_ascending(method, use_pallas, batched):
     ys_d, g_d, ys_n, g_n = _reverse_case(method, use_pallas, batched)
     assert torch.equal(ys_d, ys_n)
     scale = max(float(g_n.abs().max()), 1e-12)
     assert float((g_d - g_n).abs().max()) / scale <= 1e-6, method
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mali_descending_equals_negated_ascending(use_pallas, batched):
+    """``tests/test_time_handling.py``'s mali case: descending ``ts`` is
+    the hand-negated ascending solve, ys bitwise, gradients within 1e-6
+    of their scale."""
+    ys_d, g_d, ys_n, g_n = _reverse_case("mali", use_pallas, batched)
+    assert torch.equal(ys_d, ys_n)
+    scale = max(float(g_n.abs().max()), 1e-12)
+    assert float((g_d - g_n).abs().max()) / scale <= 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_mali_stats(use_pallas):
+    _, st = jodeint(_f_j, jnp.asarray(_hetero_batch()),
+                    jnp.asarray(TS, jnp.float32), (jnp.float32(W),),
+                    grad_method="mali", batch_axis=0, use_pallas=use_pallas,
+                    **{**MALI_KW, **MALI_REF_TOL})
+    return {k: np.asarray(v) for k, v in st._asdict().items()}
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mali_matches_reference_and_solo_rows(use_pallas):
+    """``tests/test_batched_solve.py``'s mali case: every row of the
+    heterogeneous batch on its own grid and lattice, with the port's solo
+    solve's steps, trials and outputs (bit for bit) and gradients (the
+    bounds above). Against the reference at 1e-4 the statuses and
+    overflows are equal and the steps within one: the two stiff rows
+    spend the 2048-step budget in both, and row 1's ALF stepsize sits at
+    its stability limit, where the accept decisions follow the fields'
+    rounding (134 steps here, 135 in the reference; ROADMAP queue 3).
+    The reference's outputs and gradients on a non-stiff batch are held in
+    ``tests/test_torch_mali.py::test_mali_matches_reference_vdp``."""
+    z0 = _hetero_batch()
+    ys_b, st_b, gz_b, gw_b = _port_case("mali", z0, use_pallas,
+                                        batch_axis=0, **MALI_KW)
+    assert len(np.unique(st_b.n_steps.numpy())) > 1
+    gw_s = 0.0
+    for b in range(z0.shape[0]):
+        ys_s, st_s, gz_s, gw = _port_case("mali", z0[b], use_pallas,
+                                          **MALI_KW)
+        assert int(st_b.n_steps[b]) == int(st_s.n_steps)
+        assert int(st_b.n_trials[b]) == int(st_s.n_trials)
+        np.testing.assert_array_equal(ys_b[:, b], ys_s)
+        np.testing.assert_allclose(gz_b[b], gz_s, rtol=1e-5, atol=1e-7)
+        gw_s = gw_s + gw
+    np.testing.assert_allclose(gw_b, gw_s, rtol=1e-5, atol=1e-6)
+    _, st_q, _, _ = _port_case("mali", z0, use_pallas, batch_axis=0,
+                               **{**MALI_KW, **MALI_REF_TOL})
+    st_j = _ref_mali_stats(use_pallas)
+    for field in ("status", "overflow"):
+        np.testing.assert_array_equal(getattr(st_q, field).numpy(),
+                                      st_j[field], err_msg=field)
+    assert np.abs(st_q.n_steps.numpy() - st_j["n_steps"]).max() <= 1
+
+
+def test_mali_finished_elements_freeze_bit_stable():
+    """A stiffer row added to the batch leaves the others' outputs and
+    stats bit-identical; inside ALF's stiffness range, as the reference's
+    mali case (ALF cannot damp, so very stiff rows pin its stepsize)."""
+    x0 = np.random.default_rng(1).standard_normal((3, 3))
+    logk = np.array([0.0, 1.2, 1.6])
+    z_more = np.concatenate([x0, logk[:, None]], axis=1).astype(np.float32)
+    z_easy = z_more[:2]
+    kw = dict(grad_method="mali", batch_axis=0, **MALI_KW)
+    ys2, st2 = todeint(_f_t, torch.tensor(z_easy), TS, (torch.tensor(W),),
+                       **kw)
+    ys3, st3 = todeint(_f_t, torch.tensor(z_more), TS, (torch.tensor(W),),
+                       **kw)
+    assert int(st3.n_steps[2]) > int(st3.n_steps[:2].max())
+    assert torch.equal(ys2, ys3[:, :2])
+    for a, b in zip(st2, st3):
+        assert torch.equal(a, b[:2])
+
+
+def test_mali_pytree_state_batched():
+    """A dict state batched under mali at 1e-4: the fused path's forward
+    is the plain path's bit for bit (the lattice step is integer
+    arithmetic on both), gradients within 1e-5, steps the reference's."""
+    rng = np.random.default_rng(2)
+    a0 = rng.standard_normal((3, 4)).astype(np.float32)
+    b0 = rng.standard_normal((3, 4)).astype(np.float32)
+    outs = {}
+    for up in (False, True):
+        wt = torch.tensor(W, requires_grad=True)
+        ys, st = todeint(_pair_t, {"a": torch.tensor(a0),
+                                   "b": torch.tensor(b0)}, TS, (wt,),
+                         grad_method="mali", batch_axis=0, use_pallas=up,
+                         **{**MALI_KW, **MALI_REF_TOL})
+        sum(torch.sum(v[-1] ** 2) for v in ys.values()).backward()
+        outs[up] = ({k: v.detach() for k, v in ys.items()}, float(wt.grad),
+                    st)
+    for k in ("a", "b"):
+        assert outs[False][0][k].shape == (len(TS), 3, 4)
+        assert torch.equal(outs[False][0][k], outs[True][0][k])
+    assert abs(outs[True][1] - outs[False][1]) <= 1e-5 * abs(outs[False][1])
+    _, st_r = jodeint(_pair_j, {"a": jnp.asarray(a0), "b": jnp.asarray(b0)},
+                      jnp.asarray(TS, jnp.float32), (jnp.float32(W),),
+                      grad_method="mali", batch_axis=0,
+                      **{**MALI_KW, **MALI_REF_TOL})
+    np.testing.assert_array_equal(outs[False][2].n_steps.numpy(),
+                                  np.asarray(st_r.n_steps))

@@ -58,6 +58,18 @@ as counted (K7 11 per prefill and per decode step with 8 layers: 2 x 8 +
 1 = 17, K8 once per attention layer per prefill, K10 once per rec layer
 per prefill).
 
+MALI: the lattice's int32/int64 adds wrap on CUDA as on the CPU; K1 and
+K3 with the half-drift row (0.5,) are bitwise their plain versions (an
+h = 0 row of K3 passing through); ``alf_step_inverse(alf_step(s)) == s``
+bitwise on CUDA tensors for the reference's dtype × scale grid (bf16
+too), with the CPU's integers; a van der Pol MALI solve on the fused path
+(solo on K1, batched on K3, two launches a replayed step) takes the CPU
+solve's steps and trials with ys bitwise (an elementwise field rounds
+alike on both devices), gradients within 1e-5 of their scale, and its
+backward ends on the encoded start pair bit for bit; the MALI serving
+engine on the card gives the CPU engine's statuses and chunks, z_final
+within 1e-5 relative.
+
 K6 (combine without the norm) gives z_next and err bitwise equal to its
 plain version (K2's rounding, pinned with __fmul_rn/__fadd_rn). K9 (the
 SSD chunk scan) against its plain version, as max |difference| / max
@@ -1026,3 +1038,153 @@ def test_mamba2_smoke_generate_with_kernels_on_the_card(card):
     assert all(v == 0 for v in cp.values())
     assert _rel(lk, lp) <= 1e-4
     assert torch.equal(ok, op_)
+
+
+# ------------------------------------------------------------------ MALI
+
+def test_lattice_adds_wrap_on_the_card(card):
+    """The lattice's int32 and int64 adds and subtracts wrap on CUDA, near
+    ±2³¹ and ±2⁶³, as on the CPU (tests/test_torch_mali.py)."""
+    from repro_torch.core.stepper import lattice_add, lattice_sub
+    for dt, bits in ((torch.int32, 32), (torch.int64, 64)):
+        hi, lo = 2 ** (bits - 1) - 1, -2 ** (bits - 1)
+        a = torch.tensor([hi, lo, hi - 5, lo + 5, 0], dtype=dt, device=card)
+        b = torch.tensor([1, -1, 10, -10, hi], dtype=dt, device=card)
+        assert lattice_add(a, b).tolist() == [lo, hi, lo + 4, hi - 4, hi]
+        assert lattice_sub(a, b).tolist() == [hi - 1, lo + 1, hi - 15,
+                                              lo + 15, -hi]
+        assert torch.equal(lattice_sub(lattice_add(a, b), b), a)
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_half_drift_kernels_are_bitwise_their_plain_versions(card, n, dtype):
+    """K1 and K3 with MALI's one-weight row (0.5,) and one stage row:
+    bitwise their plain versions, an h = 0 row of K3 passing through."""
+    from repro_torch.core.stepper import HALF_DRIFT
+    z, k, h = _inputs(card, n, dtype, seed=5)
+    before = rk_stage.launches["rk_stage_increment"]
+    v = k[:1].contiguous()
+    assert torch.equal(rk_stage.rk_stage_increment(z, v, h, HALF_DRIFT),
+                       rk_stage.increment_plain(z, v, h, HALF_DRIFT))
+    assert rk_stage.launches["rk_stage_increment"] == before + 1
+    zb = torch.stack([z, -z, 2 * z]).contiguous()
+    vb = torch.stack([v[0], v[0], -v[0]])[None].contiguous()
+    hb = torch.tensor([0.05, 0.0, 0.0125], device=card)
+    out = rk_stage.rk_stage_increment_batched(zb, vb, hb, HALF_DRIFT)
+    assert torch.equal(out, rk_stage.increment_batched_plain(zb, vb, hb,
+                                                             HALF_DRIFT))
+    assert torch.equal(out[1], zb[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 37.0, 1e8, 1e30])
+def test_alf_roundtrip_bitexact_on_the_card(card, dtype, scale):
+    """inverse(step(s)) == s bitwise on CUDA tensors for the reference's
+    dtype × scale grid, and the step's integers are the CPU's (the
+    quanta are exact powers of two on both devices)."""
+    from repro_torch.core.stepper import (alf_lattice_exponent, alf_step,
+                                          alf_step_inverse, lattice_encode)
+
+    def lin(t, z, k):
+        return k * z
+
+    zn = np.random.default_rng(0).standard_normal(17) * scale
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        k = torch.tensor(-0.7, dtype=dtype, device=dev)
+        z = torch.tensor(zn, dtype=torch.float64).to(dtype).to(dev)
+        v = lin(0.0, z, k)
+        se = alf_lattice_exponent(z, v)
+        zq, vq = lattice_encode(z, se), lattice_encode(v, se)
+        t = torch.tensor(0.3, dtype=dtype, device=dev)
+        h = torch.tensor(0.05, dtype=dtype, device=dev)
+        r = alf_step(lin, t, h, zq, vq, se, z, (k,))
+        bz, bv = alf_step_inverse(lin, t, h, r.zq_next, r.vq_next, se, z,
+                                  (k,))
+        assert torch.equal(bz, zq) and torch.equal(bv, vq)
+        out[dev.type] = (r.zq_next.cpu(), r.vq_next.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def _vdp(t, z, mu):
+    x, y = z[..., 0], z[..., 1]
+    return torch.stack([y, mu * (1.0 - x ** 2) * y - x], dim=-1)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_mali_on_the_card(card, batched):
+    """MALI on the fused path on the card (K1, or K3 batched, for the
+    backward's half-drifts: two launches a replayed step) against the same
+    solve on CPU tensors: the CPU's steps and trials, ys bitwise solo and
+    within 10 x the tolerance batched (the vmapped initial-stepsize
+    heuristic rounds differently on the two devices, which moves the grid:
+    ROADMAP queue 3, the card's grids), gradients within 1e-5 of their
+    scale solo, 1e-4 batched; the backward ends on the encoded start pair
+    bit for bit on both."""
+    import importlib
+    mali_mod = importlib.import_module("repro_torch.core.odeint_mali")
+    z0n = np.array([[2.0, 0.0], [1.0, 0.5], [0.3, -0.2]] if batched
+                   else [2.0, 0.0], np.float32)
+    ends = []
+    orig = mali_mod.mali_backward_sweep
+
+    def recording(sw):
+        out = orig(sw)
+        ends.append(all(torch.equal(a, b) for a, b in
+                        zip((sw.zq, sw.vq), sw.encoded_start())))
+        return out
+
+    def run(dev):
+        z0 = torch.tensor(z0n, device=dev, requires_grad=True)
+        mu = torch.tensor(2.0, device=dev, requires_grad=True)
+        ys, st = odeint(_vdp, z0, [0.0, 0.5], (mu,), grad_method="mali",
+                        rtol=1e-5, atol=1e-5, max_steps=2048,
+                        use_pallas=True, batch_axis=0 if batched else None)
+        torch.sum(ys[-1] ** 2).backward()
+        return (ys.detach().cpu(), st.n_steps.cpu(), st.n_trials.cpu(),
+                z0.grad.cpu(), mu.grad.cpu())
+
+    mali_mod.mali_backward_sweep = recording
+    try:
+        on_card, on_cpu, launched = _card_and_cpu(run)
+    finally:
+        mali_mod.mali_backward_sweep = orig
+    assert ends == [True, True]
+    key = "rk_stage_increment_batched" if batched else "rk_stage_increment"
+    assert launched[key] == 2 * int(on_card[1].max())
+    assert torch.equal(on_card[1], on_cpu[1])
+    assert torch.equal(on_card[2], on_cpu[2])
+    if batched:
+        assert float((on_card[0] - on_cpu[0]).abs().max()) <= 1e-4
+    else:
+        assert torch.equal(on_card[0], on_cpu[0])
+    grad_rtol = 1e-4 if batched else 1e-5
+    for a, b in zip(on_card[3:], on_cpu[3:]):
+        assert float((a - b).abs().max()) <= grad_rtol * float(
+            b.abs().max())
+
+
+def test_mali_engine_on_the_card(card):
+    """NodeServeEngine(grad_method="mali") on the card serves a mix of
+    requests with the CPU engine's statuses and chunk counts, z_final
+    within 1e-5 relative."""
+    cfg = NodeEngineConfig(slots=2, chunk_dt=0.5, grad_method="mali",
+                           use_pallas=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        e = NodeServeEngine(lambda t, z, w: torch.tanh(w * z) - 0.1 * z,
+                            6, (torch.tensor(1.3, device=dev),), cfg,
+                            device=dev)
+        for i in range(3):
+            z = np.random.default_rng(i).normal(size=6).astype(np.float32)
+            e.submit(NodeRequest(z0=z, t1=0.6 + 0.4 * i, rtol=1e-4),
+                     arrival=0.0)
+        out[dev] = e.run()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.ok and b.ok and a.status == b.status
+        assert a.n_chunks == b.n_chunks
+        scale = max(1.0, float(np.abs(b.z_final).max()))
+        assert float(np.abs(a.z_final - b.z_final).max()) <= 1e-5 * scale

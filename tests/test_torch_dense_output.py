@@ -32,13 +32,16 @@ from repro.core.tableaus import BOGACKI_SHAMPINE as JBOSH3
 from repro.core.tableaus import DOPRI5 as JDOPRI5
 from repro.data import merged_time_grid as jmerged_time_grid
 from repro.kernels import ops as jops
-from repro_torch.core import GRAD_METHODS, odeint, odeint_dense
+from repro_torch.core import odeint, odeint_dense
 from repro_torch.core.stepper import interp_eval, interp_fit, rk_step
 from repro_torch.core.tableaus import BOGACKI_SHAMPINE, DOPRI5
 from repro_torch.data import irregular_series_batch, merged_time_grid
 
 REF_YS_ATOL = 1e-5
 REF_GRAD_RTOL = 1e-4
+# interpolate_ts takes the RK methods: mali rejects it (the reference's
+# mali cases skip; tests/test_torch_mali.py holds the rejection)
+RK_METHODS = ("aca", "adjoint", "naive")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -106,7 +109,7 @@ def test_interpolate_ts_cuts_trials_on_dense_grid():
 
 # --------------------------------------------------------- gradients
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_interpolated_multi_time_gradient_analytic(method):
     """dL/dz0 of L = Σ_k z(t_k)² is 2 z0 Σ e^{2 t_k} under every method."""
     ts = torch.linspace(0.0, 1.0, 9)
@@ -164,7 +167,7 @@ def _interp_case_ref(method, batched):
     return np.asarray(ys), np.asarray(g), np.asarray(stats.n_steps)
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 @pytest.mark.parametrize("batched", [False, True])
 def test_interpolated_close_to_landed(method, batched):
     """Interpolated outputs within 5e-4 of the landing solve's, gradients
@@ -181,7 +184,7 @@ def test_interpolated_close_to_landed(method, batched):
     assert np.abs(g1 - gj).max() / np.abs(gj).max() < REF_GRAD_RTOL
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 @pytest.mark.parametrize("batched", [False, True])
 def test_interpolate_pallas_parity(method, batched):
     """The kernel path (K1-K4 and the b_mid midpoint; their plain versions

@@ -1,6 +1,9 @@
-"""ACA, adjoint and naive gradients of the port: ``tests/test_odeint_grad.py``
-for the three methods (mali comes with a later slice), on the plain path
-and the fused kernel path (their plain versions on the CPU).
+"""ACA, adjoint, naive and mali gradients of the port:
+``tests/test_odeint_grad.py`` for the four methods, on the plain path and
+the fused kernel path (their plain versions on the CPU). Mali's cases
+run the ALF pair integrator (no tableau, no fixed grid) with the
+reference test's step budgets; the tests parametrized over the RK
+methods keep ``RK_METHODS`` and mali has its own.
 
 Toy problem dz/dt = k·z, L = z(T)²: dL/dz0 = 2 z0 e^{2kT} (paper Eq.
 27-29). Tolerances are the reference test's where it has one: analytic
@@ -37,6 +40,7 @@ K, T = 2.0, 1.0
 PARITY = 1e-5
 # the ACA cases of tests that test_torch_aca_grad.py holds already
 BASELINES = ("adjoint", "naive")
+RK_METHODS = ("aca", "adjoint", "naive")
 
 
 @pytest.fixture(autouse=True)
@@ -52,8 +56,10 @@ def _rel(port, ref) -> float:
 
 
 def test_grad_methods_are_the_references_but_mali():
+    """The port's methods are the reference's four, mali included."""
     from repro.core import GRAD_METHODS as REF
-    assert GRAD_METHODS == tuple(m for m in REF if m != "mali")
+    assert GRAD_METHODS == REF
+    assert GRAD_METHODS == RK_METHODS + ("mali",)
 
 
 def _toy_grad(method, solver="dopri5", use_pallas=False, **kw):
@@ -73,7 +79,7 @@ def test_toy_gradient_matches_analytic(method, use_pallas):
     assert abs(g - analytic) / analytic < 1e-4, (method, g, analytic)
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 @pytest.mark.parametrize("solver", ["euler", "rk2", "rk4"])
 def test_fixed_grid_gradient(method, solver):
     g, analytic = _toy_grad(method, solver=solver, steps_per_interval=64)
@@ -179,7 +185,7 @@ def test_pytree_state_and_param_grads():
     agree with each other at the reference test's tolerances and each
     with its reference counterpart."""
     grads = {}
-    for m in GRAD_METHODS:
+    for m in RK_METHODS:
         ys, g, st = _pytree_case(m, False)
         assert set(ys) == {"a", "b"} and ys["a"].shape == (2, 4)
         ys_r, g_r, n_r = _pytree_ref(m)
@@ -195,7 +201,7 @@ def test_pytree_state_and_param_grads():
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_pallas_parity_pytree_state(method):
     """Multi-leaf states ravel once per solve on both paths: the fused
     path's forward is the plain path's bit for bit."""
@@ -245,7 +251,7 @@ def test_multi_time_outputs_latent_ode_style(method):
     assert abs(float(z0.grad) - analytic) / analytic < 1e-3
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_grad_methods_through_a_stack_of_blocks(method):
     """NODE blocks in a loop over layers (the reference runs them inside
     lax.scan): adaptive and fixed regimes give finite gradients."""
@@ -294,7 +300,7 @@ def test_pallas_parity_adaptive(method, solver):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 @pytest.mark.parametrize("solver", ["rk4", "rk2"])
 def test_pallas_parity_fixed_grid(method, solver):
     ys0, gw0, gz0, _ = _parity_case(method, solver, False,
@@ -308,7 +314,7 @@ def test_pallas_parity_fixed_grid(method, solver):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 def test_pallas_path_dispatches(monkeypatch, method):
     """use_pallas=True goes through the kernel wrappers, forward and (for
     the adjoint) in the reverse solve: count the dispatch-layer calls."""
@@ -439,7 +445,7 @@ def test_frozen_solve_status_and_cotangents(method):
         assert torch.equal(z0.grad, torch.zeros(3))
 
 
-@pytest.mark.parametrize("method", GRAD_METHODS)
+@pytest.mark.parametrize("method", RK_METHODS)
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_fixed_grid_matches_reference(method, use_pallas):
     """Fixed grids against the reference: outputs and gradients of every
@@ -543,3 +549,78 @@ def test_adjoint_forward_keeps_no_checkpoint_buffer(batched):
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][2], out[1][2]):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------- mali
+# ``tests/test_odeint_grad.py``'s mali cases: the ALF pair integrator
+# (solver None), 2nd order with a 1st-order embedded estimate, so the
+# reference's larger step budgets
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mali_toy_gradient_matches_analytic(use_pallas):
+    g, analytic = _toy_grad("mali", solver=None, use_pallas=use_pallas,
+                            rtol=1e-6, atol=1e-6, max_steps=8192)
+    assert abs(g - analytic) / analytic < 1e-4, (g, analytic)
+
+
+def test_mali_pytree_state_and_param_grads():
+    """A dict state under mali: its gradient differentiates the ALF
+    discretization, so it meets ACA's at the solve-tolerance scale (the
+    reference's rtol=2e-2, atol=1e-3), and the fused path's forward is the
+    plain one's bit for bit."""
+    grads, ys_by = {}, {}
+    for up in (False, True):
+        wt = torch.tensor(W44, requires_grad=True)
+        z0 = {"a": torch.ones(4), "b": torch.zeros(4)}
+        ys, _ = todeint(_pair_field, z0, [0.0, 1.0], (wt,),
+                        grad_method="mali", rtol=1e-5, atol=1e-5,
+                        max_steps=2048, use_pallas=up)
+        sum(torch.sum(v[-1] ** 2) for v in ys.values()).backward()
+        grads[up], ys_by[up] = wt.grad.numpy(), ys
+    for k in ys_by[False]:
+        assert torch.equal(ys_by[False][k], ys_by[True][k])
+    np.testing.assert_allclose(grads[True], grads[False], rtol=1e-5,
+                               atol=1e-7)
+    _, g_aca, _ = _pytree_case("aca", False)
+    np.testing.assert_allclose(g_aca, grads[False], rtol=2e-2, atol=1e-3)
+
+
+def test_mali_multi_time_outputs_latent_ode_style():
+    ts = [0.0, 0.3, 0.7, 1.0]
+    z0 = torch.tensor(0.7, requires_grad=True)
+    ys, _ = todeint(lambda t, z, k: k * z, z0, ts, (torch.tensor(1.0),),
+                    grad_method="mali", rtol=1e-6, atol=1e-6,
+                    max_steps=8192)
+    torch.sum(ys ** 2).backward()
+    analytic = 2 * 0.7 * float(np.sum(np.exp(2 * np.asarray(ts))))
+    assert abs(float(z0.grad) - analytic) / analytic < 1e-3
+
+
+def test_mali_through_a_stack_of_blocks():
+    """MALI blocks in a loop over layers give finite, nonzero
+    gradients."""
+    rng = np.random.default_rng(0)
+    P = torch.tensor((rng.standard_normal((3, 4, 4)) * 0.1).astype(
+        np.float32), requires_grad=True)
+    zz = torch.tensor(rng.standard_normal(4).astype(np.float32))
+    for p in P.unbind(0):
+        zz, _ = todeint_final(lambda t, x, p: torch.tanh(x @ p), zz, 0.0,
+                              1.0, (p,), grad_method="mali", rtol=1e-3,
+                              atol=1e-3, max_steps=64)
+    (zz ** 2).sum().backward()
+    assert torch.isfinite(P.grad).all() and P.grad.abs().sum() > 0
+
+
+def test_mali_pallas_parity_adaptive():
+    """The fused path (K1 half-drifts in the backward) against the plain
+    path: the forward bit for bit (the same lattice arithmetic), the
+    gradients within rtol=1e-5, atol=1e-7 (the reference test's)."""
+    kw = dict(rtol=1e-5, atol=1e-5, max_steps=2048)
+    ys0, gw0, gz0, st0 = _parity_case("mali", None, False, **kw)
+    ys1, gw1, gz1, st1 = _parity_case("mali", None, True, **kw)
+    assert torch.equal(ys0, ys1)
+    assert int(st0.n_trials) == int(st1.n_trials)
+    np.testing.assert_allclose(gw1.numpy(), gw0.numpy(), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(gz1.numpy(), gz0.numpy(), rtol=1e-5,
+                               atol=1e-7)

@@ -45,7 +45,9 @@ def test_the_port_has_modules():
         assert port / "optim" / f"{name}.py" in FILES
     for name in ("run", "common", "reverse_error", "method_costs",
                  "classification", "reliability", "solver_robustness",
-                 "timeseries", "threebody", "memory", "dense_eval"):
+                 "timeseries", "threebody", "memory", "dense_eval",
+                 "failure_overhead", "mali_memory"):
         assert port / "benchmarks" / f"{name}.py" in FILES
+    assert port / "core" / "odeint_mali.py" in FILES
     assert port / "examples" / "three_body.py" in FILES
     assert port / "examples" / "latent_timeseries.py" in FILES

@@ -161,9 +161,14 @@ def test_fixed_regime_and_unported_kinds_raise(cases):
                           NodeConfig(regime="fixed"))
     np.testing.assert_allclose(zT.numpy(), [(1 - 0.25 + 0.25 ** 2 / 2) ** 4]
                                * 2, rtol=1e-6)
-    with pytest.raises(ValueError, match="slice F"):
-        node_block_apply(lambda p, z, t: z, {}, torch.ones(2),
-                         NodeConfig(grad_method="mali"))
+    # mali runs (the ALF pair stepper, whatever the config's solver) and
+    # rejects the fixed regime, as the reference's block does
+    zT = node_block_apply(lambda p, z, t: -z, {}, torch.ones(2),
+                          NodeConfig(grad_method="mali"))
+    np.testing.assert_allclose(zT.numpy(), [np.exp(-1.0)] * 2, rtol=1e-2)
+    with pytest.raises(ValueError, match="fixed"):
+        node_block_apply(lambda p, z, t: -z, {}, torch.ones(2),
+                         NodeConfig(grad_method="mali", regime="fixed"))
     with pytest.raises(ValueError, match="slice G"):
         TransformerBlock(dataclasses.replace(tcfg.SMOKE, family="moe"),
                          TRun(), device="cpu")

@@ -1,5 +1,6 @@
 """The port's per-row tolerances and ``NodeServeEngine``, mirroring
-``tests/test_serve_node.py`` (everything but MALI and the LM engine).
+``tests/test_serve_node.py`` (everything but the LM engine), MALI's
+engine included.
 
 Everything runs on simulated time (``SimClock``) with seeded numpy
 traffic, on the CPU (``device="cpu"``), where the kernels run their plain
@@ -146,6 +147,21 @@ class TestRowTolerances:
 
     @pytest.mark.parametrize("use_pallas", [False, True],
                              ids=["pytree", "pallas"])
+    def test_equal_rowtol_bitwise_matches_scalar_mali(self, use_pallas):
+        """The reference test's mali case: under MALI too, (B,) tensors
+        of one tolerance give the scalar solve's bits."""
+        z = self._batch()
+        kw = dict(grad_method="mali", use_pallas=use_pallas, batch_axis=0)
+        ys_s, st_s = odeint(field, z, self.TS, ARGS, rtol=1e-4, atol=1e-6,
+                            **kw)
+        ys_r, st_r = odeint(field, z, self.TS, ARGS,
+                            rtol=torch.full((4,), 1e-4),
+                            atol=torch.full((4,), 1e-6), **kw)
+        assert torch.equal(ys_s, ys_r)
+        assert torch.equal(st_s.n_trials, st_r.n_trials)
+
+    @pytest.mark.parametrize("use_pallas", [False, True],
+                             ids=["pytree", "pallas"])
     def test_mixed_rowtol_rows_match_uniform_batches(self, use_pallas):
         """Row b of a mixed-tolerance batch is bit-identical to row b of the
         all-that-tolerance batch: rows never interact."""
@@ -265,9 +281,7 @@ class TestQueueAndClock:
             NodeEngineConfig(slots=0)
         with pytest.raises(ValueError, match="chunk_dt"):
             NodeEngineConfig(chunk_dt=0.0)
-        with pytest.raises(ValueError, match="slice F"):
-            NodeEngineConfig(grad_method="mali")
-        for method in ("adjoint", "naive"):
+        for method in ("adjoint", "naive", "mali"):
             assert NodeEngineConfig(grad_method=method).grad_method == method
 
     def test_submit_shape_check(self, eng):
@@ -294,6 +308,29 @@ class TestEngineServing:
         ref = ys[-1].numpy()
         assert np.abs(res[0].z_final - ref).max() <= _parity_bound(
             res[0], req, ref)
+
+    def test_mali_engine_serves(self):
+        """The reference's MALI engine case: a request served on the ALF
+        pair stepper (rounds of ``batch_axis=0`` mali solves, its order-2
+        controller) within the chunked parity bound of a one-shot mali
+        solve, and of the reference engine's result on the same
+        request."""
+        e = _engine(slots=2, grad_method="mali")
+        req = NodeRequest(z0=_z0(91), t1=1.0, rtol=1e-4)
+        e.submit(req, arrival=0.0)
+        r = e.run()[0]
+        assert r.ok and r.status == SolveStatus.OK
+        ys, _ = odeint(field, torch.tensor(req.z0), [0.0, 1.0], ARGS,
+                       grad_method="mali", rtol=1e-4, atol=1e-6)
+        ref = ys[-1].numpy()
+        assert np.abs(r.z_final - ref).max() <= _parity_bound(r, req, ref)
+        je = JEngine(field_j, DIM, (jnp.float32(W),),
+                     JEngineConfig(slots=2, grad_method="mali"))
+        je.submit(JRequest(z0=req.z0, t1=1.0, rtol=1e-4), arrival=0.0)
+        rj = je.run()[0]
+        assert rj.ok and r.n_chunks == rj.n_chunks
+        np.testing.assert_allclose(r.z_final, rj.z_final, rtol=1e-5,
+                                   atol=1e-6)
 
     @pytest.mark.parametrize("method", ["adjoint", "naive"])
     def test_adjoint_and_naive_engines_serve_aca_trajectories(self, method):
