@@ -36,6 +36,7 @@ MALI backward sweep inverts from the terminal pair.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -230,11 +231,50 @@ def natural_grid_outputs(ts, t, t_new, h_use, accept, hit, eval_idx, ys,
     return ys, coeffs, covered.sum(dim=0, dtype=torch.int64)
 
 
-def finite_mask(x: torch.Tensor) -> torch.Tensor:
-    """True where ``x`` is finite: x − x is 0 for a finite value and NaN
-    for NaN and ±Inf. Two tensor ops, where ``torch.isfinite`` takes four:
-    the trial loops' guard runs it once a trial."""
-    return (x - x) == 0
+def trial_decision(cfg: ControllerConfig, order: int, t, h_use, h_min,
+                   t_target, ratio, prev_ratio, tiny, one, big_ratio,
+                   no_fault, guard_nonfinite: bool, live=None):
+    """One trial's controller decision, shared by the four adaptive
+    engines (solo and batched, RK and MALI): only the stepper call and the
+    carry update differ between them.
+
+    Takes the trial's clamped stepsize ``h_use`` (floor ``h_min``) and its
+    error ``ratio``; ``live`` (B,) masks a batched trial's dead rows and
+    ``no_fault`` is the all-False mask of ``bad`` with the guard off.
+    Returns (accept, fail, uflow, t_new, hit, h_next): forced-minimum
+    (railed) steps are accepted, as they cannot shrink, unless the guard
+    finds the ratio non-finite; railed and still non-finite fails the
+    solve (or row); a forced accept that still fails the error test is an
+    underflow; ``hit`` an accepted step landing on ``t_target``.
+    """
+    railed = h_use <= h_min * (1 + 1e-3)
+    if guard_nonfinite:
+        # one read guards the whole trial: a NaN/Inf anywhere in the
+        # stage sums poisons the embedded error, and an Inf state makes
+        # the scaled norm Inf/Inf = NaN. The ratio is a norm, >= 0 or NaN,
+        # so ``ratio < inf`` is False exactly where it is not finite: one
+        # tensor op where ``torch.isfinite`` dispatches four
+        ok = ratio < math.inf
+        accept = ((ratio <= 1.0) | railed) & ok
+        bad = ~ok
+    else:
+        bad = no_fault
+        accept = (ratio <= 1.0) | railed
+    fail = bad & railed
+    if live is not None:
+        accept = live & accept
+        fail = live & fail
+    uflow = accept & railed & (ratio > 1.0)
+
+    t_new = t + h_use
+    hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
+        torch.abs(t_target), one))
+    # a non-finite ratio would poison the h chain; treat it as "error way
+    # too large" so the retry shrinks at max rate
+    ratio_c = torch.where(bad, big_ratio, ratio)
+    h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
+                              order).to(t_new.dtype)
+    return accept, fail, uflow, t_new, hit, h_next
 
 
 def nonfinite_any(*tensors: torch.Tensor) -> torch.Tensor:
@@ -373,7 +413,6 @@ def adaptive_while_solve(
                                   dtype=k0.dtype, device=dev)
     nfe = 1 + hinit_evals
     false = torch.zeros((), dtype=torch.bool, device=dev)
-    true = ~false
     # a non-finite initial state / derivative / h0 fails before stepping
     failed = nonfinite_any(z0, k0, h) if guard_nonfinite else false
     uflow = false
@@ -406,31 +445,11 @@ def adaptive_while_solve(
         # fused path: the scaled norm came out of the combine kernel
         ratio = res.err_ratio if res.err_ratio is not None else \
             error_ratio(res.err, z, res.z_next, rtol, atol)
-        railed = h_use <= h_min * (1 + 1e-3)
-        if guard_nonfinite:
-            # one read guards the whole trial: a NaN/Inf anywhere in the
-            # stage sums poisons the embedded error, and an Inf state
-            # makes the scaled norm Inf/Inf = NaN
-            ok = finite_mask(ratio)
-            # forced-minimum steps are accepted (cannot shrink), unless bad
-            accept = ((ratio <= 1.0) | railed) & ok
-        else:
-            ok = true
-            accept = (ratio <= 1.0) | railed
-        # railed + still non-finite -> freeze (railed > ok: railed and not
-        # ok); forced accept that still fails the error test -> underflow
-        failed = failed | (railed > ok)
-        uflow = uflow | (accept & railed & (ratio > 1.0))
-
-        t_new = t + h_use
-        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
-            torch.abs(t_target), one))
-
-        # a non-finite ratio would poison the h chain; treat it as "error
-        # way too large" so the retry shrinks at max rate
-        ratio_c = torch.where(ok, ratio, big_ratio)
-        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
-                                  tab.order).to(tdt)
+        accept, fail, uflow_now, t_new, hit, h_next = trial_decision(
+            cfg, tab.order, t, h_use, h_min, t_target, ratio, prev_ratio,
+            tiny, one, big_ratio, false, guard_nonfinite)
+        failed = failed | fail
+        uflow = uflow | uflow_now
         trials += 1
 
         # host read 2 of 2 per trial: accept / reject
@@ -648,7 +667,7 @@ def batched_adaptive_while_solve(
     minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
     final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
     karr = torch.arange(n_eval, device=dev)
-    all_rows = torch.ones(B, dtype=torch.bool, device=dev)
+    no_fault = torch.zeros(B, dtype=torch.bool, device=dev)
 
     def live_mask():
         return ((eval_idx < n_eval) & (i < max_steps)
@@ -669,19 +688,11 @@ def batched_adaptive_while_solve(
                               use_pallas=use_pallas, err_scale=(rtol, atol),
                               dense=interpolate_ts)
         ratio = res.err_ratio                                   # (B,)
-        railed = h_use <= h_min * (1 + 1e-3)
-        if guard_nonfinite:
-            ok = finite_mask(ratio)
-            accept = live & ((ratio <= 1.0) | railed) & ok
-        else:
-            ok = all_rows
-            accept = live & ((ratio <= 1.0) | railed)
-        fail_now = live & (railed > ok)
-        uflow_now = accept & railed & (ratio > 1.0)
-
-        t_new = t + h_use
-        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
-            torch.abs(t_target), one))
+        # per-row stepsize control; a non-finite ratio shrinks at the
+        # maximum rate instead of entering the h chain
+        accept, fail_now, uflow_now, t_new, hit, h_next = trial_decision(
+            cfg, tab.order, t, h_use, h_min, t_target, ratio, prev_ratio,
+            tiny, one, big_ratio, no_fault, guard_nonfinite, live)
 
         # first-stage reuse per row: FSAL takes the last stage, other
         # tableaus evaluate f at every row's new point (a live row that
@@ -730,12 +741,6 @@ def batched_adaptive_while_solve(
             e_c = eval_idx.clamp(max=n_eval - 1)
             ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
             eval_adv = hit.to(torch.int64)
-
-        # per-row stepsize control; a non-finite ratio shrinks at the
-        # maximum rate instead of entering the h chain
-        ratio_c = torch.where(ok, ratio, big_ratio)
-        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
-                                  tab.order).to(tdt)
 
         k0 = _bwhere(accept, k0_acc, k0)
         # finished rows take the h = 0 trial for free: only live rows pay
@@ -908,7 +913,6 @@ def mali_adaptive_solve(
     grid_oi = torch.full((max_steps,), -1, dtype=torch.int32, device=dev)
 
     false = torch.zeros((), dtype=torch.bool, device=dev)
-    true = ~false
     failed = nonfinite_any(z0, v0, h) if guard_nonfinite else false
     uflow = false
     nfe = 1 + hinit_evals                   # + the v0 evaluation
@@ -932,22 +936,11 @@ def mali_adaptive_solve(
         res = alf_step(f, t, h_use, zq, vq, scale_exp, z0, args)
         nfe += 1                            # one midpoint evaluation
         ratio = error_ratio(res.err, z, res.z_next, rtol, atol)
-        railed = h_use <= h_min * (1 + 1e-3)
-        if guard_nonfinite:
-            ok = finite_mask(ratio)
-            accept = ((ratio <= 1.0) | railed) & ok
-        else:
-            ok = true
-            accept = (ratio <= 1.0) | railed
-        failed = failed | (railed > ok)
-        uflow = uflow | (accept & railed & (ratio > 1.0))
-
-        t_new = t + h_use
-        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
-            torch.abs(t_target), one))
-        ratio_c = torch.where(ok, ratio, big_ratio)
-        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
-                                  ALF_ORDER).to(tdt)
+        accept, fail, uflow_now, t_new, hit, h_next = trial_decision(
+            cfg, ALF_ORDER, t, h_use, h_min, t_target, ratio, prev_ratio,
+            tiny, one, big_ratio, false, guard_nonfinite)
+        failed = failed | fail
+        uflow = uflow | uflow_now
         trials += 1
 
         # host read 2 of 2 per trial: accept / reject
@@ -1047,7 +1040,7 @@ def batched_mali_adaptive_solve(
     big_ratio = torch.full((), 1e10, dtype=torch.float32, device=dev)
     minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
     karr = torch.arange(n_eval, device=dev)
-    all_rows = torch.ones(B, dtype=torch.bool, device=dev)
+    no_fault = torch.zeros(B, dtype=torch.bool, device=dev)
 
     def live_mask():
         return ((eval_idx < n_eval) & (i < max_steps)
@@ -1062,19 +1055,9 @@ def batched_mali_adaptive_solve(
                             zero_h)
         res = alf_step_batched(f, t, h_use, zq, vq, scale_exp, z0, args)
         ratio = error_ratio_batched(res.err, z, res.z_next, rtol, atol)
-        railed = h_use <= h_min * (1 + 1e-3)
-        if guard_nonfinite:
-            ok = finite_mask(ratio)
-            accept = live & ((ratio <= 1.0) | railed) & ok
-        else:
-            ok = all_rows
-            accept = live & ((ratio <= 1.0) | railed)
-        fail_now = live & (railed > ok)
-        uflow_now = accept & railed & (ratio > 1.0)
-
-        t_new = t + h_use
-        hit = accept & (t_new >= t_target - 16.0 * tiny * torch.maximum(
-            torch.abs(t_target), one))
+        accept, fail_now, uflow_now, t_new, hit, h_next = trial_decision(
+            cfg, ALF_ORDER, t, h_use, h_min, t_target, ratio, prev_ratio,
+            tiny, one, big_ratio, no_fault, guard_nonfinite, live)
 
         # on accept: each row's scalar grid slot
         i_c = i.clamp(max=max_steps - 1).long()
@@ -1085,10 +1068,6 @@ def batched_mali_adaptive_solve(
         # on an eval-time hit: that row's decoded output
         e_c = eval_idx.clamp(max=n_eval - 1)
         ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
-
-        ratio_c = torch.where(ok, ratio, big_ratio)
-        h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
-                                  ALF_ORDER).to(tdt)
 
         t = torch.where(accept, t_new, t)
         zq = _bwhere(accept, res.zq_next, zq)

@@ -58,6 +58,16 @@ Z0_VDP = np.array([2.0, 0.0], np.float32)
 TS_VDP = np.array([0.0, 0.5], np.float32)
 ZB_VDP = np.array([[2.0, 0.0], [1.0, 0.5], [0.3, -0.2]], np.float32)
 PARITY = 1e-5
+# The f32 parameter gradient on the van der Pol problem, relative to its
+# scale: twice the gaps the tests meet on the CPU (1.48e-5 against the
+# naive method at rtol 1e-7, 1.28e-5 against the reference at rtol 1e-4),
+# and above every gap measured at rtol 5e-8 to 2e-7 (at most 1.79e-5,
+# the reference's own). They come from the f32 lattice's quantum (2^-23
+# at this state's scale, a third of the error scale at rtol 1e-7):
+# rounding the pair onto it moves the accepted grid, and the parameter
+# gradient, a sum over every step's contribution, follows the grid
+# (ROADMAP queue 3).
+F32_PARAM_GRAD = 3e-5
 tmali = importlib.import_module("repro_torch.core.odeint_mali")
 tstep = importlib.import_module("repro_torch.core.stepper")
 
@@ -414,22 +424,23 @@ def test_grads_match_naive_vdp(use_pallas, batch):
 
     In f64 (the int64 lattice, on the plain path: the kernels take f32 and
     bf16) every gradient is held to the bound. In f32 the state gradient
-    is; the parameter gradient (0.039, a sum over ~1,800
-    steps' contributions) is not: at rtol 1e-7 the f32 lattice's quantum,
-    2^-23 at this state's scale, is a third of the error scale, and that
-    gradient lands 1e-7 to 2e-5 from the naive one as the grid moves, in
-    the reference as in the port (ROADMAP queue 3: the reference's own
-    misses its 1e-5 at rtol 5e-8, 7e-8 and 2e-7; the port's is 1.5e-5 at
-    1e-7, its f64 1.1e-6)."""
+    is; the parameter gradient (0.039, a sum over ~1,800 steps'
+    contributions) is held to ``F32_PARAM_GRAD``, 3e-5: at rtol 1e-7 the
+    f32 lattice's quantum, 2^-23 at this state's scale, is a third of the
+    error scale, and that gradient lands 1e-7 to 2e-5 from the naive one
+    as the grid moves, in the reference as in the port (ROADMAP queue 3:
+    the reference's own misses its 1e-5 at rtol 5e-8, 7e-8 and 2e-7 and
+    reads 2.85e-6 at 1e-7; the port's is 1.48e-5 at 1e-7, its f64
+    1.1e-6)."""
     for dtype in ("float64", "float32"):
         g_mali = _vdp_grads_dtype("mali", DTYPES[dtype], rtol=1e-7,
                                   max_steps=8192, batch=batch,
                                   use_pallas=use_pallas
                                   and dtype == "float32")
-        held = g_mali if dtype == "float64" else g_mali[:1]
-        for gm, gr in zip(held, _naive_vdp(batch, dtype)):
+        bounds = (1e-5, 1e-5 if dtype == "float64" else F32_PARAM_GRAD)
+        for gm, gr, bound in zip(g_mali, _naive_vdp(batch, dtype), bounds):
             denom = float(gr.abs().max())
-            assert float((gm - gr).abs().max()) <= 1e-5 * denom, \
+            assert float((gm - gr).abs().max()) <= bound * denom, \
                 (dtype, gm, gr)
 
 
@@ -527,10 +538,11 @@ def test_mali_matches_reference_vdp(tol, batch, use_pallas):
     """ys, SolveStats and gradients of the port's MALI against the
     reference's on the van der Pol problem: steps, trials, evaluations and
     status equal, ys within rtol=1e-5, atol=1e-6, the state gradient
-    within 1e-5 of its scale. The parameter gradient is held to the same
-    bound with the reference's quanta in the port's lattice
-    (``_xla_pow2``): with exact quanta it sits up to 1.3e-5 from the
-    reference's, the reference's exp2 rounding (ROADMAP queue 3)."""
+    within 1e-5 of its scale, the parameter gradient within
+    ``F32_PARAM_GRAD`` (3e-5): with the port's exact quanta it sits up to
+    1.28e-5 from the reference's, the reference's exp2 rounding (ROADMAP
+    queue 3). With the reference's quanta in the port's lattice
+    (``_xla_pow2``) it is held to 1e-5 as well."""
     g, ys, st = _vdp_grads("mali", rtol=tol, max_steps=2048, batch=batch,
                            use_pallas=use_pallas)
     (_, (ys_r, st_r)), g_r = _ref_vdp(tol, batch, use_pallas)
@@ -540,6 +552,7 @@ def test_mali_matches_reference_vdp(tol, batch, use_pallas):
     np.testing.assert_allclose(ys.numpy(), np.asarray(ys_r), rtol=1e-5,
                                atol=1e-6)
     assert _rel(g[0], g_r[0]) <= PARITY
+    assert _rel(g[1], g_r[1]) <= F32_PARAM_GRAD
     orig = tstep._pow2
     tstep._pow2 = _xla_pow2
     try:

@@ -14,7 +14,7 @@ the same landings; values are held to rtol=1e-5, atol=1e-6 (the solve
 parity bound of ``tests/test_torch_solve.py``), bitwise only between two
 paths of the port, where the reference pins the same pair of its own.
 The guards cost check (``repro_torch.benchmarks.failure_overhead``) runs
-at its quick size with the reference's 5% gate.
+at its quick size, its 5% gate held on given numbers.
 """
 
 import warnings
@@ -388,21 +388,61 @@ def test_solve_with_fallback_every_rung_raising():
 
 
 # ------------------------------------------------- the guards' cost gate
-def test_failure_overhead_bench_quick():
+def test_failure_overhead_bench_quick(monkeypatch):
     """``repro_torch.benchmarks.failure_overhead`` at its quick size (the
-    reference's van der Pol problem, 3 interleaved pairs here): the
-    reference's row names, equal trials for the guarded and the bare
-    solve, and the 5% gate: the benchmark raises when the overhead is
-    above it beyond two standard errors of the pairs' median, and reads
-    SKIP when the noise leaves the gate unresolved."""
+    reference's van der Pol problem, 2 interleaved pairs here): the
+    guarded and the bare solve take equal trials, the guard's work lies in
+    ``trial_decision`` and the initial check (``guard_ops`` gates the op
+    counts: a guarded solve's extra ops are n_trials × the decision's + the
+    check's, and a stray check fails it), and the overhead is the guard's parts' time over the bare
+    solve's. The 5% gate is then held on given numbers: 4% passes, 6%
+    raises ``GateFailed``, and a bare solve under the reference's 1 ms
+    noise floor skips. On the card chip_smoke applies the gate to the
+    quick mode's measured numbers."""
     from repro_torch.benchmarks import failure_overhead
+    from repro_torch.benchmarks.common import GateFailed
 
-    out = failure_overhead.run(quick=True, device="cpu", reps=3)
+    m = failure_overhead.measure(quick=True, device="cpu", reps=2)
+    assert m["trials"] > 1000
+    assert m["reps"] == 2
+    ops = m["ops"]
+    assert ops["decision_extra"] > 0 and ops["initial"] > 0
+    assert ops["solve_extra"] == (ops["n_trials"] * ops["decision_extra"]
+                                  + ops["initial"])
+    assert m["decision_extra_us"] > 0 and m["initial_check_us"] > 0
+    assert 0 < m["bare_s"] and 0 < m["guarded_s"]
+    assert m["guard_s"] == pytest.approx(
+        m["trials"] * m["decision_extra_us"] * 1e-6
+        + m["initial_check_us"] * 1e-6)
+    assert m["overhead_frac"] == m["guard_s"] / m["bare_s"]
+    # a guard that does work outside its parts fails the count
+    solve = failure_overhead.solve
+
+    def solve_with_stray_check(z0, ts, mu, guard):
+        if guard:
+            torch.isfinite(z0).all()
+        return solve(z0, ts, mu, guard)
+
+    monkeypatch.setattr(failure_overhead, "solve", solve_with_stray_check)
+    with pytest.raises(GateFailed, match="outside trial_decision"):
+        failure_overhead.guard_ops(torch.device("cpu"))
+    monkeypatch.setattr(failure_overhead, "solve", solve)
+
+    def given(frac, bare_s):
+        return lambda *a, **k: {**m, "bare_s": bare_s,
+                                "guard_s": bare_s * frac,
+                                "overhead_frac": frac}
+
+    monkeypatch.setattr(failure_overhead, "measure", given(0.04, 1.0))
+    out = failure_overhead.run(quick=True, device="cpu")
     assert set(out) == {"failure_overhead/trials",
                         "failure_overhead/guarded_s",
                         "failure_overhead/bare_s", "failure_overhead/frac",
                         "failure_overhead/gate"}
-    assert out["failure_overhead/trials"] > 1000
-    assert out["failure_overhead/gate"] in ("PASS", "SKIP")
-    if out["failure_overhead/gate"] == "PASS":
-        assert out["failure_overhead/frac"] <= failure_overhead.GATE_FRAC
+    assert out["failure_overhead/gate"] == "PASS"
+    monkeypatch.setattr(failure_overhead, "measure", given(0.06, 1.0))
+    with pytest.raises(GateFailed, match="cost 6.0% of the solve"):
+        failure_overhead.run(quick=True, device="cpu")
+    monkeypatch.setattr(failure_overhead, "measure", given(0.5, 1e-4))
+    out = failure_overhead.run(quick=True, device="cpu")
+    assert out["failure_overhead/gate"] == "SKIP"
