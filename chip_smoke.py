@@ -200,11 +200,47 @@ printing one JSON line (``"phase": ...``):
                       share, device time by kernel class); then the plain
                       route on the same weights and one f32 prefill of
                       both routes on call B's prompts.
+11b. ``serve_moe`` — ``ServeEngine.generate`` over
+                      ``build_model(deepseek_moe_16b.CONFIG)`` whole: 28
+                      MoE layers (64 routed experts of 1408, 2 shared, top
+                      6, capacity factor 1.25), d_model 2048, 16 heads of
+                      128, vocab 102,400, 16.9 B parameters drawn leaf by
+                      leaf in bf16, ``use_pallas=True``. Calls A (4 x 4096
+                      + 32) and B (2 x 1000 + 16) as RecurrentGemma's:
+                      launches checked exactly (K7 2 per layer + 1 per
+                      prefill and per decode step, K8 once per layer per
+                      prefill), prefill ms, decode ms per token, peak
+                      memory; a repeated decode bitwise; the plain route on
+                      the same weights (prefill logits within
+                      MOE_LOGIT_BF16_RTOL, the router's choices compared
+                      layer by layer: routing flips); a 4-layer f32 cut at
+                      full widths, both routes within 1e-3; K8 causal at
+                      (4, 16, 4096, 128) and (2, 24, 1024, 64) against its
+                      plain version, timed beside SDPA's causal call and
+                      the operations bound. Then ``musicgen_medium.CONFIG``
+                      whole (48 layers, LayerNorm, GeLU, head dim 64,
+                      1.36 B parameters, bf16) on the audio frontend's
+                      embeds: a 2 x 1024-frame prefill (K8 once per layer)
+                      and 16 decode frames, against the plain route.
+11c. ``train_node_lm`` — ``examples/train_node_lm.py --adaptive`` at full
+                      width: ``node18_cifar.CONFIG`` (18 layers, d_model
+                      768, vocab 32,768) in f32 with ``NODE_TRAIN`` (every
+                      block an adaptive HeunEuler ODE block, ACA,
+                      segmented, K1/K2), ``TokenPipeline`` (8 x 128),
+                      AdamW with ``cosine_warmup``, ``TrainLoop`` with a
+                      checkpoint at step 4 in a temporary directory: 6
+                      steps (ms, loss, grad norm, K1/K2 launches, each
+                      block's steps and trials), 0 skipped, finite loss,
+                      peak memory; a fresh loop resumes at step 4 with the
+                      saved params bit for bit and its steps to 6 match the
+                      uninterrupted run within 1e-5; one step's loss on the
+                      plain route (K1/K2's plain versions) bitwise the
+                      kernel route's, gradients within 1e-5.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
-   each of its two kernels over both LM paths, K8 with its window-0 time
-   and SDPA's causal time, K10 with its time at call B's shape, K3 and
+   each of its two kernels over the LM paths, K8 with its window-0 time
+   and SDPA's causal time and its causal times at head dims 128 and 64, K10 with its time at call B's shape, K3 and
    K5 with their times at the batched block's aligned rows, K5 also on
    one serving row, K4 at the serving row), the card's name and power
    limit,
@@ -217,7 +253,8 @@ NODE_TRAIN steps, dense solve and latent decode for K1-K4,
 solve_health_mali's NODE_TRAIN_MALI steps for K1/K3,
 paper_benchmarks' runs for K1/K2, each
 serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
-K7/K9) runs with every launch count set to 0 just before it and read just
+K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
+train_node_lm's six steps for K1/K2) runs with every launch count set to 0 just before it and read just
 after.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -3179,6 +3216,485 @@ def phase_serve_mamba2(torch, seed: int):
     return main_launches, calls
 
 
+# ---------------------------------------------------- dense and MoE serving
+
+MOE_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
+MOE_F32_LAYERS = 4              # the f32 cut: full widths, 4 of 28 layers
+MOE_KERNELS = ("rmsnorm", "flash_attention")
+# bf16 kernel route against the plain route over the whole 28-layer MoE:
+# K7's and K8's bf16 roundings flip 3.6% (call A) and 4.1% (call B) of
+# the router's choices, from layer 0 on, and a flipped token moves by
+# O(1); the last position's logits read 7.9e-3 and 8.3e-3 of max |logit|
+# (seed 0, H100). The bound is three times the larger (ROADMAP queue 3,
+# "MoE routing flips")
+MOE_LOGIT_BF16_RTOL = 2.5e-2
+MUSICGEN_CALL = (2, 1024, 16)   # prompts, frames, decode frames
+
+
+class _RouteLog:
+    """Wraps ``models.moe._route`` to keep each call's expert ids (each
+    token's set, sorted): the routing of every layer of one forward, in
+    layer order."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.orig, self.ids = moe_mod, moe_mod._route, None
+
+    def __enter__(self):
+        self.ids = []
+
+        def route(x, w, cfg):
+            out = self.orig(x, w, cfg)
+            self.ids.append(out[0].sort(dim=-1).values)
+            return out
+
+        self.mod._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+
+def _flips(a, b) -> int:
+    """(layer, token) pairs whose expert sets differ."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def _k8_case(torch, gen, b, h, s, dh):
+    """K8 against its plain version at (b, h, s, dh), as many kv heads,
+    causal, bf16; times beside SDPA's causal call and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q, k, v = (torch.randn(b, h, s, dh, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    out = ops.flash_attention(q, k, v, window=0)
+    ref = fa.flash_attention_plain(q, k, v, window=0)
+    torch.cuda.synchronize()
+    err = _rel(out, ref)
+    diff = float((out.float() - ref.float()).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= ATT_BF16_RTOL,
+          f"K8 {(b, h, s, dh)} causal bf16: {err} beyond {ATT_BF16_RTOL}")
+    t = {"shape": [b, h, s, dh], "kv_heads": h, "window": 0,
+         "dtype": "bfloat16", "err": err, "max_abs_err": diff,
+         "ms": time_ms(torch, lambda: ops.flash_attention(q, k, v, window=0),
+                       iters=10, warmup=2),
+         "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+             q, k, v, window=0), iters=5, warmup=1),
+         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=True), iters=10, warmup=2),
+         "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
+         "flops": 4 * dh * b * h * _band_pairs(s, 0),
+         "peak_flops": BF16_FLOP_PER_S}
+    _bound(t)
+    return t
+
+
+def phase_serve_moe(torch, seed: int):
+    import dataclasses
+
+    from repro_torch.configs import deepseek_moe_16b, musicgen_medium
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = deepseek_moe_16b.CONFIG
+    layers = cfg.n_layers
+    max_seq = max(s + n for _, s, n in MOE_CALLS.values()) + 8
+    run16 = RunConfig(compute_dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, use_pallas=True,
+                      max_seq=max_seq)
+    model = build_model(cfg, run16)
+    n_params = model.n_params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # drawn leaf by leaf in f32 and cast: one f32 temporary at a time
+    params = model.init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "params_GB": torch.cuda.memory_allocated() / 1e9}
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    prompts = {name: torch.randint(0, cfg.vocab, (b, s), generator=tgen,
+                                   device="cuda", dtype=torch.int32)
+               for name, (b, s, _) in MOE_CALLS.items()}
+    # warm-up (cuBLAS handles, the kernels' first launch): not counted
+    ServeEngine(model, params, ServeConfig(max_new_tokens=2)).generate(
+        prompts["B"][:, :64])
+    torch.cuda.synchronize()
+
+    calls, main_launches = {}, {k: 0 for k in MOE_KERNELS}
+    for name, (b, s, new) in MOE_CALLS.items():
+        engine = ServeEngine(model, params, ServeConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        out = engine.generate(prompts[name])["tokens"]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = engine.last_decode_steps
+        want = {"rmsnorm": (2 * layers + 1) * (1 + steps),
+                "flash_attention": layers}
+        got = {k: counts[k] for k in MOE_KERNELS}
+        others = {k: v for k, v in counts.items()
+                  if k not in MOE_KERNELS and v}
+        check(got == want and not others,
+              f"call {name}: launches {got} (others {others}) != {want}")
+        k7_kernels = dict(k7.variant_launches)
+        check(sum(k7_kernels.values()) == got["rmsnorm"],
+              f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
+        check(steps == new - 1, f"call {name}: {steps} decode steps")
+        for k in MOE_KERNELS:
+            main_launches[k] += got[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts[name])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        calls[name] = {
+            "prompts": b, "prompt_len": s, "new_tokens": new,
+            "capacity": moe_mod._capacity(b * s, cfg),
+            "decode_capacity": moe_mod._capacity(b, cfg),
+            "decode_steps": steps, "launches": got,
+            "rmsnorm_kernels": k7_kernels,
+            "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
+            "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
+            "finite_tokens": bool(((out >= 0) & (out < cfg.vocab)).all()),
+        }
+        check(tuple(out.shape) == (b, s + new)
+              and calls[name]["finite_tokens"]
+              and torch.equal(out[:, :s], prompts[name]),
+              f"call {name}: output tokens {tuple(out.shape)} malformed")
+        emit({"phase": "serve_call", "model": "deepseek_moe_16b",
+              "call": name, **calls[name]})
+    del engine, out
+
+    # a repeated decode gives the same bits (the combine sums each token's
+    # experts in a fixed order; no atomics)
+    b, s, _ = MOE_CALLS["B"]
+    with torch.no_grad():
+        last, caches = model.prefill(params, {"tokens": prompts["B"]})
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        runs = []
+        for _ in range(2):
+            c = {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in caches.items()}
+            lg, _ = model.decode_step(params, {"tokens": nxt}, c, s)
+            lg2, _ = model.decode_step(params, {"tokens": nxt}, c, s + 1)
+            runs.append((lg, lg2))
+        del caches, c
+    repeat_bitwise = all(torch.equal(x, y) for x, y in zip(*runs))
+    check(repeat_bitwise, "a repeated MoE decode is not bitwise equal")
+
+    # the plain route (use_pallas=False) on the same weights: prefill
+    # logits and the router's choices of every layer
+    plain = build_model(cfg, dataclasses.replace(run16, use_pallas=False))
+    routes = {}
+    for name, (b, s, new) in MOE_CALLS.items():
+        with torch.no_grad(), _RouteLog(moe_mod) as rk:
+            lk, _ = model.prefill(params, {"tokens": prompts[name]})
+        with torch.no_grad(), _RouteLog(moe_mod) as rp:
+            lp, _ = plain.prefill(params, {"tokens": prompts[name]})
+        check(bool(torch.isfinite(lk.float()).all()),
+              f"call {name}: prefill logits not finite")
+        flips = [_flips([x], [y]) for x, y in zip(rk.ids, rp.ids)]
+        err = _rel(lk, lp)
+        routes[name] = {"prefill_logit_rel": err,
+                        "routing_flips": sum(flips),
+                        "routing_flips_by_layer": flips,
+                        "routing_choices": layers * b * s,
+                        "first_flip_layer": next(
+                            (i for i, f in enumerate(flips) if f), None),
+                        "argmax_equal": int((lk.argmax(-1)
+                                             == lp.argmax(-1)).sum()),
+                        "share_of_bound": err / MOE_LOGIT_BF16_RTOL}
+        check(err <= MOE_LOGIT_BF16_RTOL,
+              f"call {name}: prefill logits kernels vs plain {err} > "
+              f"{MOE_LOGIT_BF16_RTOL}")
+    del params, model, plain
+    torch.cuda.empty_cache()
+
+    # f32 at full widths, 4 of the 28 layers (the f32 weights of all 28
+    # would take 67.6 GB): the two routes to 1e-3 of max |logit|
+    cut = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+    run32 = dataclasses.replace(run16, compute_dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = build_model(cut, run32)
+    p32 = m32.init(seed=seed, device="cuda")
+    f32 = {}
+    for name in MOE_CALLS:
+        ops.reset_launches()
+        with torch.no_grad(), _RouteLog(moe_mod) as rk:
+            lk, _ = m32.prefill(p32, {"tokens": prompts[name]})
+        n_att = ops.launch_counts()["flash_attention"]
+        with torch.no_grad(), _RouteLog(moe_mod) as rp:
+            lp, _ = build_model(cut, dataclasses.replace(
+                run32, use_pallas=False)).prefill(
+                    p32, {"tokens": prompts[name]})
+        f32[name] = {"logit_rel": _rel(lk, lp),
+                     "routing_flips": _flips(rk.ids, rp.ids),
+                     "flash_attention_launches": n_att}
+        check(n_att == MOE_F32_LAYERS,
+              f"f32 cut call {name}: {n_att} K8 launches")
+        check(f32[name]["logit_rel"] <= LOGIT_F32_RTOL,
+              f"f32 cut call {name}: kernels vs plain "
+              f"{f32[name]['logit_rel']} > {LOGIT_F32_RTOL}")
+    del p32, m32
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    k8 = {"head_dim_128": _k8_case(torch, gen, 4, 16, 4096, 128),
+          "head_dim_64": _k8_case(torch, gen, 2, 24, 1024, 64)}
+    emit({"phase": "kernel_times_moe", "ok": True, "flash_attention": k8})
+
+    # musicgen_medium whole: the audio frontend's embeds, LayerNorm (no
+    # K7), K8 at head dim 64 in every layer of the prefill
+    mcfg = musicgen_medium.CONFIG
+    mb, ms, mnew = MUSICGEN_CALL
+    mrun = dataclasses.replace(run16, max_seq=ms + mnew + 8)
+    mm = build_model(mcfg, mrun)
+    mp = mm.init(seed=seed, device="cuda")
+    emb = (0.02 * torch.randn(mb, ms + mnew, mcfg.d_model, generator=gen,
+                              device="cuda")).to(torch.bfloat16)
+    with torch.no_grad():
+        mm.prefill(mp, {"embeds": emb[:, :64]})          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        last, caches = mm.prefill(mp, {"embeds": emb[:, :ms]})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = []
+        for j in range(mnew):
+            lg, caches = mm.decode_step(
+                mp, {"embeds": emb[:, ms + j:ms + j + 1]}, caches, ms + j)
+            frames.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mcounts = ops.launch_counts()      # the main path ends here
+        mpeak = torch.cuda.max_memory_allocated() / 1e9
+        lp, _ = build_model(mcfg, dataclasses.replace(
+            mrun, use_pallas=False)).prefill(mp, {"embeds": emb[:, :ms]})
+    mgot = {k: mcounts[k] for k in MOE_KERNELS}
+    check(mgot == {"rmsnorm": 0, "flash_attention": mcfg.n_layers},
+          f"musicgen: launches {mgot}")
+    check(all(bool(torch.isfinite(x.float()).all())
+              for x in [last] + frames), "musicgen: logits not finite")
+    music = {"n_params": mm.n_params(), "prompts": mb, "frames": ms,
+             "decode_frames": mnew, "launches": mgot,
+             "prefill_ms": 1e3 * (t1 - t0),
+             "decode_ms_per_frame": 1e3 * (t2 - t1) / mnew,
+             "peak_mem_GB": mpeak,
+             "prefill_logit_rel_plain": _rel(last, lp)}
+    check(music["prefill_logit_rel_plain"] <= LOGIT_BF16_RTOL,
+          f"musicgen: prefill logits kernels vs plain "
+          f"{music['prefill_logit_rel_plain']} > {LOGIT_BF16_RTOL}")
+    main_launches["flash_attention"] += mgot["flash_attention"]
+    del mp, mm, caches
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_moe", "ok": True,
+          "config": {"d_model": cfg.d_model, "n_layers": layers,
+                     "n_heads": cfg.n_heads, "head_dim":
+                     cfg.resolved_head_dim, "n_experts": cfg.n_experts,
+                     "n_shared_experts": cfg.n_shared_experts,
+                     "top_k": cfg.top_k, "d_expert": cfg.d_expert,
+                     "capacity_factor": cfg.capacity_factor,
+                     "vocab": cfg.vocab, "n_params": n_params,
+                     "dtype": "bfloat16", "max_seq": max_seq},
+          "init": init, "calls": calls,
+          "repeat_decode_bitwise": repeat_bitwise,
+          "kernels_vs_plain": routes,
+          "logit_bf16_rtol": MOE_LOGIT_BF16_RTOL,
+          "f32_cut": {"n_layers": MOE_F32_LAYERS, "calls": f32,
+                      "rtol": LOGIT_F32_RTOL},
+          "musicgen": music, "launches": main_launches})
+    return main_launches, calls, k8
+
+
+# ------------------------------------------ LM training with NODE blocks
+
+NODE_LM_STEPS = (4, 6)          # checkpoint and resume at 4, stop at 6
+NODE_LM_BATCH = (8, 128)        # global batch, sequence length
+NODE_LM_GRAD_RTOL = 1e-5
+
+
+def _tree_rel(torch, a, b) -> float:
+    """Worst max |a - b| / max |b| over the leaves of two trees."""
+    from torch.utils import _pytree as pytree
+    worst = 0.0
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+        worst = max(worst, _rel(x, y) if bool((y != 0).any())
+                    else float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def phase_train_node_lm(torch, seed: int):
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw, apply_updates, cosine_warmup
+    from repro_torch.train import (TrainLoop, TrainLoopConfig,
+                                   make_train_state)
+
+    cfg = node18_cifar.CONFIG
+    ncfg = node18_cifar.NODE_TRAIN
+    rcfg = RunConfig(compute_dtype=torch.float32, node=ncfg)
+    model = build_model(cfg, rcfg)
+    gb, seq = NODE_LM_BATCH
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=gb,
+                         seed=seed, device="cuda")
+    opt = adamw(cosine_warmup(3e-4, 20, 300), weight_decay=0.1)
+    ckpt_at, stop = NODE_LM_STEPS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_node_lm_")
+    try:
+        lcfg = TrainLoopConfig(clip_norm=1.0, ckpt_dir=tmp,
+                               ckpt_every=ckpt_at, log_every=1)
+        stragglers = []
+        loop = TrainLoop(model, opt, lcfg,
+                         make_train_state(model, opt, seed=seed,
+                                          device="cuda"),
+                         straggler_cb=lambda s, r: stragglers.append(
+                             [s, r]))
+        check(loop.step == 0, f"a fresh ckpt dir resumed at {loop.step}")
+        steps, logs = [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        for s in range(stop):
+            model.node_stats = []
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            loop.run(pipe.batch, s + 1,
+                     log_cb=lambda i, m: logs.__setitem__(i, m))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = ops.launch_counts()
+            st = model.node_stats
+            steps.append({
+                "step": s, "ms": 1e3 * dt, "loss": logs[s + 1]["loss"],
+                "grad_norm": logs[s + 1]["grad_norm"],
+                "skipped": logs[s + 1]["skipped"],
+                "launches": {k: after[k] - before[k] for k in K1_K2},
+                "block_steps": [int(x.n_steps) for _, _, x in st],
+                "block_trials": [int(x.n_trials) for _, _, x in st]})
+            if s + 1 == ckpt_at:
+                saved = pytree.tree_map(lambda t: t.clone(),
+                                        loop.state.params)
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        model.node_stats = None
+        launches = {k: counts[k] for k in K1_K2}
+        others = {k: v for k, v in counts.items() if k not in K1_K2 and v}
+        check(not others, f"train_node_lm: other kernels launched {others}")
+        check(all(v > 0 for v in launches.values()),
+              f"train_node_lm: launches {launches}")
+        check(loop.skipped_steps == 0 and all(
+            x["skipped"] == 0 for x in steps),
+            f"train_node_lm: {loop.skipped_steps} skipped steps")
+        check(all(math.isfinite(x["loss"]) for x in steps),
+              "train_node_lm: non-finite loss")
+        check(all(len(x["block_steps"]) == cfg.n_layers for x in steps),
+              "train_node_lm: not one NODE solve per block")
+
+        # a fresh loop resumes at the checkpoint bit for bit, and its
+        # steps to the end give the uninterrupted run's parameters
+        loop2 = TrainLoop(model, opt, lcfg,
+                          make_train_state(model, opt, seed=seed + 1,
+                                           device="cuda"))
+        check(loop2.step == ckpt_at,
+              f"resume: step {loop2.step} != {ckpt_at}")
+        resume_bitwise = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(loop2.state.params),
+            pytree.tree_leaves(saved)))
+        check(resume_bitwise, "resume: params not bitwise the saved ones")
+        loop2.run(pipe.batch, stop)
+        resumed_rel = _tree_rel(torch, loop2.state.params,
+                                loop.state.params)
+        check(resumed_rel <= 1e-5,
+              f"resumed run {resumed_rel} from the uninterrupted one")
+
+        # the plain route (use_pallas=False: K1/K2's plain versions) on the
+        # same state and batch: the loss bit for bit, gradients 1e-5
+        # (each route's forward and backward, and one AdamW update, timed)
+        batch = pipe.batch(stop)
+        grads, split = {}, {}
+        route_launches = {}
+        for up in (True, False):
+            m = build_model(cfg, dataclasses.replace(
+                rcfg, node=dataclasses.replace(ncfg, use_pallas=up)))
+            leaves, spec = pytree.tree_flatten(loop.state.params)
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = m.loss_fn(pytree.tree_unflatten(live, spec), batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g = torch.autograd.grad(loss, live)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            route_launches[up] = {k: ops.launch_counts()[k] for k in K1_K2}
+            grads[up] = (loss.detach(), g)
+            split["kernels" if up else "plain"] = {
+                "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1)}
+        t0 = time.perf_counter()
+        upd, _ = opt.update(pytree.tree_unflatten(list(grads[True][1]), spec),
+                            loop.state.opt_state, loop.state.params)
+        apply_updates(loop.state.params, upd)
+        torch.cuda.synchronize()
+        split["adamw_update_ms"] = 1e3 * (time.perf_counter() - t0)
+        del upd
+        loss_bitwise = torch.equal(grads[True][0], grads[False][0])
+        grad_rel = max(_rel(a, b) for a, b in zip(grads[True][1],
+                                                  grads[False][1])
+                       if bool((b != 0).any()))
+        check(loss_bitwise, f"kernel route loss {float(grads[True][0])} != "
+              f"plain {float(grads[False][0])}")
+        check(grad_rel <= NODE_LM_GRAD_RTOL,
+              f"kernel vs plain gradients {grad_rel} > {NODE_LM_GRAD_RTOL}")
+        check(all(v == 0 for v in route_launches[False].values())
+              and all(v > 0 for v in route_launches[True].values()),
+              f"route launches {route_launches}")
+        del grads
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "train_node_lm", "ok": True,
+          "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                     "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+                     "vocab": cfg.vocab, "n_params": model.n_params(),
+                     "dtype": "float32", "batch": gb, "seq_len": seq,
+                     "node": {"solver": ncfg.solver, "rtol": ncfg.rtol,
+                              "grad_method": ncfg.grad_method,
+                              "checkpoint_segments":
+                              ncfg.checkpoint_segments}},
+          "steps": steps, "step_split": split, "peak_mem_GB": peak,
+          "launches": launches,
+          "skipped_steps": loop.skipped_steps, "stragglers": stragglers,
+          "resume_bitwise": resume_bitwise, "resumed_vs_uninterrupted":
+          resumed_rel, "plain_route": {"loss_bitwise": loss_bitwise,
+                                       "grad_rel": grad_rel,
+                                       "launches": {str(k): v for k, v in
+                                                    route_launches.items()}}})
+    return launches, steps
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -3235,6 +3751,10 @@ def main(argv=None) -> int:
         worst_ssm, timings_ssm = phase_kernels_ssm(torch, args.seed)
         phase = "serve_mamba2"
         ssm_launches, ssm_calls = phase_serve_mamba2(torch, args.seed)
+        phase = "serve_moe"
+        moe_launches, moe_calls, k8_moe = phase_serve_moe(torch, args.seed)
+        phase = "train_node_lm"
+        lm_train_launches, _ = phase_train_node_lm(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -3267,7 +3787,7 @@ def main(argv=None) -> int:
     }
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
                    + dense_launches[k] + mali_launches.get(k, 0)
-                   for k in K1_K2},
+                   + lm_train_launches[k] for k in K1_K2},
                 **batch_launch, "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",
@@ -3289,13 +3809,17 @@ def main(argv=None) -> int:
                for name, replaces, t in entries]
     worst.update(worst_lm)
     worst.update(worst_ssm)
-    # K7 runs on both LM paths: its launches add up
+    worst["flash_attention"] = max(
+        worst["flash_attention"], *(t["max_abs_err"] for t in k8_moe.values()))
+    # K7 runs on the three LM serving paths, K8 on two: launches add up
     launches.update(lm_launches)
-    launches["rmsnorm"] += ssm_launches["rmsnorm"]
+    launches["rmsnorm"] += ssm_launches["rmsnorm"] + moe_launches["rmsnorm"]
+    launches["flash_attention"] += moe_launches["flash_attention"]
     for k in ("ssd_scan",) + K9_PARTS:
         launches[k] = ssm_launches[k]
     k7_variants = {}
-    for c in (*lm_calls.values(), *ssm_calls.values()):
+    for c in (*lm_calls.values(), *ssm_calls.values(),
+              *moe_calls.values()):
         for k, n in c["rmsnorm_kernels"].items():
             k7_variants[k] = k7_variants.get(k, 0) + n
     entries += [
@@ -3360,7 +3884,11 @@ def main(argv=None) -> int:
         "flash_attention": {
             "causal_ms": timings_lm["flash_attention_causal"]["ms"],
             "causal_library_ms":
-            timings_lm["flash_attention_causal"]["library_ms"]},
+            timings_lm["flash_attention_causal"]["library_ms"],
+            # causal at deepseek_moe_16b's and musicgen_medium's prefill
+            **{f"{key}_{f}": t[f] for key, t in k8_moe.items()
+               for f in ("shape", "ms", "plain_ms", "bound_ms",
+                         "library_ms", "max_abs_err")}},
     }
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -4,7 +4,8 @@
         [--full] [--only NAME] [--device cuda|cpu]
 
 Port of ``benchmarks/run.py`` for the paper's experiments (Fig. 4/5/6,
-Tables 1-7), the segmented-memory and dense-output benchmarks (``memory``,
+Tables 1-7), the gradient-method ablation on a NODE LM (``node_lm``), the
+segmented-memory and dense-output benchmarks (``memory``,
 ``dense_eval``), the solve-health guards' cost gate
 (``failure_overhead``) and MALI's memory (``mali_memory``). Quick mode
 (the reference's smaller sizes) is the default;
@@ -20,7 +21,7 @@ import time
 import traceback
 
 from . import (classification, dense_eval, failure_overhead,
-               mali_memory, memory, method_costs, reliability,
+               mali_memory, memory, method_costs, node_lm, reliability,
                reverse_error, solver_robustness, threebody, timeseries,
                toy_gradient)
 from .common import emit
@@ -34,6 +35,7 @@ BENCHES = [
     ("solver_robustness (Tables 6/7)", solver_robustness.run),
     ("timeseries (Table 4)", timeseries.run),
     ("threebody (Table 5/Fig.8)", threebody.run),
+    ("node_lm (beyond-paper: LM ablation)", node_lm.run),
     ("memory (beyond-paper: segmented ACA)", memory.run),
     ("dense_eval (beyond-paper: interpolate_ts)", dense_eval.run),
     ("mali_memory (beyond-paper: reversible MALI)", mali_memory.run),

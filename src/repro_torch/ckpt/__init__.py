@@ -1,0 +1,7 @@
+"""repro_torch.ckpt — atomic, resumable checkpointing of tensor trees."""
+
+from .checkpoint import (CheckpointManager, latest_step, restore_checkpoint,
+                         save_checkpoint)
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "latest_step"]

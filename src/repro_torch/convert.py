@@ -7,7 +7,9 @@ nesting (the LM ``Model`` takes such trees: stacked group leaves, the f32
 nesting with dots into a state dict (``{"mixer": {"wq": a}}`` ->
 ``"mixer.wq"``) for ``nn.Module``s such as the node18 block. The
 ``(in, out)`` weight layout is kept, so ``x @ w`` is the same product on
-both sides.
+both sides. ``train_state_from_jax`` carries a reference ``TrainState``
+(step, params and the AdamW or SGD state) into the port's, so one train
+step can be compared on the same state.
 """
 
 from __future__ import annotations
@@ -52,3 +54,35 @@ def params_from_jax(tree: Any, device="cuda",
     out: Dict[str, torch.Tensor] = {}
     _flatten(tree_from_jax(tree, device, prefix), prefix, out)
     return out
+
+
+def train_state_from_jax(state: Any, device="cuda"):
+    """A reference ``TrainState`` of numpy arrays (``jax.tree.map(
+    np.asarray, state)`` keeps its named tuples) -> the port's
+    ``TrainState`` on ``device``: the step, the params tree, and
+    ``AdamWState`` (step, mu, nu) or ``SGDState`` (step, velocity)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.sgd import SGDState
+    from repro_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+
+    def scalar(x):
+        return torch.from_numpy(np.array(np.asarray(x), copy=True)).to(dev)
+
+    opt = state.opt_state
+    kind = type(opt).__name__
+    if kind == "AdamWState":
+        opt_state = AdamWState(step=scalar(opt.step),
+                               mu=tree_from_jax(opt.mu, dev),
+                               nu=tree_from_jax(opt.nu, dev))
+    elif kind == "SGDState":
+        opt_state = SGDState(step=scalar(opt.step),
+                             velocity=tree_from_jax(opt.velocity, dev))
+    else:
+        raise ValueError(
+            f"train_state_from_jax carries AdamWState or SGDState; got "
+            f"{kind}")
+    return TrainState(step=scalar(state.step),
+                      params=tree_from_jax(state.params, dev),
+                      opt_state=opt_state)

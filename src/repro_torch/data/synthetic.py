@@ -1,19 +1,65 @@
-"""Spiral classification, the stand-in for the paper's CIFAR experiments.
+"""Synthetic token and classification pipelines (offline substitutes).
 
-Port of ``repro/data/synthetic.py::spiral_classification``: k-class
-classification of points no linear model separates, lifted to ``dim``
-features. The points are drawn with numpy exactly as the reference draws
-them, so a seed gives the reference's bits.
+Port of ``repro/data/synthetic.py``. ``TokenPipeline`` generates LM
+batches with Zipfian token statistics and a deterministic (seed, step) ->
+batch map, each row seeded on its own so a host materializes only its
+slice of the global batch. ``spiral_classification`` is the stand-in for
+the paper's CIFAR experiments: k-class classification of points no
+linear model separates, lifted to ``dim`` features. Both draw with numpy
+exactly as the reference draws, so a seed gives the reference's bits.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipeline:
+    """LM batches on ``device`` (the card unless the caller asks for the
+    CPU): ``tokens`` and ``labels`` (B, seq_len) int32, the labels the
+    tokens shifted by one, and a ``mask`` of ones."""
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+    device: str = "cuda"
+
+    def batch(self, step: int,
+              host_slice: Optional[Tuple[int, int]] = None
+              ) -> Dict[str, torch.Tensor]:
+        """Batch for ``step``; host_slice=(host_idx, n_hosts) selects the
+        host-local rows of the global batch."""
+        b = self.global_batch
+        lo, hi = 0, b
+        if host_slice is not None:
+            idx, n = host_slice
+            per = b // n
+            lo, hi = idx * per, (idx + 1) * per
+        # per-row seeding: a host draws only its rows, yet gets exactly the
+        # global batch's rows lo..hi
+        rows = []
+        for r in range(lo, hi):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, step, r]))
+            rows.append(rng.zipf(self.zipf_a, size=self.seq_len + 1))
+        z = np.stack(rows)
+        toks = torch.from_numpy(
+            np.minimum(z - 1, self.vocab - 1).astype(np.int32))
+        dev = resolve_device(self.device)
+        return {
+            "tokens": toks[:, :-1].contiguous().to(dev),
+            "labels": toks[:, 1:].contiguous().to(dev),
+            "mask": torch.ones((hi - lo, self.seq_len), dtype=torch.float32,
+                               device=dev),
+        }
 
 
 def spiral_classification(n: int, n_classes: int = 3, noise: float = 0.15,

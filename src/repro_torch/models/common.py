@@ -75,7 +75,9 @@ def _init_one(d: ParamDef, gen: torch.Generator,
         raise ValueError(f"unknown init {d.init!r}")
     w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * std).to(d.dtype)
+    # in place: one f32 temporary a leaf (deepseek_moe_16b's stacked expert
+    # weights draw 5.2 G values), then the cast to the leaf's dtype
+    return w.mul_(std).to(d.dtype)
 
 
 def init_params(defs: Tree, gen: torch.Generator, device) -> Tree:

@@ -2,14 +2,15 @@
 
 ``ModelConfig`` is a copy of ``repro/models/config.py``'s (one per
 architecture in ``repro_torch.configs``). ``RunConfig`` keeps what the
-ported paths read; the reference's mesh, sharding rules, ``decode_seq_shard``
-and ``zero1`` wait for the distributed slice.
+ported paths read; the reference's sharding rules, ``decode_seq_shard``
+and ``zero1`` wait for the distributed slice, and a ``mesh`` raises where
+the reference would shard (the MoE block).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -94,8 +95,12 @@ class RunConfig:
     TPU kernels — sends the serving modes (``prefill``, ``decode``) through
     the card kernels K7 (every RMSNorm), K8 (prefill attention), K9 (prefill
     SSD scan) and K10 (prefill RG-LRU scan); on CPU tensors those wrappers run their plain
-    versions. ``max_seq`` is the KV-cache capacity of serving and
-    ``label_smoothing`` the loss's.
+    versions. In train mode with ``node.enabled`` it also turns on the
+    NODE blocks' fused solver path (K1/K2, or K3/K4 under
+    ``batch_axis=0``), as in the reference. ``max_seq`` is the KV-cache
+    capacity of serving and ``label_smoothing`` the loss's. ``mesh`` is
+    the reference's device mesh: the port runs on one card, and the MoE
+    block raises for any mesh (the distributed slice).
 
     The reference's ``scan_layers`` and ``remat`` have no meaning in an
     eager stack (the port loops over the layer groups in Python and keeps
@@ -107,6 +112,7 @@ class RunConfig:
     use_pallas: bool = False
     max_seq: int = 0                      # KV-cache capacity (serving)
     label_smoothing: float = 0.0
+    mesh: Any = None
 
     def with_(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -12,8 +12,10 @@ Port of ``repro/models/lm.py``. ``build_model(cfg, rcfg)`` returns a
     caches are updated in place,
   * ``cache_defs(batch, max_seq)``        — KV/state cache ParamDefs.
 
-Batches: ``{"tokens": (B,S) int, "labels": (B,S), "mask": (B,S)}``. The
-frontend-stub archs (VLM / audio ``embeds``) are a later slice.
+Batches: ``{"tokens": (B,S) int, "labels": (B,S), "mask": (B,S)}``; the
+frontend-stub archs (VLM / audio) carry precomputed ``embeds`` (B,S,D) in
+place of ``tokens`` (``models/frontends.py``), have no embedding table and
+always an ``lm_head``.
 """
 
 from __future__ import annotations
@@ -32,17 +34,13 @@ from .transformer import stack_apply, stack_cache_defs, stack_defs
 
 
 def model_defs(cfg: ModelConfig, param_dtype: torch.dtype) -> Tree:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} (precomputed embeds) is a later "
-            "slice of the port (ROADMAP queue 1)")
-    d: Dict[str, Tree] = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), param_dtype,
-                          init="embed"),
-        "stack": stack_defs(cfg, param_dtype),
-        "final_norm": norm_defs(cfg.norm, cfg.d_model, param_dtype),
-    }
-    if not cfg.tie_embeddings:
+    d: Dict[str, Tree] = {}
+    if cfg.frontend == "none":
+        d["embed"] = ParamDef((cfg.vocab, cfg.d_model), param_dtype,
+                              init="embed")
+    d["stack"] = stack_defs(cfg, param_dtype)
+    d["final_norm"] = norm_defs(cfg.norm, cfg.d_model, param_dtype)
+    if not cfg.tie_embeddings or cfg.frontend != "none":
         d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), param_dtype,
                                 init="embed")
     return d
@@ -50,6 +48,8 @@ def model_defs(cfg: ModelConfig, param_dtype: torch.dtype) -> Tree:
 
 def _embed(params: Tree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
            rcfg: RunConfig) -> torch.Tensor:
+    if cfg.frontend != "none":
+        return batch["embeds"].to(rcfg.compute_dtype)
     x = params["embed"][batch["tokens"].long()].to(rcfg.compute_dtype)
     if cfg.tie_embeddings:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
@@ -89,6 +89,9 @@ class Model:
     cfg: ModelConfig
     rcfg: RunConfig
     defs: Tree
+    # a list to receive (key, group index, SolveStats) of every NODE block
+    # solved by a train-mode forward, or None
+    node_stats: Optional[list] = None
 
     # -- parameters ------------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> Tree:
@@ -109,7 +112,7 @@ class Model:
         x = _embed(params, batch, self.cfg, self.rcfg)
         y, new_caches, aux = stack_apply(
             params["stack"], x, self.cfg, self.rcfg, mode=mode,
-            positions=positions, caches=caches)
+            positions=positions, caches=caches, node_stats=self.node_stats)
         if last_only:
             y = y[:, -1:]
         kernel = self.rcfg.use_pallas and mode in ("prefill", "decode")
@@ -142,12 +145,13 @@ class Model:
 
     def decode_step(self, params: Tree, batch: Dict[str, torch.Tensor],
                     caches: Tree, position) -> Tuple[torch.Tensor, Tree]:
-        """One new token: batch['tokens'] (B,1), ``position`` its global
-        index (int or 0-d tensor). ``caches`` is updated in place (the
-        reference donates it) and returned."""
-        tokens = batch["tokens"]
-        pos = torch.as_tensor(position, device=tokens.device).reshape(1, 1)
-        pos = pos.expand(tokens.shape[0], 1)
+        """One new token: batch['tokens'] (B,1) (or 'embeds' (B,1,D) for
+        the frontend-stub archs), ``position`` its global index (int or 0-d
+        tensor). ``caches`` is updated in place (the reference donates it)
+        and returned."""
+        ref = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        pos = torch.as_tensor(position, device=ref.device).reshape(1, 1)
+        pos = pos.expand(ref.shape[0], 1)
         logits, caches, _ = self._run(params, batch, "decode", caches, pos,
                                       False)
         return logits[:, -1], caches

@@ -2,17 +2,25 @@
 node18 block with its NODE form (the paper's ResNet → NODE step).
 
 Port of ``repro/models/transformer.py``. A *block* is (norm → mixer →
-residual, norm → ffn → residual), or the parallel variant (attention and
-ffn both read one norm); a Mamba-2 block (kind ``ssm``) is norm → mixer →
-residual alone. The mixer is attention (kind ``attn``), an RG-LRU
-recurrent block (``rec``) or the Mamba-2 SSD block (``ssm``); hybrid
-(RecurrentGemma) stacks repeat a unit of kinds (("rec", "rec", "attn"))
-over groups and apply the remainder as a tail. Parameters keep the
-reference's tree: ``u{j}_{kind}`` leaves stacked on a leading groups dim,
-``tail{j}_{kind}`` unstacked. The reference scans over the groups
+residual, norm → ffn/moe → residual), or the parallel variant (attention
+and ffn/moe both read one norm); a Mamba-2 block (kind ``ssm``) is norm →
+mixer → residual alone. The mixer is attention (kinds ``attn`` and
+``moe_attn``, the latter with the MoE block in place of the FFN), an
+RG-LRU recurrent block (``rec``) or the Mamba-2 SSD block (``ssm``);
+hybrid (RecurrentGemma) stacks repeat a unit of kinds (("rec", "rec",
+"attn")) over groups and apply the remainder as a tail. Parameters keep
+the reference's tree: ``u{j}_{kind}`` leaves stacked on a leading groups
+dim, ``tail{j}_{kind}`` unstacked. The reference scans over the groups
 (``lax.scan``); the port loops over them in Python, on views of the
-stacked leaves. The kind ``moe_attn``, and NODE mode inside the LM stack,
-are later slices and raise ``NotImplementedError``.
+stacked leaves. The MoE aux loss is summed over the layers.
+
+NODE mode (the paper's contribution inside the LM): in train mode with
+``rcfg.node.enabled`` every block's residual branch becomes the dynamics
+of an ODE block, z(1) = z(0) + ∫₀¹ (block(z) - z) dt, solved by
+``node_block_solve`` over the group's parameter views (ACA gradients
+reach the stacked leaves through them). ``rcfg.use_pallas`` turns on the
+fused solver path of every NODE block (K1/K2; K3/K4 under
+``batch_axis=0``). Prefill and decode stay discrete, as in the reference.
 
 ``TransformerBlock`` is the node18 block as a module (``block_apply`` of
 kind ``attn`` over parameters named by the reference's keys, ``norm1.w``,
@@ -41,12 +49,8 @@ from .common import (ParamDef, Tree, apply_norm, map_defs, norm_defs,
 from .config import ModelConfig, RunConfig
 from .ffn import ffn_apply, ffn_defs
 from .mamba2 import mamba2_block_apply, mamba2_cache_defs, mamba2_defs
+from .moe import moe_apply, moe_defs
 from .rglru import rglru_block_apply, rglru_cache_defs, rglru_defs
-
-_LATER = {
-    "moe_attn": "the MoE block is a later slice of the port (dense/MoE "
-                "serving, ROADMAP queue 1)",
-}
 
 
 # ----------------------------------------------------------------------------
@@ -65,14 +69,8 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     return ["attn"] * cfg.n_layers
 
 
-def _ported(kind: str) -> None:
-    if kind in _LATER:
-        raise NotImplementedError(_LATER[kind])
-
-
 def block_defs(cfg: ModelConfig, kind: str, param_dtype: torch.dtype
                ) -> Tree:
-    _ported(kind)
     d = {"norm1": norm_defs(cfg.norm, cfg.d_model, param_dtype)}
     if kind == "ssm":
         d["mixer"] = mamba2_defs(cfg, param_dtype)
@@ -83,13 +81,15 @@ def block_defs(cfg: ModelConfig, kind: str, param_dtype: torch.dtype
         d["mixer"] = attn_defs(cfg, param_dtype)
     if not cfg.parallel_block:
         d["norm2"] = norm_defs(cfg.norm, cfg.d_model, param_dtype)
-    d["ffn"] = ffn_defs(cfg, param_dtype, gated=(cfg.act == "silu"))
+    if kind == "moe_attn":
+        d["moe"] = moe_defs(cfg, param_dtype)
+    else:
+        d["ffn"] = ffn_defs(cfg, param_dtype, gated=(cfg.act == "silu"))
     return d
 
 
 def block_cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      cache_dtype: torch.dtype) -> Tree:
-    _ported(kind)
     if kind == "ssm":
         return mamba2_cache_defs(cfg, batch)
     if kind == "rec":
@@ -113,7 +113,6 @@ def block_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig, rcfg: RunConfig,
                 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
     """One block with residuals. Returns (y, new_cache, aux_loss). Under
     ``use_pallas`` the serving modes run every RMSNorm through K7."""
-    _ported(kind)
     kernel = rcfg.use_pallas and mode in ("prefill", "decode")
     aux = torch.zeros((), device=x.device)
     h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps, kernel=kernel)
@@ -129,10 +128,46 @@ def block_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig, rcfg: RunConfig,
                                          positions=positions, cache=cache)
     if cfg.parallel_block:
         # Command-R: y = x + attn(n(x)) + ffn(n(x))
-        return x + mix + ffn_apply(p["ffn"], h, cfg, rcfg), new_cache, aux
+        f, aux = _ffn_or_moe(kind, p, h, cfg, rcfg, aux)
+        return x + mix + f, new_cache, aux
     y = x + mix
     h2 = apply_norm(cfg.norm, y, p["norm2"], cfg.norm_eps, kernel=kernel)
-    return y + ffn_apply(p["ffn"], h2, cfg, rcfg), new_cache, aux
+    f, aux = _ffn_or_moe(kind, p, h2, cfg, rcfg, aux)
+    return y + f, new_cache, aux
+
+
+def _ffn_or_moe(kind: str, p: Tree, h: torch.Tensor, cfg: ModelConfig,
+                rcfg: RunConfig, aux: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if kind == "moe_attn":
+        return moe_apply(p["moe"], h, cfg, rcfg)
+    return ffn_apply(p["ffn"], h, cfg, rcfg), aux
+
+
+def _node_block(p: Tree, x: torch.Tensor, cfg: ModelConfig,
+                rcfg: RunConfig, kind: str,
+                positions: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, SolveStats]:
+    """The block as an ODE block (the reference's ``_apply_one`` in NODE
+    mode): z(1) = x + ∫ (block(z) - z) dt over ``p``, with the gradients of
+    ``rcfg.node.grad_method``. Returns (z(1), the solve's stats)."""
+    ncfg = rcfg.node
+    if rcfg.use_pallas and not ncfg.use_pallas:
+        ncfg = dataclasses.replace(ncfg, use_pallas=True)
+    if ncfg.batch_axis is None:
+        def fn(pp, z, t):
+            return block_apply(pp, z, cfg, rcfg, kind,
+                               positions=positions)[0] - z
+    elif ncfg.batch_axis in (0, -x.dim()):
+        # the batched engine hands the field one sample (S, D)
+        def fn(pp, z, t):
+            return block_apply(pp, z.unsqueeze(0), cfg, rcfg, kind,
+                               positions=positions)[0][0] - z
+    else:
+        raise ValueError(
+            f"NODE blocks batch over the stack's batch axis 0; got "
+            f"batch_axis={ncfg.batch_axis}")
+    return node_block_solve(fn, p, x, ncfg)
 
 
 # ----------------------------------------------------------------------------
@@ -196,29 +231,37 @@ def stack_cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
 def stack_apply(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: RunConfig, *, mode: str = "train",
                 positions: Optional[torch.Tensor] = None,
-                caches: Optional[Tree] = None
+                caches: Optional[Tree] = None,
+                node_stats: Optional[list] = None
                 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
     """Apply the full stack. Returns (y, new_caches, aux_loss_sum).
 
     ``prefill`` returns fresh caches (the groups' stacked like the
     parameters); ``decode`` updates ``caches`` in place through the
-    groups' views and returns them."""
-    if rcfg.node.enabled and mode == "train":
-        raise NotImplementedError(
-            "NODE mode inside the LM stack (the reference's _apply_one) is a "
-            "later slice of the port (LM training with NODE blocks, ROADMAP "
-            "queue 1); the node18 block runs it through "
-            "models.transformer.node_block")
+    groups' views and returns them.
+
+    In NODE mode (train mode, ``rcfg.node.enabled``) every block is an ODE
+    block, its aux loss zero as in the reference; ``node_stats``, when a
+    list, receives (key, group index or None, SolveStats) per block."""
+    node = rcfg.node.enabled and mode == "train"
     unit, n_groups, tail = stack_plan(cfg)
     aux_total = torch.zeros((), device=x.device)
     fresh: Dict[str, List[Tree]] = {}
+
+    def one(p, x, key, i, kind, c):
+        if node:
+            z, stats = _node_block(p, x, cfg, rcfg, kind, positions)
+            if node_stats is not None:
+                node_stats.append((key, i, stats))
+            return z, None, torch.zeros((), device=x.device)
+        return block_apply(p, x, cfg, rcfg, kind, mode=mode,
+                           positions=positions, cache=c)
+
     for i in range(n_groups):
         for j, kind in enumerate(unit):
             key = f"u{j}_{kind}"
             c = _index(caches[key], i) if caches is not None else None
-            x, nc, aux = block_apply(_index(params[key], i), x, cfg, rcfg,
-                                     kind, mode=mode, positions=positions,
-                                     cache=c)
+            x, nc, aux = one(_index(params[key], i), x, key, i, kind, c)
             aux_total = aux_total + aux
             fresh.setdefault(key, []).append(nc)
     new_caches: Dict[str, Tree] = {}
@@ -227,8 +270,7 @@ def stack_apply(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     for j, kind in enumerate(tail):
         key = f"tail{j}_{kind}"
         c = caches.get(key) if caches is not None else None
-        x, nc, aux = block_apply(params[key], x, cfg, rcfg, kind, mode=mode,
-                                 positions=positions, cache=c)
+        x, nc, aux = one(params[key], x, key, None, kind, c)
         aux_total = aux_total + aux
         new_caches[key] = nc
     if mode == "decode":

@@ -85,6 +85,13 @@ one bf16 ulp plus 1e-4. The SMOKE Mamba-2 model generates the
 same greedy tokens with ``use_pallas`` as without, its prefill logits
 within 1e-4, K9 once per layer per prefill and K7 2 per layer + 1 per
 prefill and per decode step.
+
+Dense and MoE LMs, LM training: deepseek_moe_16b's SMOKE model with
+``use_pallas`` against its plain route (prefill logits within 1e-4, the
+same greedy tokens, K7 and K8 launches as counted); a repeated bf16 MoE
+decode bitwise; one NODE-LM train step (node18's SMOKE, ``NODE_TRAIN``)
+through K1/K2 against their plain versions: the loss bitwise, the updated
+parameters within 1e-5.
 """
 
 import math
@@ -1188,3 +1195,106 @@ def test_mali_engine_on_the_card(card):
         assert a.n_chunks == b.n_chunks
         scale = max(1.0, float(np.abs(b.z_final).max()))
         assert float(np.abs(a.z_final - b.z_final).max()) <= 1e-5 * scale
+
+
+# ------------------------------------------------ MoE serving, NODE-LM training
+
+def test_moe_smoke_generate_with_kernels_on_the_card(card):
+    """deepseek_moe_16b's SMOKE (f32) with ``use_pallas`` against its plain
+    route on the card: prefill logits within 1e-4 (K7's and K8's f32
+    rounding; no router choice sits that close to a tie here), the same
+    greedy tokens, K7 2 per layer + 1 per prefill and per decode step, K8
+    once per layer per prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = get_smoke_config("deepseek_moe_16b")     # 2 layers, 8 experts
+    runs = {}
+    for up in (True, False):
+        model = build_model(cfg, RunConfig(compute_dtype=torch.float32,
+                                           use_pallas=up, max_seq=64))
+        params = model.init(device=card, seed=0)
+        toks = torch.randint(0, cfg.vocab, (2, 40), device=card,
+                             generator=torch.Generator(card).manual_seed(1))
+        ops.reset_launches()
+        with torch.no_grad():
+            last, _ = model.prefill(params, {"tokens": toks})
+        counts = ops.launch_counts()
+        out = ServeEngine(model, params, ServeConfig(
+            max_new_tokens=6)).generate(toks)["tokens"]
+        runs[up] = (last, out, counts)
+    (lk, ok, ck), (lp, op_, cp) = runs[True], runs[False]
+    assert ck["rmsnorm"] == 5 and ck["flash_attention"] == 2
+    assert all(v == 0 for v in cp.values())
+    assert _rel(lk, lp) <= 1e-4
+    assert torch.equal(ok, op_)
+
+
+def test_moe_decode_repeats_bitwise_on_the_card(card):
+    """The MoE combine sums each token's experts in a fixed order (no
+    atomics): the same decode step twice gives the same bits, in bf16."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    cfg = get_smoke_config("deepseek_moe_16b")
+    model = build_model(cfg, RunConfig(param_dtype=torch.bfloat16,
+                                       use_pallas=True, max_seq=64))
+    params = model.init(device=card, seed=3)
+    toks = torch.randint(0, cfg.vocab, (4, 33), device=card,
+                         generator=torch.Generator(card).manual_seed(4))
+    outs = []
+    with torch.no_grad():
+        for _ in range(2):
+            last, caches = model.prefill(params, {"tokens": toks[:, :32]})
+            lg, _ = model.decode_step(params, {"tokens": toks[:, 32:]},
+                                      caches, 32)
+            outs.append((last, lg))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_node_lm_train_step_kernels_match_plain_on_the_card(card):
+    """One NODE-LM train step (node18's SMOKE, NODE_TRAIN, f32) through
+    K1/K2 against the same step on their plain versions: the loss bit for
+    bit (K1/K2 are bitwise their plain versions, so every accept/reject
+    decision is the same), each parameter's update within 1e-5 of its
+    largest (SGD at lr 1 without momentum or clipping: the update is the
+    gradient; the backward replays sum in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.node18_cifar import NODE_TRAIN
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import constant, sgd
+    from repro_torch.optim.grad_utils import CompressionState
+    from repro_torch.train import (TrainLoopConfig, build_train_step,
+                                   make_train_state)
+    cfg = get_smoke_config("node18_cifar")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                          device="cuda").batch(0)
+    opt = sgd(constant(1.0), momentum=0.0)
+    out = {}
+    for up in (True, False):
+        node = dataclasses.replace(NODE_TRAIN, use_pallas=up)
+        model = build_model(cfg, RunConfig(compute_dtype=torch.float32,
+                                           node=node))
+        state = make_train_state(model, opt, seed=0, device=card)
+        ops.reset_launches()
+        new, _, metrics = build_train_step(model, opt, TrainLoopConfig(
+            clip_norm=1e9))(state, batch, CompressionState(error=()))
+        torch.cuda.synchronize()
+        upd = [b - a for a, b in zip(
+            torch.utils._pytree.tree_leaves(state.params),
+            torch.utils._pytree.tree_leaves(new.params))]
+        out[up] = (metrics, upd, ops.launch_counts())
+    (mk, sk, ck), (mp, sp, cp) = out[True], out[False]
+    assert ck["rk_stage_increment"] > 0 and ck["rk_stage_combine_err"] > 0
+    assert all(v == 0 for v in cp.values())
+    assert int(mk["skipped"]) == 0 and bool(torch.isfinite(mk["loss"]))
+    assert torch.equal(mk["loss"], mp["loss"])
+    for a, b in zip(sk, sp):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            float(b.abs().max()), 1e-30)

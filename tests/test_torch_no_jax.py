@@ -51,3 +51,20 @@ def test_the_port_has_modules():
     assert port / "core" / "odeint_mali.py" in FILES
     assert port / "examples" / "three_body.py" in FILES
     assert port / "examples" / "latent_timeseries.py" in FILES
+    # dense and MoE LMs, LM training with NODE blocks
+    for name in ("moe", "frontends", "transformer", "lm"):
+        assert port / "models" / f"{name}.py" in FILES
+    for name in ("qwen1_5_32b", "qwen2_72b", "command_r_plus_104b",
+                 "command_r_35b", "deepseek_moe_16b", "qwen3_moe_235b_a22b",
+                 "llava_next_34b", "musicgen_medium"):
+        assert port / "configs" / f"{name}.py" in FILES
+    for name in ("sgd", "grad_utils"):
+        assert port / "optim" / f"{name}.py" in FILES
+    for name in ("__init__", "state", "loop"):
+        assert port / "train" / f"{name}.py" in FILES
+    for name in ("__init__", "checkpoint"):
+        assert port / "ckpt" / f"{name}.py" in FILES
+    assert port / "launch" / "train.py" in FILES
+    assert port / "examples" / "serve_lm.py" in FILES
+    assert port / "examples" / "train_node_lm.py" in FILES
+    assert port / "benchmarks" / "node_lm.py" in FILES
