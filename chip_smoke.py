@@ -236,6 +236,41 @@ printing one JSON line (``"phase": ...``):
                       uninterrupted run within 1e-5; one step's loss on the
                       plain route (K1/K2's plain versions) bitwise the
                       kernel route's, gradients within 1e-5.
+11d. ``serve_node_bench`` — slice H. (a) ``repro_torch.benchmarks.
+                      serve_node`` in quick mode (the reference's trace:
+                      24 requests, 4 slots, dim 8) with every round on
+                      K3/K5: its four gates (every request OK, parity with
+                      a solo solve, continuous throughput >= static,
+                      static p99 / continuous p99 >= 1.5 on the sim
+                      clock), its rows, host ms a round and each mode's
+                      drain seconds. (b) The same trace under aca, adjoint,
+                      naive and mali: the adjoint's and naive's z_final
+                      and trials bitwise ACA's, every request OK; mali's
+                      ``CHECKPOINT_OVERFLOW`` requests reported (its
+                      64-slot grid at rtol 1e-5). (c) serve_node18's
+                      trace (16 requests, 8 slots, HeunEuler, node18
+                      width) served continuously and static-batched in
+                      turns (continuous, static, static, continuous):
+                      sim-clock p50/p99, host ms a round, drain seconds,
+                      K3/K5 launches of each run.
+11e. ``batched_solve`` — ``repro_torch.benchmarks.batched_solve`` at its
+                      full size (32 x 64, Dopri5 1e-5, ACA): per_sample,
+                      vmap_solo and lockstep forward and gradient seconds,
+                      sample-evals, step spread; per_sample's per-element
+                      steps vmap_solo's. It runs no kernel.
+11f. ``mixed_dtype`` — slice J. The node18 block at full width on the
+                      state {"x": bf16 (8, 512, 768), "e": f32 (8,)} (e
+                      accumulates each sample's mean |f|^2): one SGD step
+                      per method (NODE_TRAIN's settings, NODE_TRAIN_MALI's
+                      for mali) after an untimed one from the same
+                      weights: forward / backward ms, peak memory, steps,
+                      trials, leaf dtypes kept, K1-K5 launches 0 (a mixed
+                      state takes no kernel, the reference's rule). Then
+                      each step at (2, 16, 768) on the card and on CPU
+                      tensors from the same weights: equal counters, z(1)
+                      and gradients within bounds built from the measured
+                      card-to-CPU drift of one field evaluation and one
+                      pullback plus one bf16 rounding a step.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
@@ -254,8 +289,10 @@ solve_health_mali's NODE_TRAIN_MALI steps for K1/K3,
 paper_benchmarks' runs for K1/K2, each
 serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
-train_node_lm's six steps for K1/K2) runs with every launch count set to 0 just before it and read just
-after.
+train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
+and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
+none of K1-K5) runs with every launch count set to 0 just before it and
+read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -1117,12 +1154,14 @@ def _parity_bound(res, req, ref_max: float) -> float:
     return (res.n_chunks + 1) * (req.atol + req.rtol * max(1.0, ref_max))
 
 
-def phase_serve_node18(torch, seed: int):
+def _node18_serving(torch, seed: int, static: bool):
+    """The node18 serving engine (8 slots over the block's residual branch,
+    HeunEuler, K3/K5) with its 16 seeded requests submitted: (engine,
+    requests, arrivals, field, params). ``static`` picks the static-batch
+    scheduler."""
     import numpy as np
 
     from repro_torch.configs import node18_cifar
-    from repro_torch.core import odeint
-    from repro_torch.kernels import ops, rk_stage
     from repro_torch.models.config import RunConfig
     from repro_torch.models.transformer import TransformerBlock, branch_fn
     from repro_torch.serve import (
@@ -1142,7 +1181,8 @@ def phase_serve_node18(torch, seed: int):
         return branch_fn(block, p, z.reshape(sample)).reshape(-1)
 
     ecfg = NodeEngineConfig(slots=BATCH_ROWS, solver="heun_euler",
-                            chunk_dt=0.5, max_steps=64, use_pallas=True)
+                            chunk_dt=0.5, max_steps=64, use_pallas=True,
+                            static_batch=static)
     engine = NodeServeEngine(field, ROW_N, (params,), ecfg, device="cuda")
     rng = np.random.default_rng(seed + 2)
     arrivals = np.cumsum(rng.exponential(2.0, SERVE_REQUESTS))
@@ -1154,6 +1194,14 @@ def phase_serve_node18(torch, seed: int):
             t1=float(rng.choice([0.5, 1.0])), rtol=tol, atol=tol))
     for i, req in enumerate(reqs):
         engine.submit(req, arrival=float(arrivals[i]))
+    return engine, reqs, arrivals, field, params
+
+
+def _serve_rounds(torch, engine, label: str):
+    """Drain ``engine`` one round at a time, each round timed on the host
+    clock after a synchronize: (round rows, drain seconds, launches). The
+    launch counts are set to 0 just before and read just after."""
+    from repro_torch.kernels import ops, rk_stage
 
     rounds = []
     torch.cuda.synchronize()
@@ -1171,9 +1219,22 @@ def phase_serve_node18(torch, seed: int):
                "max_trials": engine.trials_log[-1],
                "wall_ms": 1e3 * (time.perf_counter() - t0)}
         rounds.append(row)
-        emit({"phase": "serve_round", **row})
+        emit({"phase": label, **row})
     wall_s = time.perf_counter() - t_start
     launches = dict(rk_stage.launches)     # the main path ends here
+    return rounds, wall_s, launches
+
+
+def phase_serve_node18(torch, seed: int):
+    import numpy as np
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.core import odeint
+
+    engine, reqs, arrivals, field, params = _node18_serving(torch, seed,
+                                                            False)
+    ecfg = engine.cfg
+    rounds, wall_s, launches = _serve_rounds(torch, engine, "serve_round")
     peak = torch.cuda.max_memory_allocated() / 1e9
     results = [engine.results[i] for i in sorted(engine.results)]
     check(len(results) == SERVE_REQUESTS,
@@ -3697,6 +3758,311 @@ def phase_train_node_lm(torch, seed: int):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------ slices H and J (PR 25)
+
+SERVE_METHODS = ("aca", "adjoint", "naive", "mali")
+# the mixed-dtype node18 step's check against CPU tensors runs at this cut
+# width (batch, sequence cut; d_model 768 as published)
+MIXED_CUT = (2, 16, 768)
+BF16_EPS = 2.0 ** -8            # one bf16 rounding, relative
+
+
+def _round_ms(ms) -> dict:
+    from repro_torch.benchmarks.common import percentile
+    return {"rounds": len(ms), "mean_ms": sum(ms) / max(len(ms), 1),
+            "p50_ms": percentile(ms, 50.0) if ms else None,
+            "max_ms": max(ms) if ms else None}
+
+
+def phase_serve_node_bench(torch, seed: int):
+    """(a) ``benchmarks.serve_node`` in quick mode on the card with every
+    round on K3/K5 and its four gates; (b) its trace under each gradient
+    method; (c) the serve_node18 trace served continuously and static at
+    node18 width. Returns the K3/K5 launches of (a) and (c)."""
+    import numpy as np
+
+    from repro_torch.benchmarks import serve_node
+    from repro_torch.benchmarks.common import latency_summary
+    from repro_torch.core import SolveStatus
+    from repro_torch.kernels import ops, rk_stage
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in SERVE_KERNELS}
+    torch.cuda.synchronize()
+    ops.reset_launches()                   # the main path starts here
+    out = serve_node.run(quick=True, device="cuda", use_pallas=True)
+    bench_launches = dict(rk_stage.launches)   # the main path ends here
+    check(all(bench_launches[k] > 0 for k in SERVE_KERNELS),
+          f"serve_node: the rounds did not launch K3 and K5: "
+          f"{bench_launches}")
+    for k in SERVE_KERNELS:
+        total[k] += bench_launches[k]
+    host = out["host"]
+    emit({"phase": "serve_node_bench_quick", "ok": True,
+          "rows": {k: v for k, v in out.items() if "/" in k},
+          "continuous": {**_round_ms(host["continuous_round_ms"]),
+                         "drain_s": host["continuous_drain_s"]},
+          "static": {**_round_ms(host["static_round_ms"]),
+                     "drain_s": host["static_drain_s"]},
+          "launches": {k: bench_launches[k] for k in SERVE_KERNELS}})
+
+    trace = serve_node.traffic(np.random.default_rng(0), 24)
+    methods, finals = {}, {}
+    for m in SERVE_METHODS:
+        eng, res, ms, drain = serve_node.serve(trace, False, "cuda", True, m)
+        finals[m] = res
+        methods[m] = {"status": [r.status for r in res],
+                      "n_trials": [r.n_trials for r in res],
+                      "sim_clock": eng.clock.now, "drain_s": drain,
+                      **_round_ms(ms)}
+    aca = finals["aca"]
+    same = {m: all(np.array_equal(a.z_final, b.z_final)
+                   and a.n_trials == b.n_trials
+                   for a, b in zip(finals[m], aca))
+            for m in ("adjoint", "naive")}
+    overflow = [r.req_id for r in finals["mali"]
+                if r.status == SolveStatus.CHECKPOINT_OVERFLOW]
+    emit({"phase": "serve_node_bench_methods", "ok": True,
+          "methods": methods, "bitwise_aca": same,
+          "mali_checkpoint_overflow": overflow,
+          "mali_overflow_tols": [trace[i][1].rtol for i in overflow]})
+    for m in ("aca", "adjoint", "naive"):
+        check(all(r.ok for r in finals[m]),
+              f"serve_node {m}: requests not OK: {methods[m]['status']}")
+    check(all(same.values()),
+          f"serve_node: adjoint/naive z_final or trials not ACA's: {same}")
+    check(all(r.ok or r.status == SolveStatus.CHECKPOINT_OVERFLOW
+              for r in finals["mali"]),
+          f"serve_node mali: statuses {methods['mali']['status']}")
+
+    # in turns (continuous, static, static, continuous), so that the
+    # first run's warm-up is in neither mode's second run
+    modes = {"continuous": [], "static": []}
+    for static in (False, True, True, False):
+        engine, reqs, _, _, _ = _node18_serving(torch, seed, static)
+        label = "static" if static else "continuous"
+        rounds, wall_s, launches = _serve_rounds(
+            torch, engine, f"serve_node18_{label}_round")
+        results = [engine.results[i] for i in sorted(engine.results)]
+        check(len(results) == SERVE_REQUESTS and all(r.ok for r in results),
+              f"serve_node18 {label}: {[r.status for r in results]}")
+        check(all(launches[k] > 0 for k in SERVE_KERNELS),
+              f"serve_node18 {label}: K3/K5 not launched: {launches}")
+        for k in SERVE_KERNELS:
+            total[k] += launches[k]
+        lat = latency_summary([r.latency for r in results])
+        modes[label].append({
+            "sim_p50": lat["p50"], "sim_p99": lat["p99"],
+            "sim_clock": engine.clock.now,
+            "throughput_req_per_sim_t": SERVE_REQUESTS / engine.clock.now,
+            **_round_ms([r["wall_ms"] for r in rounds]),
+            "drain_s": wall_s,
+            "launches": {k: launches[k] for k in SERVE_KERNELS},
+            "mean_live": sum(engine.occupancy_log)
+            / max(1, len(engine.occupancy_log))})
+    cont, stat = modes["continuous"][1], modes["static"][0]
+    modes["p99_ratio_sim"] = stat["sim_p99"] / cont["sim_p99"]
+    # the second continuous run against the first static one: both after
+    # a warm run
+    modes["drain_ratio_wall"] = stat["drain_s"] / cont["drain_s"]
+    emit({"phase": "serve_node_bench", "ok": True,
+          "node18": modes, "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+def phase_batched_solve(torch):
+    """``benchmarks.batched_solve`` at its full size on the card: the three
+    strategies' seconds, sample-evals and step spread; its gates (a spread
+    of per-sample steps, per_sample's steps vmap_solo's)."""
+    from repro_torch.benchmarks import batched_solve
+
+    t0 = time.perf_counter()
+    out = batched_solve.run(quick=False, device="cuda")
+    emit({"phase": "batched_solve", "ok": True, "batch": 32, "dim": 64,
+          "rows": {k: v for k, v in out.items() if "/" in k},
+          "n_steps": out["n_steps"], "seconds": time.perf_counter() - t0})
+
+
+def _mixed_field(block):
+    """The node18 block's residual branch on the bf16 state "x", and "e":
+    each sample's mean |f|^2 in f32 (as a CNF's f32 log-density or kinetic
+    term rides beside a low-precision state)."""
+    from repro_torch.models.transformer import branch_fn
+
+    def fn(p, z, t):
+        fx = branch_fn(block, p, z["x"]).to(z["x"].dtype)
+        e = (fx.float() ** 2).mean(dim=tuple(range(1, fx.dim())))
+        return {"x": fx, "e": e}
+
+    return fn
+
+
+def _mixed_configs():
+    import dataclasses
+
+    from repro_torch.configs import node18_cifar
+    train = node18_cifar.NODE_TRAIN
+    plain = dataclasses.replace(train, checkpoint_segments=None)
+    return {"aca": train,
+            "adjoint": dataclasses.replace(plain, grad_method="adjoint"),
+            "naive": dataclasses.replace(plain, grad_method="naive"),
+            "mali": node18_cifar.NODE_TRAIN_MALI}
+
+
+def _mixed_block(torch, seed: int, shape, device):
+    import numpy as np
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import TransformerBlock
+
+    block = TransformerBlock(node18_cifar.CONFIG,
+                             RunConfig(compute_dtype=torch.bfloat16),
+                             seed=seed, device=device)
+    x = torch.from_numpy(np.random.default_rng(seed + 5).standard_normal(
+        shape).astype(np.float32)).to(device).to(torch.bfloat16)
+    return block, x
+
+
+def _sync(torch, device):
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _mixed_step(torch, block, x, ncfg, lr: float = 1e-2):
+    """One SGD step of the block on {"x": bf16 x, "e": 0}: z(1), the
+    gradients, the stats, forward and backward ms."""
+    from repro_torch.core.node_block import node_block_solve
+
+    params = dict(block.named_parameters())
+    dev = x.device
+    z0 = {"x": x, "e": torch.zeros(x.shape[0], device=dev)}
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    zT, st = node_block_solve(_mixed_field(block), params, z0, ncfg)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    loss = torch.mean(zT["x"].float() ** 2) + torch.mean(zT["e"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        for p, g in zip(params.values(), grads):
+            p.sub_(lr * g)
+    return {"x": zT["x"].detach(), "e": zT["e"].detach(),
+            "loss": float(loss.detach()),
+            "grads": dict(zip(params, grads)), "stats": st,
+            "fwd_ms": 1e3 * (t1 - t0), "bwd_ms": 1e3 * (t2 - t1)}
+
+
+def _field_drift(torch, seed: int):
+    """One evaluation of the mixed field and of its parameter pullback at
+    MIXED_CUT on the card and on CPU tensors, same weights and inputs:
+    (the field's max |card - cpu| / max |cpu|, the pullback's)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        block, x = _mixed_block(torch, seed, MIXED_CUT, dev)
+        params = dict(block.named_parameters())
+        z = {"x": x, "e": torch.zeros(x.shape[0], device=dev)}
+        f = _mixed_field(block)(params, z, None)
+        g = torch.autograd.grad(torch.sum(f["x"].float() ** 2),
+                                list(params.values()))
+        out[dev] = (f["x"].detach().float().cpu(), [t.cpu() for t in g])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    (fc, gc), (fh, gh) = out["cuda"], out["cpu"]
+    return rel(fc, fh), max(rel(a, b) for a, b in zip(gc, gh))
+
+
+def phase_mixed_dtype(torch, seed: int):
+    """Slice J. The node18 block at full width on the state {"x": bf16 (8,
+    512, 768), "e": f32 (8,)}: one SGD step per gradient method from the
+    same weights (NODE_TRAIN's settings, NODE_TRAIN_MALI's for mali), no
+    kernel launched (a mixed state takes none, the reference's rule); then
+    the same steps at MIXED_CUT on the card and on CPU tensors: equal
+    counters, z(1) and gradients within a bound made from the measured
+    card-to-CPU drift of one field evaluation and one pullback."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    cfgs = _mixed_configs()
+    full = {}
+    ops.reset_launches()                   # the main path starts here
+    for m, ncfg in cfgs.items():
+        # a first step (its warm-up cost reported apart), then the timed
+        # one from the same weights
+        first = None
+        for _ in range(2):
+            block, x = _mixed_block(torch, seed, NODE18_SHAPE, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            r = _mixed_step(torch, block, x, ncfg)
+            first = first or (r["fwd_ms"], r["bwd_ms"])
+        st = r["stats"]
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in r["grads"].values())
+        full[m] = {"n_steps": int(st.n_steps), "n_trials": int(st.n_trials),
+                   "nfe": int(st.nfe), "status": int(st.status),
+                   "fwd_ms": r["fwd_ms"], "bwd_ms": r["bwd_ms"],
+                   "first_fwd_ms": first[0], "first_bwd_ms": first[1],
+                   "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+                   "loss": r["loss"], "finite_grads": finite,
+                   "dtypes": [str(r["x"].dtype), str(r["e"].dtype)]}
+        emit({"phase": "mixed_dtype_step", "method": m, **full[m]})
+        check(full[m]["status"] == 0 and finite
+              and math.isfinite(r["loss"]),
+              f"mixed_dtype {m}: status, loss or gradients: {full[m]}")
+        check(full[m]["dtypes"] == ["torch.bfloat16", "torch.float32"],
+              f"mixed_dtype {m}: leaf dtypes {full[m]['dtypes']}")
+        del block, x, r
+    launches = ops.launch_counts()         # the main path ends here
+    fused = {k: launches[k] for k in (*K1_K2, *BATCHED_KERNELS,
+                                      *SERVE_KERNELS)}
+    check(not any(fused.values()),
+          f"mixed_dtype: a mixed state launched K1-K5: {fused}")
+
+    d_field, d_pull = _field_drift(torch, seed)
+    cut = {}
+    for m, ncfg in cfgs.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            block, x = _mixed_block(torch, seed, MIXED_CUT, dev)
+            runs[dev] = _mixed_step(torch, block, x, ncfg)
+        a, b = runs["cuda"], runs["cpu"]
+        sa, sb = a["stats"], b["stats"]
+        counters = [(int(s.n_steps), int(s.n_trials)) for s in (sa, sb)]
+        nfe, n = int(sb.nfe), int(sb.n_steps)
+        # each evaluation drifts by the measured field drift, and each
+        # accepted step rounds the bf16 state once, differently
+        x_bound = nfe * d_field + n * BF16_EPS
+        e_bound = 2 * x_bound
+        g_bound = nfe * d_pull + 2 * n * BF16_EPS
+
+        def rel(u, v):
+            return float((u.float().cpu() - v.float()).abs().max()
+                         / v.float().abs().max().clamp_min(1e-30))
+
+        errs = {"x": rel(a["x"], b["x"]), "e": rel(a["e"], b["e"]),
+                "grads": max(rel(a["grads"][k], b["grads"][k])
+                             for k in b["grads"])}
+        cut[m] = {"counters_card_cpu": counters, "nfe": nfe,
+                  "max_rel": errs, "bounds": {"x": x_bound, "e": e_bound,
+                                              "grads": g_bound}}
+        check(counters[0] == counters[1],
+              f"mixed_dtype {m} at {MIXED_CUT}: card and CPU counters "
+              f"differ: {counters}")
+        check(errs["x"] <= x_bound and errs["e"] <= e_bound
+              and errs["grads"] <= g_bound,
+              f"mixed_dtype {m} at {MIXED_CUT}: card vs CPU {cut[m]}")
+    emit({"phase": "mixed_dtype", "ok": True, "shape": list(NODE18_SHAPE),
+          "state": {"x": "bfloat16", "e": "float32"}, "steps": full,
+          "fused_launches": fused, "cut": list(MIXED_CUT),
+          "field_drift": d_field, "pullback_drift": d_pull,
+          "card_vs_cpu": cut, "seconds": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3755,6 +4121,12 @@ def main(argv=None) -> int:
         moe_launches, moe_calls, k8_moe = phase_serve_moe(torch, args.seed)
         phase = "train_node_lm"
         lm_train_launches, _ = phase_train_node_lm(torch, args.seed)
+        phase = "serve_node_bench"
+        bench_serve_launches = phase_serve_node_bench(torch, args.seed)
+        phase = "batched_solve"
+        phase_batched_solve(torch)
+        phase = "mixed_dtype"
+        phase_mixed_dtype(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -3762,9 +4134,11 @@ def main(argv=None) -> int:
 
     # launches: K1/K2 from the node18 block steps, the three methods'
     # steps (solo and fixed regime) and the paper benchmarks' method_costs
-    # aca_pallas row, K3 from the serve rounds, the batched
+    # aca_pallas row, K3 from the serve rounds (serve_node18's and
+    # serve_node_bench's), the batched
     # block steps and the batched methods' steps, K4 from the batched
-    # block and methods' steps, K5 from the serve rounds; times at each
+    # block and methods' steps, K5 from the serve rounds (both phases);
+    # times at each
     # path's shape (K3 and K5 at the serving row, K4 at the batched block
     # row; K1-K4 also at the adjoint's augmented shapes)
     worst.update(worst_b)
@@ -3774,6 +4148,7 @@ def main(argv=None) -> int:
     batch_launch = {
         "rk_stage_increment_batched":
         serve_launches["rk_stage_increment_batched"]
+        + bench_serve_launches["rk_stage_increment_batched"]
         + batched_launches["rk_stage_increment_batched"]
         + methods_launches["rk_stage_increment_batched"]
         + dense_launches["rk_stage_increment_batched"]
@@ -3783,7 +4158,8 @@ def main(argv=None) -> int:
         + methods_launches["rk_stage_combine_err_batched"]
         + dense_launches["rk_stage_combine_err_batched"],
         "rk_stage_combine_err_batched_rowtol":
-        serve_launches["rk_stage_combine_err_batched_rowtol"],
+        serve_launches["rk_stage_combine_err_batched_rowtol"]
+        + bench_serve_launches["rk_stage_combine_err_batched_rowtol"],
     }
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
                    + dense_launches[k] + mali_launches.get(k, 0)

@@ -1,6 +1,7 @@
 """Shared benchmark utilities of the port: CSV / JSON emission, timing.
 
-Port of ``benchmarks/common.py``'s ``emit``, ``emit_json`` and ``timed``.
+Port of ``benchmarks/common.py``'s ``emit``, ``emit_json``, ``timed``,
+``percentile`` and ``latency_summary``.
 ``emit`` prints the same ``name,value,derived`` rows; with
 ``BENCH_ARTIFACT_DIR`` set, every ``emit_json`` headline is also appended
 to ``$BENCH_ARTIFACT_DIR/BENCH_<bench>.json`` (one JSON object a line).
@@ -117,6 +118,35 @@ def emit_json(bench: str, metrics: Mapping) -> None:
         slug = re.sub(r"[^A-Za-z0-9_.-]+", "_", bench)
         with open(path / f"BENCH_{slug}.json", "a") as fh:
             fh.write(line + "\n")
+
+
+def percentile(xs, q: float) -> float:
+    """The q-th percentile (0 <= q <= 100) of a sample, linearly
+    interpolated between order statistics (numpy's default); an empty
+    sample raises rather than reporting 0."""
+    xs = sorted(float(x) for x in xs)
+    if not xs:
+        raise ValueError("percentile of an empty sample")
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"q must be in [0, 100]; got {q}")
+    if len(xs) == 1:
+        return xs[0]
+    pos = (q / 100.0) * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    frac = pos - lo
+    return xs[lo] * (1.0 - frac) + xs[hi] * frac
+
+
+def latency_summary(latencies) -> dict:
+    """p50, p99, mean and max of a latency sample, and its size ``n`` (the
+    serving benchmarks' ``emit_json`` metrics)."""
+    xs = [float(x) for x in latencies]
+    if not xs:
+        raise ValueError("latency_summary of an empty sample")
+    return {"n": len(xs), "p50": percentile(xs, 50.0),
+            "p99": percentile(xs, 99.0), "mean": sum(xs) / len(xs),
+            "max": max(xs)}
 
 
 def synchronize(device) -> None:

@@ -7,7 +7,9 @@ Port of ``benchmarks/run.py`` for the paper's experiments (Fig. 4/5/6,
 Tables 1-7), the gradient-method ablation on a NODE LM (``node_lm``), the
 segmented-memory and dense-output benchmarks (``memory``,
 ``dense_eval``), the solve-health guards' cost gate
-(``failure_overhead``) and MALI's memory (``mali_memory``). Quick mode
+(``failure_overhead``), MALI's memory (``mali_memory``), the three
+batched-solve strategies (``batched_solve``) and continuous against
+static batching of NODE requests (``serve_node``). Quick mode
 (the reference's smaller sizes) is the default;
 ``--full`` uses the larger settings. Output: the reference's
 ``name,value,derived`` CSV rows, a ``bench_runtime_s/<name>`` row per
@@ -20,10 +22,10 @@ import argparse
 import time
 import traceback
 
-from . import (classification, dense_eval, failure_overhead,
-               mali_memory, memory, method_costs, node_lm, reliability,
-               reverse_error, solver_robustness, threebody, timeseries,
-               toy_gradient)
+from . import (batched_solve, classification, dense_eval,
+               failure_overhead, mali_memory, memory, method_costs, node_lm,
+               reliability, reverse_error, serve_node, solver_robustness,
+               threebody, timeseries, toy_gradient)
 from .common import emit
 
 BENCHES = [
@@ -36,11 +38,13 @@ BENCHES = [
     ("timeseries (Table 4)", timeseries.run),
     ("threebody (Table 5/Fig.8)", threebody.run),
     ("node_lm (beyond-paper: LM ablation)", node_lm.run),
+    ("batched_solve (beyond-paper: batch_axis)", batched_solve.run),
     ("memory (beyond-paper: segmented ACA)", memory.run),
     ("dense_eval (beyond-paper: interpolate_ts)", dense_eval.run),
     ("mali_memory (beyond-paper: reversible MALI)", mali_memory.run),
     ("failure_overhead (solve-health guard gate)",
      failure_overhead.run),
+    ("serve_node (beyond-paper: continuous batching)", serve_node.run),
 ]
 
 

@@ -10,12 +10,15 @@ Port of ``repro/core/api.py::odeint`` / ``odeint_final``::
                        interpolate_ts=False, h0=None, on_failure="status")
 
 ``f(t, z, *args) -> dz/dt``; ``z0`` one floating tensor or a pytree
-(dict, tuple, list, NamedTuple) of tensors of one floating dtype, raveled
-once per solve; ``ts`` strictly monotone — ascending, or descending for a
-reverse-time solve (solved as the time-negated ascending problem);
-``ys[k] = z(ts[k])`` with ``ys[0] = z0`` (``ys`` has z0's structure, each
-leaf stacked over ``ts``). The solve runs on ``z0``'s device; ``ts`` moves
-there. Gradients flow to ``z0`` and to the floating tensors of ``args``.
+(dict, tuple, list, NamedTuple) of floating tensors, raveled once per
+solve (leaves of several dtypes into one flat tensor per dtype, each
+leaf computing in its own dtype; such a state takes no kernel); ``ts``
+strictly monotone — ascending, or descending for a reverse-time solve
+(solved as the time-negated ascending problem); ``ys[k] = z(ts[k])``
+with ``ys[0] = z0`` (``ys`` has z0's structure, each leaf stacked over
+``ts`` in its own dtype). The solve runs on ``z0``'s device; ``ts``
+moves there. Gradients flow to ``z0`` and to the floating tensors of
+``args``.
 
 ``grad_method`` picks how: ``"aca"`` (the paper's checkpoint replay),
 ``"adjoint"`` (Chen et al.'s reverse solve of the augmented system, O(N_f)
@@ -76,6 +79,7 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
+from .groups import gget, gmap
 from .integrate import SolveStats, SolveStatus, adaptive_while_solve, as_tuple
 from .odeint_aca import odeint_aca, odeint_aca_batched, odeint_aca_fixed
 from .odeint_adjoint import (
@@ -596,10 +600,10 @@ class DenseSolution(NamedTuple):
         tiny = torch.finfo(self.t.dtype).eps
         theta = torch.clamp((tq - t_i) / torch.clamp(h_i, min=tiny), 0.0,
                             1.0)
-        vals = interp_eval_aligned(InterpCoeffs(*(c[idx]
+        vals = interp_eval_aligned(InterpCoeffs(*(gget(c, idx)
                                                   for c in self.coeffs)),
                                    theta)
-        vals = vals.reshape(qshape + tuple(vals.shape[1:]))
+        vals = gmap(lambda v: v.reshape(qshape + tuple(v.shape[1:])), vals)
         return vals if self.unravel is None else self.unravel(vals)
 
 

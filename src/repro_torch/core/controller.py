@@ -18,6 +18,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from .groups import gleaves, gmap
+
 
 @dataclasses.dataclass(frozen=True)
 class ControllerConfig:
@@ -71,35 +73,46 @@ def sqrt0(x: torch.Tensor) -> torch.Tensor:
                        torch.sqrt(torch.where(zero, torch.ones_like(x), x)))
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    return sqrt0(torch.sum(xf * xf) / torch.full((), x.numel(),
-                                                 dtype=torch.float32,
-                                                 device=x.device))
+def _rms(x) -> torch.Tensor:
+    """The RMS of a state (one tensor, or its dtype groups), each group's
+    squares summed in f32 and the sums added up over the groups."""
+    total, n = None, 0
+    for g in gleaves(x):
+        xf = g.float()
+        part = torch.sum(xf * xf)
+        total = part if total is None else total + part
+        n += g.numel()
+    return sqrt0(total / torch.full((), n, dtype=torch.float32,
+                                    device=total.device))
 
 
-def initial_stepsize(f: Callable, t0: torch.Tensor, z0: torch.Tensor,
+def initial_stepsize(f: Callable, t0: torch.Tensor, z0,
                      args: Tuple, order: int, rtol: float,
                      atol: float) -> torch.Tensor:
     """Hairer I.4 'starting step size' heuristic (two evaluations of f).
 
     No Python branch reads a tensor value, so the batched solve and the
     serving engine ``torch.func.vmap`` it over rows and per-row
-    tolerances (``rtol``/``atol`` then arrive as 0-d tensors)."""
-    scale = atol + rtol * torch.abs(z0)
+    tolerances (``rtol``/``atol`` then arrive as 0-d tensors). Over dtype
+    groups the norms run over every group, as the reference's over every
+    leaf."""
+    scale = gmap(lambda z: atol + rtol * torch.abs(z), z0)
     f0 = f(t0, z0, *args)
-    d0 = _rms(z0 / scale)
-    d1 = _rms(f0 / scale)
+    d0 = _rms(gmap(torch.div, z0, scale))
+    d1 = _rms(gmap(torch.div, f0, scale))
     # each unselected branch divides by a value kept away from 0, so its
     # gradient cannot turn into NaN (the naive method differentiates h0)
     small = (d0 < 1e-5) | (d1 < 1e-5)
     h0 = torch.where(small, torch.full_like(d0, 1e-6),
                      0.01 * d0 / torch.where(small, torch.ones_like(d1), d1))
     # as in JAX, the f32 h0 promotes a lower-precision state here
-    pt = torch.promote_types(h0.dtype, z0.dtype)
-    z1 = z0.to(pt) + h0 * f0.to(pt)
+    def euler(z, g):
+        pt = torch.promote_types(h0.dtype, z.dtype)
+        return z.to(pt) + h0 * g.to(pt)
+
+    z1 = gmap(euler, z0, f0)
     f1 = f(t0 + h0, z1, *args)
-    d2 = _rms((f1 - f0) / scale) / h0
+    d2 = _rms(gmap(lambda a, b, s: (a - b) / s, f1, f0, scale)) / h0
     dmax = torch.maximum(d1, d2)
     # Hairer I.4 step (f): h1 = (0.01 / max(d1, d2))^(1/(p+1))
     flat = dmax <= 1e-15

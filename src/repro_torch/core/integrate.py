@@ -32,6 +32,10 @@ trial loop (the same host reads a trial) on the asynchronous-leapfrog pair
 of ``stepper.alf_step``: the carry is the integer-lattice pair (z, v) and
 the only per-step record is the scalar grid (``MaliGrid``), which the
 MALI backward sweep inverts from the terminal pair.
+
+Every engine takes a state of dtype groups (``core/groups.py``) as well
+as one tensor: its buffers, masks and writes then hold one tensor per
+group.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 from torch.func import vmap
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
+from .groups import gdetach, gget, gleaves, gmap, gset, gstack, gzeros
 from .stepper import (
     ALF_ORDER,
     InterpCoeffs,
@@ -222,12 +227,16 @@ def natural_grid_outputs(ts, t, t_new, h_use, accept, hit, eval_idx, ys,
     covered = covered_evals(ts, eval_idx, t_new, hit) & accept
     coeffs = interp_fit(z, z_next, k0, k1, h_use, z_mid)
     yint = interp_eval(coeffs, eval_theta(ts, t, h_use))
-    m = covered.reshape(tuple(covered.shape)
-                        + (1,) * (ys.dim() - covered.dim()))
-    ys = torch.where(m, yint, ys)
-    last = _bwhere(hit, z_next, ys[n_eval - 1]) if t.dim() else \
-        torch.where(hit, z_next, ys[n_eval - 1])
-    ys = torch.cat([ys[:n_eval - 1], last.unsqueeze(0)])
+
+    def write(ys, yint, z_next):
+        m = covered.reshape(tuple(covered.shape)
+                            + (1,) * (ys.dim() - covered.dim()))
+        ys = torch.where(m, yint, ys)
+        last = _bwhere(hit, z_next, ys[n_eval - 1]) if t.dim() else \
+            torch.where(hit, z_next, ys[n_eval - 1])
+        return torch.cat([ys[:n_eval - 1], last.unsqueeze(0)])
+
+    ys = gmap(write, ys, yint, z_next)
     return ys, coeffs, covered.sum(dim=0, dtype=torch.int64)
 
 
@@ -277,20 +286,21 @@ def trial_decision(cfg: ControllerConfig, order: int, t, h_use, h_min,
     return accept, fail, uflow, t_new, hit, h_next
 
 
-def nonfinite_any(*tensors: torch.Tensor) -> torch.Tensor:
-    """0-d bool: any of ``tensors`` holds a NaN or Inf."""
+def nonfinite_any(*states) -> torch.Tensor:
+    """0-d bool: any of ``states`` (tensors or dtype groups) holds a NaN or
+    Inf."""
     out = None
-    for x in tensors:
+    for x in (g for z in states for g in gleaves(z)):
         flag = torch.any(~torch.isfinite(x))
         out = flag if out is None else out | flag
     return out
 
 
-def nonfinite_rows(*tensors: torch.Tensor) -> torch.Tensor:
-    """(B,) bool: row b of any of the batch-leading ``tensors`` holds a
-    NaN or Inf."""
+def nonfinite_rows(*states) -> torch.Tensor:
+    """(B,) bool: row b of any of the batch-leading ``states`` (tensors or
+    dtype groups) holds a NaN or Inf."""
     out = None
-    for x in tensors:
+    for x in (g for z in states for g in gleaves(z)):
         flag = torch.any(~torch.isfinite(x.reshape(x.shape[0], -1)), dim=1)
         out = flag if out is None else out | flag
     return out
@@ -307,13 +317,24 @@ def _compose_status(failed, uflow, finished, trials_out) -> torch.Tensor:
                        status).to(torch.int32)
 
 
-def _freeze_fill(ys: torch.Tensor, mask: torch.Tensor,
-                 z_frozen: torch.Tensor) -> torch.Tensor:
+def _freeze_fill(ys, mask: torch.Tensor, z_frozen):
     """Repeat a failed solve's last accepted state into its un-reached
     eval slots (``mask`` (n_eval,), or (n_eval, B) with ``z_frozen``
     (B, ...) when batched); a bitwise no-op where it is False."""
-    m = mask.reshape(mask.shape + (1,) * (ys.dim() - mask.dim()))
-    return torch.where(m, z_frozen.unsqueeze(0), ys)
+    def fill(y, z):
+        m = mask.reshape(mask.shape + (1,) * (y.dim() - mask.dim()))
+        return torch.where(m, z.unsqueeze(0), y)
+
+    return gmap(fill, ys, z_frozen)
+
+
+def _write_hit(ys, eval_idx: torch.Tensor, hit: torch.Tensor,
+               z_next) -> None:
+    """Solo landing write, in place: ``ys[eval_idx]`` takes ``z_next``
+    where ``hit``, else keeps its value."""
+    for y, z in zip(gleaves(ys), gleaves(z_next)):
+        cur = y.index_select(0, eval_idx)
+        y.index_copy_(0, eval_idx, torch.where(hit, z.unsqueeze(0), cur))
 
 
 def mask_failed_cotangents(g_ys: torch.Tensor, status: torch.Tensor,
@@ -371,7 +392,7 @@ def adaptive_while_solve(
     if not tab.adaptive:
         raise ValueError("adaptive_while_solve requires an embedded "
                          "adaptive tableau")
-    dev = z0.device
+    dev = gleaves(z0)[0].device
     n_eval = ts.shape[0]
     tdt = ts.dtype
     max_steps = cfg.max_steps
@@ -386,14 +407,13 @@ def adaptive_while_solve(
         h0 = initial_stepsize(f, ts[0], z0, args, tab.order, rtol, atol)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).reshape(())
 
-    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
-    ys[0] = z0
+    ys = gzeros((n_eval,), z0)
+    gset(ys, 0, z0)
     extra = {}
     if checkpoint:
         ckpt_t = torch.zeros(max_steps, dtype=tdt, device=dev)
         ckpt_h = torch.zeros_like(ckpt_t)
-        ckpt_z = torch.zeros((n_snap,) + tuple(z0.shape), dtype=z0.dtype,
-                             device=dev)
+        ckpt_z = gzeros((n_snap,), z0)
         ckpt_oi = torch.full((max_steps,), -1, dtype=torch.int32,
                              device=dev)
         if natural:
@@ -402,15 +422,13 @@ def adaptive_while_solve(
                                          device=dev)
             extra["ev_hi"] = torch.zeros_like(extra["ev_lo"])
         if store_coeffs:
-            cf = [torch.zeros((max_steps,) + tuple(z0.shape),
-                              dtype=z0.dtype, device=dev) for _ in range(5)]
+            cf = [gzeros((max_steps,), z0) for _ in range(5)]
 
     k0 = f(ts[0], z0, *args)
     if checkpoint and segmented:
         # the k0 carry each snapshot's step consumed, for the re-chained
         # re-integration
-        extra["k0"] = torch.zeros((n_snap,) + tuple(k0.shape),
-                                  dtype=k0.dtype, device=dev)
+        extra["k0"] = gzeros((n_snap,), k0)
     nfe = 1 + hinit_evals
     false = torch.zeros((), dtype=torch.bool, device=dev)
     # a non-finite initial state / derivative / h0 fails before stepping
@@ -468,11 +486,11 @@ def adaptive_while_solve(
                 ckpt_t[i] = t
                 ckpt_h[i] = h_use
                 if not segmented:
-                    ckpt_z[i] = z
+                    gset(ckpt_z, i, z)
                 elif i % seg_len == 0:
                     # a segment starts: snapshot z and the k0 it consumed
-                    ckpt_z[min(i // seg_len, n_snap - 1)] = z
-                    extra["k0"][min(i // seg_len, n_snap - 1)] = k0
+                    gset(ckpt_z, min(i // seg_len, n_snap - 1), z)
+                    gset(extra["k0"], min(i // seg_len, n_snap - 1), k0)
                 ckpt_oi[i] = torch.where(
                     hit, final_idx if natural else eval_idx[0].int(), -1)
             if natural:
@@ -484,14 +502,11 @@ def adaptive_while_solve(
                     extra["ev_hi"][i] = eval_idx[0] + n_cov
                     if store_coeffs:
                         for buf, c in zip(cf, coeffs):
-                            buf[i] = c
+                            gset(buf, i, c)
                 eval_idx = eval_idx + n_cov + hit.to(torch.int64)
             else:
                 # record the output at an eval-time hit
-                cur = ys.index_select(0, eval_idx)
-                ys.index_copy_(0, eval_idx,
-                               torch.where(hit, res.z_next.unsqueeze(0),
-                                           cur))
+                _write_hit(ys, eval_idx, hit, res.z_next)
                 eval_idx = eval_idx + hit.to(torch.int64)
             k0 = k0_acc
             t, z = t_new, res.z_next
@@ -531,13 +546,13 @@ def _row_tolerances(rtol, atol, n_rows: int, device):
         .broadcast_to((n_rows,)).contiguous() for x in (rtol, atol))
 
 
-def _bwhere(pred: torch.Tensor, a: torch.Tensor,
-            b: torch.Tensor) -> torch.Tensor:
-    """``torch.where`` with a (B,) predicate over batch-leading tensors."""
-    return torch.where(pred.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+def _bwhere(pred: torch.Tensor, a, b):
+    """``torch.where`` with a (B,) predicate over batch-leading states."""
+    return gmap(lambda x, y: torch.where(
+        pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
-def batched_initial_stepsize(f: Callable, ts: torch.Tensor, z0: torch.Tensor,
+def batched_initial_stepsize(f: Callable, ts: torch.Tensor, z0,
                              args: Tuple, order: int, rtol, atol
                              ) -> torch.Tensor:
     """(B,) Hairer initial stepsizes of the rows of ``z0``, vmapped over
@@ -609,8 +624,8 @@ def batched_adaptive_while_solve(
     if interpolate_ts and ts.dim() != 1:
         raise ValueError("interpolate_ts reads every row off one shared "
                          "1-D ts; per-row (B, T) ts are not supported")
-    dev = z0.device
-    B = z0.shape[0]
+    dev = gleaves(z0)[0].device
+    B = gleaves(z0)[0].shape[0]
     rows = torch.arange(B, device=dev)
     n_eval = ts.shape[-1]
     ts_rows = ts.expand(B, n_eval)
@@ -628,14 +643,13 @@ def batched_adaptive_while_solve(
         h0 = batched_initial_stepsize(f, ts, z0, args, tab.order, rtol, atol)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).broadcast_to((B,)).clone()
 
-    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
-    ys[0] = z0
+    ys = gzeros((n_eval,), z0)
+    gset(ys, 0, z0)
     extra = {}
     if checkpoint:
         ckpt_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
         ckpt_h = torch.zeros_like(ckpt_t)
-        ckpt_z = torch.zeros((B, n_snap) + tuple(z0.shape[1:]),
-                             dtype=z0.dtype, device=dev)
+        ckpt_z = gzeros((B, n_snap), z0, keep=1)
         ckpt_oi = torch.full((B, max_steps), -1, dtype=torch.int32,
                              device=dev)
         if interpolate_ts:
@@ -647,8 +661,7 @@ def batched_adaptive_while_solve(
     t = ts_rows[:, 0].clone()
     k0 = fb(t, z0)
     if checkpoint and segmented:
-        extra["k0"] = torch.zeros((B, n_snap) + tuple(k0.shape[1:]),
-                                  dtype=k0.dtype, device=dev)
+        extra["k0"] = gzeros((B, n_snap), k0, keep=1)
     nfe = torch.full((B,), 1 + hinit_evals, dtype=torch.int32, device=dev)
     # rows starting from a non-finite state/derivative/h0 fail at once
     failed = nonfinite_rows(z0, k0, h) if guard_nonfinite else \
@@ -709,15 +722,17 @@ def batched_adaptive_while_solve(
             ckpt_h[rows, i_c] = torch.where(accept, h_use,
                                             ckpt_h[rows, i_c])
             if not segmented:
-                ckpt_z[rows, i_c] = _bwhere(accept, z, ckpt_z[rows, i_c])
+                gset(ckpt_z, (rows, i_c),
+                     _bwhere(accept, z, gget(ckpt_z, (rows, i_c))))
             else:
                 # each row snapshots (z, the k0 it consumed) at its own
                 # segment starts
                 s = (i_c // seg_len).clamp(max=n_snap - 1)
                 snap = accept & (i_c % seg_len == 0)
-                ckpt_z[rows, s] = _bwhere(snap, z, ckpt_z[rows, s])
-                extra["k0"][rows, s] = _bwhere(snap, k0,
-                                               extra["k0"][rows, s])
+                gset(ckpt_z, (rows, s),
+                     _bwhere(snap, z, gget(ckpt_z, (rows, s))))
+                gset(extra["k0"], (rows, s),
+                     _bwhere(snap, k0, gget(extra["k0"], (rows, s))))
             oi_val = torch.where(
                 hit, final_idx if interpolate_ts else
                 eval_idx.to(torch.int32), minus_one)
@@ -739,7 +754,8 @@ def batched_adaptive_while_solve(
         else:
             # on an eval-time hit: record that row's output
             e_c = eval_idx.clamp(max=n_eval - 1)
-            ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
+            gset(ys, (e_c, rows),
+                 _bwhere(hit, res.z_next, gget(ys, (e_c, rows))))
             eval_adv = hit.to(torch.int64)
 
         k0 = _bwhere(accept, k0_acc, k0)
@@ -786,10 +802,10 @@ def make_fixed_grid(ts: torch.Tensor, steps_per_interval: int
     return t_grid.reshape(-1), h_grid.reshape(-1)
 
 
-def fixed_status(ys: torch.Tensor) -> torch.Tensor:
+def fixed_status(ys) -> torch.Tensor:
     """A fixed grid has no trial loop to guard: one finite check of the
     outputs after the solve gives its ``SolveStatus``."""
-    return torch.where(nonfinite_any(ys.detach()),
+    return torch.where(nonfinite_any(gdetach(ys)),
                        SolveStatus.NONFINITE_STATE,
                        SolveStatus.OK).to(torch.int32)
 
@@ -834,7 +850,7 @@ def fixed_grid_solve(
                     use_pallas=use_pallas).z_next
         if (j + 1) % steps_per_interval == 0:
             ys.append(z)
-    ys = torch.stack(ys)
+    ys = gstack(ys)
     stats = fixed_stats(tab, t_grid.shape[0], fixed_status(ys))
     return (ys if unravel is None else unravel(ys)), stats
 
@@ -891,7 +907,7 @@ def mali_adaptive_solve(
     ratio is not finite is rejected, and one that stays so at ``h_min``
     freezes the solve with ``SolveStatus.NONFINITE_STATE``.
     """
-    dev = z0.device
+    dev = gleaves(z0)[0].device
     n_eval = ts.shape[0]
     tdt = ts.dtype
     max_steps = cfg.max_steps
@@ -906,8 +922,8 @@ def mali_adaptive_solve(
         h0 = initial_stepsize(f, ts[0], z0, args, ALF_ORDER, rtol, atol)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).reshape(())
 
-    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
-    ys[0] = z0
+    ys = gzeros((n_eval,), z0)
+    gset(ys, 0, z0)
     grid_t = torch.zeros(max_steps, dtype=tdt, device=dev)
     grid_h = torch.zeros_like(grid_t)
     grid_oi = torch.full((max_steps,), -1, dtype=torch.int32, device=dev)
@@ -948,9 +964,7 @@ def mali_adaptive_solve(
             grid_t[i] = t
             grid_h[i] = h_use
             grid_oi[i] = torch.where(hit, eval_idx[0].int(), -1)
-            cur = ys.index_select(0, eval_idx)
-            ys.index_copy_(0, eval_idx,
-                           torch.where(hit, res.z_next.unsqueeze(0), cur))
+            _write_hit(ys, eval_idx, hit, res.z_next)
             eval_idx = eval_idx + hit.to(torch.int64)
             t, z = t_new, res.z_next
             zq, vq = res.zq_next, res.vq_next
@@ -997,8 +1011,8 @@ def batched_mali_adaptive_solve(
     (B,) tensors, ``h0`` a scalar or (B,), ``ts`` (T,) or (B, T), as in
     ``batched_adaptive_while_solve``.
     """
-    dev = z0.device
-    B = z0.shape[0]
+    dev = gleaves(z0)[0].device
+    B = gleaves(z0)[0].shape[0]
     rows = torch.arange(B, device=dev)
     n_eval = ts.shape[-1]
     ts_rows = ts.expand(B, n_eval)
@@ -1019,8 +1033,8 @@ def batched_mali_adaptive_solve(
         h0 = batched_initial_stepsize(f, ts, z0, args, ALF_ORDER, rtol, atol)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).broadcast_to((B,)).clone()
 
-    ys = torch.zeros((n_eval,) + tuple(z0.shape), dtype=z0.dtype, device=dev)
-    ys[0] = z0
+    ys = gzeros((n_eval,), z0)
+    gset(ys, 0, z0)
     grid_t = torch.zeros((B, max_steps), dtype=tdt, device=dev)
     grid_h = torch.zeros_like(grid_t)
     grid_oi = torch.full((B, max_steps), -1, dtype=torch.int32, device=dev)
@@ -1067,7 +1081,7 @@ def batched_mali_adaptive_solve(
         grid_oi[rows, i_c] = torch.where(accept, oi_val, grid_oi[rows, i_c])
         # on an eval-time hit: that row's decoded output
         e_c = eval_idx.clamp(max=n_eval - 1)
-        ys[e_c, rows] = _bwhere(hit, res.z_next, ys[e_c, rows])
+        gset(ys, (e_c, rows), _bwhere(hit, res.z_next, gget(ys, (e_c, rows))))
 
         t = torch.where(accept, t_new, t)
         zq = _bwhere(accept, res.zq_next, zq)

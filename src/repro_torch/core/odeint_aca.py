@@ -47,6 +47,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
+from .groups import gget, gleaves, gmap, gset, gstack, gzeros, ungroup
 from .integrate import (
     Checkpoints,
     SolveStats,
@@ -89,9 +90,22 @@ class _Problem:
             resolve_segmentation(checkpoint_segments, cfg.max_steps)
         self.interpolate_ts = interpolate_ts
         self.stats: Optional[SolveStats] = None
+        # the state's tensors among the Function's inputs: 1, or its G
+        # dtype groups
+        self.n_z = 1
 
     def args(self, leaves) -> Tuple:
         return as_tuple(pytree.tree_unflatten(list(leaves), self.args_spec))
+
+    def inputs(self, z0, arg_leaves) -> list:
+        """The Function's tensor inputs after ``ts``: the state's tensors,
+        then the args leaves (``n_z`` records how many are the state's)."""
+        self.n_z = len(gleaves(z0))
+        return gleaves(z0) + list(arg_leaves)
+
+    def split(self, tensors):
+        """(state, args leaves) of the Function's inputs after ``ts``."""
+        return ungroup(list(tensors[:self.n_z])), tensors[self.n_z:]
 
     def engine_kw(self) -> dict:
         return dict(h0=self.h0, use_pallas=self.use_pallas,
@@ -122,10 +136,11 @@ class _Sweep:
         self.batched = batched
         self.args, self.wrt_args, self.diff = _diff_args(prob, arg_leaves,
                                                          needs)
-        self.lam = torch.zeros_like(g_ys[0])
+        self.lam = gmap(torch.zeros_like, gget(g_ys, 0))
         self.gargs = [torch.zeros_like(a) for a in self.wrt_args]
         self.interp = ckpts.ev_lo is not None
-        self.karr = torch.arange(g_ys.shape[0], device=g_ys.device)
+        g0 = gleaves(g_ys)[0]
+        self.karr = torch.arange(g0.shape[0], device=g0.device)
 
     def _local(self, t_i, h_i, z_i):
         """ψ(t_i, z_i, h_i) with the saved stepsize, k0 recomputed so its
@@ -161,18 +176,19 @@ class _Sweep:
             h_i = torch.where(live, ck.h[rows, i], torch.zeros_like(t_i))
             oi = torch.where(live, ck.out_idx[rows, i],
                              torch.full_like(ck.out_idx[rows, i], -1))
-            g_k = g_ys[oi.clamp(min=0).long(), rows]
-            lam = torch.where((oi >= 0).reshape(
-                (-1,) + (1,) * (self.lam.dim() - 1)), self.lam + g_k,
-                self.lam)
+            g_k = gget(g_ys, (oi.clamp(min=0).long(), rows))
+            lam = gmap(lambda la, gk: torch.where((oi >= 0).reshape(
+                (-1,) + (1,) * (la.dim() - 1)), la + gk, la), self.lam, g_k)
         else:
             t_i, h_i, oi = ck.t[i], ck.h[i], ck.out_idx[i]
-            g_k = g_ys.index_select(0, oi.clamp(min=0).reshape(1).long())[0]
-            lam = torch.where(oi >= 0, self.lam + g_k, self.lam)
+            g_k = gmap(lambda g: g.index_select(
+                0, oi.clamp(min=0).reshape(1).long())[0], g_ys)
+            lam = gmap(lambda la, gk: torch.where(oi >= 0, la + gk, la),
+                       self.lam, g_k)
         with torch.enable_grad():
-            z_i = z_i.detach().requires_grad_()
+            z_i = gmap(lambda x: x.detach().requires_grad_(), z_i)
             z_next, y_all = self._local(t_i, h_i, z_i)
-            outs, cots = [z_next], [lam]
+            outs, cots = gleaves(z_next), gleaves(lam)
             if y_all is not None:
                 # the interpolated outputs' cotangents, masked to the eval
                 # times this interval covered
@@ -182,29 +198,32 @@ class _Sweep:
                          & (self.karr[:, None] < ck.ev_hi[rows, i][None, :]))
                 else:
                     m = (self.karr >= ck.ev_lo[i]) & (self.karr < ck.ev_hi[i])
-                m = m.reshape(tuple(m.shape) + (1,) * (g_ys.dim() - m.dim()))
-                outs.append(y_all)
-                cots.append(torch.where(m, g_ys, torch.zeros_like(g_ys)))
-            grads = torch.autograd.grad(outs, [z_i] + self.wrt_args, cots,
-                                        allow_unused=True)
-        self.lam = grads[0] if grads[0] is not None else \
-            torch.zeros_like(lam)
+                for y, g in zip(gleaves(y_all), gleaves(g_ys)):
+                    mg = m.reshape(tuple(m.shape)
+                                   + (1,) * (g.dim() - m.dim()))
+                    outs.append(y)
+                    cots.append(torch.where(mg, g, torch.zeros_like(g)))
+            n_z = len(gleaves(z_i))
+            grads = torch.autograd.grad(outs, gleaves(z_i) + self.wrt_args,
+                                        cots, allow_unused=True)
+        self.lam = ungroup([g if g is not None else torch.zeros_like(la)
+                            for g, la in zip(grads[:n_z], gleaves(lam))])
         self.gargs = [ga if d is None else ga + d
-                      for ga, d in zip(self.gargs, grads[1:])]
+                      for ga, d in zip(self.gargs, grads[n_z:])]
 
     def result(self):
         """(dL/dz0, [dL/d leaf], None where a leaf takes no gradient): the
         cotangent of ys[0] = z0 enters on the identity path."""
         out = iter(self.gargs)
-        return self.lam + self.g_ys[0], [next(out) if d else None
-                                         for d in self.diff]
+        return (gmap(lambda la, g: la + g, self.lam, gget(self.g_ys, 0)),
+                [next(out) if d else None for d in self.diff])
 
 
 def _aca_backward_sweep(sw: _Sweep):
     """Reverse sweep over the full checkpoint buffer: every accepted step
     replayed from its stored start state."""
     for i in range(sw.ckpts.n - 1, -1, -1):
-        sw.replay(i, sw.ckpts.z[i])
+        sw.replay(i, gget(sw.ckpts.z, i))
     return sw.result()
 
 
@@ -238,41 +257,46 @@ def _aca_backward_sweep_segmented(sw: _Sweep):
     not re-taken."""
     ck, seg_len = sw.ckpts, sw.prob.seg_len
     n = ck.n
-    zbuf = torch.empty((seg_len,) + tuple(ck.z.shape[1:]), dtype=ck.z.dtype,
-                       device=ck.z.device)
+    zbuf = gmap(lambda x: torch.empty((seg_len,) + tuple(x.shape[1:]),
+                                      dtype=x.dtype, device=x.device), ck.z)
     for s in range(-(-n // seg_len) - 1, -1, -1):
         i0, i1 = s * seg_len, min(s * seg_len + seg_len, n)
-        z, k0 = ck.z[s], ck.k0[s]
-        zbuf[0] = z
+        z, k0 = gget(ck.z, s), gget(ck.k0, s)
+        gset(zbuf, 0, z)
         for i in range(i0, i1 - 1):
             z, k0 = _reintegrate(sw.prob, sw.args, ck, z, k0, i, ck.h[i],
                                  batched=False)
-            zbuf[i + 1 - i0] = z
+            gset(zbuf, i + 1 - i0, z)
         for i in range(i1 - 1, i0 - 1, -1):
-            sw.replay(i, zbuf[i - i0])
+            sw.replay(i, gget(zbuf, i - i0))
     return sw.result()
 
 
 def _save_checkpoints(ctx, ckpts: Checkpoints) -> None:
     """Keep the trajectory checkpoint for the backward through
     ``save_for_backward``, where autograd's saved-tensor hooks see it: the
-    scalar grids, the state buffer or snapshots, the snapshots' k0 and the
-    natural grid's eval ranges."""
+    scalar grids, the state buffer or snapshots (each dtype group its own
+    tensor), the snapshots' k0 and the natural grid's eval ranges."""
     names = [k for k in ("t", "h", "z", "out_idx", "k0", "ev_lo", "ev_hi")
              if getattr(ckpts, k) is not None]
-    ctx.save_for_backward(*(getattr(ckpts, k) for k in names))
-    ctx.ckpt_names = names
+    parts = [gleaves(getattr(ckpts, k)) for k in names]
+    ctx.save_for_backward(*(x for p in parts for x in p))
+    ctx.ckpt_names = [(k, len(p)) for k, p in zip(names, parts)]
     ctx.n = ckpts.n
 
 
 def _saved_checkpoints(ctx) -> Checkpoints:
-    return Checkpoints(n=ctx.n, **dict(zip(ctx.ckpt_names,
-                                           ctx.saved_tensors)))
+    saved, fields, j = ctx.saved_tensors, {}, 0
+    for k, count in ctx.ckpt_names:
+        fields[k] = ungroup(list(saved[j:j + count]))
+        j += count
+    return Checkpoints(n=ctx.n, **fields)
 
 
 class _AcaSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+    def forward(ctx, prob: _Problem, ts, *tensors):
+        z0, arg_leaves = prob.split(tensors)
         args = prob.args(arg_leaves)
         if prob.steps_per_interval is None:
             ys, ckpts, stats = adaptive_while_solve(
@@ -290,18 +314,19 @@ class _AcaSolve(torch.autograd.Function):
         return ys
 
     @staticmethod
-    def backward(ctx, g_ys):
+    def backward(ctx, *g_ys):
         prob = ctx.prob
         # a frozen (NONFINITE_STATE) solve's placeholder outputs carry no
         # gradient: zero the cotangents before the replay sweep
-        g_ys = mask_failed_cotangents(g_ys, ctx.status)
+        g_ys = gmap(lambda g: mask_failed_cotangents(g, ctx.status),
+                    ungroup(list(g_ys)))
         sw = _Sweep(prob, _saved_checkpoints(ctx), list(ctx.arg_leaves),
-                    list(ctx.needs_input_grad[3:]), g_ys, ctx.ts,
+                    list(ctx.needs_input_grad[2 + prob.n_z:]), g_ys, ctx.ts,
                     batched=False)
         sweep = _aca_backward_sweep if prob.n_seg is None else \
             _aca_backward_sweep_segmented
         dz0, dargs = sweep(sw)
-        return (None, dz0, None, *dargs)
+        return (None, None, *gleaves(dz0), *dargs)
 
 
 def _aca_backward_sweep_batched(sw: _Sweep):
@@ -321,7 +346,7 @@ def _aca_backward_sweep_batched(sw: _Sweep):
     for j in range(int(n_max)):
         i = n - 1 - j                        # (B,), negative when done
         i_c = i.clamp(min=0).long()
-        sw.replay(i_c, sw.ckpts.z[rows, i_c], live=i >= 0)
+        sw.replay(i_c, gget(sw.ckpts.z, (rows, i_c)), live=i >= 0)
     return sw.result()
 
 
@@ -340,14 +365,13 @@ def _aca_backward_sweep_segmented_batched(sw: _Sweep):
     with h = 0. The windows are planned on the host from one read of n.
     """
     ck, prob = sw.ckpts, sw.prob
-    seg_len, n_snap = prob.seg_len, ck.z.shape[1]
+    seg_len, n_snap = prob.seg_len, gleaves(ck.z)[0].shape[1]
     n_host = ck.n.tolist()               # the backward's one host read
     B = len(n_host)
     dev = ck.n.device
     rows = torch.arange(B, device=dev)
     n_max = max(n_host)
-    zbuf = torch.zeros((B, seg_len) + tuple(ck.z.shape[2:]), dtype=ck.z.dtype,
-                       device=ck.z.device)
+    zbuf = gzeros((B, seg_len), ck.z, keep=2)
     for j in range(-(-n_max // seg_len)):
         g_hi = [nb - j * seg_len for nb in n_host]      # window end (excl.)
         g_lo = [max(g - seg_len, 0) for g in g_hi]      # window start
@@ -359,14 +383,14 @@ def _aca_backward_sweep_segmented_batched(sw: _Sweep):
         g_hi_t, g_lo_t, a0_t = (torch.tensor(v, device=dev)
                                 for v in (g_hi, g_lo, a0))
         snap_t = torch.tensor(snap, device=dev)
-        z, k0 = ck.z[rows, snap_t], ck.k0[rows, snap_t]
+        z, k0 = gget(ck.z, (rows, snap_t)), gget(ck.k0, (rows, snap_t))
         for q in range(span):
             i = a0_t + q
             in_win = (i >= g_lo_t) & (i < g_hi_t)
             slot = (i - g_lo_t).clamp(0, seg_len - 1)
-            zbuf[rows, slot] = torch.where(
-                in_win.reshape((-1,) + (1,) * (z.dim() - 1)), z,
-                zbuf[rows, slot])
+            gset(zbuf, (rows, slot), gmap(lambda x, b: torch.where(
+                in_win.reshape((-1,) + (1,) * (x.dim() - 1)), x, b), z,
+                gget(zbuf, (rows, slot))))
             if q + 1 < span:
                 # rows whose next start state is past their window step
                 # with h = 0, the identity
@@ -382,13 +406,14 @@ def _aca_backward_sweep_segmented_batched(sw: _Sweep):
             i = ck.n - 1 - jj                        # (B,), < 0 when done
             i_c = i.clamp(min=0).long()
             slot = (i - g_lo_t).clamp(0, seg_len - 1)
-            sw.replay(i_c, zbuf[rows, slot], live=i >= 0)
+            sw.replay(i_c, gget(zbuf, (rows, slot)), live=i >= 0)
     return sw.result()
 
 
 class _AcaSolveBatched(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+    def forward(ctx, prob: _Problem, ts, *tensors):
+        z0, arg_leaves = prob.split(tensors)
         args = prob.args(arg_leaves)
         ys, ckpts, stats = batched_adaptive_while_solve(
             prob.tab, prob.f, z0, ts, args, prob.rtol, prob.atol, prob.cfg,
@@ -401,41 +426,43 @@ class _AcaSolveBatched(torch.autograd.Function):
         return ys
 
     @staticmethod
-    def backward(ctx, g_ys):
+    def backward(ctx, *g_ys):
         prob = ctx.prob
         # failed rows: their frozen placeholder outputs carry no gradient,
         # into neither their own dz0 nor the shared args
-        g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=True)
+        g_ys = gmap(lambda g: mask_failed_cotangents(g, ctx.status,
+                                                     batched=True),
+                    ungroup(list(g_ys)))
         sw = _Sweep(prob, _saved_checkpoints(ctx), list(ctx.arg_leaves),
-                    list(ctx.needs_input_grad[3:]), g_ys, ctx.ts,
+                    list(ctx.needs_input_grad[2 + prob.n_z:]), g_ys, ctx.ts,
                     batched=True)
         sweep = _aca_backward_sweep_batched if prob.n_seg is None else \
             _aca_backward_sweep_segmented_batched
         dz0, dargs = sweep(sw)
-        return (None, dz0, None, *dargs)
+        return (None, None, *gleaves(dz0), *dargs)
 
 
 @torch.no_grad()
-def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0: torch.Tensor,
+def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0,
                             ts: torch.Tensor, args: Tuple,
                             steps_per_interval: int, use_pallas: bool):
     """The fixed grid without autograd, every grid step's start state
     checkpointed: (ys, checkpoints, stats)."""
     t_grid, h_grid = make_fixed_grid(ts, steps_per_interval)
     n_steps = t_grid.shape[0]
-    ckpt_z = torch.empty((n_steps,) + tuple(z0.shape), dtype=z0.dtype,
-                         device=z0.device)
+    ckpt_z = gmap(lambda x: torch.empty((n_steps,) + tuple(x.shape),
+                                        dtype=x.dtype, device=x.device), z0)
     ys = [z0]
     z = z0
     for j in range(n_steps):
-        ckpt_z[j] = z
+        gset(ckpt_z, j, z)
         z = rk_step(tab, f, t_grid[j], z, h_grid[j], args,
                     use_pallas=use_pallas).z_next
         if (j + 1) % steps_per_interval == 0:
             ys.append(z)
-    ys = torch.stack(ys)
+    ys = gstack(ys)
     # step j's endpoint lands on ts[(j + 1) / steps] at an interval's end
-    j1 = torch.arange(1, n_steps + 1, device=z0.device)
+    j1 = torch.arange(1, n_steps + 1, device=ts.device)
     out_idx = torch.where(j1 % steps_per_interval == 0,
                           j1 // steps_per_interval, -1).to(torch.int32)
     ckpts = Checkpoints(t=t_grid, h=h_grid, z=ckpt_z, out_idx=out_idx,
@@ -445,7 +472,7 @@ def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0: torch.Tensor,
 
 def odeint_aca_batched(
     f: Callable,
-    z0: torch.Tensor,
+    z0: Any,
     ts: torch.Tensor,
     args: Any = (),
     *,
@@ -483,7 +510,7 @@ def odeint_aca_batched(
     prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec,
                     checkpoint_segments=checkpoint_segments,
                     interpolate_ts=interpolate_ts)
-    ys = _AcaSolveBatched.apply(prob, z0, ts, *leaves)
+    ys = _AcaSolveBatched.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
     return ys, prob.stats
@@ -491,7 +518,7 @@ def odeint_aca_batched(
 
 def odeint_aca(
     f: Callable,
-    z0: torch.Tensor,
+    z0: Any,
     ts: torch.Tensor,
     args: Any = (),
     *,
@@ -508,7 +535,7 @@ def odeint_aca(
 
     Returns (ys, stats) with ys stacked over ``ts`` (ys[0] = z0).
     Differentiable with respect to ``z0`` (a tensor, or a pytree of
-    tensors of one floating dtype) and every floating tensor in ``args``
+    floating tensors) and every floating tensor in ``args``
     (a tensor, or a tuple/list/dict nesting of tensors); ``ts`` is a
     constant, as in the paper. ``use_pallas`` flattens the state once per
     solve and runs the trial loop and the backward replay on the fused
@@ -536,7 +563,7 @@ def odeint_aca(
     prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec,
                     checkpoint_segments=checkpoint_segments,
                     interpolate_ts=interpolate_ts)
-    ys = _AcaSolve.apply(prob, z0, ts, *leaves)
+    ys = _AcaSolve.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
     return ys, prob.stats
@@ -561,7 +588,7 @@ def odeint_aca_fixed(
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(solver, f, None, None, None, None, use_pallas, spec,
                     steps_per_interval=steps_per_interval)
-    ys = _AcaSolve.apply(prob, z0, ts, *leaves)
+    ys = _AcaSolve.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
     return ys, prob.stats

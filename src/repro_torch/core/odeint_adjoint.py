@@ -12,7 +12,10 @@ eval times, injecting each output's cotangent into λ at its ``ts[k]``
 one evaluation of f and one vector-Jacobian product over (z, the floating
 args leaves) by ``torch.func.vjp``. The augmented state (z̄, λ, ḡ) is
 raveled into one vector, so the reverse solve runs on the same engines and
-kernels as the forward (K1/K2, or K3/K4/K5 per row when batched).
+kernels as the forward (K1/K2, or K3/K4/K5 per row when batched); where
+its leaves mix dtypes (a bf16 state beside f32 args, or a mixed-dtype
+state: λ takes z's groups, ḡ the args' dtypes) it ravels into dtype groups
+and runs the plain stepper.
 
 Because z̄(t) is a fresh solve backwards, it drifts from the forward
 trajectory by the truncation error of Theorem 3.2: the systematic
@@ -30,6 +33,7 @@ from torch.func import vjp
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
+from .groups import gget, gleaves, gmap, ungroup
 from .integrate import (
     adaptive_while_solve,
     as_tuple,
@@ -86,7 +90,7 @@ def _aug_dynamics(f: Callable, args_of: Callable):
         fz, pullback = vjp(lambda zz, *th: f(t, zz, *args_of(th)), z,
                            *theta)
         cots = pullback(lam)
-        return (-fz, cots[0], tuple(cots[1:]))
+        return (gmap(torch.neg, fz), cots[0], tuple(cots[1:]))
 
     return g
 
@@ -95,7 +99,8 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
                       needs: List[bool]):
     """Reverse sweep: (dL/dz0, [dL/d leaf], None where not needed)."""
     batched = prob.batched
-    g_ys = mask_failed_cotangents(g_ys, prob.stats.status, batched=batched)
+    g_ys = gmap(lambda g: mask_failed_cotangents(g, prob.stats.status,
+                                                 batched=batched), g_ys)
     floating = [i for i, a in enumerate(arg_leaves)
                 if isinstance(a, torch.Tensor) and a.is_floating_point()]
     theta = tuple(arg_leaves[i].detach() for i in floating)
@@ -107,8 +112,8 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
         return prob.args(leaves)
 
     g = _aug_dynamics(prob.f, args_of)
-    rows = (ys.shape[1],) if batched else ()
-    aug = (ys[-1], g_ys[-1],
+    rows = (gleaves(ys)[0].shape[1],) if batched else ()
+    aug = (gget(ys, -1), gget(g_ys, -1),
            tuple(torch.zeros(rows + tuple(x.shape), dtype=x.dtype,
                              device=x.device) for x in theta))
     # per-row eval times ((B, T) ts) give per-row (B, 2) segments
@@ -116,7 +121,7 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
         s_seg = torch.stack([-ts[..., k + 1], -ts[..., k]], dim=-1)
         ys_seg, _ = prob.solve(g, aug, s_seg, theta, forward=False)
         z_k, lam, gargs = pytree.tree_map(lambda y: y[-1], ys_seg)
-        aug = (z_k, lam + g_ys[k], gargs)
+        aug = (z_k, gmap(lambda la, g: la + g, lam, gget(g_ys, k)), gargs)
     _, lam, gargs = aug
     if batched:
         # args are shared by the rows: their cotangents add up
@@ -130,23 +135,25 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
 
 class _AdjointSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, prob: _Problem, z0, ts, *arg_leaves):
+    def forward(ctx, prob: _Problem, ts, *tensors):
+        z0, arg_leaves = prob.split(tensors)
         ys, stats = prob.solve(prob.f, z0, ts, prob.args(arg_leaves),
                                forward=True)
         prob.stats = stats
         ctx.prob = prob
         # residuals: the outputs alone (z(T) and the other eval times)
-        ctx.save_for_backward(ys)
+        ctx.save_for_backward(*gleaves(ys))
         ctx.ts, ctx.arg_leaves = ts, arg_leaves
         return ys
 
     @staticmethod
-    def backward(ctx, g_ys):
-        ys, = ctx.saved_tensors
-        dz0, dargs = _adjoint_backward(ctx.prob, ys, ctx.ts, g_ys,
-                                       list(ctx.arg_leaves),
-                                       list(ctx.needs_input_grad[3:]))
-        return (None, dz0, None, *dargs)
+    def backward(ctx, *g_ys):
+        ys = ungroup(list(ctx.saved_tensors))
+        prob = ctx.prob
+        dz0, dargs = _adjoint_backward(
+            prob, ys, ctx.ts, ungroup(list(g_ys)), list(ctx.arg_leaves),
+            list(ctx.needs_input_grad[2 + prob.n_z:]))
+        return (None, None, *gleaves(dz0), *dargs)
 
 
 def _run(f, z0, ts, args, unravel, tab, rtol=None, atol=None, cfg=None,
@@ -156,7 +163,7 @@ def _run(f, z0, ts, args, unravel, tab, rtol=None, atol=None, cfg=None,
     prob = _Problem(tab, f, rtol, atol, cfg, h0, use_pallas, spec,
                     steps_per_interval=steps_per_interval, batched=batched,
                     interpolate_ts=interpolate_ts)
-    ys = _AdjointSolve.apply(prob, z0, ts, *leaves)
+    ys = _AdjointSolve.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
     return ys, prob.stats

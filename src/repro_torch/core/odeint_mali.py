@@ -36,6 +36,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .controller import ControllerConfig
+from .groups import gget, gleaves, gmap, ungroup
 from .integrate import (
     MaliGrid,
     SolveStats,
@@ -65,7 +66,7 @@ class MaliSweep:
     ``vq``; after ``mali_backward_sweep`` the reconstructed start pair),
     the adjoints and the args cotangent."""
 
-    def __init__(self, prob: _Problem, grid: MaliGrid, z0: torch.Tensor,
+    def __init__(self, prob: _Problem, grid: MaliGrid, z0,
                  ts: torch.Tensor, arg_leaves: List, needs: List[bool],
                  g_ys: torch.Tensor, batched: bool):
         self.prob, self.grid, self.z0, self.ts = prob, grid, z0, ts
@@ -73,18 +74,18 @@ class MaliSweep:
         self.args, self.wrt_args, self.diff = _diff_args(prob, arg_leaves,
                                                          needs)
         self.zq, self.vq = grid.zT, grid.vT
-        self.lam_z = torch.zeros_like(g_ys[0])
-        self.lam_v = torch.zeros_like(self.lam_z)
+        self.lam_z = gmap(torch.zeros_like, gget(g_ys, 0))
+        self.lam_v = gmap(torch.zeros_like, self.lam_z)
         self.gargs = [torch.zeros_like(a) for a in self.wrt_args]
 
     def _t0(self) -> torch.Tensor:
         """The start time: 0-d solo, (B,) batched."""
         t0 = self.ts[..., 0]
         if self.batched and t0.dim() == 0:
-            t0 = t0.expand(self.z0.shape[0])
+            t0 = t0.expand(gleaves(self.z0)[0].shape[0])
         return t0
 
-    def _field0(self, z0: torch.Tensor) -> torch.Tensor:
+    def _field0(self, z0):
         if self.batched:
             return batched_field(self.prob.f, self.args)(self._t0(), z0)
         return self.prob.f(self._t0(), z0, *self.args)
@@ -103,17 +104,20 @@ class MaliSweep:
         adding its args cotangent into ``gargs``."""
         step = alf_step_float_batched if self.batched else alf_step_float
         with torch.enable_grad():
-            z_p = z_p.detach().requires_grad_()
-            v_p = v_p.detach().requires_grad_()
+            z_p = gmap(lambda x: x.detach().requires_grad_(), z_p)
+            v_p = gmap(lambda x: x.detach().requires_grad_(), v_p)
             z_n, v_n = step(self.prob.f, t_i, h_i, z_p, v_p, self.args,
                             use_pallas=self.prob.use_pallas)
-            grads = torch.autograd.grad([z_n, v_n],
-                                        [z_p, v_p] + self.wrt_args,
-                                        [cot_z, cot_v], allow_unused=True)
-        self._add_args(grads[2:])
-        dz = grads[0] if grads[0] is not None else torch.zeros_like(z_p)
-        dv = grads[1] if grads[1] is not None else torch.zeros_like(v_p)
-        return dz, dv
+            ins = gleaves(z_p) + gleaves(v_p)
+            grads = torch.autograd.grad(gleaves(z_n) + gleaves(v_n),
+                                        ins + self.wrt_args,
+                                        gleaves(cot_z) + gleaves(cot_v),
+                                        allow_unused=True)
+        self._add_args(grads[len(ins):])
+        d = [g if g is not None else torch.zeros_like(x)
+             for g, x in zip(grads, ins)]
+        n_z = len(gleaves(z_p))
+        return ungroup(d[:n_z]), ungroup(d[n_z:])
 
     def _add_args(self, grads) -> None:
         self.gargs = [ga if d is None else ga + d
@@ -124,9 +128,10 @@ class MaliSweep:
         invert step ``i`` and pull λ back through it."""
         g, se = self.grid, self.grid.scale_exp
         t_i, h_i, oi = g.t[i], g.h[i], g.out_idx[i]
-        g_k = self.g_ys.index_select(
-            0, oi.clamp(min=0).reshape(1).long())[0]
-        lam_z = torch.where(oi >= 0, self.lam_z + g_k, self.lam_z)
+        g_k = gmap(lambda g: g.index_select(
+            0, oi.clamp(min=0).reshape(1).long())[0], self.g_ys)
+        lam_z = gmap(lambda la, gk: torch.where(oi >= 0, la + gk, la),
+                     self.lam_z, g_k)
         with torch.no_grad():
             self.zq, self.vq = alf_step_inverse(
                 self.prob.f, t_i, h_i, self.zq, self.vq, se, self.z0,
@@ -149,8 +154,9 @@ class MaliSweep:
         h_i = torch.where(live, g.h[rows, i_c], torch.zeros_like(t_i))
         oi = torch.where(live, g.out_idx[rows, i_c],
                          torch.full_like(g.out_idx[rows, i_c], -1))
-        g_k = self.g_ys[oi.clamp(min=0).long(), rows]
-        lam_z = _rwhere(oi >= 0, self.lam_z + g_k, self.lam_z)
+        g_k = gget(self.g_ys, (oi.clamp(min=0).long(), rows))
+        lam_z = _rwhere(oi >= 0, gmap(lambda la, gk: la + gk, self.lam_z,
+                                      g_k), self.lam_z)
         with torch.no_grad():
             inv_z, inv_v = alf_step_inverse_batched(
                 self.prob.f, t_i, h_i, self.zq, self.vq, se, self.z0,
@@ -160,9 +166,10 @@ class MaliSweep:
         z_p = lattice_decode(self.zq, se, self.z0)
         v_p = lattice_decode(self.vq, se, self.z0)
         dz, dv = self._pull(t_i, h_i, z_p, v_p,
-                            _rwhere(live, lam_z, torch.zeros_like(lam_z)),
+                            _rwhere(live, lam_z,
+                                    gmap(torch.zeros_like, lam_z)),
                             _rwhere(live, self.lam_v,
-                                    torch.zeros_like(self.lam_v)))
+                                    gmap(torch.zeros_like, self.lam_v)))
         self.lam_z = _rwhere(live, dz, lam_z)
         self.lam_v = _rwhere(live, dv, self.lam_v)
 
@@ -172,21 +179,26 @@ class MaliSweep:
         pullback; the cotangent of ys[0] = z0 enters on the identity.
         Returns (dL/dz0, [dL/d leaf], None where a leaf takes none)."""
         with torch.enable_grad():
-            z0 = self.z0.detach().requires_grad_()
+            z0 = gmap(lambda x: x.detach().requires_grad_(), self.z0)
             v0 = self._field0(z0)
-            grads = torch.autograd.grad(v0, [z0] + self.wrt_args,
-                                        self.lam_v, allow_unused=True)
-        self._add_args(grads[1:])
-        dz_v = grads[0] if grads[0] is not None else torch.zeros_like(z0)
+            n_z = len(gleaves(z0))
+            grads = torch.autograd.grad(gleaves(v0),
+                                        gleaves(z0) + self.wrt_args,
+                                        gleaves(self.lam_v),
+                                        allow_unused=True)
+        self._add_args(grads[n_z:])
+        dz_v = ungroup([g if g is not None else torch.zeros_like(x)
+                        for g, x in zip(grads[:n_z], gleaves(z0))])
         out = iter(self.gargs)
-        return (self.lam_z + dz_v + self.g_ys[0],
+        return (gmap(lambda a, b, c: a + b + c, self.lam_z, dz_v,
+                     gget(self.g_ys, 0)),
                 [next(out) if d else None for d in self.diff])
 
 
-def _rwhere(pred: torch.Tensor, a: torch.Tensor,
-            b: torch.Tensor) -> torch.Tensor:
-    """``torch.where`` with a (B,) predicate over batch-leading tensors."""
-    return torch.where(pred.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+def _rwhere(pred: torch.Tensor, a, b):
+    """``torch.where`` with a (B,) predicate over batch-leading states."""
+    return gmap(lambda x, y: torch.where(
+        pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 def mali_backward_sweep(sw: MaliSweep):
@@ -204,21 +216,28 @@ def mali_backward_sweep(sw: MaliSweep):
     return sw.close()
 
 
-def _save_grid(ctx, grid: MaliGrid, z0: torch.Tensor) -> None:
-    """The scalar grids, the terminal pair and z0 through
-    ``save_for_backward``, where the saved-tensor hooks see them."""
-    ctx.save_for_backward(z0, *(getattr(grid, k) for k in _GRID))
+def _save_grid(ctx, grid: MaliGrid, z0) -> None:
+    """The scalar grids, the terminal pair and z0 (each dtype group its
+    own tensor) through ``save_for_backward``, where the saved-tensor hooks
+    see them."""
+    parts = [gleaves(z0)] + [gleaves(getattr(grid, k)) for k in _GRID]
+    ctx.save_for_backward(*(x for p in parts for x in p))
+    ctx.counts = [len(p) for p in parts]
     ctx.n = grid.n
 
 
-def _saved_grid(ctx) -> Tuple[torch.Tensor, MaliGrid]:
-    z0, *rest = ctx.saved_tensors
-    return z0, MaliGrid(n=ctx.n, **dict(zip(_GRID, rest)))
+def _saved_grid(ctx):
+    saved, fields, j = ctx.saved_tensors, [], 0
+    for count in ctx.counts:
+        fields.append(ungroup(list(saved[j:j + count])))
+        j += count
+    return fields[0], MaliGrid(n=ctx.n, **dict(zip(_GRID, fields[1:])))
 
 
 class _MaliSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, prob: _Problem, batched: bool, z0, ts, *arg_leaves):
+    def forward(ctx, prob: _Problem, batched: bool, ts, *tensors):
+        z0, arg_leaves = prob.split(tensors)
         engine = batched_mali_adaptive_solve if batched else \
             mali_adaptive_solve
         ys, grid, stats = engine(prob.f, z0, ts, prob.args(arg_leaves),
@@ -231,15 +250,18 @@ class _MaliSolve(torch.autograd.Function):
         return ys
 
     @staticmethod
-    def backward(ctx, g_ys):
+    def backward(ctx, *g_ys):
         # a frozen (NONFINITE_STATE) solve's, or row's, placeholder
         # outputs carry no gradient
-        g_ys = mask_failed_cotangents(g_ys, ctx.status, batched=ctx.batched)
+        g_ys = gmap(lambda g: mask_failed_cotangents(
+            g, ctx.status, batched=ctx.batched), ungroup(list(g_ys)))
         z0, grid = _saved_grid(ctx)
-        sw = MaliSweep(ctx.prob, grid, z0, ctx.ts, list(ctx.arg_leaves),
-                       list(ctx.needs_input_grad[4:]), g_ys, ctx.batched)
+        prob = ctx.prob
+        sw = MaliSweep(prob, grid, z0, ctx.ts, list(ctx.arg_leaves),
+                       list(ctx.needs_input_grad[3 + prob.n_z:]), g_ys,
+                       ctx.batched)
         dz0, dargs = mali_backward_sweep(sw)
-        return (None, None, dz0, None, *dargs)
+        return (None, None, None, *gleaves(dz0), *dargs)
 
 
 def _solve(f, z0, ts, args, rtol, atol, cfg, h0, use_pallas, batched):
@@ -249,7 +271,7 @@ def _solve(f, z0, ts, args, rtol, atol, cfg, h0, use_pallas, batched):
     f, z0, unravel, use_pallas = flatten(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(None, f, rtol, atol, cfg, h0, use_pallas, spec)
-    ys = _MaliSolve.apply(prob, batched, z0, ts, *leaves)
+    ys = _MaliSolve.apply(prob, batched, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
     return ys, prob.stats
@@ -271,7 +293,7 @@ def odeint_mali(
     the exact reverse reconstruction).
 
     Returns (ys, stats), ys stacked over ``ts`` (ys[0] = z0), differentiable
-    with respect to ``z0`` (a tensor, or a pytree of one floating dtype)
+    with respect to ``z0`` (a tensor, or a pytree of floating tensors)
     and the floating tensors of ``args``; ``ts`` is a constant. The
     integrator is the second-order ALF pair stepper (``odeint``'s
     ``solver="alf"``). ``use_pallas`` ravels the state once per solve and

@@ -41,6 +41,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
+from .groups import gdetach, gget, gleaves, gmap, gstack, gunbind
 from .integrate import (
     SolveStats,
     _compose_status,
@@ -83,7 +84,7 @@ def _hit(t_new, t_target, tiny, one):
         torch.abs(t_target), one)
 
 
-def _interpolant(ts, t, h_use, z, res, k1) -> torch.Tensor:
+def _interpolant(ts, t, h_use, z, res, k1):
     """The trial's interpolant at every eval time, on the tape: (n_eval,
     ...) solo, (n_eval, L, ...) for the live rows' (L,) ``t``, ``h_use``."""
     coeffs = interp_fit(z, res.z_next, res.k_first, k1, h_use, res.z_mid)
@@ -126,7 +127,7 @@ def odeint_naive(
                                 steps_per_interval=cfg.max_steps,
                                 use_pallas=use_pallas)
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
-    dev = z0.device
+    dev = gleaves(z0)[0].device
     n_eval = ts.shape[0]
     tdt = ts.dtype
     budget = _budget(cfg, trial_budget)
@@ -144,7 +145,7 @@ def odeint_naive(
     prev_ratio = torch.ones((), dtype=torch.float32, device=dev)
     ys: List[Optional[torch.Tensor]] = [z0] + [None] * (n_eval - 1)
     eval_idx, n_acc, trials = 1, 0, 0
-    failed = bool(nonfinite_any(z0.detach(), h.detach()))
+    failed = bool(nonfinite_any(gdetach(z0), h.detach()))
     uflow = False
     natural = interpolate_ts
     # one host read per trial: the trial's decisions
@@ -160,7 +161,7 @@ def odeint_naive(
             error_ratio(res.err, z, res.z_next, rtol, atol)
         railed = h_use <= h_min * (1 + 1e-3)
         # detection reads detached values: no edges added to the tape
-        bad = nonfinite_any(res.z_next.detach(), ratio.detach())
+        bad = nonfinite_any(gdetach(res.z_next), ratio.detach())
         accept = ((ratio <= 1.0) | railed) & ~bad
         t_new = t + h_use
         hit = accept & _hit(t_new, t_target, tiny, one)
@@ -184,7 +185,7 @@ def odeint_naive(
                 # the interior eval times this step covers, interpolated
                 yint = _interpolant(ts, t, h_use, z, res, k1)
                 for k in range(eval_idx, eval_idx + n_cov[0]):
-                    ys[k] = yint[k]
+                    ys[k] = gget(yint, k)
                 eval_idx += n_cov[0]
             t, z = t_new, res.z_next
             prev_ratio = torch.clamp(ratio, min=1e-10)
@@ -197,8 +198,8 @@ def odeint_naive(
         h = h_next
 
     # un-reached slots: a frozen solve repeats its last state off the tape
-    fill = z.detach() if failed else torch.zeros_like(z0)
-    ys_out = torch.stack([y if y is not None else fill for y in ys])
+    fill = gdetach(z) if failed else gmap(torch.zeros_like, z0)
+    ys_out = gstack([y if y is not None else fill for y in ys])
     if unravel is not None:
         ys_out = unravel(ys_out)
 
@@ -263,8 +264,8 @@ def odeint_naive_batched(
         raise ValueError("interpolate_ts reads every row off one shared "
                          "1-D ts; per-row (B, T) ts are not supported")
     f, z0, unravel, use_pallas = maybe_flatten_batched(f, z0, use_pallas)
-    dev = z0.device
-    B = z0.shape[0]
+    dev = gleaves(z0)[0].device
+    B = gleaves(z0)[0].shape[0]
     n_eval = ts.shape[-1]
     ts_rows = ts.expand(B, n_eval)
     tdt = ts.dtype
@@ -283,7 +284,7 @@ def odeint_naive_batched(
     h_init = h_init.to(tdt)
 
     # per-row carries as lists of tensors on the tape
-    z_rows = list(z0.unbind(0))
+    z_rows = gunbind(z0)
     t_rows = list(ts_rows[:, 0].unbind(0))
     h_rows = list(h_init.unbind(0))
     prev_rows = [torch.ones((), dtype=torch.float32, device=dev)] * B
@@ -292,7 +293,7 @@ def odeint_naive_batched(
     eval_idx = [1] * B
     n_acc = [0] * B
     trials = [0] * B
-    failed = nonfinite_rows(z0.detach(), h_init.detach()).tolist()
+    failed = nonfinite_rows(gdetach(z0), h_init.detach()).tolist()
     uflow = [False] * B
 
     def running():
@@ -303,7 +304,7 @@ def odeint_naive_batched(
     # one host read per trial: the running rows' four decisions
     while live:
         sel = torch.tensor(live, device=dev)
-        z = torch.stack([z_rows[b] for b in live])
+        z = gstack([z_rows[b] for b in live])
         t = torch.stack([t_rows[b] for b in live])
         h = torch.stack([h_rows[b] for b in live])
         prev_ratio = torch.stack([prev_rows[b] for b in live])
@@ -320,7 +321,7 @@ def odeint_naive_batched(
                               dense=interpolate_ts)
         ratio = res.err_ratio
         railed = h_use <= h_min * (1 + 1e-3)
-        bad = nonfinite_rows(res.z_next.detach()) | \
+        bad = nonfinite_rows(gdetach(res.z_next)) | \
             ~torch.isfinite(ratio.detach())
         accept = ((ratio <= 1.0) | railed) & ~bad
         t_new = t + h_use
@@ -339,7 +340,7 @@ def odeint_naive_batched(
         yint = None
         if interpolate_ts and any(a and c for a, c in zip(acc, n_cov[0])):
             yint = _interpolant(ts, t, h_use, z, res, k1)
-        zn, tn, hn = res.z_next.unbind(0), t_new.unbind(0), h_next.unbind(0)
+        zn, tn, hn = gunbind(res.z_next), t_new.unbind(0), h_next.unbind(0)
         rn = torch.clamp(ratio, min=1e-10).unbind(0)
         for j, b in enumerate(live):
             trials[b] += 1
@@ -348,7 +349,7 @@ def odeint_naive_batched(
                 if yint is not None:
                     # this row's covered interior eval times
                     for k in range(eval_idx[b], eval_idx[b] + n_cov[0][j]):
-                        ys[k][b] = yint[k, j]
+                        ys[k][b] = gget(yint, (k, j))
                     eval_idx[b] += n_cov[0][j]
                 z_rows[b], t_rows[b], prev_rows[b] = zn[j], tn[j], rn[j]
                 n_acc[b] += 1
@@ -359,11 +360,11 @@ def odeint_naive_batched(
             uflow[b] = uflow[b] or uflows[j]
         live = running()
 
-    zero = torch.zeros_like(z0[0])
-    ys_out = torch.stack([
-        torch.stack([y if y is not None else
-                     (z_rows[b].detach() if failed[b] else zero)
-                     for b, y in enumerate(row)]) for row in ys])
+    zero = gmap(lambda x: torch.zeros_like(x[0]), z0)
+    ys_out = gstack([
+        gstack([y if y is not None else
+                (gdetach(z_rows[b]) if failed[b] else zero)
+                for b, y in enumerate(row)]) for row in ys])
     if unravel is not None:
         ys_out = unravel(ys_out)
 

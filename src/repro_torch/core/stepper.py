@@ -24,17 +24,25 @@ row, the step-midpoint solution (one more K1/K3 launch on the fused
 path); ``interp_fit``/``interp_eval`` build and read each step's
 interpolant (plain tensor arithmetic, as in the reference).
 
-Pytree (nested) states — dicts, tuples, lists, NamedTuples of tensors of
-one floating dtype — are raveled once per solve by ``maybe_flatten`` /
-``maybe_flatten_batched`` on both paths, so the engines carry one
-tensor; outputs unravel back to the caller's structure. The error norm
-then sums over the raveled vector, where the reference's plain path sums
-leaf by leaf: the same norm in another order. Mixed-dtype pytrees (the
-reference's per-leaf path) raise ``ValueError``.
+Pytree (nested) states — dicts, tuples, lists, NamedTuples of floating
+tensors — are raveled once per solve by ``maybe_flatten`` /
+``maybe_flatten_batched`` on both paths; outputs unravel back to the
+caller's structure. Leaves of one dtype ravel into one tensor, which the
+engines carry. Leaves of several dtypes ravel into *dtype groups*: one
+flat tensor per dtype, in the order the dtypes first appear among the
+leaves, and the engines carry the tuple of G groups. Every elementwise
+operation maps over the groups (``gmap``), so each leaf computes in its
+own dtype, as on the reference's per-leaf path; a mixed state never takes
+the fused kernels (the reference's ``maybe_flatten`` rule). The error norm
+sums over the raveled vector (over each group, then f32 partials over the
+groups), where the reference's plain path sums leaf by leaf: the same
+norm in another order.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -43,6 +51,7 @@ from torch.utils import _pytree as pytree
 
 from ..kernels import ops
 from .controller import sqrt0
+from .groups import gleaves, gmap
 from .tableaus import Tableau
 
 VecField = Callable[..., torch.Tensor]  # f(t, z, *args) -> dz/dt
@@ -51,21 +60,16 @@ Tol = Union[float, torch.Tensor]        # scalar, or (B,) under batching
 
 def state_leaves(z0: Any):
     """``(leaves, spec)`` of a state: one floating tensor, or a pytree of
-    tensors sharing one floating dtype."""
+    floating tensors (their dtypes may differ)."""
     leaves, spec = pytree.tree_flatten(z0)
     if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
         raise ValueError(
             "the state must be a torch.Tensor or a pytree (dict, tuple, "
             f"list, NamedTuple) of tensors; got {type(z0).__name__}")
-    dtypes = {x.dtype for x in leaves}
-    if len(dtypes) > 1:
-        names = sorted(str(d) for d in dtypes)
-        raise ValueError(
-            f"a pytree state whose leaves mix dtypes ({names}) is not "
-            "ported yet: the per-leaf stepper path comes with slice J "
-            "(ROADMAP queue 1); cast the leaves to one floating dtype")
-    if not leaves[0].is_floating_point():
-        raise ValueError(f"the state must be floating; got {leaves[0].dtype}")
+    for x in leaves:
+        if not x.is_floating_point():
+            raise ValueError(
+                f"the state must be floating; got a {x.dtype} leaf")
     return leaves, spec
 
 
@@ -75,23 +79,47 @@ def _promoted(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(h.dtype, x.dtype))
 
 
-def _axpy(alpha: torch.Tensor, x: torch.Tensor,
-          y: torch.Tensor) -> torch.Tensor:
+def _axpy(alpha: torch.Tensor, x, y):
     """y + alpha * x, rounded to y's dtype (an f32 stepsize must not
-    upcast a bf16 state)."""
-    return y + (alpha * _promoted(alpha, x)).to(y.dtype)
+    upcast a bf16 state), group by group."""
+    return gmap(lambda xl, yl: yl + (alpha * _promoted(alpha, xl)).to(
+        yl.dtype), x, y)
 
 
-def _weighted_sum(ks, ws) -> torch.Tensor:
-    """Σ_i ws[i] * ks[i], skipping exact-zero weights."""
+# significant bits of the float dtypes below f64
+_SIGNIFICAND = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_in(w: float, dtype: torch.dtype) -> float:
+    """The Python float ``w`` rounded to ``dtype``'s significand (half to
+    even), as JAX rounds a weakly typed Python scalar to the dtype of the
+    array it multiplies (normal range only, as a tableau weight is)."""
+    bits = _SIGNIFICAND.get(dtype)
+    if bits is None or w == 0.0:
+        return w
+    m, e = math.frexp(w)
+    return math.ldexp(round(m * 2.0 ** bits), e - bits)
+
+
+def _weighted_sum(ks, ws):
+    """Σ_i ws[i] * ks[i], skipping exact-zero weights. Over dtype groups
+    each weight is first rounded to the group's dtype, as the reference's
+    per-leaf sums round it (an f32 or f64 group keeps the bits of the
+    unrounded weight; a bf16 group multiplies by bf16(w)); one tensor
+    keeps the product with the weight as it is."""
     acc = None
+    grouped = not isinstance(ks[0], torch.Tensor)
     for w, k in zip(ws, ks):
         if w == 0.0:
             continue
-        term = w * k
-        acc = term if acc is None else acc + term
+        if grouped:
+            term = tuple(_weight_in(w, kl.dtype) * kl for kl in k)
+        else:
+            term = w * k
+        acc = term if acc is None else gmap(lambda a, b: a + b, acc, term)
     if acc is None:
-        acc = torch.zeros_like(ks[0])
+        acc = gmap(torch.zeros_like, ks[0])
     return acc
 
 
@@ -109,14 +137,14 @@ class StepResult(NamedTuple):
     z_mid: Optional[torch.Tensor] = None
 
 
-def _is_flat(z: torch.Tensor) -> bool:
-    return z.dim() == 1 and z.is_floating_point()
+def _is_flat(z) -> bool:
+    return (isinstance(z, torch.Tensor) and z.dim() == 1
+            and z.is_floating_point())
 
 
-def _ravel(tree: Any, batch_dims: int = 0) -> torch.Tensor:
-    """The leaves of ``tree`` concatenated along one last axis, keeping
-    ``batch_dims`` leading axes."""
-    leaves = pytree.tree_leaves(tree)
+def _ravel_leaves(leaves, batch_dims: int = 0) -> torch.Tensor:
+    """``leaves`` concatenated along one last axis, keeping ``batch_dims``
+    leading axes."""
     if len(leaves) == 1:
         x = leaves[0]
         return x.reshape(tuple(x.shape[:batch_dims]) + (-1,))
@@ -124,40 +152,91 @@ def _ravel(tree: Any, batch_dims: int = 0) -> torch.Tensor:
                       for x in leaves], dim=-1)
 
 
+def _dtype_groups(leaves) -> list:
+    """The leaf indices of each dtype, the dtypes in the order they first
+    appear."""
+    order = []
+    for x in leaves:
+        if x.dtype not in order:
+            order.append(x.dtype)
+    return [[i for i, x in enumerate(leaves) if x.dtype == d] for d in order]
+
+
+def _flat_maps(z0: Any):
+    """``(ravel, unravel)`` of a state's structure: ``ravel(tree,
+    batch_dims)`` maps a tree of that structure (leaves with
+    ``batch_dims`` more leading axes) to one (..., N) tensor, or to the
+    tuple of its dtype groups (..., N_g); ``unravel`` maps either back,
+    with (...) leading every leaf. Leaves are grouped by z0's dtypes, so
+    a field's output leaf i joins the group of state leaf i."""
+    leaves, spec = state_leaves(z0)
+    shapes = [tuple(x.shape) for x in leaves]
+    sizes = [x.numel() for x in leaves]
+    groups = _dtype_groups(leaves)
+
+    def ravel(tree, batch_dims: int = 0):
+        ls = pytree.tree_leaves(tree)
+        if len(groups) == 1:
+            return _ravel_leaves(ls, batch_dims)
+        return tuple(_ravel_leaves([ls[i] for i in idx], batch_dims)
+                     for idx in groups)
+
+    def split(x, idx):
+        lead = tuple(x.shape[:-1])
+        parts = [x] if len(idx) == 1 else torch.split(
+            x, [sizes[i] for i in idx], dim=-1)
+        return [p.reshape(lead + shapes[i]) for p, i in zip(parts, idx)]
+
+    def unravel(x):
+        if len(groups) == 1:
+            return pytree.tree_unflatten(split(x, groups[0]), spec)
+        out = [None] * len(leaves)
+        for g, idx in zip(x, groups):
+            for i, p in zip(idx, split(g, idx)):
+                out[i] = p
+        return pytree.tree_unflatten(out, spec)
+
+    return ravel, unravel
+
+
+def _flat_field(f: VecField, sample: Any):
+    """``(f_flat, ravel, unravel)``: ``_flat_maps`` of ``sample`` and the
+    field over its raveled form."""
+    ravel, unravel = _flat_maps(sample)
+
+    def f_flat(t, zf, *args):
+        return ravel(f(t, unravel(zf), *args))
+
+    return f_flat, ravel, unravel
+
+
 def flatten_problem(f: VecField, z0: Any):
     """Per-solve flat-state adapter.
 
     Returns ``(f_flat, z0_flat, unravel)``: the vector field over the
     raveled (N,) state, the raveled initial state (one tensor of any
-    shape, or a pytree of tensors of one floating dtype), and ``unravel``
-    mapping a (..., N) tensor back to z0's structure with (...) leading
-    every leaf.
+    shape, or a pytree of floating tensors), and ``unravel`` mapping a
+    (..., N) tensor back to z0's structure with (...) leading every leaf.
+    A pytree whose leaves mix dtypes ravels into the tuple of its dtype
+    groups (see the module docstring), which ``f_flat`` takes and returns
+    and ``unravel`` maps back.
     """
-    leaves, spec = state_leaves(z0)
-    shapes = [tuple(x.shape) for x in leaves]
-    sizes = [x.numel() for x in leaves]
-
-    def unravel(x):
-        lead = tuple(x.shape[:-1])
-        parts = [x] if len(sizes) == 1 else torch.split(x, sizes, dim=-1)
-        return pytree.tree_unflatten(
-            [p.reshape(lead + s) for p, s in zip(parts, shapes)], spec)
-
-    def f_flat(t, zf, *args):
-        return _ravel(f(t, unravel(zf), *args))
-
-    return f_flat, _ravel(z0), unravel
+    f_flat, ravel, unravel = _flat_field(f, z0)
+    return f_flat, ravel(z0), unravel
 
 
 def maybe_flatten(f: VecField, z0: Any, use_pallas: bool):
     """``(f, z0, unravel, use_pallas)``: the flat problem when the fused
     path is requested or the state is a pytree, else the one-tensor
-    inputs unchanged with ``unravel=None``."""
+    inputs unchanged with ``unravel=None``. A mixed-dtype state comes
+    back as its dtype groups with ``use_pallas`` False: it never takes the
+    fused kernels, as in the reference."""
     state_leaves(z0)
     if not use_pallas and isinstance(z0, torch.Tensor):
         return f, z0, None, False
     f_flat, z0_flat, unravel = flatten_problem(f, z0)
-    return f_flat, z0_flat, unravel, use_pallas
+    return (f_flat, z0_flat, unravel,
+            use_pallas and isinstance(z0_flat, torch.Tensor))
 
 
 def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
@@ -243,7 +322,7 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
     err = None
     if tab.b_err is not None:
         e = _weighted_sum(ks, tab.b_err)
-        err = h * _promoted(h, e)
+        err = gmap(lambda el: h * _promoted(h, el), e)
     k_last = ks[-1] if tab.fsal else ks[0]
     z_mid = None
     if dense and tab.b_mid is not None:
@@ -252,22 +331,28 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
                       k_first=ks[0] if dense else None, z_mid=z_mid)
 
 
-def error_ratio(err: torch.Tensor, z0: torch.Tensor, z1: torch.Tensor,
-                rtol: float, atol: float) -> torch.Tensor:
+def error_ratio(err, z0, z1, rtol: float, atol: float) -> torch.Tensor:
     """RMS norm of err scaled by atol + rtol*max(|z0|,|z1|) (Hairer I.4).
 
-    Returns a 0-d f32 tensor; an accepted step has ratio <= 1.
+    Returns a 0-d f32 tensor; an accepted step has ratio <= 1. Over dtype
+    groups each group's scaled error is formed in its dtype, cast to f32
+    and squared, and the f32 sums add up over the groups.
     """
-    scale = atol + rtol * torch.maximum(torch.abs(z0), torch.abs(z1))
-    r = (err / scale).float()
-    total = torch.sum(r * r)
-    return sqrt0(total / torch.full_like(total, r.numel()))
+    total, n = None, 0
+    for e, a, b in zip(gleaves(err), gleaves(z0), gleaves(z1)):
+        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        r = (e / scale).float()
+        part = torch.sum(r * r)
+        total = part if total is None else total + part
+        n += r.numel()
+    return sqrt0(total / torch.full_like(total, n))
 
 
 # ------------------------------------------------------------ batched form
 
-def _is_flat_batched(z: torch.Tensor) -> bool:
-    return z.dim() == 2 and z.is_floating_point()
+def _is_flat_batched(z) -> bool:
+    return (isinstance(z, torch.Tensor) and z.dim() == 2
+            and z.is_floating_point())
 
 
 def maybe_flatten_batched(f: VecField, z0: Any, use_pallas: bool):
@@ -285,9 +370,11 @@ def maybe_flatten_batched(f: VecField, z0: Any, use_pallas: bool):
         raise ValueError("a batched state needs a leading batch dimension")
     if not use_pallas and isinstance(z0, torch.Tensor):
         return f, z0, None, False
-    f_flat, _, unravel = flatten_problem(
+    f_flat, ravel, unravel = _flat_field(
         f, pytree.tree_map(lambda x: x[0], z0))
-    return f_flat, _ravel(z0, batch_dims=1), unravel, use_pallas
+    z0_flat = ravel(z0, batch_dims=1)
+    return (f_flat, z0_flat, unravel,
+            use_pallas and isinstance(z0_flat, torch.Tensor))
 
 
 def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -296,9 +383,10 @@ def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def _baxpy(h: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Per-row y + h_b * x over batch-leading tensors, h of shape (B,)."""
-    return y + (_rows(h, x) * _promoted(h, x)).to(y.dtype)
+def _baxpy(h: torch.Tensor, x, y):
+    """Per-row y + h_b * x over batch-leading states, h of shape (B,)."""
+    return gmap(lambda xl, yl: yl + (_rows(h, xl) * _promoted(h, xl)).to(
+        yl.dtype), x, y)
 
 
 def _rk_step_flat_batched(tab: Tableau, fb: Callable, t: torch.Tensor,
@@ -390,7 +478,7 @@ def rk_step_batched(tab: Tableau, f: VecField, t: torch.Tensor,
     err = ratio = None
     if tab.b_err is not None:
         e = _weighted_sum(ks, tab.b_err)
-        err = _rows(h, e) * _promoted(h, e)
+        err = gmap(lambda el: _rows(h, el) * _promoted(h, el), e)
         if err_scale is not None:
             ratio = error_ratio_batched(err, z, z_next, *err_scale)
             err = None
@@ -403,9 +491,7 @@ def rk_step_batched(tab: Tableau, f: VecField, t: torch.Tensor,
                       z_mid=z_mid)
 
 
-def error_ratio_batched(err: torch.Tensor, z0: torch.Tensor,
-                        z1: torch.Tensor, rtol: Tol,
-                        atol: Tol) -> torch.Tensor:
+def error_ratio_batched(err, z0, z1, rtol: Tol, atol: Tol) -> torch.Tensor:
     """``error_ratio`` of each row of batch-leading tensors: (B,) f32.
     ``rtol``/``atol`` are floats or (B,) tensors."""
     dims = (0, 0, 0, 0 if isinstance(rtol, torch.Tensor) else None,
@@ -442,13 +528,23 @@ def _hb(h, leaf: torch.Tensor) -> torch.Tensor:
     return h.reshape(tuple(h.shape) + (1,) * (leaf.dim() - h.dim()))
 
 
-def interp_fit(z0: torch.Tensor, z1: torch.Tensor, k0: torch.Tensor,
-               k1: torch.Tensor, h, z_mid: Optional[torch.Tensor] = None
-               ) -> InterpCoeffs:
+def interp_fit(z0, z1, k0, k1, h, z_mid=None) -> InterpCoeffs:
     """The step interpolant from endpoint (and midpoint) data; ``h`` is the
     accepted stepsize, a scalar or (B,) over batch-leading states. With
     ``z_mid`` the 4th-order quartic matching z0, z1, z_mid, k0 and k1;
-    without it the cubic Hermite (c4 = 0). Differentiable throughout."""
+    without it the cubic Hermite (c4 = 0). Differentiable throughout. Over
+    dtype groups, each coefficient is the tuple of the groups' own."""
+    if isinstance(z0, torch.Tensor):
+        return _interp_fit(z0, z1, k0, k1, h, z_mid)
+    mids = z_mid if z_mid is not None else (None,) * len(z0)
+    parts = [_interp_fit(*g, h, m) for g, m in zip(zip(z0, z1, k0, k1),
+                                                     mids)]
+    return InterpCoeffs(*(tuple(p[j] for p in parts) for j in range(5)))
+
+
+def _interp_fit(z0: torch.Tensor, z1: torch.Tensor, k0: torch.Tensor,
+                k1: torch.Tensor, h, z_mid: Optional[torch.Tensor]
+                ) -> InterpCoeffs:
     hk0 = (_hb(h, z0) * k0).to(z0.dtype)
     hk1 = (_hb(h, z0) * k1).to(z0.dtype)
     if z_mid is None:
@@ -466,21 +562,30 @@ def _horner(c: InterpCoeffs, th: torch.Tensor) -> torch.Tensor:
     return (((c.c4 * th + c.c3) * th + c.c2) * th + c.c1) * th + c.c0
 
 
-def interp_eval(coeffs: InterpCoeffs, theta: torch.Tensor) -> torch.Tensor:
+def _groups_of(coeffs: InterpCoeffs) -> list:
+    """A grouped interpolant as one ``InterpCoeffs`` per dtype group."""
+    return [InterpCoeffs(*g) for g in zip(*coeffs)]
+
+
+def interp_eval(coeffs: InterpCoeffs, theta: torch.Tensor):
     """P at ``theta``, theta's leading axis stacked onto the output: theta
     (T,) over a solo state (...) gives (T, ...); theta (T, B) over a
     batch-leading state (B, ...) gives (T, B, ...)."""
     c0 = coeffs.c0
+    if not isinstance(c0, torch.Tensor):
+        return tuple(interp_eval(c, theta) for c in _groups_of(coeffs))
     th = theta.to(c0.dtype).reshape(
         tuple(theta.shape) + (1,) * (c0.dim() - (theta.dim() - 1)))
     return _horner(coeffs, th)
 
 
-def interp_eval_aligned(coeffs: InterpCoeffs,
-                        theta: torch.Tensor) -> torch.Tensor:
+def interp_eval_aligned(coeffs: InterpCoeffs, theta: torch.Tensor):
     """P elementwise: theta's axes align with the coefficients' leading
     axes (theta (T,) over coefficients (T, ...) gives (T, ...))."""
     c0 = coeffs.c0
+    if not isinstance(c0, torch.Tensor):
+        return tuple(interp_eval_aligned(c, theta)
+                     for c in _groups_of(coeffs))
     th = theta.to(c0.dtype).reshape(
         tuple(theta.shape) + (1,) * (c0.dim() - theta.dim()))
     return _horner(coeffs, th)

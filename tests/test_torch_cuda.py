@@ -21,7 +21,9 @@ the plain tile partials (``combine_err_batched_tile_partials``: one per
 partials and z_next are the same bits at B = 1, 3 and 8 and on views 0-3
 elements into larger buffers, at the serving row (8, 393,218) and the
 batched block's (8, 393,216), f32 and bf16; the serving engine gives a
-request alone its bits in a mix on a ragged row too (odd dim). TF32 is
+request alone its bits in a mix on a ragged row too (odd dim), and its
+aca, adjoint and naive methods serve one trace on K3/K5 with z_final,
+trials and sim clock bitwise equal. TF32 is
 off, so matmuls run in full f32 on both sides. The adjoint and naive
 methods (toy, batch_axis=0 and fixed-grid solves, ACA's too where
 batched or fixed) through K1-K4 on the card against the same solves on
@@ -1172,6 +1174,39 @@ def test_mali_on_the_card(card, batched):
     for a, b in zip(on_card[3:], on_cpu[3:]):
         assert float((a - b).abs().max()) <= grad_rtol * float(
             b.abs().max())
+
+
+def test_engine_gradient_methods_on_the_card(card):
+    """NodeServeEngine under aca, adjoint and naive on the card (K3/K5)
+    serves one short trace: the adjoint's and the naive method's z(T) are
+    ACA's, so every z_final is bitwise ACA's. The naive method's rounds
+    run its own trial loop, which stops where the request's chunk ends, so
+    its sim clock charges the trials it takes (not the reference's
+    budget): the same trials as ACA's, and the same clock."""
+    out = {}
+    for method in ("aca", "adjoint", "naive"):
+        cfg = NodeEngineConfig(slots=2, chunk_dt=0.5, grad_method=method,
+                               use_pallas=True)
+        e = NodeServeEngine(
+            lambda t, z, w: torch.tanh(w * z) - 0.1 * z * torch.sin(t), 6,
+            (torch.tensor(1.3, device=card),), cfg, device=card)
+        for i in range(4):
+            z = np.random.default_rng(i).normal(size=6).astype(np.float32)
+            e.submit(NodeRequest(z0=z, t1=0.6 + 0.4 * i, rtol=1e-4),
+                     arrival=0.3 * i)
+        ops.reset_launches()
+        out[method] = (e.run(), e.clock.now)
+        assert rk_stage.launches["rk_stage_increment_batched"] > 0
+        assert rk_stage.launches["rk_stage_combine_err_batched_rowtol"] > 0
+    aca, clock = out["aca"]
+    assert all(r.ok for r in aca)
+    for method in ("adjoint", "naive"):
+        res, now = out[method]
+        assert now == clock
+        for a, b in zip(res, aca):
+            assert a.ok and a.status == b.status
+            assert a.n_trials == b.n_trials and a.n_chunks == b.n_chunks
+            assert np.array_equal(a.z_final, b.z_final)
 
 
 def test_mali_engine_on_the_card(card):

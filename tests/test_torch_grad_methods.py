@@ -232,10 +232,16 @@ def test_pytree_structures_round_trip():
 
 
 def test_mixed_dtype_pytree_raises_named_error():
-    with pytest.raises(ValueError, match="slice J"):
+    """A pytree mixing floating dtypes is a state (its dtype groups keep
+    each leaf's dtype); one with a non-floating leaf raises, naming it."""
+    with pytest.raises(ValueError, match="floating"):
         todeint(lambda t, z: z, {"a": torch.ones(2),
-                                 "b": torch.ones(2, dtype=torch.float64)},
+                                 "b": torch.ones(2, dtype=torch.int64)},
                 [0.0, 1.0])
+    ys, _ = todeint(lambda t, z: z, {"a": torch.ones(2),
+                                     "b": torch.ones(2, dtype=torch.float64)},
+                    [0.0, 1.0])
+    assert (ys["a"].dtype, ys["b"].dtype) == (torch.float32, torch.float64)
 
 
 @pytest.mark.parametrize("method", BASELINES)
