@@ -271,6 +271,19 @@ printing one JSON line (``"phase": ...``):
                       and gradients within bounds built from the measured
                       card-to-CPU drift of one field evaluation and one
                       pullback plus one bf16 rounding a step.
+11g. ``sharded_solve`` — slice I1. ``init_distributed("cuda")`` as a
+                      one-rank NCCL group and ``shard_mesh()`` over it; the
+                      node18 block at full width (x (8, 512, 768) f32,
+                      batch_axis=0, K3/K4), one SGD step per method (aca,
+                      adjoint and naive on the full buffer, mali as
+                      NODE_TRAIN_MALI) with ``NodeConfig.mesh`` set,
+                      against the same step without a mesh from the same
+                      weights, in turns (unsharded, sharded, sharded,
+                      unsharded): z(1), stats, the input's and every
+                      parameter's gradient bitwise, K3/K4 launches equal,
+                      2 collectives forward and 2 backward; forward /
+                      backward / step ms, peak memory, the card's name and
+                      power limit on every method's line.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
@@ -291,8 +304,8 @@ serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
 train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
-none of K1-K5) runs with every launch count set to 0 just before it and
-read just after.
+none of K1-K5, each method's sharded steps for K3/K4) runs with every
+launch count set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -4063,6 +4076,165 @@ def phase_mixed_dtype(torch, seed: int):
           "card_vs_cpu": cut, "seconds": time.perf_counter() - t_phase})
 
 
+def _smi_name_limit() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def phase_sharded_solve(torch, seed: int):
+    """Slice I1. A one-rank NCCL group (``init_distributed("cuda")``) and
+    ``shard_mesh()`` over it; the node18 block at full width under
+    batch_axis=0 with the kernels (K3/K4), one SGD step per method (aca
+    and adjoint and naive on the full buffer, mali as NODE_TRAIN_MALI)
+    with ``NodeConfig.mesh`` set, against the same step without a mesh
+    from the same weights: z(1), stats, the input's and every parameter's
+    gradient bitwise, K3/K4 launches equal; forward / backward / step ms,
+    peak memory and the collectives counted. Returns the sharded steps'
+    K3/K4 launches."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.distributed import counts, reset_counts, shard_mesh
+    from repro_torch.kernels import ops, rk_stage
+    from repro_torch.launch.mesh import free_port, init_distributed
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.transformer import (TransformerBlock, full_buffer,
+                                                node_block)
+
+    t_phase = time.perf_counter()
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    init_distributed("cuda")
+    try:
+        mesh = shard_mesh()
+        card = _smi_name_limit()
+        base = dataclasses.replace(full_buffer(node18_cifar.NODE_TRAIN),
+                                   batch_axis=0)
+        cfgs = {"aca": base,
+                "adjoint": dataclasses.replace(base, grad_method="adjoint"),
+                "naive": dataclasses.replace(base, grad_method="naive"),
+                "mali": dataclasses.replace(node18_cifar.NODE_TRAIN_MALI,
+                                            batch_axis=0)}
+        block = TransformerBlock(node18_cifar.CONFIG,
+                                 RunConfig(compute_dtype=torch.float32),
+                                 seed=seed, device="cuda")
+        init = {n: p.detach().clone() for n, p in block.named_parameters()}
+        x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+            NODE18_SHAPE).astype(np.float32)).cuda()
+        opt = torch.optim.SGD(block.parameters(), lr=1e-2)
+
+        def sgd_step(ncfg):
+            with torch.no_grad():
+                for n, p in block.named_parameters():
+                    p.copy_(init[n])
+            opt.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(rk_stage.launches)
+            reset_counts()
+            t0 = time.perf_counter()
+            zT, st = node_block(block, xg, ncfg)
+            loss = torch.mean(zT ** 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = dict(counts)
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in block.named_parameters()}
+            opt.step()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            return {"zT": zT.detach(), "st": st, "gx": xg.grad, "grads": grads,
+                    "launches": {k: rk_stage.launches[k] - before[k]
+                                 for k in BATCHED_KERNELS},
+                    "collectives_fwd": fwd,
+                    "collectives_bwd": {k: counts[k] - fwd[k] for k in fwd},
+                    "forward_ms": 1e3 * (t1 - t0),
+                    "backward_ms": 1e3 * (t2 - t1),
+                    "step_ms": 1e3 * (t3 - t0),
+                    "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+        def mean(runs, key):
+            return sum(r[key] for r in runs) / len(runs)
+
+        times = ("forward_ms", "backward_ms", "step_ms", "peak_mem_GB")
+        rows = {}
+        total = {k: 0 for k in BATCHED_KERNELS}
+        for m, ncfg in cfgs.items():
+            sharded_cfg = dataclasses.replace(ncfg, mesh=mesh)
+            first_ms = sgd_step(sharded_cfg)["step_ms"]   # warms the pool
+            # in turns: unsharded, sharded, sharded, unsharded
+            plains = [sgd_step(ncfg)]
+            torch.cuda.synchronize()
+            ops.reset_launches()           # the main path starts here
+            shds = [sgd_step(sharded_cfg) for _ in range(2)]
+            launches = dict(rk_stage.launches)   # the main path ends here
+            plains.append(sgd_step(ncfg))
+            for k in BATCHED_KERNELS:
+                total[k] += launches[k]
+            plain, shd = plains[0], shds[0]
+            same = {
+                "zT": torch.equal(shd["zT"], plain["zT"]),
+                "stats": all(torch.equal(a, b) for a, b in
+                             zip(shd["st"], plain["st"])),
+                "x_grad": torch.equal(shd["gx"], plain["gx"]),
+                "param_grads": all(torch.equal(shd["grads"][n],
+                                               plain["grads"][n])
+                                   for n in plain["grads"])}
+            st = shd["st"]
+            rows[m] = {
+                "card": card, "n_steps": st.n_steps.tolist(),
+                "n_trials": st.n_trials.tolist(), "status": st.status.tolist(),
+                "bitwise": same, "launches": shd["launches"],
+                "unsharded_launches": plain["launches"],
+                "collectives_fwd": shd["collectives_fwd"],
+                "collectives_bwd": shd["collectives_bwd"],
+                "first_step_ms": first_ms,
+                **{k: mean(shds, k) for k in times},
+                "unsharded": {k: mean(plains, k) for k in times},
+                "runs_step_ms": [plains[0]["step_ms"], shds[0]["step_ms"],
+                                 shds[1]["step_ms"], plains[1]["step_ms"]]}
+            emit({"phase": "sharded_solve_step", "method": m, **rows[m]})
+            check(all(same.values()) and torch.equal(shds[1]["zT"],
+                                                     plain["zT"]),
+                  f"sharded_solve {m}: a one-rank mesh is not bitwise the "
+                  f"unsharded solve: {same}")
+            check(shd["launches"] == plain["launches"]
+                  and shd["launches"]["rk_stage_increment_batched"] > 0,
+                  f"sharded_solve {m}: K3/K4 launches {shd['launches']} "
+                  f"against {plain['launches']} unsharded")
+            check(shd["collectives_fwd"] == {"all_gather": 2, "all_reduce": 0}
+                  and shd["collectives_bwd"] == {"all_gather": 1,
+                                                 "all_reduce": 1},
+                  f"sharded_solve {m}: collectives {shd['collectives_fwd']} "
+                  f"forward, {shd['collectives_bwd']} backward")
+            check(not any(st.status.tolist()),
+                  f"sharded_solve {m}: status {st.status.tolist()}")
+        check(all(total[k] > 0 for k in BATCHED_KERNELS),
+              f"sharded_solve: the sharded steps did not launch K3 and K4: "
+              f"{total}")
+        emit({"phase": "sharded_solve", "ok": True, "ranks": 1,
+              "backend": dist.get_backend(), "mesh": {"data": 1},
+              "shape": list(NODE18_SHAPE), "card": card,
+              "launches": total, "steps": rows,
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4127,6 +4299,8 @@ def main(argv=None) -> int:
         phase_batched_solve(torch)
         phase = "mixed_dtype"
         phase_mixed_dtype(torch, args.seed)
+        phase = "sharded_solve"
+        sharded_launches = phase_sharded_solve(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -4136,8 +4310,9 @@ def main(argv=None) -> int:
     # steps (solo and fixed regime) and the paper benchmarks' method_costs
     # aca_pallas row, K3 from the serve rounds (serve_node18's and
     # serve_node_bench's), the batched
-    # block steps and the batched methods' steps, K4 from the batched
-    # block and methods' steps, K5 from the serve rounds (both phases);
+    # block steps, the batched methods' steps and the sharded steps, K4
+    # from the batched block, methods' and sharded steps, K5 from the
+    # serve rounds (both phases);
     # times at each
     # path's shape (K3 and K5 at the serving row, K4 at the batched block
     # row; K1-K4 also at the adjoint's augmented shapes)
@@ -4152,11 +4327,13 @@ def main(argv=None) -> int:
         + batched_launches["rk_stage_increment_batched"]
         + methods_launches["rk_stage_increment_batched"]
         + dense_launches["rk_stage_increment_batched"]
-        + mali_launches["rk_stage_increment_batched"],
+        + mali_launches["rk_stage_increment_batched"]
+        + sharded_launches["rk_stage_increment_batched"],
         "rk_stage_combine_err_batched":
         batched_launches["rk_stage_combine_err_batched"]
         + methods_launches["rk_stage_combine_err_batched"]
-        + dense_launches["rk_stage_combine_err_batched"],
+        + dense_launches["rk_stage_combine_err_batched"]
+        + sharded_launches["rk_stage_combine_err_batched"],
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"]
         + bench_serve_launches["rk_stage_combine_err_batched_rowtol"],
@@ -4279,12 +4456,7 @@ def main(argv=None) -> int:
          "main_path": name != "rk_stage_combine",
          **extras.get(name, {})}
         for name, src, replaces, t in entries]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    print(_smi_name_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

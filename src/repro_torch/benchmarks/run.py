@@ -8,9 +8,11 @@ Tables 1-7), the gradient-method ablation on a NODE LM (``node_lm``), the
 segmented-memory and dense-output benchmarks (``memory``,
 ``dense_eval``), the solve-health guards' cost gate
 (``failure_overhead``), MALI's memory (``mali_memory``), the three
-batched-solve strategies (``batched_solve``) and continuous against
-static batching of NODE requests (``serve_node``). Quick mode
-(the reference's smaller sizes) is the default;
+batched-solve strategies (``batched_solve``), continuous against
+static batching of NODE requests (``serve_node``) and the rank scaling
+of the sharded solve (``sharded_solve``: NCCL ranks, one a card, up to
+the card count; gloo ranks with ``--device cpu``). Quick mode (the
+reference's smaller sizes) is the default;
 ``--full`` uses the larger settings. Output: the reference's
 ``name,value,derived`` CSV rows, a ``bench_runtime_s/<name>`` row per
 benchmark, and a non-zero exit naming the benchmarks that failed.
@@ -24,8 +26,8 @@ import traceback
 
 from . import (batched_solve, classification, dense_eval,
                failure_overhead, mali_memory, memory, method_costs, node_lm,
-               reliability, reverse_error, serve_node, solver_robustness,
-               threebody, timeseries, toy_gradient)
+               reliability, reverse_error, serve_node, sharded_solve,
+               solver_robustness, threebody, timeseries, toy_gradient)
 from .common import emit
 
 BENCHES = [
@@ -45,6 +47,7 @@ BENCHES = [
     ("failure_overhead (solve-health guard gate)",
      failure_overhead.run),
     ("serve_node (beyond-paper: continuous batching)", serve_node.run),
+    ("sharded_solve (beyond-paper: mesh=)", sharded_solve.run),
 ]
 
 

@@ -63,9 +63,19 @@ carries its ``SolveStatus`` code. ``on_failure`` picks the policy:
 ``"status"`` (report only, no extra host read), ``"warn"`` (a
 ``RuntimeWarning`` naming the codes) or ``"raise"`` (``SolveFailedError``;
 ``odeint_checked``). ``solve_with_fallback`` retries a failed solve down
-``default_fallback_ladder``. Options of later slices keep the reference's
-signature and raise a ``ValueError`` naming the slice (ROADMAP queue 1)
-that brings them.
+``default_fallback_ladder``.
+
+Sharded solving: ``mesh=`` (a torch ``DeviceMesh``, with ``batch_axis``)
+splits the batched solve over the mesh's data dims (``shard_rules``, an
+``AxisRules``, remaps them). Every rank calls ``odeint`` with the same
+global inputs; each solves its contiguous block of rows with its own
+trial counts, and every rank returns the global ``ys`` and stats, the
+unsharded solve's bit for bit; the shared ``args`` gradient is summed
+over the shards once, after the solve's backward
+(``repro_torch.distributed``)::
+
+    init_distributed("cuda")            # repro_torch.launch.mesh
+    ys, stats = odeint(f, z0, ts, args, batch_axis=0, mesh=shard_mesh())
 """
 
 from __future__ import annotations
@@ -111,11 +121,6 @@ _BATCHED = {"aca": odeint_aca_batched, "adjoint": odeint_adjoint_batched,
             "naive": odeint_naive_batched, "mali": odeint_mali_batched}
 _FIXED = {"aca": odeint_aca_fixed, "adjoint": odeint_adjoint_fixed,
           "naive": odeint_naive_fixed}
-
-
-def _later(what: str, slice_: str) -> ValueError:
-    return ValueError(
-        f"{what} is not ported yet: it comes with {slice_} (ROADMAP queue 1)")
 
 
 class SolveFailedError(RuntimeError):
@@ -226,8 +231,9 @@ def odeint(
     solver (or of ``"alf"``). ``stats.status`` carries a ``SolveStatus``
     code; ``on_failure`` (``"status"``, ``"warn"``, ``"raise"``), the
     ``"mali"`` method, ``checkpoint_segments`` (ACA with an adaptive
-    solver) and ``interpolate_ts`` (adaptive solvers) as in the module
-    docstring.
+    solver), ``interpolate_ts`` (adaptive solvers) and ``mesh`` /
+    ``shard_rules`` (with ``batch_axis``, a 1D ``ts`` and scalar
+    tolerances) as in the module docstring.
     """
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
@@ -285,9 +291,25 @@ def odeint(
             f"h0 overrides the adaptive initial-stepsize heuristic; "
             f"fixed-grid solver {tab.name!r} has no stepsize controller "
             "— use steps_per_interval to refine its grid instead")
+    if mesh is not None:
+        if batch_axis is None:
+            raise ValueError(
+                "mesh requires batch_axis: sharding distributes the "
+                "per-sample batched solve over the mesh's data axes, so the "
+                "state must carry a batch dimension — pass batch_axis=a "
+                "(or drop mesh for a single-sample solve)")
+        mesh_type = getattr(mesh, "device_type", None)
+        if mesh_type is None or not hasattr(mesh, "mesh_dim_names"):
+            raise ValueError(
+                "mesh must be a torch DeviceMesh with named dimensions "
+                "(repro_torch.distributed.shard_mesh, repro_torch.launch."
+                f"mesh); got {type(mesh).__name__}")
+        if mesh_type != device.type:
+            raise ValueError(
+                f"the mesh's device type {mesh_type!r} does not match the "
+                f"state's device {str(device)!r}: build the mesh for the "
+                "device z0 lives on (shard_mesh(device_type=...))")
     rtol, atol = _tolerances(rtol, atol, batch_axis, mesh, tab, device)
-    if mesh is not None or shard_rules is not None:
-        raise _later("mesh / shard_rules (sharded solving)", "slice I")
 
     ts = torch.as_tensor(ts, device=device)
     if not ts.is_floating_point():
@@ -320,7 +342,8 @@ def odeint(
             steps_per_interval=steps_per_interval, trial_budget=trial_budget,
             h0=h0, use_pallas=use_pallas,
             checkpoint_segments=checkpoint_segments,
-            interpolate_ts=interpolate_ts)
+            interpolate_ts=interpolate_ts, mesh=mesh,
+            shard_rules=shard_rules)
     elif not mali and not tab.adaptive:
         ys, stats = _FIXED[grad_method](
             f, z0, ts, args, solver=tab,
@@ -392,12 +415,15 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
                     atol, cfg: ControllerConfig, steps_per_interval: int,
                     trial_budget: Optional[int], h0: Optional[torch.Tensor],
                     use_pallas: bool, checkpoint_segments=None,
-                    interpolate_ts: bool = False) -> Tuple[Any, SolveStats]:
+                    interpolate_ts: bool = False, mesh: Optional[Any] = None,
+                    shard_rules: Optional[Any] = None
+                    ) -> Tuple[Any, SolveStats]:
     """``odeint(..., batch_axis=a)``: moves the batch to axis 0 of every
     state leaf, routes adaptive tableaus and mali (``tab`` None) to the
     per-sample batched solvers and fixed grids to the shared grid with the
-    field vmapped over the batch, and moves the batch back in ``ys``, where it sits one axis
-    deeper under the time axis."""
+    field vmapped over the batch, and moves the batch back in ``ys``, where
+    it sits one axis deeper under the time axis. With ``mesh`` the
+    dispatch runs on this rank's rows (``_shard_solve``)."""
     leaves, _ = state_leaves(z0)
     for leaf in leaves:
         if leaf.dim() == 0:
@@ -413,6 +439,12 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
             f"{batch_axis}; got {sorted(sizes)}")
     B = sizes.pop()
     if ts.dim() == 2:
+        if mesh is not None:
+            raise ValueError(
+                "per-row (B, T) ts do not compose with mesh: the reference's "
+                "sharded solve replicates ts and takes a 1D ts only — pass "
+                "one 1D ts (the union of the rows' times, "
+                "data.merged_time_grid) or drop mesh")
         if ts.shape[0] != B:
             raise ValueError(
                 f"per-row ts must carry one row of eval times per batch "
@@ -433,13 +465,17 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
         raise ValueError(
             f"a per-row h0 must have shape ({B},); got {tuple(h0.shape)}")
     z0 = pytree.tree_map(lambda x, a: x.movedim(a, 0), z0, axes)
-    if tab is None or tab.adaptive:
-        ys, stats = _BATCHED[grad_method](
-            f, z0, ts, args, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
-            use_pallas=use_pallas,
-            **_method_kw(grad_method, tab, trial_budget, checkpoint_segments,
-                         interpolate_ts))
-    else:
+
+    def dispatch(z0, args, h0):
+        # the batch leads dim 0 of every z0 leaf; under a mesh this runs
+        # on this rank's rows
+        if tab is None or tab.adaptive:
+            return _BATCHED[grad_method](
+                f, z0, ts, args, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
+                use_pallas=use_pallas,
+                **_method_kw(grad_method, tab, trial_budget,
+                             checkpoint_segments, interpolate_ts))
+
         # a fixed grid is the same for every row: lockstep is the
         # per-sample grid, so the batch runs as one system
         def fb(t, z, *a):
@@ -448,9 +484,61 @@ def _odeint_batched(f: Callable, z0: Any, ts: torch.Tensor, args: Any, *,
         ys, stats = _FIXED[grad_method](
             fb, z0, ts, args, solver=tab,
             steps_per_interval=steps_per_interval, use_pallas=use_pallas)
-        stats = SolveStats(*(s.expand(B) for s in stats))
+        b = state_leaves(z0)[0][0].shape[0]
+        return ys, SolveStats(*(s.expand(b) for s in stats))
+
+    if mesh is None:
+        ys, stats = dispatch(z0, args, h0)
+    else:
+        ys, stats = _shard_solve(dispatch, mesh, shard_rules, z0, args, h0,
+                                 B)
     ys = pytree.tree_map(lambda y, a: y.movedim(1, a + 1), ys, axes)
     return ys, stats
+
+
+def _shard_solve(dispatch: Callable, mesh, shard_rules, z0: Any, args: Any,
+                 h0: Optional[torch.Tensor], B: int
+                 ) -> Tuple[Any, SolveStats]:
+    """Run the batch-at-dim-0 ``dispatch`` on this rank's rows.
+
+    The counterpart of the reference's ``_shard_map_solve`` in torch's
+    process-per-rank form: every rank holds the global inputs, takes its
+    contiguous block of rows of ``z0`` (and of a (B,) ``h0``) by its
+    coordinates on the mesh's batch dims, solves them with its own trip
+    counts, and all-gathers ``ys`` (batch at dim 1) and the stats over the
+    batch dims' group, so every rank returns the global result. ``ts``
+    and ``args`` are replicated; the ``args`` cotangent is summed over the
+    batch group once, after the shard's backward (``distributed.
+    collectives``: two collectives forward, two backward, none inside a
+    trial loop).
+    """
+    from ..distributed.collectives import BatchShard
+    from ..distributed.sharding import batch_partition_axes, mesh_shape
+
+    axes = batch_partition_axes(mesh, shard_rules)
+    shape = tuple(mesh_shape(mesh).items())
+    if not axes:
+        raise ValueError(
+            f"mesh {shape} has no data-parallel axis to shard the batch "
+            "over (the sharding rules map 'batch' to ('pod', 'data'), none "
+            "of which the mesh carries) — add a 'data' axis, use "
+            "repro_torch.distributed.shard_mesh(), or pass shard_rules "
+            "mapping 'batch' onto one of this mesh's axes")
+    n_shard = 1
+    for a in axes:
+        n_shard *= dict(shape)[a]
+    if B % n_shard:
+        raise ValueError(
+            f"batch size {B} does not divide evenly over the mesh's "
+            f"{n_shard} batch shard(s) (axes {axes} of mesh {shape}): pad "
+            f"the batch to a multiple of {n_shard} or drop devices from the "
+            "mesh")
+    shard = BatchShard(mesh, axes, B)
+    if h0 is not None and tuple(h0.shape) == (B,) and B > 1:
+        h0 = h0.narrow(0, shard.lo, shard.rows)
+    ys, stats = dispatch(shard.take(z0), shard.replicate(args), h0)
+    return shard.gather(ys, dim=1), SolveStats(*shard.gather_rows(
+        list(stats), 0))
 
 
 def odeint_final(

@@ -29,9 +29,10 @@ class NodeConfig:
     uniform steps with the advancing method of ``solver``
     (``_fixed_solver_for``). ``grad_method="mali"`` integrates with the
     ALF pair stepper whatever ``solver`` says, and rejects the fixed
-    regime. ``on_failure`` is one of ``odeint``'s policies. The fields of
-    later slices keep the reference's names and defaults; a non-default
-    value raises in ``odeint`` naming the slice that brings it.
+    regime. ``on_failure`` is one of ``odeint``'s policies. ``mesh`` (a
+    ``DeviceMesh``, with ``batch_axis``) shards the block's batched solve
+    over the mesh's data dims, and ``shard_rules`` overrides which dims
+    those are (``odeint``'s sharded solve).
     """
     enabled: bool = False
     solver: str = "heun_euler"      # the paper trains with HeunEuler

@@ -103,11 +103,11 @@ def _weight_in(w: float, dtype: torch.dtype) -> float:
 
 
 def _weighted_sum(ks, ws):
-    """Σ_i ws[i] * ks[i], skipping exact-zero weights. Over dtype groups
-    each weight is first rounded to the group's dtype, as the reference's
-    per-leaf sums round it (an f32 or f64 group keeps the bits of the
-    unrounded weight; a bf16 group multiplies by bf16(w)); one tensor
-    keeps the product with the weight as it is."""
+    """Σ_i ws[i] * ks[i], skipping exact-zero weights. Each weight is first
+    rounded to its tensor's dtype (one tensor, or each dtype group), as
+    the reference rounds a weakly typed weight to the leaf it multiplies:
+    an f32 or f64 tensor keeps the bits of the unrounded weight, a bf16
+    one multiplies by bf16(w)."""
     acc = None
     grouped = not isinstance(ks[0], torch.Tensor)
     for w, k in zip(ws, ks):
@@ -116,7 +116,7 @@ def _weighted_sum(ks, ws):
         if grouped:
             term = tuple(_weight_in(w, kl.dtype) * kl for kl in k)
         else:
-            term = w * k
+            term = _weight_in(w, k.dtype) * k
         acc = term if acc is None else gmap(lambda a, b: a + b, acc, term)
     if acc is None:
         acc = gmap(torch.zeros_like, ks[0])

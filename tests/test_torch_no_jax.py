@@ -68,3 +68,8 @@ def test_the_port_has_modules():
     assert port / "examples" / "serve_lm.py" in FILES
     assert port / "examples" / "train_node_lm.py" in FILES
     assert port / "benchmarks" / "node_lm.py" in FILES
+    # sharded batched solving
+    for name in ("__init__", "sharding", "collectives"):
+        assert port / "distributed" / f"{name}.py" in FILES
+    assert port / "launch" / "mesh.py" in FILES
+    assert port / "benchmarks" / "sharded_solve.py" in FILES

@@ -200,11 +200,14 @@ def test_state_of_any_shape_keeps_its_shape():
 
 @pytest.mark.parametrize("kw,slice_", [
     (dict(batch_axis=0, checkpoint_segments=4), None),
-    (dict(mesh=object()), "slice I"),
+    # the ids of the cases that named slice I before it was ported
+    pytest.param(dict(mesh=object()), "mesh requires batch_axis",
+                 id="kw1-slice I"),
     (dict(checkpoint_segments="auto"), None),
     (dict(interpolate_ts=True), None),
     (dict(grad_method="adjoint", interpolate_ts=True), None),
-    (dict(grad_method="naive", batch_axis=0, mesh=object()), "slice I"),
+    pytest.param(dict(grad_method="naive", batch_axis=0, mesh=object()),
+                 "mesh must be a torch DeviceMesh", id="kw5-slice I"),
     (dict(grad_method="mali", solver=None), None),
     (dict(solver="alf"), "pairs only with grad_method='mali'"),
     (dict(solver="rk4", on_failure="warn"), None),
@@ -214,7 +217,8 @@ def test_state_of_any_shape_keeps_its_shape():
 ])
 def test_later_slice_options_raise_named_errors(kw, slice_):
     """Options of later slices raise naming their slice, and misused ones
-    the reference's errors (``solver="alf"`` without mali). The options
+    the reference's errors (``solver="alf"`` without mali, a mesh without
+    ``batch_axis``, a mesh that is no ``DeviceMesh``). The options
     ported so far (``slice_`` None: segmented ACA and ``interpolate_ts``,
     slice D; mali and the "warn"/"raise" policies on a healthy solve,
     slices E and F) run: dz/dt = -k z through four eval times, held

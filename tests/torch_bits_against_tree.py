@@ -5,7 +5,7 @@ port.
     PYTHONPATH=B/src python tests/torch_bits_against_tree.py save b.pt
     python tests/torch_bits_against_tree.py compare a.pt b.pt
 
-``save`` runs ``odeint`` on one f32 tensor, one bf16 tensor and one f32
+``save`` runs ``odeint`` on one f32, f64 or bf16 tensor and on one f32
 pytree state under every gradient method × {solo, batch_axis=0} ×
 {adaptive, fixed rk4, ``checkpoint_segments=3``, ``interpolate_ts``} ×
 ``use_pallas`` {False, True} that the port takes (on CPU tensors: the
@@ -33,9 +33,9 @@ def f_tree(t, z, w):
 
 
 def configurations():
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         for tree in (False, True):
-            if dtype == torch.bfloat16 and tree:
+            if dtype != torch.float32 and tree:
                 continue
             for method in ("aca", "adjoint", "naive", "mali"):
                 for batched in (False, True):
