@@ -284,6 +284,25 @@ printing one JSON line (``"phase": ...``):
                       2 collectives forward and 2 backward; forward /
                       backward / step ms, peak memory, the card's name and
                       power limit on every method's line.
+11h. ``sharded_lm`` — slice I2. A one-rank NCCL group again and
+                      ``make_debug_mesh(1, 1)`` (``("data", "model")``):
+                      (a) deepseek_moe_16b whole in bf16 with use_pallas,
+                      its weights wrapped as DTensors without a copy, call
+                      B of serve_moe through ``ServeEngine.generate`` with
+                      ``RunConfig(mesh=...)`` in turns against the same call
+                      without a mesh (mesh-less, mesh, mesh, mesh-less):
+                      prefill logits and the tokens bitwise, K7/K8
+                      launches equal on both routes and per layer as in
+                      serve_moe, the collectives of one prefill and one
+                      decode step, prefill ms, decode ms a token, peak
+                      memory beside serve_moe's; (b) mamba2_2_7b whole,
+                      call B, the same comparison on K7/K9; (c) one AdamW
+                      step of node18_cifar at full width, NODE off, f32,
+                      8 x 128, against the step without a mesh: loss,
+                      every gradient and the updated parameters bitwise,
+                      the moments DTensors with their parameters'
+                      placements (this part runs no kernel). Every line
+                      carries the card's name and power limit.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
@@ -304,8 +323,9 @@ serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
 train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
-none of K1-K5, each method's sharded steps for K3/K4) runs with every
-launch count set to 0 just before it and read just after.
+none of K1-K5, each method's sharded steps for K3/K4, sharded_lm's first
+mesh call of each model for K7/K8 and K7/K9) runs with every launch
+count set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -4235,6 +4255,275 @@ def phase_sharded_solve(torch, seed: int):
     return total
 
 
+SHARDED_LM_TRAIN = (8, 128)     # node18 at full width: batch, sequence
+
+
+def _leaf_list(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_leaves(tree)
+
+
+def _first_divergence(torch, plain, sharded, params, dparams, toks):
+    """The first block of the stack whose output differs between the two
+    routes' prefill, with its max |difference|: what a failed bitwise
+    check names."""
+    from repro_torch.distributed.regions import whole
+    from repro_torch.models import transformer
+
+    orig = transformer.block_apply
+    outs = {}
+
+    def logged(route):
+        def fn(*a, **k):
+            y = orig(*a, **k)
+            outs.setdefault(route, []).append(whole(y[0]).float())
+            return y
+        return fn
+
+    with torch.no_grad():
+        for route, m, p in (("plain", plain, params),
+                            ("mesh", sharded, dparams)):
+            transformer.block_apply = logged(route)
+            try:
+                m.prefill(p, {"tokens": toks})
+            finally:
+                transformer.block_apply = orig
+    for i, (a, b) in enumerate(zip(outs["plain"], outs["mesh"])):
+        if not torch.equal(a, b):
+            return {"first_block": i,
+                    "max_abs_diff": float((a - b).abs().max()),
+                    "max_abs": float(a.abs().max())}
+    return {"first_block": None}
+
+
+def _sharded_serve(torch, seed: int, mesh, card: str, cfg, call, max_seq,
+                   kernels, want):
+    """One model whole on the one-rank mesh and off it (weights shared:
+    the DTensors wrap the mesh-less tensors), call ``call`` in turns;
+    returns the phase line's entry and the mesh route's first-call
+    launches."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed import regions
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import place_params
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    run16 = RunConfig(compute_dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, use_pallas=True,
+                      max_seq=max_seq)
+    plain = build_model(cfg, run16)
+    sharded = build_model(cfg, run16.with_(mesh=mesh))
+    params = plain.init(seed=seed, device="cuda")
+    dparams = place_params(params, sharded.defs, sharded.rcfg.rules, mesh)
+    wrapped = all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        _leaf_list(dparams), _leaf_list(params)))
+    check(wrapped, f"sharded_lm {cfg.name}: placing the weights copied them")
+    b, s, new = call
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=tgen,
+                         device="cuda", dtype=torch.int32)
+    for m, p in ((plain, params), (sharded, dparams)):   # warm-up
+        ServeEngine(m, p, ServeConfig(max_new_tokens=2)).generate(
+            toks[:, :64])
+    torch.cuda.synchronize()
+
+    def run(m, p):
+        engine = ServeEngine(m, p, ServeConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        out = engine.generate(toks)["tokens"]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = engine.last_decode_steps
+        t0 = time.perf_counter()
+        engine.prefill(toks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        return {"out": out, "steps": steps,
+                "launches": {k: counts[k] for k in kernels},
+                "others": {k: v for k, v in counts.items()
+                           if k not in kernels and v},
+                "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
+                "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
+                "peak_mem_GB": peak}
+
+    runs = [run(plain, params), run(sharded, dparams),
+            run(sharded, dparams), run(plain, params)]
+    layers = cfg.n_layers
+    with torch.no_grad():
+        lp, _ = plain.prefill(params, {"tokens": toks})
+        regions.reset_counts()
+        with CommDebugMode() as comm:
+            lm, caches = sharded.prefill(dparams, {"tokens": toks})
+        prefill_comm = {"total": comm.get_total_counts(),
+                        "explicit": dict(regions.counts)}
+        nxt = torch.argmax(lm, dim=-1).to(torch.int32)[:, None]
+        regions.reset_counts()
+        with CommDebugMode() as comm:
+            sharded.decode_step(dparams, {"tokens": nxt}, caches, s)
+        decode_comm = {"total": comm.get_total_counts(),
+                       "explicit": dict(regions.counts)}
+        del caches
+    logits_bitwise = bool(torch.equal(lp, lm))
+    tokens_bitwise = all(torch.equal(r["out"], runs[0]["out"])
+                         for r in runs)
+    keys = ("generate_ms", "prefill_ms", "decode_ms_per_token",
+            "peak_mem_GB")
+    row = {"card": card, "config": cfg.name, "call": list(call),
+           "n_params": plain.n_params(), "weights_wrapped": wrapped,
+           "logits_bitwise": logits_bitwise,
+           "tokens_bitwise": tokens_bitwise,
+           "launches": runs[1]["launches"],
+           "unsharded_launches": runs[0]["launches"],
+           "collectives_prefill": prefill_comm,
+           "collectives_decode_step": decode_comm,
+           **{k: (runs[1][k] + runs[2][k]) / 2 for k in keys},
+           "unsharded": {k: (runs[0][k] + runs[3][k]) / 2 for k in keys},
+           "runs_generate_ms": [r["generate_ms"] for r in runs]}
+    if not (logits_bitwise and tokens_bitwise):
+        row["divergence"] = _first_divergence(torch, plain, sharded, params,
+                                              dparams, toks)
+    emit({"phase": "sharded_lm_serve", **row})
+    w = want(layers, runs[1]["steps"])
+    check(logits_bitwise and tokens_bitwise,
+          f"sharded_lm {cfg.name}: the one-rank mesh is not bitwise the "
+          f"mesh-less call: {row.get('divergence')}")
+    check(all(r["launches"] == w and not r["others"] for r in runs),
+          f"sharded_lm {cfg.name}: launches "
+          f"{[(r['launches'], r['others']) for r in runs]} != {w}")
+    return row, runs[1]["launches"]
+
+
+def _sharded_train(torch, seed: int, mesh, card: str):
+    """One AdamW step of node18_cifar at full width (NODE off, f32) on the
+    mesh against the step without it, from the same weights and batch."""
+    from repro_torch.configs import node18_cifar
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.common import place_params
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainLoop, TrainLoopConfig, TrainState
+    from repro_torch.train.loop import _grads_of
+
+    cfg = node18_cifar.CONFIG
+    rcfg = RunConfig(compute_dtype=torch.float32)
+    plain = build_model(cfg, rcfg)
+    sharded = build_model(cfg, rcfg.with_(mesh=mesh))
+    params = plain.init(seed=seed, device="cuda")
+    dparams = place_params(params, sharded.defs, rcfg.rules, mesh)
+    bsz, seq = SHARDED_LM_TRAIN
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=bsz,
+                          device="cuda").batch(0)
+    _grads_of(sharded, dparams, batch)          # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    for name, m, p in (("plain", plain, params), ("mesh", sharded, dparams)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = _grads_of(m, p, batch)
+        torch.cuda.synchronize()
+        grad_ms = 1e3 * (time.perf_counter() - t0)
+        opt = adamw(1e-3, weight_decay=0.1)
+        loop = TrainLoop(m, opt, TrainLoopConfig(), TrainState(
+            step=torch.zeros((), dtype=torch.int32, device="cuda"),
+            params=p, opt_state=opt.init(p)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop.run(lambda _: batch, 1)
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss, "grads": grads, "grad_ms": grad_ms,
+                     "step_ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+                     "state": loop.state}
+    from repro_torch.distributed.regions import whole
+
+    pl, ms = out["plain"], out["mesh"]
+    gp, gm = _leaf_list(pl["grads"]), _leaf_list(ms["grads"])
+    grads_bitwise = all(torch.equal(a, whole(b)) for a, b in zip(gp, gm))
+    params_bitwise = all(torch.equal(a, whole(b)) for a, b in zip(
+        _leaf_list(pl["state"].params),
+        _leaf_list(ms["state"].params)))
+    st = ms["state"]
+    p_leaves = _leaf_list(st.params)
+    moments = all(type(a).__name__ == "DTensor"
+                  and tuple(a.placements) == tuple(q.placements)
+                  for mom in (st.opt_state.mu, st.opt_state.nu)
+                  for a, q in zip(_leaf_list(mom), p_leaves))
+    row = {"card": card, "config": cfg.name, "batch": list(SHARDED_LM_TRAIN),
+           "kernels": "none (NODE off: the train forward runs no kernel)",
+           "loss": float(ms["loss"]), "unsharded_loss": float(pl["loss"]),
+           "loss_bitwise": bool(torch.equal(ms["loss"], pl["loss"])),
+           "grads_bitwise": grads_bitwise,
+           "params_after_step_bitwise": params_bitwise,
+           "moments_follow_params": moments,
+           **{k: ms[k] for k in ("grad_ms", "step_ms", "peak_mem_GB")},
+           "unsharded": {k: pl[k] for k in ("grad_ms", "step_ms",
+                                            "peak_mem_GB")}}
+    emit({"phase": "sharded_lm_train", **row})
+    check(row["loss_bitwise"] and grads_bitwise and params_bitwise,
+          f"sharded_lm train: not bitwise the mesh-less step: {row}")
+    check(moments, "sharded_lm train: the AdamW moments are not DTensors "
+          "with their parameters' placements")
+    return row
+
+
+def phase_sharded_lm(torch, seed: int, moe_peak_GB: float):
+    """Slice I2 on a one-rank NCCL mesh (see the module docstring, 11h).
+    Returns the mesh routes' K7/K8/K9 launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import deepseek_moe_16b, mamba2_2_7b
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_debug_mesh)
+
+    t_phase = time.perf_counter()
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    init_distributed("cuda")
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        card = _smi_name_limit()
+        b, s, new = MOE_CALLS["B"]
+        moe_row, moe_l = _sharded_serve(
+            torch, seed, mesh, card, deepseek_moe_16b.CONFIG, (b, s, new),
+            s + new + 8, MOE_KERNELS,
+            lambda layers, steps: {"rmsnorm": (2 * layers + 1) * (1 + steps),
+                                   "flash_attention": layers})
+        moe_row["serve_moe_call_a_peak_GB"] = moe_peak_GB
+        b, s, new = M2_CALLS["B"]
+        m2_row, m2_l = _sharded_serve(
+            torch, seed, mesh, card, mamba2_2_7b.CONFIG, (b, s, new), 0,
+            SSM_KERNELS,
+            lambda layers, steps: {"rmsnorm": (2 * layers + 1) * (1 + steps),
+                                   "ssd_scan": layers,
+                                   **{k: layers for k in K9_PARTS}})
+        train_row = _sharded_train(torch, seed, mesh, card)
+        launches = {k: moe_l.get(k, 0) + m2_l.get(k, 0)
+                    for k in set(moe_l) | set(m2_l)}
+        emit({"phase": "sharded_lm", "ok": True, "ranks": 1,
+              "backend": dist.get_backend(), "mesh": {"data": 1, "model": 1},
+              "card": card, "launches": launches,
+              "deepseek_moe_16b": moe_row, "mamba2_2_7b": m2_row,
+              "node18_train": train_row,
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4301,6 +4590,9 @@ def main(argv=None) -> int:
         phase_mixed_dtype(torch, args.seed)
         phase = "sharded_solve"
         sharded_launches = phase_sharded_solve(torch, args.seed)
+        phase = "sharded_lm"
+        sharded_lm_launches = phase_sharded_lm(
+            torch, args.seed, moe_calls["A"]["peak_mem_GB"])
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -4364,12 +4656,15 @@ def main(argv=None) -> int:
     worst.update(worst_ssm)
     worst["flash_attention"] = max(
         worst["flash_attention"], *(t["max_abs_err"] for t in k8_moe.values()))
-    # K7 runs on the three LM serving paths, K8 on two: launches add up
+    # K7 runs on the three LM serving paths and the sharded LM's, K8 on
+    # two of them and the sharded MoE, K9 on Mamba-2's two: launches add up
     launches.update(lm_launches)
-    launches["rmsnorm"] += ssm_launches["rmsnorm"] + moe_launches["rmsnorm"]
-    launches["flash_attention"] += moe_launches["flash_attention"]
+    launches["rmsnorm"] += ssm_launches["rmsnorm"] + moe_launches["rmsnorm"] \
+        + sharded_lm_launches["rmsnorm"]
+    launches["flash_attention"] += moe_launches["flash_attention"] \
+        + sharded_lm_launches["flash_attention"]
     for k in ("ssd_scan",) + K9_PARTS:
-        launches[k] = ssm_launches[k]
+        launches[k] = ssm_launches[k] + sharded_lm_launches[k]
     k7_variants = {}
     for c in (*lm_calls.values(), *ssm_calls.values(),
               *moe_calls.values()):

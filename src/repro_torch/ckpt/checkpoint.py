@@ -17,6 +17,13 @@ Every leaf is its own ``.npy`` file keyed by its tree path. numpy has no
 bf16, so a bf16 leaf is stored as its uint16 bits and the manifest keeps
 the tensor's dtype: a round trip is bitwise for every dtype. A restored
 leaf lands on the device of the corresponding leaf of ``like``.
+
+A tree of DTensors (parameters and optimizer moments on a mesh) is saved
+whole: every rank gathers each leaf (``full_tensor``, one leaf at a time)
+and global rank 0 writes, the others waiting at a barrier. A restored
+leaf takes the placements of its ``like`` leaf (each rank keeps its own
+block), so a run saved on a mesh resumes without one, and the other way
+round.
 """
 
 from __future__ import annotations
@@ -59,8 +66,28 @@ def _treedef_hash(tree: PyTree) -> str:
     return hashlib.sha256(s.encode()).hexdigest()[:16]
 
 
+def _dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _sharded(tree: PyTree) -> bool:
+    return any(_dtensor(x) for x in pytree.tree_leaves(tree))
+
+
+def _writer(tree: PyTree) -> bool:
+    """Whether this process writes ``tree``: always, unless the tree holds
+    DTensors, which global rank 0 alone writes."""
+    if not _sharded(tree):
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
     t = leaf.detach()
+    if _dtensor(t):
+        t = t.full_tensor()
     if t.dtype in _AS_BITS:
         t = t.view(_AS_BITS[t.dtype])
     return t.cpu().numpy()
@@ -74,13 +101,16 @@ def _write(path: str, write) -> None:
 
 
 def save_checkpoint(directory: str, step: int, tree: PyTree) -> str:
-    """Atomic write of ``tree`` for ``step``. Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomic write of ``tree`` for ``step``. Returns the final path.
+    DTensor leaves are gathered whole on every rank; rank 0 writes."""
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    writer = _writer(tree)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     leaves = pytree.tree_flatten_with_path(tree)[0]
     manifest = {"step": step, "treedef": _treedef_hash(tree), "leaves": {}}
@@ -89,15 +119,21 @@ def save_checkpoint(directory: str, step: int, tree: PyTree) -> str:
         leaf = torch.as_tensor(leaf)
         arr = _to_numpy(leaf)
         fname = key + ".npy"
-        _write(os.path.join(tmp, fname), lambda f: np.save(f, arr))
+        if writer:
+            _write(os.path.join(tmp, fname), lambda f: np.save(f, arr))
         manifest["leaves"][key] = {
             "file": fname, "shape": list(leaf.shape),
             "dtype": str(leaf.dtype)[6:]}
-    _write(os.path.join(tmp, _MANIFEST), lambda f: json.dump(manifest, f))
+    if writer:
+        _write(os.path.join(tmp, _MANIFEST),
+               lambda f: json.dump(manifest, f))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)    # the commit point
+    if _sharded(tree):
+        import torch.distributed as dist
 
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)    # the commit point
+        dist.barrier()
     return final
 
 
@@ -141,8 +177,24 @@ def _validate_and_load(path: str, like: PyTree) -> PyTree:
         dtype = _DTYPES[meta["dtype"]]
         if dtype in _AS_BITS:
             t = t.view(dtype)
-        out.append(t.reshape(leaf.shape).to(leaf.device))
+        out.append(_like(t.reshape(leaf.shape), leaf))
     return pytree.tree_unflatten(out, spec)
+
+
+def _like(t: torch.Tensor, leaf) -> torch.Tensor:
+    """The whole tensor ``t`` on ``leaf``'s device, and with its placements
+    when ``leaf`` is a DTensor (this rank's block)."""
+    if not _dtensor(leaf):
+        return t.to(leaf.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = leaf.device_mesh
+    whole = DTensor.from_local(t.to(leaf.device), mesh,
+                               tuple(Replicate() for _ in leaf.placements),
+                               run_check=False)
+    block = whole.redistribute(mesh, leaf.placements).to_local()
+    return DTensor.from_local(block.clone(), mesh, leaf.placements,
+                              run_check=False)
 
 
 def restore_checkpoint(directory: str, like: PyTree,
@@ -170,7 +222,8 @@ class CheckpointManager:
 
     def save(self, step: int, tree: PyTree) -> str:
         path = save_checkpoint(self.directory, step, tree)
-        self._gc()
+        if _writer(tree):
+            self._gc()
         return path
 
     def restore(self, like: PyTree, step: Optional[int] = None):

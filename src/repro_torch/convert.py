@@ -9,7 +9,8 @@ nesting with dots into a state dict (``{"mixer": {"wq": a}}`` ->
 ``(in, out)`` weight layout is kept, so ``x @ w`` is the same product on
 both sides. ``train_state_from_jax`` carries a reference ``TrainState``
 (step, params and the AdamW or SGD state) into the port's, so one train
-step can be compared on the same state.
+step can be compared on the same state. ``tree_from_jax(..., mesh=,
+defs=)`` places the carried leaves on a mesh as ``Model.init`` does.
 """
 
 from __future__ import annotations
@@ -22,9 +23,27 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def tree_from_jax(tree: Any, device="cuda", prefix: str = "") -> Any:
+def tree_from_jax(tree: Any, device="cuda", prefix: str = "", *,
+                  mesh: Any = None, defs: Any = None) -> Any:
     """Nested dict of numpy arrays -> the same nesting of tensors on
-    ``device`` (copies, dtypes kept)."""
+    ``device`` (copies, dtypes kept). With a ``mesh`` each leaf is placed
+    as ``Model.init`` places it there: a DTensor by the logical axes of
+    its ParamDef in ``defs`` (the model's ``defs`` or ``cache_defs``)
+    under ``DEFAULT_TRAIN_RULES``, each rank keeping its own block."""
+    out = _tree_from_jax(tree, device, prefix)
+    if mesh is None:
+        return out
+    from repro_torch.distributed.sharding import DEFAULT_TRAIN_RULES
+    from repro_torch.models.common import place_params
+
+    if defs is None:
+        raise ValueError(
+            "tree_from_jax(..., mesh=) places leaves by their ParamDefs: "
+            "pass defs= (the model's defs)")
+    return place_params(out, defs, DEFAULT_TRAIN_RULES, mesh)
+
+
+def _tree_from_jax(tree: Any, device, prefix: str) -> Any:
     dev = resolve_device(device)
     if not isinstance(tree, dict):
         raise ValueError(
@@ -33,7 +52,7 @@ def tree_from_jax(tree: Any, device="cuda", prefix: str = "") -> Any:
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
-            out[key] = tree_from_jax(val, dev, prefix=f"{prefix}{key}.")
+            out[key] = _tree_from_jax(val, dev, f"{prefix}{key}.")
         else:
             arr = np.array(np.asarray(val), copy=True)
             out[key] = torch.from_numpy(arr).to(dev)

@@ -24,7 +24,7 @@ group or the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 # A rule value is a mesh dimension name, a tuple of them, or None.
 RuleValue = Union[None, str, Tuple[str, ...]]
@@ -209,6 +209,71 @@ def spec_to_placements(spec: P, mesh: Any) -> tuple:
         for m in idx:
             placements[m] = Shard(d)
     return tuple(placements)
+
+
+class NamedSharding(NamedTuple):
+    """Where a tensor lives on a mesh: the mesh, the partition spec and
+    its DTensor placements (torch's form of a named sharding)."""
+    mesh: Any
+    spec: P
+    placements: tuple
+
+
+def make_named_sharding(logical_axes: Sequence[Optional[str]],
+                        rules: AxisRules, mesh: Any) -> NamedSharding:
+    spec = logical_to_spec(logical_axes, rules, mesh)
+    return NamedSharding(mesh, spec, spec_to_placements(spec, mesh))
+
+
+def spec_tree_for(defs: Any, rules: AxisRules, mesh: Any) -> Any:
+    """A tree of ParamDefs (anything with ``.logical``) mapped to partition
+    specs."""
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(
+        lambda d: logical_to_spec(d.logical, rules, mesh), defs,
+        is_leaf=lambda d: hasattr(d, "logical"))
+
+
+def placements_for(logical_axes: Sequence[Optional[str]], rules: AxisRules,
+                   mesh: Any, shape: Sequence[int]) -> tuple:
+    """The DTensor placements of a tensor of ``shape`` annotated with
+    logical axes: the rule's spec with the mesh dims that do not divide
+    their tensor dim dropped (``fit_spec_to_shape``), so a batch of 1 or a
+    vocab of 50280 replicates instead of splitting unevenly."""
+    spec = fit_spec_to_shape(tuple(shape),
+                             logical_to_spec(logical_axes, rules, mesh), mesh)
+    return spec_to_placements(spec, mesh)
+
+
+def replicate(x: Any, mesh: Any) -> Any:
+    """``x`` as a DTensor replicated over ``mesh``: a plain tensor is taken
+    as the global value every rank holds (no communication); a DTensor is
+    redistributed."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    full = tuple(Replicate() for _ in mesh_shape(mesh))
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, full)
+    return DTensor.from_local(x, mesh, full, run_check=False)
+
+
+def shard(x: Any, logical_axes: Sequence[Optional[str]], rules: AxisRules,
+          mesh: Any) -> Any:
+    """Place ``x`` by its logical axes: identity without a mesh; with one,
+    ``redistribute`` to the rule's placements (``placements_for``). A
+    plain tensor is taken as the global value every rank holds, so
+    sharding it only slices (no communication)."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    pl = placements_for(logical_axes, rules, mesh, x.shape)
+    if not isinstance(x, DTensor):
+        x = replicate(x, mesh)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
 
 
 def data_axis_names(mesh: Any) -> Tuple[str, ...]:

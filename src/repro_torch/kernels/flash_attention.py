@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .rmsnorm import forward_only
+from .rmsnorm import forward_only, plain_tensors
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -108,6 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """K8: causal (window 0) or sliding-window GQA attention."""
+    plain_tensors("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention: expects q (B, H, S, dh) and k, v (B, Hkv, S, "

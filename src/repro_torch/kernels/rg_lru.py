@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import build
-from .rmsnorm import forward_only
+from .rmsnorm import forward_only, plain_tensors
 
 # the card's tile (csrc/rg_lru.cu's LRU_CT, LRU_NS, LRU_L): channels a
 # block, segments a tile, steps a segment
@@ -78,6 +78,7 @@ def _lib() -> ctypes.CDLL:
 
 def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K10: h (B, S, C) f32 solving h_t = exp(log_a_t) h_{t-1} + b_t."""
+    plain_tensors("rg_lru", log_a, b)
     if log_a.dim() != 3 or log_a.shape != b.shape:
         raise ValueError(
             f"rg_lru: expects log_a and b of one shape (B, S, C); got "

@@ -92,6 +92,19 @@ def forward_only(what: str, *tensors: torch.Tensor) -> None:
             "torch.no_grad() or on tensors that need no gradient")
 
 
+def plain_tensors(what: str, *tensors) -> None:
+    """The kernels take each rank's plain local tensors: refuse a DTensor
+    rather than run on its global view (the model's per-rank regions pass
+    ``to_local()`` blocks, ``repro_torch.distributed.regions``)."""
+    for t in tensors:
+        if t is not None and type(t).__name__ == "DTensor":
+            raise TypeError(
+                f"{what}: got a DTensor; a kernel runs on one rank's block, "
+                "so the caller passes x.to_local() (or enters a "
+                "repro_torch.distributed.regions.Region) and wraps the "
+                "result with its placements")
+
+
 def _check(code: int, lib: ctypes.CDLL, what: str) -> None:
     if code != 0:
         raise RuntimeError(
@@ -105,6 +118,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     ``kernel`` ("one_pass" or "two_pass") overrides ``kernel_for`` on a
     CUDA tensor, for timing one against the other; the one-pass kernel
     raises where it does not apply."""
+    plain_tensors("rmsnorm", x, w)
     d = x.shape[-1]
     if x.dim() < 1 or tuple(w.shape) != (d,):
         raise ValueError(

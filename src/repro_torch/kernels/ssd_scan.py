@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .rmsnorm import forward_only
+from .rmsnorm import forward_only, plain_tensors
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -284,6 +284,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """K9: (y (B, S, H, P) in x's dtype, h_last (B, H, P, N) f32). In bf16
     on the card: kernels 1-3 on an f32 scratch of B·nc·H·P·N + B·S·H
     values; in f32 one kernel."""
+    plain_tensors("ssd_scan", x, dt, a, b_mat, c_mat, h0)
     _check(x, dt, a, b_mat, c_mat, chunk, h0)
     if not _on_card("ssd_scan", x):
         return ssd_scan_plain(x, dt, a, b_mat, c_mat, chunk, h0=h0)

@@ -12,6 +12,18 @@ chunked. Under ``RunConfig.use_pallas`` every prefill goes to K8
 plain, as the reference has no decode kernel. The attention matmuls of
 the plain route stay ``torch.einsum``, as the reference leaves them to
 XLA.
+
+On a mesh (``RunConfig.mesh``) q and the expanded k, v are placed over
+``model`` by heads, the projections by the reference's annotations, and
+the attention itself runs per rank (``distributed.regions``; it is local
+to a (batch row, head)): the plain route on each rank's (batch, heads)
+block, K8's prefill on that block with the kv heads its q heads read,
+and decode. Decode writes the new key into the slot's owner only and, with
+``decode_seq_shard`` and a cache sequence the ``model`` dim divides,
+is flash-decode: each rank's (m, l, o) over its KV-sequence shard, m
+combined by an all-reduce max, l and o by all-reduce sums after the
+exp(m - m_g) correction. Otherwise each rank decodes over the whole
+cache.
 """
 
 from __future__ import annotations
@@ -21,6 +33,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.regions import Region, block_offset
+from repro_torch.distributed.sharding import (DEFAULT_SERVE_RULES,
+                                              placements_for, shard)
 from repro_torch.kernels import ops
 
 from .common import ParamDef, Tree, apply_rope, dense
@@ -34,14 +49,17 @@ DENSE_ATTN_MAX_SEQ = 8192
 def attn_defs(cfg: ModelConfig, param_dtype: torch.dtype) -> Tree:
     d, h, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
-    defs = {"wq": ParamDef((d, h * dh), param_dtype),
-            "wk": ParamDef((d, hk * dh), param_dtype),
-            "wv": ParamDef((d, hk * dh), param_dtype),
-            "wo": ParamDef((h * dh, d), param_dtype)}
+    defs = {"wq": ParamDef((d, h * dh), param_dtype, ("embed", "heads")),
+            "wk": ParamDef((d, hk * dh), param_dtype, ("embed", "kv_heads")),
+            "wv": ParamDef((d, hk * dh), param_dtype, ("embed", "kv_heads")),
+            "wo": ParamDef((h * dh, d), param_dtype, ("heads", "embed"))}
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((h * dh,), param_dtype, init="zeros")
-        defs["bk"] = ParamDef((hk * dh,), param_dtype, init="zeros")
-        defs["bv"] = ParamDef((hk * dh,), param_dtype, init="zeros")
+        defs["bq"] = ParamDef((h * dh,), param_dtype, ("heads_act",),
+                              init="zeros")
+        defs["bk"] = ParamDef((hk * dh,), param_dtype, ("kv_heads_act",),
+                              init="zeros")
+        defs["bv"] = ParamDef((hk * dh,), param_dtype, ("kv_heads_act",),
+                              init="zeros")
     return defs
 
 
@@ -144,24 +162,75 @@ def sliding_window_attention(q, k, v, *, window: int,
     return out.reshape(b, s, h, dh)
 
 
-def decode_attention(q, k_cache, v_cache, valid, *, groups: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """One-token attention against a cache (B,Smax,Hkv,dh); ``valid``
-    (B,Smax) bool marks live slots (the caller keeps the ring-buffer and
-    length semantics). Statistics in f32."""
-    dh = q.shape[-1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    ke = _expand_kv(k_cache, groups).float()
-    ve = _expand_kv(v_cache, groups).float()
+def _decode_partial(q, k, v, valid, scale: float, groups: int):
+    """Partial decode statistics over a KV block: q (B,1,H,dh), k/v
+    (B,Sl,Hkv,dh), valid (B,Sl) -> m (B,H), l (B,H), o (B,H,dh) in f32."""
+    ke = _expand_kv(k, groups).float()
+    ve = _expand_kv(v, groups).float()
     s = torch.einsum("bqhd,bkhd->bhk", q.float(), ke) * scale   # (B,H,Sl)
     s = torch.where(valid[:, None, :], s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     p = torch.where(valid[:, None, :], p, 0.0)
-    l = p.sum(dim=-1)
-    o = torch.einsum("bhk,bkhd->bhd", p, ve)
+    return m, p.sum(dim=-1), torch.einsum("bhk,bkhd->bhd", p, ve)
+
+
+def decode_attention(q, k_cache, v_cache, valid, *, groups: int,
+                     scale: Optional[float] = None, mesh=None, rules=None,
+                     seq_shard: bool = True) -> torch.Tensor:
+    """One-token attention against a cache (B,Smax,Hkv,dh); ``valid``
+    (B,Smax) bool marks live slots (the caller keeps the ring-buffer and
+    length semantics). Statistics in f32.
+
+    With a mesh the cache's sequence dim is split over ``model`` when
+    ``seq_shard`` and ``model`` divides Smax (flash-decode: partials
+    combined by all-reduce max and sums), else each rank reads the whole
+    cache; the batch is split over the data dims that divide it, else
+    replicated. No gradient (serving)."""
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    if mesh is None:
+        m, l, o = _decode_partial(q, k_cache, v_cache, valid, scale, groups)
+        out = o / torch.clamp(l[..., None], min=1e-30)
+        return out[:, None].to(q.dtype).reshape(q.shape)
+    from torch.distributed.tensor import Replicate
+
+    rules = rules if rules is not None else DEFAULT_SERVE_RULES
+    qpl = placements_for(("batch", None, None, None), rules, mesh, q.shape)
+    kvpl = placements_for(("batch", "kv_seq", None, None), rules, mesh,
+                          k_cache.shape)
+    if not seq_shard:
+        kvpl = tuple(Replicate() if p.is_shard(1) else p for p in kvpl)
+    seq = [n for n, p in zip(mesh.mesh_dim_names, kvpl) if p.is_shard(1)]
+    r = Region.over(mesh, kvpl)
+    ql = r.enter(q, qpl)
+    kl, vl = r.enter(k_cache, kvpl), r.enter(v_cache, kvpl)
+    m, l, o = _decode_partial(ql, kl, vl, r.enter(valid, kvpl), scale,
+                              groups)
+    if seq:
+        m_g = m.clone()
+        for n in seq:
+            r.all_reduce(m_g, "max", n)
+        corr = torch.exp(m - m_g)
+        l = l * corr
+        o = o * corr[..., None]
+        for n in seq:
+            r.all_reduce(l, "sum", n)
+            r.all_reduce(o, "sum", n)
     out = o / torch.clamp(l[..., None], min=1e-30)
-    return out[:, None].to(q.dtype).reshape(q.shape)
+    return r.leave(out[:, None].to(ql.dtype).reshape(ql.shape), qpl)
+
+
+def _attend(q, ke, ve, win: int) -> torch.Tensor:
+    """The plain route's choice: sliding-window when ``win > 0`` and the
+    sequence is longer, else dense up to ``DENSE_ATTN_MAX_SEQ``, else
+    chunked. k and v expanded to q's heads."""
+    s = q.shape[1]
+    if win > 0 and s > win:
+        return sliding_window_attention(q, ke, ve, window=win)
+    if s <= DENSE_ATTN_MAX_SEQ:
+        return full_attention(q, ke, ve, window=win)
+    return chunked_attention(q, ke, ve, window=win)
 
 
 def _kernel_attention(q, k, v, window: int) -> torch.Tensor:
@@ -170,6 +239,81 @@ def _kernel_attention(q, k, v, window: int) -> torch.Tensor:
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), window=window)
     return out.transpose(1, 2)
+
+
+def _kv_for_heads(k, v, start: int, n: int, groups: int):
+    """The kv heads that q heads [start, start + n) read (q head i reads kv
+    head i // groups), as a GQA pair for K8: a slice when the heads' block
+    is whole groups or within one group, else expanded and sliced."""
+    hk = k.shape[2]
+    if start == 0 and n == hk * groups:
+        return k, v
+    first, last = start // groups, (start + n - 1) // groups
+    if (start % groups == 0 and n % groups == 0) or first == last:
+        return k[:, :, first:last + 1], v[:, :, first:last + 1]
+    return (_expand_kv(k, groups)[:, :, start:start + n],
+            _expand_kv(v, groups)[:, :, start:start + n])
+
+
+def _kernel_attention_sharded(q, k, v, window: int, groups: int,
+                              rcfg: RunConfig):
+    """K8 per rank on a mesh: its (batch, q heads) block of q and the kv
+    heads those read; attention is local to a (batch row, head), so no
+    collective."""
+    mesh, rules = rcfg.mesh, rcfg.rules
+    qpl = placements_for(("batch", "seq", "heads_act", None), rules, mesh,
+                         q.shape)
+    kvpl = placements_for(("batch", "seq", None, None), rules, mesh,
+                          k.shape)
+    r = Region.over(mesh, qpl)
+    ql = r.enter(q, qpl)
+    n = ql.shape[2]
+    kl, vl = _kv_for_heads(r.enter(k, kvpl), r.enter(v, kvpl),
+                           block_offset(r, qpl, 2, n), n, groups)
+    return r.leave(_kernel_attention(ql, kl, vl, window), qpl)
+
+
+def _prefill_cache(k: torch.Tensor, slots: int, win: int,
+                   rcfg: RunConfig) -> torch.Tensor:
+    """The prefill's (B, slots, Hkv, dh) cache of k (a ring buffer of
+    ``slots`` for windowed attention, the key at global position t in slot
+    t % slots), placed by the cache's logical axes on a mesh."""
+    mesh, rules = rcfg.mesh, rcfg.rules
+    if mesh is not None:   # pad and roll on each rank's batch block
+        pl = placements_for(("batch", None, None, None), rules, mesh,
+                            k.shape)
+        r = Region.over(mesh, pl)
+        kc = r.leave(_prefill_cache(r.enter(k, pl), slots, win,
+                                    rcfg.with_(mesh=None)), pl)
+        return shard(kc, ("batch", "kv_seq", None, None), rules, mesh)
+    s = k.shape[1]
+    if win > 0 and s >= slots:
+        return torch.roll(k[:, -slots:], s % slots, dims=1).contiguous()
+    return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, slots - s)) \
+        .contiguous()
+
+
+def _write_slot(cache: torch.Tensor, widx: torch.Tensor,
+                new: torch.Tensor, rcfg: RunConfig) -> None:
+    """cache[:, widx] = new, in place. On a mesh only the rank whose
+    KV-sequence block holds slot ``widx`` changes it: the others write
+    their slot back to itself (no host read of ``widx``)."""
+    if rcfg.mesh is None:
+        cache.index_copy_(1, widx, new.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate
+
+    pl = cache.placements
+    r = Region.over(rcfg.mesh, pl)
+    loc = cache.to_local()
+    sl = loc.shape[1]
+    nl = r.enter(new, tuple(p if p.is_shard(0) else Replicate()
+                            for p in pl))
+    idx = widx - block_offset(r, pl, 1, sl)
+    mine = (idx >= 0) & (idx < sl)
+    idx = torch.clamp(idx, 0, sl - 1)
+    val = torch.where(mine, nl.to(loc.dtype), loc.index_select(1, idx))
+    loc.index_copy_(1, idx, val)
 
 
 def attention_apply(
@@ -196,14 +340,24 @@ def attention_apply(
     groups = h // hk
     win = cfg.window
     cd = rcfg.compute_dtype
+    mesh, rules = rcfg.mesh, rcfg.rules
 
-    q = dense(x, p["wq"], p.get("bq"), cd).reshape(b, s, h, dh)
-    k = dense(x, p["wk"], p.get("bk"), cd).reshape(b, s, hk, dh)
-    v = dense(x, p["wv"], p.get("bv"), cd).reshape(b, s, hk, dh)
+    # placed before the head split, so that no mesh dim splits a head
+    q = shard(dense(x, p["wq"], p.get("bq"), cd),
+              ("batch", "seq", "heads_act"), rules, mesh).reshape(b, s, h, dh)
+    k = shard(dense(x, p["wk"], p.get("bk"), cd),
+              ("batch", "seq", "kv_heads_act"), rules, mesh) \
+        .reshape(b, s, hk, dh)
+    v = shard(dense(x, p["wv"], p.get("bv"), cd),
+              ("batch", "seq", "kv_heads_act"), rules, mesh) \
+        .reshape(b, s, hk, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, ("batch", "seq", "heads_act", None), rules, mesh)
+    k = shard(k, ("batch", "seq", "kv_heads_act", None), rules, mesh)
+    v = shard(v, ("batch", "seq", "kv_heads_act", None), rules, mesh)
 
     new_cache = None
     if mode == "decode":
@@ -213,45 +367,49 @@ def attention_apply(
                 f"and a single-token input; got cache={cache is not None}, "
                 f"seq_len={s}")
         clen = cache["len"]                   # global position counter
+        if mesh is not None:
+            clen = clen.to_local()
         slots = cache["k"].shape[1]
         # ring-buffer write for windowed caches; plain append otherwise
         # (clamped to the last slot, as dynamic_update_slice clamps)
         widx = clen % slots if win > 0 else torch.clamp(clen, max=slots - 1)
         widx = widx.reshape(1).long()
-        cache["k"].index_copy_(1, widx, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, widx, v.to(cache["v"].dtype))
+        _write_slot(cache["k"], widx, k, rcfg)
+        _write_slot(cache["v"], widx, v, rcfg)
         valid = torch.arange(slots, device=x.device)[None, :] \
             < torch.clamp(clen + 1, max=slots)
         out = decode_attention(q, cache["k"], cache["v"],
-                               valid.expand(b, slots), groups=groups)
-        cache["len"].add_(1)
+                               valid.expand(b, slots), groups=groups,
+                               mesh=mesh, rules=rules,
+                               seq_shard=rcfg.decode_seq_shard)
+        clen.add_(1)
         new_cache = cache
     else:
         if rcfg.use_pallas and mode == "prefill":
-            out = _kernel_attention(q, k, v, win)
+            out = (_kernel_attention(q, k, v, win) if mesh is None else
+                   _kernel_attention_sharded(q, k, v, win, groups, rcfg))
         else:
             ke = _expand_kv(k, groups)
             ve = _expand_kv(v, groups)
-            if win > 0 and s > win:
-                out = sliding_window_attention(q, ke, ve, window=win)
-            elif s <= DENSE_ATTN_MAX_SEQ:
-                out = full_attention(q, ke, ve, window=win)
-            else:
-                out = chunked_attention(q, ke, ve, window=win)
+            if mesh is None:
+                out = _attend(q, ke, ve, win)
+            else:   # local to a (batch row, head): each rank its block
+                heads = ("batch", "seq", "heads_act", None)
+                ke = shard(ke, heads, rules, mesh)
+                ve = shard(ve, heads, rules, mesh)
+                pl = placements_for(heads, rules, mesh, q.shape)
+                r = Region.over(mesh, pl)
+                out = r.leave(_attend(r.enter(q, pl), r.enter(ke, pl),
+                                      r.enter(ve, pl), win), pl)
         if mode == "prefill":
             slots = rcfg.max_seq if win == 0 else min(rcfg.max_seq, win)
             slots = max(slots, s if win == 0 else min(s, win))
-            if win > 0 and s >= slots:
-                # key at global position t lives in slot t % slots
-                kk = torch.roll(k[:, -slots:], s % slots, dims=1)
-                vv = torch.roll(v[:, -slots:], s % slots, dims=1)
-            else:
-                pad = (0, 0, 0, 0, 0, slots - s)
-                kk = torch.nn.functional.pad(k, pad)
-                vv = torch.nn.functional.pad(v, pad)
-            new_cache = {"k": kk.contiguous(), "v": vv.contiguous(),
-                         "len": torch.tensor(s, dtype=torch.int32,
-                                             device=x.device)}
+            length = torch.tensor(s, dtype=torch.int32, device=x.device)
+            new_cache = {"k": _prefill_cache(k, slots, win, rcfg),
+                         "v": _prefill_cache(v, slots, win, rcfg),
+                         "len": shard(length, (), rules, mesh)}
 
+    out = shard(out, ("batch", "seq", "heads_act", None), rules, mesh)
     y = dense(out.reshape(b, s, h * dh), p["wo"], None, cd)
-    return y, new_cache
+    return shard(y, ("batch", "res_seq", "embed_act"), rules, mesh), \
+        new_cache

@@ -10,6 +10,12 @@ reference's keys; ``ParamDef`` describes one leaf (shape, dtype, init) and
 N(0, 1/fan_in) weight from a numpy seed. The numbers of either differ from
 ``jax.random``'s; tests carry the reference's own weights over with
 ``convert.tree_from_jax``.
+
+``ParamDef.logical`` names each dim's logical sharding axis, as in the
+reference: ``abstract_params`` gives meta-tensor stand-ins (no memory),
+``param_specs`` (``distributed.sharding.spec_tree_for``) the partition
+specs under a rule table, and ``place_params`` / ``placer`` the DTensors
+of a mesh.
 """
 
 from __future__ import annotations
@@ -22,20 +28,34 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the reference's name for a ParamDef tree's partition specs
+from repro_torch.distributed.sharding import spec_tree_for as param_specs
+
 
 Tree = Any
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """One parameter (or cache) leaf: shape, dtype and initializer
+    """One parameter (or cache) leaf: shape, dtype, *logical* sharding
+    axes (one name or ``None`` per dim, mapped to mesh dims by
+    ``AxisRules``; left out, every dim is replicated) and initializer
     (``normal`` with std ``scale`` or 1/sqrt(fan_in), ``embed`` with std
     ``scale`` or 0.02, ``zeros``, ``ones``, ``uniform_ssm``: log U[1, 16],
     the SSM decay rates A stored as log)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    logical: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"
     scale: Optional[float] = None
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        elif len(self.shape) != len(self.logical):
+            raise ValueError(
+                f"ParamDef: shape {self.shape} and logical axes "
+                f"{self.logical} have different ranks")
 
 
 def _is_def(x) -> bool:
@@ -80,11 +100,62 @@ def _init_one(d: ParamDef, gen: torch.Generator,
     return w.mul_(std).to(d.dtype)
 
 
-def init_params(defs: Tree, gen: torch.Generator, device) -> Tree:
+def init_params(defs: Tree, gen: torch.Generator, device,
+                place=None) -> Tree:
     """Materialize a ParamDef tree on ``device`` (the generator's device),
-    drawing the leaves one after another from ``gen``."""
+    drawing the leaves one after another from ``gen``. ``place(d, t)``,
+    when given, turns each leaf into what the tree keeps as soon as it is
+    drawn (``placer``: its DTensor shard), so at most one whole leaf
+    exists at a time."""
     dev = torch.device(device)
-    return map_defs(lambda d: _init_one(d, gen, dev), defs)
+    if place is None:
+        return map_defs(lambda d: _init_one(d, gen, dev), defs)
+    return map_defs(lambda d: place(d, _init_one(d, gen, dev)), defs)
+
+
+def abstract_params(defs: Tree) -> Tree:
+    """Shape and dtype stand-ins of a ParamDef tree: tensors on the
+    ``meta`` device, which allocate nothing."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
+def placer(rules, mesh):
+    """``place(d, t)``: the whole leaf ``t`` of ParamDef ``d`` as a
+    DTensor on ``mesh``, placed by ``d.logical`` under ``rules``
+    (``sharding.placements_for``). Each rank keeps a copy of its own
+    block only; on a one-rank mesh the tensor is wrapped as it is, with no
+    copy."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import (mesh_shape,
+                                                  placements_for, replicate)
+
+    one = math.prod(mesh_shape(mesh).values()) == 1
+
+    def place(d: ParamDef, t: torch.Tensor):
+        pl = placements_for(d.logical, rules, mesh, d.shape)
+        if one:
+            return DTensor.from_local(t, mesh, pl, run_check=False)
+        block = replicate(t, mesh).redistribute(mesh, pl).to_local()
+        return DTensor.from_local(block.clone(), mesh, pl, run_check=False)
+
+    return place
+
+
+def place_params(tree: Tree, defs: Tree, rules, mesh) -> Tree:
+    """A tree of whole tensors (``tree``, ``defs``'s nesting) placed on
+    ``mesh`` leaf by leaf (``placer``); the tree itself without a mesh."""
+    if mesh is None:
+        return tree
+    place = placer(rules, mesh)
+
+    def walk(d, t):
+        if _is_def(d):
+            return place(d, t)
+        return {k: walk(d[k], t[k]) for k in t}   # the tree's key order
+
+    return walk(defs, tree)
 
 
 def param_count(defs: Tree) -> int:
@@ -129,20 +200,41 @@ def apply_norm(kind: str, x: torch.Tensor, p: Dict[str, torch.Tensor],
     modes under ``use_pallas``); LayerNorm has no kernel."""
     if kind == "rmsnorm":
         if kernel:
-            from repro_torch.kernels import ops
-            return ops.rmsnorm(x, p["w"], eps)
+            return kernel_rmsnorm(x, p["w"], eps)
         return rmsnorm(x, p["w"], eps)
     if kind == "layernorm":
         return layernorm(x, p["w"], p["b"], eps)
     raise ValueError(kind)
 
 
+def kernel_rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm through K7 (``kernels.ops.rmsnorm``). A DTensor runs on each
+    rank's local rows, with the normalized (last) dim made whole first
+    (an all-gather where it is sharded, as Mamba-2's gated norm over the
+    model-sharded inner dim is) and the weight replicated."""
+    from repro_torch.distributed.regions import Region, is_dtensor
+    from repro_torch.kernels import ops
+
+    if not is_dtensor(x):
+        return ops.rmsnorm(x, weight, eps)
+    from torch.distributed.tensor import Replicate
+
+    last = x.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() or p.is_shard(last) else p
+               for p in x.placements)
+    r = Region.over(x.device_mesh, pl)
+    y = ops.rmsnorm(r.enter(x, pl),
+                    r.enter(weight, tuple(Replicate() for _ in pl)), eps)
+    return r.leave(y, pl)
+
+
 def norm_defs(kind: str, dim: int, dtype: torch.dtype) -> Tree:
     if kind == "rmsnorm":
-        return {"w": ParamDef((dim,), dtype, init="ones")}
+        return {"w": ParamDef((dim,), dtype, ("embed_act",), init="ones")}
     if kind == "layernorm":
-        return {"w": ParamDef((dim,), dtype, init="ones"),
-                "b": ParamDef((dim,), dtype, init="zeros")}
+        return {"w": ParamDef((dim,), dtype, ("embed_act",), init="ones"),
+                "b": ParamDef((dim,), dtype, ("embed_act",), init="zeros")}
     raise ValueError(kind)
 
 

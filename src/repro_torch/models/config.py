@@ -2,9 +2,9 @@
 
 ``ModelConfig`` is a copy of ``repro/models/config.py``'s (one per
 architecture in ``repro_torch.configs``). ``RunConfig`` keeps what the
-ported paths read; the reference's sharding rules, ``decode_seq_shard``
-and ``zero1`` wait for the distributed slice, and a ``mesh`` raises where
-the reference would shard (the MoE block).
+ported paths read, the reference's sharding knobs included: ``mesh`` (a
+torch ``DeviceMesh``), ``rules`` (its logical-axis rules),
+``decode_seq_shard`` and ``zero1``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.node_block import NodeConfig
+from repro_torch.distributed.sharding import DEFAULT_TRAIN_RULES, AxisRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,9 +99,17 @@ class RunConfig:
     versions. In train mode with ``node.enabled`` it also turns on the
     NODE blocks' fused solver path (K1/K2, or K3/K4 under
     ``batch_axis=0``), as in the reference. ``max_seq`` is the KV-cache
-    capacity of serving and ``label_smoothing`` the loss's. ``mesh`` is
-    the reference's device mesh: the port runs on one card, and the MoE
-    block raises for any mesh (the distributed slice).
+    capacity of serving and ``label_smoothing`` the loss's.
+
+    ``mesh`` is a torch ``DeviceMesh`` with named dims (``data``,
+    ``model``, optionally ``pod``; ``repro_torch.launch.mesh``): with
+    one, parameters, activations, caches and optimizer moments are
+    DTensors placed by ``rules``, the MoE block runs its expert-parallel
+    dispatch over ``model``, and decode shards the KV cache's sequence dim
+    over ``model`` (flash-decode) when ``decode_seq_shard``. The optimizer
+    moments always carry their parameters' placements (ZeRO); ``zero1`` is
+    kept as the reference declares it, and, as there, nothing reads it.
+    A NODE stack (``node.enabled``) on a mesh raises.
 
     The reference's ``scan_layers`` and ``remat`` have no meaning in an
     eager stack (the port loops over the layer groups in Python and keeps
@@ -113,6 +122,9 @@ class RunConfig:
     max_seq: int = 0                      # KV-cache capacity (serving)
     label_smoothing: float = 0.0
     mesh: Any = None
+    rules: AxisRules = DEFAULT_TRAIN_RULES
+    decode_seq_shard: bool = True         # flash-decode over the mesh
+    zero1: bool = True                    # read nowhere, as in the reference
 
     def with_(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

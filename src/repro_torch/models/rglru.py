@@ -16,6 +16,11 @@ associative-scan algorithm); under ``RunConfig.use_pallas`` prefill calls
 K10 (``kernels.ops.rg_lru``) on the same ``log_a`` and ``b``. Decode is
 the one-step recurrence over the carried state, plain, and updates the
 cache in place.
+
+On a mesh the recurrence's channels split over ``model`` with the gates'
+diagonal blocks (``mlp``): conv, gates, scan (K10 on each rank's block,
+its sequence dim never split) and the cached states run per rank
+(``_mix_sharded``), the projections as DTensor ops.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.regions import Region
+from repro_torch.distributed.sharding import placements_for, shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.rg_lru import rg_lru_plain
 
@@ -39,18 +46,22 @@ def rglru_defs(cfg: ModelConfig, param_dtype: torch.dtype,
     d, dr = cfg.d_model, cfg.resolved_d_rnn
     bw = dr // n_blocks
     return {
-        "w_x": ParamDef((d, dr), param_dtype),
-        "w_gate": ParamDef((d, dr), param_dtype),
-        "w_out": ParamDef((dr, d), param_dtype),
-        "conv": ParamDef((cfg.conv_width, dr), param_dtype),
-        "conv_b": ParamDef((dr,), param_dtype, init="zeros"),
+        "w_x": ParamDef((d, dr), param_dtype, ("embed", "mlp")),
+        "w_gate": ParamDef((d, dr), param_dtype, ("embed", "mlp")),
+        "w_out": ParamDef((dr, d), param_dtype, ("mlp", "embed")),
+        "conv": ParamDef((cfg.conv_width, dr), param_dtype,
+                         ("conv", "mlp_act")),
+        "conv_b": ParamDef((dr,), param_dtype, ("mlp_act",), init="zeros"),
         # block-diagonal recurrence / input gates; fan-in nb * bw
-        "w_a": ParamDef((n_blocks, bw, bw), param_dtype),
-        "b_a": ParamDef((dr,), param_dtype, init="zeros"),
-        "w_i": ParamDef((n_blocks, bw, bw), param_dtype),
-        "b_i": ParamDef((dr,), param_dtype, init="zeros"),
+        "w_a": ParamDef((n_blocks, bw, bw), param_dtype,
+                        ("mlp", None, None)),
+        "b_a": ParamDef((dr,), param_dtype, ("mlp_act",), init="zeros"),
+        "w_i": ParamDef((n_blocks, bw, bw), param_dtype,
+                        ("mlp", None, None)),
+        "b_i": ParamDef((dr,), param_dtype, ("mlp_act",), init="zeros"),
         # Λ, f32 whatever the param dtype (Griffin appendix init)
-        "lam": ParamDef((dr,), torch.float32, init="normal", scale=0.5),
+        "lam": ParamDef((dr,), torch.float32, ("mlp_act",), init="normal",
+                        scale=0.5),
     }
 
 
@@ -110,6 +121,79 @@ def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     return h.to(x.dtype), h[:, -1]
 
 
+def _rg_mix(p: Dict[str, torch.Tensor], u_raw: torch.Tensor,
+            cache: Optional[Dict[str, torch.Tensor]], mode: str,
+            kernel: bool, cd: torch.dtype
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Conv, gates and the RG-LRU over a block of channels (every op is
+    channel-local: the gates' block-diagonal matrices split with them).
+    Returns (h (B,S,C), the new cache: ``cache`` updated in place in
+    decode, fresh in prefill)."""
+    conv_state = cache["conv"] if cache is not None else None
+    u = causal_conv1d(u_raw, p["conv"], p["conv_b"], state=conv_state)
+    uf = u.float()
+    r = torch.sigmoid(_blockdiag(uf, p["w_a"].float()) + p["b_a"].float())
+    i = torch.sigmoid(_blockdiag(uf, p["w_i"].float()) + p["b_i"].float())
+    if mode == "decode":
+        log_a = -_C * F.softplus(p["lam"].float())[None] * r[:, 0]
+        a = torch.exp(log_a)
+        bsc = torch.sqrt(-torch.expm1(2.0 * log_a))
+        h_new = a * cache["h"].float() + bsc * (i[:, 0] * uf[:, 0])
+        if p["conv"].shape[0] > 1:
+            cache["conv"].copy_(torch.cat(
+                [cache["conv"][:, 1:], u_raw.to(cache["conv"].dtype)], dim=1))
+        cache["h"].copy_(h_new)
+        return h_new[:, None].to(cd), cache
+    h0 = cache["h"] if cache is not None else None
+    h, h_last = rglru_scan(u, r, i, p["lam"], h0=h0,
+                           kernel=kernel and mode == "prefill")
+    if mode == "prefill":
+        return h, {"conv": conv_tail(u_raw, p["conv"].shape[0]).float(),
+                   "h": h_last}
+    return h, None
+
+
+def _mix_sharded(p: Dict[str, torch.Tensor], u_raw: torch.Tensor,
+                 cache: Optional[Dict[str, torch.Tensor]], mode: str,
+                 kernel: bool, rcfg: RunConfig):
+    """``_rg_mix`` per rank on a mesh: each ``model`` rank its block of
+    channels (with the gates' diagonal blocks, the conv weight and the
+    cached states), each data rank its batch rows; K10 scans each rank's
+    block along the whole sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, rules = rcfg.mesh, rcfg.rules
+    act = placements_for(("batch", "seq", "mlp_act"), rules, mesh,
+                         u_raw.shape)
+    blocks = placements_for(("mlp", None, None), rules, mesh,
+                            p["w_a"].shape)
+    if any(x.is_shard(1) for x in act):
+        raise ValueError(
+            "rglru on a mesh: the RG-LRU scan runs each rank's channels "
+            "along the whole sequence; rules that shard 'seq' are not "
+            "supported")
+    if any(x.is_shard(2) != y.is_shard(0) for x, y in zip(act, blocks)):
+        # channels and gate blocks would split differently: keep them whole
+        act = tuple(Replicate() if x.is_shard(2) else x for x in act)
+
+    def chan(dim):          # a channel-indexed leaf, its channels on dim
+        return tuple(Shard(dim) if x.is_shard(2) else Replicate()
+                     for x in act)
+
+    r = Region.over(mesh, act)
+    pl = {k: r.enter(p[k], chan(1) if k == "conv" else chan(0))
+          for k in ("conv", "conv_b", "w_a", "b_a", "w_i", "b_i", "lam")}
+    loc = None if cache is None else {k: v.to_local()
+                                      for k, v in cache.items()}
+    hl, nc = _rg_mix(pl, r.enter(u_raw, act), loc, mode, kernel,
+                     rcfg.compute_dtype)
+    h = r.leave(hl, act)
+    if mode != "prefill":
+        return h, cache if mode == "decode" else None
+    h_pl = tuple(Shard(1) if x.is_shard(2) else x for x in act)
+    return h, {"conv": r.leave(nc["conv"], act), "h": r.leave(nc["h"], h_pl)}
+
+
 def rglru_block_apply(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -124,48 +208,31 @@ def rglru_block_apply(
     ``decode`` updates ``cache`` (conv state and h) in place, where the
     reference's engine donates it, and returns it."""
     cd = rcfg.compute_dtype
+    mesh, rules = rcfg.mesh, rcfg.rules
     s = x.shape[1]
+    if mode == "decode" and (cache is None or s != 1):
+        raise ValueError(
+            "rglru decode mode needs a cache (from mode='prefill') "
+            f"and a single-token input; got cache={cache is not None}, "
+            f"seq_len={s}")
 
     gate = activation("gelu", dense(x, p["w_gate"], None, cd))
+    gate = shard(gate, ("batch", "seq", "mlp_act"), rules, mesh)
     u_raw = dense(x, p["w_x"], None, cd)        # pre-conv (cached for decode)
-    conv_state = cache["conv"] if cache is not None else None
-    u = causal_conv1d(u_raw, p["conv"], p["conv_b"], state=conv_state)
-
-    uf = u.float()
-    r = torch.sigmoid(_blockdiag(uf, p["w_a"].float()) + p["b_a"].float())
-    i = torch.sigmoid(_blockdiag(uf, p["w_i"].float()) + p["b_i"].float())
-
-    new_cache = None
-    if mode == "decode":
-        if cache is None or s != 1:
-            raise ValueError(
-                "rglru decode mode needs a cache (from mode='prefill') "
-                f"and a single-token input; got cache={cache is not None}, "
-                f"seq_len={s}")
-        log_a = -_C * F.softplus(p["lam"].float())[None] * r[:, 0]
-        a = torch.exp(log_a)
-        bsc = torch.sqrt(-torch.expm1(2.0 * log_a))
-        h_new = a * cache["h"].float() + bsc * (i[:, 0] * uf[:, 0])
-        h = h_new[:, None].to(cd)
-        if p["conv"].shape[0] > 1:
-            cache["conv"].copy_(torch.cat(
-                [cache["conv"][:, 1:], u_raw.to(cache["conv"].dtype)], dim=1))
-        cache["h"].copy_(h_new)
-        new_cache = cache
+    u_raw = shard(u_raw, ("batch", "seq", "mlp_act"), rules, mesh)
+    kernel = rcfg.use_pallas and mode == "prefill"
+    if mesh is None:
+        h, new_cache = _rg_mix(p, u_raw, cache, mode, kernel, cd)
     else:
-        h0 = cache["h"] if cache is not None else None
-        h, h_last = rglru_scan(u, r, i, p["lam"], h0=h0,
-                               kernel=rcfg.use_pallas and mode == "prefill")
-        if mode == "prefill":
-            new_cache = {"conv": conv_tail(u_raw, p["conv"].shape[0]).float(),
-                         "h": h_last}
-
+        h, new_cache = _mix_sharded(p, u_raw, cache, mode, kernel, rcfg)
     y = dense(gate * h.to(cd), p["w_out"], None, cd)
-    return y, new_cache
+    return shard(y, ("batch", "res_seq", "embed_act"), rules, mesh), \
+        new_cache
 
 
 def rglru_cache_defs(cfg: ModelConfig, batch: int) -> Tree:
     dr = cfg.resolved_d_rnn
     return {"conv": ParamDef((batch, cfg.conv_width - 1, dr), torch.float32,
-                             init="zeros"),
-            "h": ParamDef((batch, dr), torch.float32, init="zeros")}
+                             ("batch", None, "mlp_act"), init="zeros"),
+            "h": ParamDef((batch, dr), torch.float32, ("batch", "mlp_act"),
+                          init="zeros")}

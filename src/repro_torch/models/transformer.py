@@ -10,7 +10,7 @@ RG-LRU recurrent block (``rec``) or the Mamba-2 SSD block (``ssm``);
 hybrid (RecurrentGemma) stacks repeat a unit of kinds (("rec", "rec",
 "attn")) over groups and apply the remainder as a tail. Parameters keep
 the reference's tree: ``u{j}_{kind}`` leaves stacked on a leading groups
-dim, ``tail{j}_{kind}`` unstacked. The reference scans over the groups
+dim (logical axis ``layers``), ``tail{j}_{kind}`` unstacked. The reference scans over the groups
 (``lax.scan``); the port loops over them in Python, on views of the
 stacked leaves. The MoE aux loss is summed over the layers.
 
@@ -97,9 +97,12 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     # attention KV cache; window-limited archs only need the window
     hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     slots = max_seq if cfg.window == 0 else min(max_seq, cfg.window)
-    return {"k": ParamDef((batch, slots, hk, dh), cache_dtype, init="zeros"),
-            "v": ParamDef((batch, slots, hk, dh), cache_dtype, init="zeros"),
-            "len": ParamDef((), torch.int32, init="zeros")}
+    kv = ("batch", "kv_seq", None, None)
+    return {"k": ParamDef((batch, slots, hk, dh), cache_dtype, kv,
+                          init="zeros"),
+            "v": ParamDef((batch, slots, hk, dh), cache_dtype, kv,
+                          init="zeros"),
+            "len": ParamDef((), torch.int32, (), init="zeros")}
 
 
 # ----------------------------------------------------------------------------
@@ -175,9 +178,10 @@ def _node_block(p: Tree, x: torch.Tensor, cfg: ModelConfig,
 # ----------------------------------------------------------------------------
 
 def _stack_defs(defs: Tree, n: int) -> Tree:
-    """Prepend a stacked-layers dim to every ParamDef leaf."""
-    return map_defs(lambda d: dataclasses.replace(d, shape=(n,) + d.shape),
-                    defs)
+    """Prepend a stacked-layers dim (logical ``layers``) to every ParamDef
+    leaf."""
+    return map_defs(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape, logical=("layers",) + d.logical), defs)
 
 
 def _index(tree: Tree, i: int) -> Tree:

@@ -13,7 +13,10 @@ schedule is read at the 1-based step, eps is added after sqrt(n / c2),
 moments are f32 whatever the parameter dtype, and the decoupled decay
 applies to the leaves with ndim >= 2 (or those ``mask(params)`` selects).
 ``torch.optim.AdamW`` is another optimizer (b2 0.999, decay on every
-leaf). Everything runs without autograd.
+leaf). Everything runs without autograd. On DTensor parameters (a mesh)
+the moments are DTensors with the parameters' placements, each rank
+updating its own block (ZeRO: the optimizer state is sharded as the
+parameters are).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed.regions import tree_context
 
 PyTree = Any
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -59,8 +64,8 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):   # a DTensor's moments take its placements
+            return torch.zeros_like(p, dtype=torch.float32)
 
         dev = pytree.tree_leaves(params)[0].device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -69,6 +74,10 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(grads, state: AdamWState, params):
+        with tree_context(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state: AdamWState, params):
         step = state.step + 1
         lr_t = _sched_value(lr, step)
         c1 = 1.0 - b1 ** step.float()

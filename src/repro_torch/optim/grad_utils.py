@@ -10,7 +10,11 @@ round trip and its error-feedback state are what run:
   accumulates in the error buffer.
 
 Every function works on pytrees (dicts, lists, tuples) of tensors and
-reads nothing back to the host.
+reads nothing back to the host. On DTensors (a mesh) every reduction is
+over the whole tensor, not the rank's block: the global norm and the
+int8 scale are reduced across the mesh, and the top-k threshold is the
+k-th largest of the union of every block's own top k (exact: the global
+top k lie within it).
 """
 
 from __future__ import annotations
@@ -20,14 +24,17 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed.regions import is_dtensor, tree_context, whole
+
 PyTree = Any
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
     leaves = pytree.tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for leaf in leaves:
-        total = total + torch.sum(leaf.float() ** 2)
+    with tree_context(tree):
+        for leaf in leaves:
+            total = total + whole(torch.sum(leaf.float() ** 2))
     return torch.sqrt(total)
 
 
@@ -59,7 +66,8 @@ def clip_by_global_norm(grads: PyTree, max_norm: float,
             return torch.where(finite, gc, torch.zeros_like(gc))
         return torch.where(finite, gc, g)
 
-    return pytree.tree_map(clip, grads), norm
+    with tree_context(grads):
+        return pytree.tree_map(clip, grads), norm
 
 
 class CompressionState(NamedTuple):
@@ -92,12 +100,13 @@ def int8_compress_decompress(grads: PyTree,
 
     def comp(g, e):
         gf = g.float() + e
-        scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+        scale = torch.clamp(whole(gf.abs().max()), min=1e-12) / 127.0
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         deq = q.float() * scale
         return deq.to(g.dtype), gf - deq
 
-    return _map_pairs(comp, grads, state.error)
+    with tree_context(grads):
+        return _map_pairs(comp, grads, state.error)
 
 
 def topk_sparsify(grads: PyTree, frac: float,
@@ -110,10 +119,27 @@ def topk_sparsify(grads: PyTree, frac: float,
 
     def comp(g, e):
         gf = g.float() + e
-        flat = gf.abs().reshape(-1)
-        k = max(int(flat.numel() * frac), 1)
-        thresh = torch.topk(flat, k).values[-1]
+        k = max(int(gf.numel() * frac), 1)
+        thresh = _kth_largest(gf.abs(), k)
         kept = torch.where(gf.abs() >= thresh, gf, torch.zeros_like(gf))
         return kept.to(g.dtype), gf - kept
 
-    return _map_pairs(comp, grads, state.error)
+    with tree_context(grads):
+        return _map_pairs(comp, grads, state.error)
+
+
+def _kth_largest(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest entry of ``a`` (0-d). A DTensor's comes from the
+    blocks' own top k gathered over the mesh dims that split it (a block
+    replicated over a dim is taken once)."""
+    if not is_dtensor(a):
+        return torch.topk(a.reshape(-1), k).values[-1]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    block = a.to_local().reshape(-1)
+    cand = torch.topk(block, min(k, block.numel())).values
+    pl = tuple(Shard(0) if p.is_shard() else Replicate()
+               for p in a.placements)
+    union = DTensor.from_local(cand, a.device_mesh, pl,
+                               run_check=False).full_tensor()
+    return torch.topk(union, k).values[-1]

@@ -3,7 +3,8 @@ classification experiments (Sec. 4.2).
 
 Port of ``repro/optim/sgd.py``, the same functional interface as
 ``adamw``: velocities in f32 whatever the parameter dtype, the schedule
-read at the 1-based step, decoupled from autograd.
+read at the 1-based step, decoupled from autograd; on DTensor parameters
+the velocities take their placements.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Any, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed.regions import tree_context
 
 from .adamw import Optimizer, Schedule, _sched_value
 
@@ -31,11 +34,14 @@ def sgd(lr: Schedule, momentum: float = 0.9, nesterov: bool = False,
         return SGDState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             velocity=pytree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params))
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
     @torch.no_grad()
     def update(grads, state: SGDState, params):
+        with tree_context(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state: SGDState, params):
         step = state.step + 1
         lr_t = _sched_value(lr, step)
 

@@ -12,6 +12,12 @@ Port of ``repro/serve/engine.py``'s static-batch engine:
 The KV-cache capacity is ``model.rcfg.max_seq``. Sampling draws from a
 ``torch.Generator`` on the logits' device; the numbers differ from
 ``jax.random``'s, greedy decoding uses none.
+
+On a mesh (``model.rcfg.mesh``, DTensor parameters) the engine is the
+same: the prefill returns caches placed by ``Model.cache_specs`` (the KV
+cache's sequence dim over ``model``), each decode step writes a new key
+on the rank whose block holds its slot, and the logits come back whole
+on every rank, so every rank samples the same tokens.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ Port of ``repro/train/loop.py``:
 The reference jits one step and donates the state. The port runs the step
 eagerly: gradients by ``torch.autograd.grad`` on fresh leaves of the
 parameters, and the guard's selects are ``torch.where`` on the device,
-with no read back to the host.
+with no read back to the host. On a mesh the parameters, gradients and
+optimizer moments are DTensors (each gradient brought to its parameter's
+placements); the loss and metrics are plain tensors, the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.ckpt import CheckpointManager
+from repro_torch.distributed.regions import is_dtensor, tree_context
 from repro_torch.optim.adamw import Optimizer, apply_updates
 from repro_torch.optim.grad_utils import (CompressionState,
                                           clip_by_global_norm,
@@ -75,7 +79,7 @@ def _grads_of(model, params, batch):
     metrics detached, a leaf that the loss does not reach gets zeros."""
     leaves, spec = pytree.tree_flatten(params)
     live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
-    with torch.enable_grad():
+    with torch.enable_grad(), tree_context(params):
         loss, metrics = model.loss_fn(pytree.tree_unflatten(live, spec),
                                       batch)
         wrt = [p for p in live if p.requires_grad]
@@ -83,7 +87,11 @@ def _grads_of(model, params, batch):
     grads = []
     for p in live:
         g = next(got) if p.requires_grad else None
-        grads.append(torch.zeros_like(p) if g is None else g)
+        if g is None:
+            g = torch.zeros_like(p)
+        elif is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        grads.append(g)
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return loss.detach(), metrics, pytree.tree_unflatten(grads, spec)
@@ -96,6 +104,10 @@ def build_train_step(model, opt: Optimizer, cfg: TrainLoopConfig
     (loss, metrics)``."""
 
     def step(state: TrainState, batch, comp_state: CompressionState):
+        with tree_context(state.params):
+            return _step(state, batch, comp_state)
+
+    def _step(state: TrainState, batch, comp_state: CompressionState):
         comp_in = comp_state
         if cfg.microbatches > 1:
             gsum, lsum = None, None

@@ -93,7 +93,9 @@ Dense and MoE LMs, LM training: deepseek_moe_16b's SMOKE model with
 same greedy tokens, K7 and K8 launches as counted); a repeated bf16 MoE
 decode bitwise; one NODE-LM train step (node18's SMOKE, ``NODE_TRAIN``)
 through K1/K2 against their plain versions: the loss bitwise, the updated
-parameters within 1e-5.
+parameters within 1e-5. The sharded LM: a 2-layer dense model on a
+one-rank NCCL mesh with ``use_pallas``, prefill and decode bitwise the
+mesh-less route, K7 and K8 launched as often on both.
 """
 
 import math
@@ -1333,3 +1335,55 @@ def test_node_lm_train_step_kernels_match_plain_on_the_card(card):
     for a, b in zip(sk, sp):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             float(b.abs().max()), 1e-30)
+
+
+def test_sharded_lm_on_a_one_rank_mesh_is_bitwise(card):
+    """A 2-layer dense LM (f32, GQA) on a one-rank NCCL ``(data, model)``
+    mesh with ``use_pallas``: prefill and three decode steps give the
+    mesh-less route's logits bit for bit (on one rank every placement is
+    the whole tensor and every collective a copy), and K7 and K8 launch
+    as often on both routes (K7 2 per layer + 1 per prefill and per decode
+    step, K8 once per layer per prefill)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_debug_mesh)
+    from repro_torch.models.common import place_params
+    from repro_torch.models.config import ModelConfig, RunConfig
+    from repro_torch.models.lm import build_model
+
+    cfg = ModelConfig(name="dense2", family="dense", n_layers=2, d_model=128,
+                      vocab=256, n_heads=4, n_kv_heads=2, d_ff=256)
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    init_distributed("cuda")
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        rcfg = RunConfig(compute_dtype=torch.float32, use_pallas=True,
+                         max_seq=64)
+        plain = build_model(cfg, rcfg)
+        sharded = build_model(cfg, rcfg.with_(mesh=mesh))
+        params = plain.init(device=card, seed=0)
+        dparams = place_params(params, sharded.defs, rcfg.rules, mesh)
+        toks = torch.randint(0, cfg.vocab, (2, 43), device=card,
+                             generator=torch.Generator(card).manual_seed(1))
+        runs = []
+        for m, p in ((plain, params), (sharded, dparams)):
+            ops.reset_launches()
+            with torch.no_grad():
+                out, caches = m.prefill(p, {"tokens": toks[:, :40]})
+                outs = [out]
+                for j in range(3):
+                    out, caches = m.decode_step(
+                        p, {"tokens": toks[:, 40 + j:41 + j]}, caches, 40 + j)
+                    outs.append(out)
+            runs.append((outs, ops.launch_counts()))
+        (lp, cp), (lm, cm) = runs
+        assert all(torch.equal(a, b) for a, b in zip(lp, lm))
+        assert cp["rmsnorm"] == cm["rmsnorm"] == 5 * 4
+        assert cp["flash_attention"] == cm["flash_attention"] == 2
+    finally:
+        dist.destroy_process_group()

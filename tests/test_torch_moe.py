@@ -18,6 +18,7 @@ some do before holding y against the reference.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -129,10 +130,17 @@ def test_aux_load_balance_loss_matches_reference():
 
 
 def test_moe_block_raises_for_a_mesh():
+    """The expert-parallel dispatch (slice I2) takes a mesh with named
+    dims whose ``model`` dim divides the experts; it raises for others."""
     _, tcfg, _, tp, x = _case(jds.SMOKE, 0)
-    with pytest.raises(NotImplementedError, match="slice I"):
+    with pytest.raises(ValueError, match="named dimensions"):
         tmoe.moe_apply(tp, torch.from_numpy(x), tcfg,
                        RunConfig(compute_dtype=torch.float32, mesh=object()))
+    three = types.SimpleNamespace(mesh_dim_names=("model",), shape=(3,))
+    with pytest.raises(ValueError, match=f"n_experts={tcfg.n_experts} not "
+                       "divisible by the mesh's model dim 3"):
+        tmoe.moe_apply(tp, torch.from_numpy(x), tcfg,
+                       RunConfig(compute_dtype=torch.float32, mesh=three))
 
 
 def test_combine_is_the_same_bits_every_call():

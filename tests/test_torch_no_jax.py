@@ -1,4 +1,5 @@
-"""The port and its chip smoke import neither JAX nor the JAX package."""
+"""The port, its chip smoke and the rank sides of its multi-rank tests
+import neither JAX nor the JAX package."""
 
 import ast
 import pathlib
@@ -7,7 +8,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sharded_ranks.py",
+    ROOT / "tests" / "torch_sharded_lm_ranks.py"]
 
 
 def _imports(path):
@@ -71,5 +73,7 @@ def test_the_port_has_modules():
     # sharded batched solving
     for name in ("__init__", "sharding", "collectives"):
         assert port / "distributed" / f"{name}.py" in FILES
+    # the sharded LM: per-rank regions beside the rules
+    assert port / "distributed" / "regions.py" in FILES
     assert port / "launch" / "mesh.py" in FILES
     assert port / "benchmarks" / "sharded_solve.py" in FILES
