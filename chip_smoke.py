@@ -303,6 +303,25 @@ printing one JSON line (``"phase": ...``):
                       the moments DTensors with their parameters'
                       placements (this part runs no kernel). Every line
                       carries the card's name and power limit.
+11i. ``cost`` — slice I3. The NODE dry run
+                      (``launch/node_dryrun.py``: train with the adjoint
+                      and serve with ACA, batch 64, dim 32, f32) on a
+                      one-rank NCCL group through K3/K4, counted by
+                      ``launch/op_cost.py``: its report, verdict (never
+                      collective-bound) and measured solve beside its
+                      bound; the ``whole_call_cost`` lines that serve_moe
+                      and serve_mamba2 emitted (call B's prefill on a
+                      one-rank "fake"-backend mesh, counted on the card
+                      and dry-run on fake tensors: equal counts, logits
+                      bitwise the mesh-less route's, the dry run's
+                      argument + temp bytes within 10% of the allocator's
+                      peak (arguments resident) less what earlier phases
+                      held, and its temp bytes
+                      within 10% of the peak above them, the roofline
+                      terms and the share bound / measured beside the card's
+                      name and power limit); ``python -m
+                      repro_torch.launch.dryrun --arch deepseek_moe_16b
+                      --shape decode_32k`` in a subprocess (one ``[ok]``).
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
@@ -324,8 +343,9 @@ K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
 train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
 none of K1-K5, each method's sharded steps for K3/K4, sharded_lm's first
-mesh call of each model for K7/K8 and K7/K9) runs with every launch
-count set to 0 just before it and read just after.
+mesh call of each model for K7/K8 and K7/K9, each whole call's counted
+mesh prefill for K7/K8 and K7/K9, each NODE dry run for K3/K4) runs with
+every launch count set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -345,8 +365,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 NODE18_SHAPE = (8, 512, 768)
 RAGGED_N = 1_000_003
 # per-sample rows of the batched paths: one (512, 768) sample, and the
@@ -356,7 +374,6 @@ ROW_N = NODE18_SHAPE[1] * NODE18_SHAPE[2]
 SERVE_ROW_N = ROW_N + 2
 SERVE_REQUESTS = 16
 
-BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 RG_LAYERS = 5                   # one (rec, rec, attn) group + 2 rec tail
 RG_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
 LM_KERNELS = ("rmsnorm", "flash_attention", "rg_lru")
@@ -653,13 +670,6 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 5, prep=None) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def used_rows(weights_list):
-    """Stage rows a kernel reads: those with a nonzero weight in any of
-    its weight rows (zero weights are skipped)."""
-    return [j for j in range(len(weights_list[0]))
-            if any(w[j] != 0.0 for w in weights_list)]
-
-
 # ------------------------------------------------------------------ phases
 
 def phase_build():
@@ -772,9 +782,8 @@ def phase_kernels(torch, seed: int):
 
     def k1_entry(label, a, rows_k):
         kk = k[:rows_k].contiguous()
-        used = used_rows([a[:rows_k]])
-        nbytes = 4 * n * (len(used) + 2) + 4
-        flops = 2 * n * (len(used) + 1)
+        work = rk_stage.increment_work(1, n, rk_stage.used_stages(
+            a[:rows_k]))
         hw = h * torch.tensor(a[:rows_k], dtype=torch.float32, device="cuda")
         kt = kk.t()
         timings[label] = {
@@ -783,14 +792,13 @@ def phase_kernels(torch, seed: int):
             "plain_ms": time_ms(torch, lambda: rk_stage.increment_plain(
                 z, kk, h, a)),
             "library_ms": time_ms(torch, lambda: torch.addmv(z, kt, hw)),
-            "bytes": nbytes, "flops": flops,
         }
+        _bound(timings[label], work)
 
     def k2_entry(label, tab, with_err):
         kk = k[:tab.stages].contiguous()
-        used = used_rows([tab.b, tab.b_err])
-        nbytes = 4 * n * (len(used) + 2 + (1 if with_err else 0)) + 4
-        flops = n * (4 * len(used) + 12)
+        work = rk_stage.combine_err_work(n, rk_stage.used_stages(
+            tab.b, tab.b_err), with_err=with_err)
         timings[label] = {
             "ms": time_ms(torch, lambda: rk_stage.rk_stage_combine_err(
                 z, kk, h, tab.b, tab.b_err, 1e-2, 1e-2,
@@ -798,22 +806,21 @@ def phase_kernels(torch, seed: int):
             "plain_ms": time_ms(torch, lambda: rk_stage.combine_err_plain(
                 z, kk, h, tab.b, tab.b_err, 1e-2, 1e-2, with_err)),
             "library_ms": None,
-            "bytes": nbytes, "flops": flops,
         }
+        _bound(timings[label], work)
 
     def k6_entry(label, tab):
         kk = k[:tab.stages].contiguous()
-        used = used_rows([tab.b, tab.b_err])
-        nbytes = 4 * n * (len(used) + 3) + 4
-        flops = n * (4 * len(used) + 3)
+        work = rk_stage.combine_work(n, rk_stage.used_stages(tab.b,
+                                                             tab.b_err))
         timings[label] = {
             "ms": time_ms(torch, lambda: rk_stage.rk_stage_combine(
                 z, kk, h, tab.b, tab.b_err)),
             "plain_ms": time_ms(torch, lambda: rk_stage.combine_plain(
                 z, kk, h, tab.b, tab.b_err)),
             "library_ms": None,
-            "bytes": nbytes, "flops": flops,
         }
+        _bound(timings[label], work)
 
     k1_entry("k1_heun_stage", HEUN_EULER.a[1], 1)      # trial loop
     k1_entry("k1_heun_b", HEUN_EULER.b, 2)             # ACA replay
@@ -822,10 +829,6 @@ def phase_kernels(torch, seed: int):
     k2_entry("k2_dopri5", DOPRI5, False)
     k6_entry("k6_heun", HEUN_EULER)
     for t in timings.values():
-        t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
-                                  t["flops"] / F32_FLOP_PER_S)
-        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
-                         >= t["flops"] / F32_FLOP_PER_S else "operations")
         t["achieved_GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
     emit({"phase": "kernel_times", "ok": True, "n": n, "dtype": "float32",
           "timings": timings})
@@ -1122,7 +1125,7 @@ def phase_kernels_batched(torch, seed: int):
 
         def k3_entry(label, a, rows_k):
             kk = k[:rows_k].contiguous()
-            used = used_rows([a[:rows_k]])
+            used = rk_stage.used_stages(a[:rows_k])
             hw = (h[:, None] * torch.tensor(a[:rows_k], device="cuda"))[
                 :, None]                                    # (B, 1, j)
             kt, zb = kk.permute(1, 0, 2), z[:, None]        # (B, j, n)
@@ -1134,15 +1137,15 @@ def phase_kernels_batched(torch, seed: int):
                                     increment_batched_plain(z, kk, h, a)),
                 "library_ms": time_ms(torch, lambda: torch.baddbmm(
                     zb, hw, kt)),
-                "bytes": 4 * B * n * (len(used) + 2) + 4 * B,
-                "flops": 2 * B * n * (len(used) + 1),
             }
+            _bound(timings[f"{label}_{n}"],
+                   rk_stage.increment_work(B, n, used))
 
         def comb_entry(label, tab, row_tol, rows=B):
             zz = z[:rows].contiguous()
             kk = k[:tab.stages, :rows].contiguous()
             hh = h[:rows].contiguous()
-            used = used_rows([tab.b, tab.b_err])
+            used = rk_stage.used_stages(tab.b, tab.b_err)
             tols = (rt[:rows].contiguous(), at[:rows].contiguous()) \
                 if row_tol else (1e-2, 1e-2)
             fn = rk_stage.rk_stage_combine_err_batched_rowtol if row_tol \
@@ -1155,13 +1158,10 @@ def phase_kernels_batched(torch, seed: int):
                                     combine_err_batched_plain(
                                         zz, kk, hh, tab.b, tab.b_err, *tols)),
                 "library_ms": None,
-                # z and the used stages read, z_next and the partials
-                # written, h (and K5's tolerances) read
-                "bytes": 4 * rows * n * (len(used) + 2)
-                + 4 * rows * rk_stage.norm_tiles(n)
-                + 4 * rows * (3 if row_tol else 1),
-                "flops": rows * n * (4 * len(used) + 12),
             }
+            _bound(timings[f"{label}_{n}"],
+                   rk_stage.combine_err_batched_work(rows, n, used,
+                                                     row_tol=row_tol))
 
         k3_entry("k3_heun_stage", HEUN_EULER.a[1], 1)   # every trial
         k3_entry("k3_heun_b", HEUN_EULER.b, 2)          # ACA replay
@@ -1172,10 +1172,6 @@ def phase_kernels_batched(torch, seed: int):
         comb_entry("k5_dopri5", DOPRI5, True)
         comb_entry("k5_heun_b1", HEUN_EULER, True, rows=1)  # one request
     for t in timings.values():
-        t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
-                                  t["flops"] / F32_FLOP_PER_S)
-        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
-                         >= t["flops"] / F32_FLOP_PER_S else "operations")
         t["achieved_GBps"] = t["bytes"] / (t["ms"] * 1e-3) / 1e9
     emit({"phase": "kernel_times_batched", "ok": True, "rows": B,
           "dtype": "float32", "timings": timings})
@@ -1351,12 +1347,10 @@ def _aug_kernel_checks(torch, seed: int, n_aug: int, row_aug: int):
     def keep(name, diff):
         worst[name] = max(worst.get(name, 0.0), diff)
 
-    def timing(label, fn, plain, nbytes, flops):
-        t = {"ms": time_ms(torch, fn, iters=10), "plain_ms":
-             time_ms(torch, plain, iters=10), "bytes": nbytes,
-             "flops": flops, "peak_flops": F32_FLOP_PER_S}
-        _bound(t)
-        times[label] = t
+    def timing(label, fn, plain, work):
+        times[label] = _bound({"ms": time_ms(torch, fn, iters=10),
+                               "plain_ms": time_ms(torch, plain, iters=10)},
+                              work)
 
     z = torch.randn(n_aug, generator=gen, device="cuda")
     k = torch.randn(2, n_aug, generator=gen, device="cuda")
@@ -1381,12 +1375,12 @@ def _aug_kernel_checks(torch, seed: int, n_aug: int, row_aug: int):
     k1 = k[:1].contiguous()
     timing("k1", lambda: rk_stage.rk_stage_increment(z, k1, h, a1),
            lambda: rk_stage.increment_plain(z, k1, h, a1),
-           4 * n_aug * 3 + 4, 2 * n_aug * 2)
+           rk_stage.increment_work(1, n_aug, 1))
     timing("k2", lambda: rk_stage.rk_stage_combine_err(
         z, k, h, b, tab.b_err, 1e-2, 1e-2, with_err=False),
         lambda: rk_stage.combine_err_plain(z, k, h, b, tab.b_err, 1e-2,
                                            1e-2, False),
-        4 * n_aug * 4 + 4, n_aug * (4 * 2 + 12))
+        rk_stage.combine_err_work(n_aug, 2, with_err=False))
     del z, k
 
     B = BATCH_ROWS
@@ -1413,15 +1407,14 @@ def _aug_kernel_checks(torch, seed: int, n_aug: int, row_aug: int):
           f"K4 at ({B}, {row_aug}): per-row norms {sq.tolist()} vs "
           f"{sqp.tolist()}")
     k1 = k[:1].contiguous()
-    n = B * row_aug
     timing("k3", lambda: rk_stage.rk_stage_increment_batched(z, k1, hb, a1),
            lambda: rk_stage.increment_batched_plain(z, k1, hb, a1),
-           4 * n * 3 + 4 * B, 2 * n * 2)
+           rk_stage.increment_work(B, row_aug, 1))
     timing("k4", lambda: rk_stage.rk_stage_combine_err_batched(
         z, k, hb, b, tab.b_err, 1e-2, 1e-2),
         lambda: rk_stage.combine_err_batched_plain(z, k, hb, b, tab.b_err,
                                                    1e-2, 1e-2),
-        4 * n * 4 + 4 * B, n * (4 * 2 + 12))
+        rk_stage.combine_err_batched_work(B, row_aug, 2))
     return worst, times
 
 
@@ -1655,7 +1648,7 @@ def _bmid_kernel_checks(torch, seed: int):
     from repro_torch.kernels import rk_stage
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     a = DOPRI5.b_mid
-    used = used_rows([a])
+    used = rk_stage.used_stages(a)
     worst = {"rk_stage_increment": 0.0, "rk_stage_increment_batched": 0.0}
     times = {}
     n1 = math.prod(NODE18_SHAPE)
@@ -1677,11 +1670,8 @@ def _bmid_kernel_checks(torch, seed: int):
                                         rk_stage_increment(z, k, h, a)),
                  "plain_ms": time_ms(torch, lambda: rk_stage.increment_plain(
                      z, k, h, a)),
-                 "library_ms": time_ms(torch, lambda: torch.addmv(z, kt, hw)),
-                 "bytes": 4 * n1 * (len(used) + 2) + 4,
-                 "flops": 2 * n1 * (len(used) + 1),
-                 "peak_flops": F32_FLOP_PER_S}
-            _bound(t)
+                 "library_ms": time_ms(torch, lambda: torch.addmv(z, kt, hw))}
+            _bound(t, rk_stage.increment_work(1, n1, used))
             times["k1_b_mid"] = t
         del z, k
     B = BATCH_ROWS
@@ -1710,11 +1700,8 @@ def _bmid_kernel_checks(torch, seed: int):
                      "plain_ms": time_ms(torch, lambda: rk_stage.
                                          increment_batched_plain(z, k, h, a)),
                      "library_ms": time_ms(torch, lambda: torch.baddbmm(
-                         zb, hw, kt)),
-                     "bytes": 4 * B * n * (len(used) + 2) + 4 * B,
-                     "flops": 2 * B * n * (len(used) + 1),
-                     "peak_flops": F32_FLOP_PER_S}
-                _bound(t)
+                         zb, hw, kt))}
+                _bound(t, rk_stage.increment_work(B, n, used))
                 times[f"k3_b_mid_{n}"] = t
             del z, k
     return worst, times
@@ -2024,10 +2011,8 @@ def _half_drift_checks(torch, seed: int):
                  "plain_ms": time_ms(torch, lambda: rk_stage.increment_plain(
                      z, v, h, HALF_DRIFT)),
                  "library_ms": time_ms(torch, lambda: torch.addcmul(
-                     z, v[0], hw)),
-                 "bytes": 4 * n1 * 3 + 4, "flops": 3 * n1,
-                 "peak_flops": F32_FLOP_PER_S}
-            _bound(t)
+                     z, v[0], hw))}
+            _bound(t, rk_stage.increment_work(1, n1, 1))
             times["k1_half_drift"] = t
         del z, v
     B, n = BATCH_ROWS, SERVE_ROW_N
@@ -2055,10 +2040,8 @@ def _half_drift_checks(torch, seed: int):
                                      increment_batched_plain(z, v, h,
                                                              HALF_DRIFT)),
                  "library_ms": time_ms(torch, lambda: torch.addcmul(
-                     z, v[0], hw)),
-                 "bytes": 4 * B * n * 3 + 4 * B, "flops": 3 * B * n,
-                 "peak_flops": F32_FLOP_PER_S}
-            _bound(t)
+                     z, v[0], hw))}
+            _bound(t, rk_stage.increment_work(B, n, 1))
             times["k3_half_drift"] = t
         del z, v
     return worst, times
@@ -2510,19 +2493,16 @@ def _bf16_ulps(torch, a, b) -> float:
     return float(((a - b).abs() / ulp).max())
 
 
-def _band_pairs(s: int, window: int) -> int:
-    """(query, key) pairs of causal attention over s positions, each query
-    seeing min(q + 1, window) keys (window 0: all q + 1)."""
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+def _bound(t: dict, work) -> dict:
+    """``t`` with the bytes, FLOPs and bound of a kernel's ``work`` =
+    (FLOPs by dtype, bytes), its kernel module's ``work`` formula, at
+    ``launch/roofline.py``'s H100 rates."""
+    from repro_torch.launch.roofline import kernel_bound
 
-
-def _bound(t: dict) -> None:
-    by_bytes = t["bytes"] / HBM_BYTES_PER_S
-    by_ops = t["flops"] / t["peak_flops"]
-    t["bound_ms"] = 1e3 * max(by_bytes, by_ops)
-    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    flops, nbytes = work
+    t["bytes"], t["flops"] = nbytes, sum(flops.values())
+    t["bound_ms"], t["bound_by"] = kernel_bound(work)
+    return t
 
 
 def phase_kernels_lm(torch, seed: int):
@@ -2654,8 +2634,7 @@ def phase_kernels_lm(torch, seed: int):
             "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
             "library_ms": time_ms(torch, lambda: F.rms_norm(
                 x, (d,), w, 1e-6)),
-            "bytes": 2 * rows * d * 2 + d * 2,
-            "flops": 4 * rows * d, "peak_flops": F32_FLOP_PER_S}
+            "work": k7.work(rows, d, 2, 2)}
     del x, w
     b, s, window = 4, 4096, 2048
     q = rnd(b, 16, s, 256).to(torch.bfloat16)
@@ -2673,9 +2652,7 @@ def phase_kernels_lm(torch, seed: int):
             q, k, v, window=window), iters=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, ke, ve, attn_mask=mask), iters=10, warmup=2),
-        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
-        "flops": 4 * 256 * b * 16 * _band_pairs(s, window),
-        "peak_flops": BF16_FLOP_PER_S}
+        "work": fa.work(b, 16, 1, s, 256, window, 2)}
     # window 0 (causal) beside SDPA's own causal path, which computes K8's
     # function there without a mask tensor
     timings["flash_attention_causal"] = {
@@ -2687,9 +2664,7 @@ def phase_kernels_lm(torch, seed: int):
             q, k, v, window=0), iters=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=True), iters=10, warmup=2),
-        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
-        "flops": 4 * 256 * b * 16 * _band_pairs(s, 0),
-        "peak_flops": BF16_FLOP_PER_S}
+        "work": fa.work(b, 16, 1, s, 256, 0, 2)}
     del q, k, v, ke, ve
     # K10 at call A's and call B's prefill shapes
     for key, shape in (("rg_lru", (4, 4096, 4096)),
@@ -2703,12 +2678,11 @@ def phase_kernels_lm(torch, seed: int):
             "plain_ms": time_ms(torch, lambda: lru.rg_lru_plain(log_a, x),
                                 iters=5, warmup=1),
             "library_ms": None,
-            "bytes": 3 * log_a.numel() * 4,
-            "flops": 3 * log_a.numel(), "peak_flops": F32_FLOP_PER_S}
+            "work": lru.work(log_a.numel())}
         del log_a, x
     for key, t in timings.items():
         if key != "launch_floor":
-            _bound(t)
+            _bound(t, t.pop("work"))
     emit({"phase": "kernel_times_lm", "ok": True, "timings": timings})
     return worst, timings
 
@@ -2919,6 +2893,7 @@ def phase_kernels_ssm(torch, seed: int):
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as k7
     from repro_torch.kernels import ssd_scan as k9
+    from repro_torch.launch.roofline import HBM_BW
     from repro_torch.models.common import rmsnorm as rmsnorm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 17)
@@ -3024,7 +2999,6 @@ def phase_kernels_ssm(torch, seed: int):
     b, s, h, p, n, q = 4, 4096, 80, 64, 128, 256
     x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, s, h, p, 1, n,
                                    torch.bfloat16)
-    tiles = b * h * (s // q)
     timings = {"ssd_scan": {
         "shape": [b, s, h, p], "state": n, "chunk": q, "dtype": "bfloat16",
         "ms": time_ms(torch, lambda: ops.ssd_scan(x, dt, a, bm, cm, q),
@@ -3032,17 +3006,11 @@ def phase_kernels_ssm(torch, seed: int):
         "plain_ms": time_ms(torch, lambda: k9.ssd_scan_plain(
             x, dt, a, bm, cm, q), iters=3, warmup=1),
         "library_ms": None,
-        # x and y bf16, dt f32, B and C bf16, a, h_last f32
-        "bytes": 2 * x.numel() * 2 + dt.numel() * 4 + 2 * bm.numel() * 2
-        + h * 4 + b * h * p * n * 4,
-        # the causal half of C B^T (Q (Q + 1) / 2 products of 2N flops),
-        # its masked product with x (of 2P), C h and the state update
-        "flops": tiles * (q * (q + 1) * n + q * (q + 1) * p
-                          + 4 * q * n * p),
-        "peak_flops": BF16_FLOP_PER_S}}
+        # x and y bf16, dt f32, B and C bf16, a, h_last f32; the causal
+        # half of C B^T, its masked product with x, C h, the state update
+        "work": k9.work(b, s, h, p, 1, n, q, 2)}}
     # the three kernels alone, each on the outputs of the one before it;
     # bytes each reads and writes once, and their sum: the design's floor
-    nc, st_n = s // q, b * (s // q) * h * p * n
     cs, st = k9.ssd_chunk_state(x, dt, a, bm, q)
     saved = st.clone()
     k9.ssd_state_pass(st, cs, q)
@@ -3053,28 +3021,21 @@ def phase_kernels_ssm(torch, seed: int):
         "plain_ms": time_ms(torch, lambda: k9.chunk_states(
             x, dt, a, bm, q), iters=3, warmup=1),
         # x, B, dt, a in; cs and S_c out
-        "bytes": x.numel() * 2 + bm.numel() * 2 + dt.numel() * 4 + h * 4
-        + dt.numel() * 4 + st_n * 4,
-        "flops": tiles * 2 * q * n * p, "peak_flops": BF16_FLOP_PER_S}
+        "work": k9.chunk_state_work(b, s, h, p, 1, n, q, 2)}
     timings["ssd_state_pass"] = {
         "ms": time_ms(torch, lambda: k9.ssd_state_pass(st, cs, q),
                       iters=10, warmup=2, prep=lambda: st.copy_(saved)),
         "plain_ms": time_ms(torch, lambda: k9.state_pass(saved, cs, q),
                             iters=3, warmup=1),
         # S_c in, h_prev out, the chunks' last cs, h_last
-        "bytes": 2 * st_n * 4 + b * nc * h * 4 + b * h * p * n * 4,
-        "flops": 2 * st_n, "peak_flops": F32_FLOP_PER_S}
+        "work": k9.state_pass_work(b, s // q, h, p, n)}
     timings["ssd_chunk_scan"] = {
         "ms": time_ms(torch, lambda: k9.ssd_chunk_scan(
             x, dt, cs, bm, cm, h_prev, q), iters=10, warmup=2),
         "plain_ms": time_ms(torch, lambda: k9.chunk_outputs(
             x, dt, cs, bm, cm, h_prev, q), iters=3, warmup=1),
         # x, dt, cs, B, C, h_prev in; y out
-        "bytes": 2 * x.numel() * 2 + 2 * dt.numel() * 4
-        + 2 * bm.numel() * 2 + st_n * 4,
-        "flops": tiles * (q * (q + 1) * n + q * (q + 1) * p
-                          + 2 * q * n * p),
-        "peak_flops": BF16_FLOP_PER_S}
+        "work": k9.chunk_scan_work(b, s, h, p, 1, n, q, 2)}
     for k in K9_PARTS:
         timings[k].update({"shape": [b, s, h, p], "state": n, "chunk": q,
                            "dtype": "bfloat16", "library_ms": None})
@@ -3088,16 +3049,15 @@ def phase_kernels_ssm(torch, seed: int):
         "plain_ms": time_ms(torch, lambda: rmsnorm_plain(xr, w)),
         "library_ms": time_ms(torch, lambda: F.rms_norm(
             xr, (5120,), w, 1e-6)),
-        "bytes": 2 * xr.numel() * 2 + 5120 * 2,
-        "flops": 4 * xr.numel(), "peak_flops": F32_FLOP_PER_S}
+        "work": k7.work(16384, 5120, 2, 2)}
     del xr
     torch.cuda.empty_cache()
     for t in timings.values():
-        _bound(t)
+        _bound(t, t.pop("work"))
     k9t = timings["ssd_scan"]
     k9t["parts_ms"] = sum(timings[k]["ms"] for k in K9_PARTS)
     k9t["design_bytes"] = sum(timings[k]["bytes"] for k in K9_PARTS)
-    k9t["design_floor_ms"] = 1e3 * k9t["design_bytes"] / HBM_BYTES_PER_S
+    k9t["design_floor_ms"] = 1e3 * k9t["design_bytes"] / HBM_BW
     emit({"phase": "kernel_times_ssm", "ok": True, "timings": timings})
     return worst, timings
 
@@ -3162,6 +3122,8 @@ def phase_serve_mamba2(torch, seed: int):
     run16 = RunConfig(compute_dtype=torch.bfloat16,
                       param_dtype=torch.bfloat16, use_pallas=True)
     model = build_model(cfg, run16)
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()   # earlier phases' tensors
     params = model.init(seed=seed, device="cuda")
     torch.cuda.synchronize()
     n_params = model.n_params()
@@ -3241,8 +3203,8 @@ def phase_serve_mamba2(torch, seed: int):
     routes = {}
     for name, (b, s, new) in M2_CALLS.items():
         with torch.no_grad():
-            lk, _ = model.prefill(params, {"tokens": prompts[name]})
-            lp, _ = plain.prefill(params, {"tokens": prompts[name]})
+            lk = model.prefill(params, {"tokens": prompts[name]})[0]
+            lp = plain.prefill(params, {"tokens": prompts[name]})[0]
         check(bool(torch.isfinite(lk.float()).all()),
               f"call {name}: prefill logits not finite")
         out_p = ServeEngine(plain, params, ServeConfig(
@@ -3270,7 +3232,10 @@ def phase_serve_mamba2(torch, seed: int):
               f"{M2_LOGIT_BF16_RTOL}")
         check(not bad, f"call {name}: greedy tokens differ where the plain "
               f"route's margin exceeds the tolerance: {bad}")
-    del params, model, plain
+    del plain
+    _whole_call_cost(torch, "mamba2_2_7b", model, params, prompts["B"],
+                     held_before)
+    del params, model
     torch.cuda.empty_cache()
 
     # one f32 prefill of both routes on call B's prompts (TF32 off)
@@ -3377,11 +3342,8 @@ def _k8_case(torch, gen, b, h, s, dh):
              q, k, v, window=0), iters=5, warmup=1),
          "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
              q, k, v, is_causal=True), iters=10, warmup=2),
-         "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
-         "flops": 4 * dh * b * h * _band_pairs(s, 0),
-         "peak_flops": BF16_FLOP_PER_S}
-    _bound(t)
-    return t
+         }
+    return _bound(t, fa.work(b, h, h, s, dh, 0, 2))
 
 
 def phase_serve_moe(torch, seed: int):
@@ -3404,6 +3366,7 @@ def phase_serve_moe(torch, seed: int):
     model = build_model(cfg, run16)
     n_params = model.n_params()
     torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()   # earlier phases' tensors
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # drawn leaf by leaf in f32 and cast: one f32 temporary at a time
@@ -3481,8 +3444,8 @@ def phase_serve_moe(torch, seed: int):
         for _ in range(2):
             c = {k: {n: t.clone() for n, t in v.items()}
                  for k, v in caches.items()}
-            lg, _ = model.decode_step(params, {"tokens": nxt}, c, s)
-            lg2, _ = model.decode_step(params, {"tokens": nxt}, c, s + 1)
+            lg = model.decode_step(params, {"tokens": nxt}, c, s)[0]
+            lg2 = model.decode_step(params, {"tokens": nxt}, c, s + 1)[0]
             runs.append((lg, lg2))
         del caches, c
     repeat_bitwise = all(torch.equal(x, y) for x, y in zip(*runs))
@@ -3494,9 +3457,9 @@ def phase_serve_moe(torch, seed: int):
     routes = {}
     for name, (b, s, new) in MOE_CALLS.items():
         with torch.no_grad(), _RouteLog(moe_mod) as rk:
-            lk, _ = model.prefill(params, {"tokens": prompts[name]})
+            lk = model.prefill(params, {"tokens": prompts[name]})[0]
         with torch.no_grad(), _RouteLog(moe_mod) as rp:
-            lp, _ = plain.prefill(params, {"tokens": prompts[name]})
+            lp = plain.prefill(params, {"tokens": prompts[name]})[0]
         check(bool(torch.isfinite(lk.float()).all()),
               f"call {name}: prefill logits not finite")
         flips = [_flips([x], [y]) for x, y in zip(rk.ids, rp.ids)]
@@ -3513,7 +3476,10 @@ def phase_serve_moe(torch, seed: int):
         check(err <= MOE_LOGIT_BF16_RTOL,
               f"call {name}: prefill logits kernels vs plain {err} > "
               f"{MOE_LOGIT_BF16_RTOL}")
-    del params, model, plain
+    del plain
+    _whole_call_cost(torch, "deepseek_moe_16b", model, params,
+                     prompts["B"], held_before)
+    del params, model
     torch.cuda.empty_cache()
 
     # f32 at full widths, 4 of the 28 layers (the f32 weights of all 28
@@ -4524,6 +4490,237 @@ def phase_sharded_lm(torch, seed: int, moe_peak_GB: float):
     return launches
 
 
+# ------------------------------------------------------ launch and cost
+
+COST_REPS = 3                   # timed prefills a route, in turns
+COST_MEM_RTOL = 0.10            # dry-run bytes against max_memory_allocated
+COST_TEMP_RTOL = 0.10           # dry-run temp bytes against the peak above
+                                # the bytes resident before the call
+COST_NODE = (64, 32)            # the NODE dry run's batch and dim
+# the whole calls of serve_moe and serve_mamba2 against the roofline,
+# filled by _whole_call_cost and reported by phase_cost
+WHOLE_CALLS = {}
+
+
+def _count_keys(cost) -> dict:
+    """What a dry run must reproduce of a counted run: FLOPs by dtype,
+    bytes (all ops, and the roofline's essential class), collectives and
+    hand-kernel entries."""
+    return {"flops_by_dtype": dict(cost.flops_by_dtype),
+            "bytes": cost.bytes, "bytes_min": cost.bytes_min,
+            "coll": dict(cost.coll), "kernels": cost.kernels}
+
+
+def _whole_call_cost(torch, arch: str, model, params, toks,
+                     held_before: int) -> None:
+    """Call B's prefill of ``arch`` (``model`` on the kernel route, its
+    ``params`` on the card) against the roofline.
+
+    A one-rank mesh of the "fake" backend (no collective is issued on one
+    rank) carries the call twice: on the card's tensors under ``OpCost``
+    (the kernels launch and count their ``work``), and as the dry run
+    (``launch/dryrun.py``: fake tensors, nothing launched). The counts
+    must be equal and the mesh route's logits the mesh-less route's bits.
+    Memory, over one more mesh call on the card: the dry run's argument +
+    temp bytes within COST_MEM_RTOL of ``max_memory_allocated`` less
+    ``held_before``, what the process held before the phase drew its
+    weights (earlier phases' tensors). The arguments are resident, so the
+    argument term is the allocator's, and whatever else the phase holds
+    counts against the dry run. And the dry run's temp bytes (the
+    counter's peak of live bytes) within COST_TEMP_RTOL of the
+    allocator's peak above the bytes resident before the call. Time: the
+    mesh-less route (the serving route), COST_REPS calls, median."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.common import place_params
+    from repro_torch.models.lm import build_model
+
+    t_phase = time.perf_counter()
+    b, s = toks.shape
+    cfg, rcfg = model.cfg, model.rcfg
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        m1 = build_model(cfg, rcfg.with_(mesh=mesh))
+        p1 = place_params(params, m1.defs, rcfg.rules, mesh)
+        batch = {"tokens": shard(toks, ("batch", "seq"), rcfg.rules, mesh)}
+        torch.cuda.synchronize()
+        # the calls' caches are dropped ([0]), as the callers' are: held,
+        # they would count against the dry run's one call
+        ops.reset_launches()               # the main path starts here
+        with torch.no_grad(), OpCost() as real:
+            logits1 = m1.prefill(p1, batch)[0]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        with torch.no_grad():              # the main path ended above
+            logits0 = model.prefill(params, {"tokens": toks})[0]
+        check(torch.equal(logits1, logits0),
+              f"{arch}: the one-rank mesh prefill is not the mesh-less "
+              "route's bits")
+        check(bool(torch.isfinite(logits1.float()).all()),
+              f"{arch}: prefill logits not finite")
+        del logits1, logits0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            m1.prefill(p1, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()    # arguments resident
+        cell = dryrun.build_cell(
+            arch, "call_b", mesh, config=cfg, plan=(s, b, "prefill"),
+            use_pallas=rcfg.use_pallas, device="cuda",
+            max_seq=rcfg.max_seq)
+        fake, _, trace_s = dryrun.count_cell(cell)
+        args_bytes = dryrun.local_bytes(cell.args)
+        mem = args_bytes + fake.peak_bytes
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        with torch.no_grad():
+            plain_ms = [timed(lambda: model.prefill(params,
+                                                    {"tokens": toks}))
+                        for _ in range(COST_REPS)]
+        del m1, p1, cell
+    finally:
+        dist.destroy_process_group()
+    want, got = _count_keys(real), _count_keys(fake)
+    check(want == got, f"{arch}: the dry run counts {got}, the card's "
+          f"kernel-route run {want}")
+    check(all(launches.get(k) == v["calls"]
+              for k, v in want["kernels"].items()) and want["kernels"],
+          f"{arch}: kernel entries {want['kernels']} against launches "
+          f"{launches}")
+    roof = roofline.analyze(fake, cfg, "prefill", s, b, 1)
+    ms = statistics.median(plain_ms)
+    WHOLE_CALLS[arch] = {
+        "call": [b, s], "card": _smi_name_limit(),
+        "flops_by_dtype": got["flops_by_dtype"],
+        "bytes_min": got["bytes_min"], "bytes_all": got["bytes"],
+        "kernels": {k: v["calls"] for k, v in got["kernels"].items()},
+        "launches": launches, "coll": got["coll"],
+        "t_compute_ms": 1e3 * roof.t_compute,
+        "t_memory_ms": 1e3 * roof.t_memory,
+        "bound_ms": 1e3 * roof.bound_time, "dominant": roof.dominant,
+        "model_flops": roof.model_flops_global,
+        "useful_flop_ratio": roof.useful_flop_ratio,
+        "measured_ms": ms, "measured_ms_runs": plain_ms,
+        "share_of_bound": 1e3 * roof.bound_time / ms,
+        "dry_run_argument_bytes": args_bytes,
+        "dry_run_temp_bytes": fake.peak_bytes,
+        "held_before_phase": held_before,
+        "resident_before_call": base,
+        "max_memory_allocated": peak,
+        "phase_peak": peak - held_before,
+        "memory_rel": abs(mem - (peak - held_before)) / (peak - held_before),
+        "peak_above_resident": peak - base,
+        "temp_rel": abs(fake.peak_bytes - (peak - base)) / (peak - base),
+        "trace_s": trace_s, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "whole_call_cost", "model": arch, **WHOLE_CALLS[arch]})
+    check(WHOLE_CALLS[arch]["memory_rel"] <= COST_MEM_RTOL,
+          f"{arch}: dry-run argument + temp bytes {mem} against "
+          f"max_memory_allocated {peak} less the {held_before} held before "
+          f"the phase: beyond {COST_MEM_RTOL}")
+    check(WHOLE_CALLS[arch]["temp_rel"] <= COST_TEMP_RTOL,
+          f"{arch}: dry-run temp bytes {fake.peak_bytes} against the "
+          f"allocator's peak above the resident bytes {peak - base}: "
+          f"beyond {COST_TEMP_RTOL}")
+
+
+def phase_cost(torch):
+    """Slice I3 on the card: the NODE dry run (train with the adjoint,
+    serve with ACA, batch 64, dim 32) on a one-rank NCCL group with the
+    fused path (K3/K4, launched and counted), its report, verdict and
+    measured time beside its bound; the whole calls of serve_moe and
+    serve_mamba2 (``_whole_call_cost``); and the dry-run CLI in a
+    subprocess. Returns the NODE dry runs' kernel launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.launch.node_dryrun import run_node_cell
+
+    t_phase = time.perf_counter()
+    card = _smi_name_limit()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    launches, cells = {}, {}
+    try:
+        batch, dim = COST_NODE
+        for kind, method in (("train", "adjoint"), ("serve", "aca")):
+            ops.reset_launches()           # the main path starts here
+            rep = run_node_cell(kind, batch=batch, dim=dim,
+                                grad_method=method, device="cuda",
+                                use_pallas=True, save=False)
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            for k, v in got.items():       # the main path ended above
+                launches[k] = launches.get(k, 0) + v
+            roof = rep["roofline"]
+            cells[rep["cell"]] = {
+                "measured": rep["measured"], "hlo_static": rep["hlo_static"],
+                "flops_by_dtype": rep["flops_by_dtype"],
+                "kernels": {k: v["calls"] for k, v in rep["kernels"].items()},
+                "launches": got, "coll_by_kind": roof["coll_by_kind"],
+                "t_compute_ms": 1e3 * roof["t_compute"],
+                "t_memory_ms": 1e3 * roof["t_memory"],
+                "t_collective_ms": 1e3 * roof["t_collective"],
+                "bound_ms": 1e3 * rep["bound_time"],
+                "dominant": roof["dominant"],
+                "verdict": f"{roof['dominant']}-bound"
+                + (", not collective-bound" if not rep["collective_bound"]
+                   else ""),
+                "share_of_bound": 1e3 * rep["bound_time"]
+                / rep["measured"]["solve_ms"]}
+            check(rep["measured"]["all_ok"], f"{rep['cell']}: a row failed")
+            check(not rep["collective_bound"],
+                  f"{rep['cell']}: collective-bound")
+            check(got.get("rk_stage_increment_batched", 0) > 0
+                  and got.get("rk_stage_combine_err_batched", 0) > 0,
+                  f"{rep['cell']}: K3/K4 launches {got}")
+            check(2 * rep["kernels"]["rk_stage_increment_batched"]["calls"]
+                  == got.get("rk_stage_increment_batched"),
+                  f"{rep['cell']}: K3 counted {rep['kernels']} of {got} "
+                  "launches (two runs)")
+    finally:
+        dist.destroy_process_group()
+    # the dry-run CLI as a user runs it: a full-size cell on pod16x16,
+    # fake tensors, no card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), env.get("PYTHONPATH",
+                                                           "")])
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "deepseek_moe_16b", "--shape", "decode_32k"], cwd=str(ROOT),
+        env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    ok_lines = [ln for ln in cli.stdout.splitlines()
+                if ln.startswith("[ok]")]
+    check(cli.returncode == 0 and len(ok_lines) == 1,
+          f"dryrun CLI: exit {cli.returncode}, {cli.stdout[-500:]} "
+          f"{cli.stderr[-2000:]}")
+    check(set(WHOLE_CALLS) == {"deepseek_moe_16b", "mamba2_2_7b"},
+          f"whole calls measured: {sorted(WHOLE_CALLS)}")
+    emit({"phase": "cost", "ok": True, "card": card, "node_cells": cells,
+          "whole_calls": WHOLE_CALLS, "launches": launches,
+          "dryrun_cli": {"line": ok_lines[0], "seconds": cli_s},
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4593,6 +4790,8 @@ def main(argv=None) -> int:
         phase = "sharded_lm"
         sharded_lm_launches = phase_sharded_lm(
             torch, args.seed, moe_calls["A"]["peak_mem_GB"])
+        phase = "cost"
+        cost_launches = phase_cost(torch)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -4620,12 +4819,14 @@ def main(argv=None) -> int:
         + methods_launches["rk_stage_increment_batched"]
         + dense_launches["rk_stage_increment_batched"]
         + mali_launches["rk_stage_increment_batched"]
-        + sharded_launches["rk_stage_increment_batched"],
+        + sharded_launches["rk_stage_increment_batched"]
+        + cost_launches.get("rk_stage_increment_batched", 0),
         "rk_stage_combine_err_batched":
         batched_launches["rk_stage_combine_err_batched"]
         + methods_launches["rk_stage_combine_err_batched"]
         + dense_launches["rk_stage_combine_err_batched"]
-        + sharded_launches["rk_stage_combine_err_batched"],
+        + sharded_launches["rk_stage_combine_err_batched"]
+        + cost_launches.get("rk_stage_combine_err_batched", 0),
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"]
         + bench_serve_launches["rk_stage_combine_err_batched_rowtol"],
@@ -4665,6 +4866,10 @@ def main(argv=None) -> int:
         + sharded_lm_launches["flash_attention"]
     for k in ("ssd_scan",) + K9_PARTS:
         launches[k] = ssm_launches[k] + sharded_lm_launches[k]
+    # and the cost phase's whole calls (DeepSeek-MoE's and Mamba-2's)
+    for call in WHOLE_CALLS.values():
+        for k, n in call["launches"].items():
+            launches[k] += n
     k7_variants = {}
     for c in (*lm_calls.values(), *ssm_calls.values(),
               *moe_calls.values()):

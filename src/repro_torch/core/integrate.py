@@ -46,6 +46,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import torch
 from torch.func import vmap
 
+from repro_torch.kernels import cost_hooks
+
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
 from .groups import gdetach, gget, gleaves, gmap, gset, gstack, gzeros
 from .stepper import (
@@ -447,8 +449,10 @@ def adaptive_while_solve(
     final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
 
     # host read 1 of 2 per trial: the loop condition
+    cost_hooks.loop_enter()     # a data-dependent trial loop
     while (i < max_steps and trials < max_total_trials
            and bool((eval_idx[0] < n_eval) & ~failed)):
+        cost_hooks.trial()
         # the natural grid lands on the last eval time only
         t_target = ts[n_eval - 1] if natural else \
             ts.index_select(0, eval_idx).reshape(())
@@ -514,6 +518,7 @@ def adaptive_while_solve(
             i += 1
         h = h_next
 
+    cost_hooks.loop_exit()
     overflow = eval_idx[0] < n_eval
     trials_out = torch.full((), trials >= max_total_trials, dtype=torch.bool,
                             device=dev)
@@ -689,7 +694,9 @@ def batched_adaptive_while_solve(
     live = live_mask()
     # the one host read per trial: any row still live (the while_loop's
     # cond)
+    cost_hooks.loop_enter()     # a data-dependent trial loop
     while live.any():
+        cost_hooks.trial()
         # the natural grid lands on the last eval time only
         t_target = ts[n_eval - 1].expand(B) if interpolate_ts else \
             ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]       # (B,)
@@ -775,6 +782,7 @@ def batched_adaptive_while_solve(
         uflow = uflow | uflow_now
         live = live_mask()
 
+    cost_hooks.loop_exit()
     overflow = eval_idx < n_eval
     status = _compose_status(failed, uflow, ~overflow,
                              trials >= max_total_trials)
@@ -944,8 +952,10 @@ def mali_adaptive_solve(
     karr = torch.arange(n_eval, device=dev)
 
     # host read 1 of 2 per trial: the loop condition
+    cost_hooks.loop_enter()     # a data-dependent trial loop
     while (i < max_steps and trials < max_total_trials
            and bool((eval_idx[0] < n_eval) & ~failed)):
+        cost_hooks.trial()
         t_target = ts.index_select(0, eval_idx).reshape(())
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = torch.clamp(h, h_min, t_target - t)
@@ -972,6 +982,7 @@ def mali_adaptive_solve(
             i += 1
         h = h_next
 
+    cost_hooks.loop_exit()
     overflow = eval_idx[0] < n_eval
     trials_out = torch.full((), trials >= max_total_trials, dtype=torch.bool,
                             device=dev)
@@ -1062,7 +1073,9 @@ def batched_mali_adaptive_solve(
 
     live = live_mask()
     # the one host read per trial: any row still live
+    cost_hooks.loop_enter()     # a data-dependent trial loop
     while live.any():
+        cost_hooks.trial()
         t_target = ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]   # (B,)
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = torch.where(live, torch.clamp(h, h_min, t_target - t),
@@ -1098,6 +1111,7 @@ def batched_mali_adaptive_solve(
         uflow = uflow | uflow_now
         live = live_mask()
 
+    cost_hooks.loop_exit()
     overflow = eval_idx < n_eval
     status = _compose_status(failed, uflow, ~overflow,
                              trials >= max_total_trials)

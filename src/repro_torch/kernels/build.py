@@ -46,6 +46,16 @@ class BuildInfo:
 _LOADED: Dict[str, Tuple[ctypes.CDLL, BuildInfo]] = {}
 
 
+def shapes_only(t) -> bool:
+    """True for a fake tensor (``FakeTensorMode``: a shape, dtype and
+    device, no memory). A wrapper given one computes its outputs' shapes
+    with the plain version and launches nothing, so a cost dry run can
+    take the kernel route."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def find_nvcc() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
     else the toolkit's default install location."""

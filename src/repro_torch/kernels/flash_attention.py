@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cost_hooks
+
 from . import build
 from .rmsnorm import forward_only, plain_tensors
 
@@ -50,6 +52,24 @@ def band_mask(s: int, window: int, device=None) -> torch.Tensor:
     if window > 0:
         m &= kj > qi - window
     return m
+
+
+def band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of causal attention over s positions, each query
+    seeing min(q + 1, window) keys (window 0: all q + 1)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def work(b: int, h: int, hkv: int, s: int, dh: int, window: int,
+         itemsize: int):
+    """K8's work, (FLOPs by dtype, bytes): q read and o written, k and v
+    read once; 4·dh FLOPs a (query, key) pair in the band (q·k and p·v),
+    in q's dtype on the tensor cores."""
+    key = "bf16" if itemsize == 2 else "f32"
+    return ({key: 4 * dh * b * h * band_pairs(s, window)},
+            itemsize * (2 * b * h * s * dh + 2 * b * hkv * s * dh))
 
 
 def kv_tiles(q0: int, s: int, window: int, bq: int = BQ,
@@ -133,6 +153,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0; got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("flash_attention", work(
+            b, h, hkv, s, dh, window, q.element_size()),
+            lambda: flash_attention(q, k, v, window=window, scale=scale))
+    if build.shapes_only(q):
+        return torch.empty_like(q.contiguous())
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window, scale=scale)
     if q.device.type != "cuda":

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import cost_hooks
+
 from . import build
 from .rmsnorm import forward_only, plain_tensors
 
@@ -76,6 +78,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def work(numel: int):
+    """K10's work, (FLOPs by dtype, bytes): log_a and b read, h written,
+    f32; an exp, a multiply and an add an element."""
+    return {"f32": 3 * numel}, 3 * 4 * numel
+
+
 def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K10: h (B, S, C) f32 solving h_t = exp(log_a_t) h_{t-1} + b_t."""
     plain_tensors("rg_lru", log_a, b)
@@ -91,6 +99,12 @@ def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"rg_lru: log_a and b must lie on one device; got "
             f"{log_a.device} and {b.device}")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rg_lru", work(log_a.numel()),
+                           lambda: rg_lru(log_a, b))
+    if build.shapes_only(log_a):
+        return torch.empty_like(log_a.contiguous())
     if log_a.device.type == "cpu":
         return rg_lru_plain(log_a, b)
     if log_a.device.type != "cuda":

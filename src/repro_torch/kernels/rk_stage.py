@@ -43,6 +43,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import cost_hooks
+
 from . import build
 
 MAX_STAGES = 7
@@ -363,6 +365,47 @@ def empty_at_offset_of(z: torch.Tensor) -> torch.Tensor:
     return buf[shift:].view(z.shape)
 
 
+# ------------------------------------------------------------------- work
+
+def used_stages(*rows: Sequence[float]) -> int:
+    """Stage rows a kernel reads: those with a nonzero weight in any of
+    its weight rows (zero weights are skipped)."""
+    return sum(1 for j in range(len(rows[0]))
+               if any(w[j] != 0.0 for w in rows))
+
+
+def increment_work(rows: int, n: int, used: int, itemsize: int = 4):
+    """K1's (rows 1) and K3's work, (FLOPs by dtype, bytes): z and the
+    used stages read, out written, h (one f32 a row) read; a multiply and
+    an add a used stage and element, and the scale by h, in f32."""
+    return ({"f32": 2 * rows * n * (used + 1)},
+            itemsize * rows * n * (used + 2) + 4 * rows)
+
+
+def combine_err_work(n: int, used: int, itemsize: int = 4,
+                     with_err: bool = True):
+    """K2's work: z and the used stages read, z_next (and err, f32)
+    written, h read; two weighted sums and the scaled square a element."""
+    return ({"f32": n * (4 * used + 12)},
+            itemsize * n * (used + 2) + (4 * n if with_err else 0) + 4)
+
+
+def combine_work(n: int, used: int, itemsize: int = 4):
+    """K6's work: K2's without the norm, err always written."""
+    return ({"f32": n * (4 * used + 3)},
+            itemsize * n * (used + 2) + 4 * n + 4)
+
+
+def combine_err_batched_work(rows: int, n: int, used: int,
+                             itemsize: int = 4, row_tol: bool = False):
+    """K4's (K5's with ``row_tol``) work: z and the used stages read,
+    z_next and the norm partials written, h (and K5's two tolerances) a
+    row read."""
+    return ({"f32": rows * n * (4 * used + 12)},
+            itemsize * rows * n * (used + 2) + 4 * rows * norm_tiles(n)
+            + 4 * rows * (3 if row_tol else 1))
+
+
 def _h_device(h: torch.Tensor) -> torch.Tensor:
     return h.reshape(()).to(torch.float32).contiguous()
 
@@ -374,6 +417,13 @@ def rk_stage_increment(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     are read)."""
     _check_inputs("rk_stage_increment", z, k, h)
     a = tuple(float(w) for w in tuple(a)[: k.shape[0]])
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rk_stage_increment", increment_work(
+            1, z.shape[0], used_stages(a), z.element_size()),
+            lambda: rk_stage_increment(z, k, h, a))
+    if build.shapes_only(z):
+        return torch.empty_like(z)
     if z.device.type == "cpu":
         return increment_plain(z, k, h, a)
     _on_card("rk_stage_increment", z, k)
@@ -408,6 +458,19 @@ def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         raise ValueError(
             f"rk_stage_combine_err: {k.shape[0]} stages but {len(b)} b and "
             f"{len(e)} e weights")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rk_stage_combine_err", combine_err_work(
+            z.shape[0], used_stages(b, e), z.element_size(), with_err),
+            lambda: rk_stage_combine_err(z, k, h, b, e, rtol, atol,
+                                         with_err=with_err))
+    if build.shapes_only(z):
+        n = z.shape[0]
+        vec = n % _VEC_WIDTH[z.dtype] == 0
+        return (torch.empty_like(z), torch.empty(
+            n, dtype=torch.float32, device=z.device) if with_err else None,
+            torch.empty(grid_blocks(n, z.dtype, vec), dtype=torch.float32,
+                        device=z.device))
     if z.device.type == "cpu":
         return combine_err_plain(z, k, h, b, e, rtol, atol, with_err)
     _on_card("rk_stage_combine_err", z, k)
@@ -445,6 +508,14 @@ def rk_stage_combine(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         raise ValueError(
             f"rk_stage_combine: {k.shape[0]} stages but {len(b)} b and "
             f"{len(e)} e weights")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rk_stage_combine", combine_work(
+            z.shape[0], used_stages(b, e), z.element_size()),
+            lambda: rk_stage_combine(z, k, h, b, e))
+    if build.shapes_only(z):
+        return torch.empty_like(z), torch.empty(
+            z.shape[0], dtype=torch.float32, device=z.device)
     if z.device.type == "cpu":
         return combine_plain(z, k, h, b, e)
     _on_card("rk_stage_combine", z, k)
@@ -506,6 +577,13 @@ def rk_stage_increment_batched(z: torch.Tensor, k: torch.Tensor,
     are read). A row with h_b = 0 returns z_b."""
     _check_batched("rk_stage_increment_batched", z, k, h)
     a = tuple(float(w) for w in tuple(a)[: k.shape[0]])
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rk_stage_increment_batched", increment_work(
+            *z.shape, used_stages(a), z.element_size()),
+            lambda: rk_stage_increment_batched(z, k, h, a))
+    if build.shapes_only(z):
+        return torch.empty_like(z)
     if z.device.type == "cpu":
         return increment_batched_plain(z, k, h, a)
     _on_card("rk_stage_increment_batched", z, k)
@@ -541,6 +619,16 @@ def _combine_err_batched(what: str, z, k, h, b, e, rtol, atol, row_tol):
                 raise ValueError(
                     f"{what}: {name} must be a ({z.shape[0]},) tensor on "
                     f"{z.device}")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel(what, combine_err_batched_work(
+            *z.shape, used_stages(b, e), z.element_size(), row_tol),
+            lambda: _combine_err_batched(what, z, k, h, b, e, rtol, atol,
+                                         row_tol))
+    if build.shapes_only(z):
+        return torch.empty_like(z), torch.empty(
+            (z.shape[0], norm_tiles(z.shape[1])), dtype=torch.float32,
+            device=z.device)
     if z.device.type == "cpu":
         zn, sq = combine_err_batched_plain(z, k, h, b, e, rtol, atol)
         return zn, sq[:, None]

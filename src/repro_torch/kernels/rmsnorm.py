@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost_hooks
 from repro_torch.models.common import rmsnorm as rmsnorm_plain
 
 from . import build
@@ -83,6 +84,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def work(rows: int, d: int, itemsize: int, w_itemsize: int):
+    """K7's work, (FLOPs by dtype, bytes): x read and y written once, w
+    read once; 4 f32 operations an element (square, sum, two scales)."""
+    return {"f32": 4 * rows * d}, 2 * rows * d * itemsize + d * w_itemsize
+
+
 def forward_only(what: str, *tensors: torch.Tensor) -> None:
     """The card kernels of the serving path have no backward (the
     reference's have no custom_vjp): refuse inputs that want a gradient."""
@@ -135,6 +142,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"rmsnorm: kernel must be one of {KERNELS}; got "
                          f"{kernel!r}")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("rmsnorm", work(
+            x.numel() // max(d, 1), d, x.element_size(), w.element_size()),
+            lambda: rmsnorm(x, w, eps, kernel=kernel))
+    if build.shapes_only(x):
+        return torch.empty_like(x.contiguous())
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":

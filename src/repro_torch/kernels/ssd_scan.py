@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cost_hooks
+
 from . import build
 from .rmsnorm import forward_only, plain_tensors
 
@@ -277,6 +279,52 @@ def _scratch(x: torch.Tensor, n: int, chunk: int):
                         device=x.device))
 
 
+def _tiles(b: int, s: int, h: int, chunk: int) -> int:
+    return b * h * (s // chunk)
+
+
+def work(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+         itemsize: int, h0: bool = False):
+    """K9's work, (FLOPs by dtype, bytes): x read and y written in x's
+    dtype, dt f32, B and C in x's dtype, a and h_last (and h0) f32, each
+    once; per chunk tile the causal half of C Bᵀ (Q (Q + 1) / 2 products
+    of 2N FLOPs), its masked product with x (of 2P), C h and the state
+    update (2·Q·N·P each), on the tensor cores in x's dtype."""
+    key = "bf16" if itemsize == 2 else "f32"
+    q, state = chunk, b * h * p * n * 4
+    return ({key: _tiles(b, s, h, q) * (q * (q + 1) * n + q * (q + 1) * p
+                                        + 4 * q * n * p)},
+            2 * b * s * h * p * itemsize + b * s * h * 4
+            + 2 * b * s * g * n * itemsize + h * 4 + state
+            + (state if h0 else 0))
+
+
+def chunk_state_work(b: int, s: int, h: int, p: int, g: int, n: int,
+                     chunk: int, itemsize: int):
+    """K9.1's work: x, B, dt, a in; cs and the chunk states S_c out."""
+    st = b * (s // chunk) * h * p * n
+    return ({"bf16" if itemsize == 2 else "f32":
+             _tiles(b, s, h, chunk) * 2 * chunk * n * p},
+            b * s * h * p * itemsize + b * s * g * n * itemsize
+            + 2 * b * s * h * 4 + h * 4 + st * 4)
+
+
+def state_pass_work(b: int, nc: int, h: int, p: int, n: int):
+    """K9.2's work: S_c in, h_prev out, the chunks' last cs, h_last."""
+    st = b * nc * h * p * n
+    return {"f32": 2 * st}, 2 * st * 4 + b * nc * h * 4 + b * h * p * n * 4
+
+
+def chunk_scan_work(b: int, s: int, h: int, p: int, g: int, n: int,
+                    chunk: int, itemsize: int):
+    """K9.3's work: x, dt, cs, B, C, h_prev in; y out."""
+    q, st = chunk, b * (s // chunk) * h * p * n
+    return ({"bf16" if itemsize == 2 else "f32": _tiles(b, s, h, q) * (
+        q * (q + 1) * n + q * (q + 1) * p + 2 * q * n * p)},
+        2 * b * s * h * p * itemsize + 2 * b * s * h * 4
+        + 2 * b * s * g * n * itemsize + st * 4)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int,
              h0: Optional[torch.Tensor] = None
@@ -286,6 +334,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     values; in f32 one kernel."""
     plain_tensors("ssd_scan", x, dt, a, b_mat, c_mat, h0)
     _check(x, dt, a, b_mat, c_mat, chunk, h0)
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("ssd_scan", work(
+            *x.shape, *b_mat.shape[2:], chunk, x.element_size(),
+            h0 is not None),
+            lambda: ssd_scan(x, dt, a, b_mat, c_mat, chunk, h0=h0))
+    if build.shapes_only(x):
+        return torch.empty_like(x.contiguous()), torch.empty(
+            (x.shape[0], x.shape[2], x.shape[3], b_mat.shape[3]),
+            dtype=torch.float32, device=x.device)
     if not _on_card("ssd_scan", x):
         return ssd_scan_plain(x, dt, a, b_mat, c_mat, chunk, h0=h0)
     forward_only("ssd_scan", x, dt, a, b_mat, c_mat,
@@ -335,6 +393,13 @@ def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Kernel 1: (cs (B,S,H) f32, states (B,nc,H,P,N) f32), as
     ``chunk_states``; bf16 on the card."""
     _check(x, dt, a, b_mat, b_mat, chunk, None)
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("ssd_chunk_state", chunk_state_work(
+            *x.shape, *b_mat.shape[2:], chunk, x.element_size()),
+            lambda: ssd_chunk_state(x, dt, a, b_mat, chunk))
+    if build.shapes_only(x):
+        return _scratch(x, b_mat.shape[3], chunk)
     if not _on_card("ssd_chunk_state", x):
         return chunk_states(x, dt, a, b_mat, chunk)
     _check_part("ssd_chunk_state", x)
@@ -374,6 +439,16 @@ def ssd_state_pass(states: torch.Tensor, cs: torch.Tensor, chunk: int,
     if any(t is not None and t.dtype != torch.float32
            for t in (states, cs, h0)):
         raise ValueError("ssd_state_pass: states, cs and h0 must be float32")
+    cost = cost_hooks.active()
+    if cost is not None:
+        b_, nc_, h_, p_, n_ = states.shape
+        return cost.kernel("ssd_state_pass", state_pass_work(
+            b_, nc_, h_, p_, n_), lambda: ssd_state_pass(states, cs, chunk,
+                                                         h0=h0),
+            inputs=(states,))
+    if build.shapes_only(states):
+        return states, torch.empty(states.shape[:1] + states.shape[2:],
+                                   dtype=torch.float32, device=states.device)
     if not _on_card("ssd_state_pass", states):
         return state_pass(states, cs, chunk, h0=h0)
     others = (cs,) + ((h0,) if h0 is not None else ())
@@ -414,6 +489,13 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
             f"ssd_chunk_scan: expects cs {(bsz, s, h)} and h_prev "
             f"{(bsz, s // chunk, h, p, n)} float32; got {tuple(cs.shape)} "
             f"{cs.dtype}, {tuple(h_prev.shape)} {h_prev.dtype}")
+    cost = cost_hooks.active()
+    if cost is not None:
+        return cost.kernel("ssd_chunk_scan", chunk_scan_work(
+            bsz, s, h, p, b_mat.shape[2], n, chunk, x.element_size()),
+            lambda: ssd_chunk_scan(x, dt, cs, b_mat, c_mat, h_prev, chunk))
+    if build.shapes_only(x):
+        return torch.empty_like(x.contiguous())
     if not _on_card("ssd_chunk_scan", x):
         return chunk_outputs(x, dt, cs, b_mat, c_mat, h_prev,
                              chunk).to(x.dtype)

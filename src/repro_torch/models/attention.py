@@ -33,9 +33,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.regions import Region, block_offset
+from repro_torch.distributed.regions import Region, block_offset, is_dtensor
 from repro_torch.distributed.sharding import (DEFAULT_SERVE_RULES,
-                                              placements_for, shard)
+                                              placements_for, replicate,
+                                              shard)
 from repro_torch.kernels import ops
 
 from .common import ParamDef, Tree, apply_rope, dense
@@ -316,6 +317,22 @@ def _write_slot(cache: torch.Tensor, widx: torch.Tensor,
     loc.index_copy_(1, idx, val)
 
 
+def _place_heads(x: torch.Tensor, logical: str, heads: int, rcfg: RunConfig
+                 ) -> torch.Tensor:
+    """The (B, S, heads·dh) projection ``x`` placed by ``logical`` as the
+    (B, S, heads) it splits into: a mesh dim shards it only where it
+    divides the heads, so that the head split never cuts a head (40 heads
+    on a 16-way ``model`` dim stay whole, replicated)."""
+    mesh = rcfg.mesh
+    if mesh is None:
+        return x
+    pl = placements_for(("batch", "seq", logical), rcfg.rules, mesh,
+                        (x.shape[0], x.shape[1], heads))
+    if not is_dtensor(x):
+        x = replicate(x, mesh)
+    return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+
+
 def attention_apply(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -343,14 +360,12 @@ def attention_apply(
     mesh, rules = rcfg.mesh, rcfg.rules
 
     # placed before the head split, so that no mesh dim splits a head
-    q = shard(dense(x, p["wq"], p.get("bq"), cd),
-              ("batch", "seq", "heads_act"), rules, mesh).reshape(b, s, h, dh)
-    k = shard(dense(x, p["wk"], p.get("bk"), cd),
-              ("batch", "seq", "kv_heads_act"), rules, mesh) \
-        .reshape(b, s, hk, dh)
-    v = shard(dense(x, p["wv"], p.get("bv"), cd),
-              ("batch", "seq", "kv_heads_act"), rules, mesh) \
-        .reshape(b, s, hk, dh)
+    q = _place_heads(dense(x, p["wq"], p.get("bq"), cd), "heads_act", h,
+                     rcfg).reshape(b, s, h, dh)
+    k = _place_heads(dense(x, p["wk"], p.get("bk"), cd), "kv_heads_act", hk,
+                     rcfg).reshape(b, s, hk, dh)
+    v = _place_heads(dense(x, p["wv"], p.get("bv"), cd), "kv_heads_act", hk,
+                     rcfg).reshape(b, s, hk, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)

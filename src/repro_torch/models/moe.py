@@ -98,9 +98,16 @@ def _top_k(probs: torch.Tensor, cfg: ModelConfig
 
 
 def _assignments(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """(T, E) f32: how many of each token's k picks are expert e."""
-    assign = torch.nn.functional.one_hot(ids, n_experts).float().sum(-2)
-    return assign.reshape(-1, n_experts)
+    """(T, E) f32: how many of each token's k picks are expert e. Exact
+    counts added by ``scatter_add_``, the same ops on every device
+    (``one_hot`` checks its indices on the CPU only, so its op count
+    would differ by device; ``launch/op_cost.py`` compares them)."""
+    flat = ids.reshape(-1, ids.shape[-1])
+    out = torch.zeros((flat.shape[0], n_experts), dtype=torch.float32,
+                      device=ids.device)
+    return out.scatter_add_(1, flat, torch.ones(flat.shape,
+                                                dtype=torch.float32,
+                                                device=ids.device))
 
 
 def aux_load_balance_loss(ids: torch.Tensor, probs: torch.Tensor,

@@ -9,7 +9,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sharded_ranks.py",
-    ROOT / "tests" / "torch_sharded_lm_ranks.py"]
+    ROOT / "tests" / "torch_sharded_lm_ranks.py",
+    ROOT / "tests" / "torch_node_dryrun_ranks.py"]
 
 
 def _imports(path):
