@@ -322,6 +322,29 @@ printing one JSON line (``"phase": ...``):
                       name and power limit); ``python -m
                       repro_torch.launch.dryrun --arch deepseek_moe_16b
                       --shape decode_32k`` in a subprocess (one ``[ok]``).
+11j. ``analysis`` — slice I4. The analyzer's 37 configurations
+                      (``repro_torch.analysis``: dim 96, batch 8, two eval
+                      times, 64 steps, zero inputs) run on the card
+                      through ``odeint``, forward and backward under its
+                      ``Recorder``, the ``-pallas`` ones on K1/K2 and
+                      K3/K4/K5, with no finding of its four passes; each
+                      against a CPU run of the same config in the same
+                      process (one default group, gloo for CPU tensors and
+                      one NCCL rank for the card's): host reads per loop
+                      and outside loops, collectives and residual bytes
+                      equal, K1-K5 launches equal to the run's kernel
+                      entries. K1/K2 at the solo configs' (96,) and
+                      K3/K4/K5 at the batched ones' (8, 96) and the
+                      serving row's (8, 98), f32, on random inputs against
+                      their plain versions (z_next bitwise, norms and K2's
+                      err within their relative tolerances); each
+                      ``-pallas`` config on seeded nonzero z0 and w through
+                      the kernels and through the plain route on the card
+                      (steps, trials and status equal, every status OK,
+                      ys bitwise, dL/dz0 and dL/dw within 1e-5); then
+                      ``repro_torch.examples.quickstart`` on the card and
+                      the CPU, each method's relative error against the
+                      analytic gradient at most 10x the CPU's.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
    its decode times and the launches of
@@ -344,8 +367,9 @@ train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
 none of K1-K5, each method's sharded steps for K3/K4, sharded_lm's first
 mesh call of each model for K7/K8 and K7/K9, each whole call's counted
-mesh prefill for K7/K8 and K7/K9, each NODE dry run for K3/K4) runs with
-every launch count set to 0 just before it and read just after.
+mesh prefill for K7/K8 and K7/K9, each NODE dry run for K3/K4, each
+card run of the analysis phase for K1-K5) runs with every launch count
+set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -4721,6 +4745,249 @@ def phase_cost(torch):
     return launches
 
 
+ANALYSIS_QS_FACTOR = 10.0       # quickstart: card rel err <= 10x the CPU's
+ANALYSIS_KERNELS = ("rk_stage_increment", "rk_stage_combine_err",
+                    "rk_stage_increment_batched",
+                    "rk_stage_combine_err_batched",
+                    "rk_stage_combine_err_batched_rowtol")
+
+
+def _analysis_kernel_checks(torch, seed: int, dim: int, rows: int):
+    """K1/K2 at the analysis configs' solo state (dim,) and K3/K4/K5 at
+    their batched state (rows, dim) and the serving row (rows, dim + 2),
+    f32, HeunEuler and Dopri5 rows, against their plain versions on random
+    inputs: z_next bitwise, K2's norm within NORM_RTOL and its err within
+    ERR_RTOL, K4/K5's per-row norms within ROW_NORM_RTOL. These launches
+    are comparisons, outside every counted run. Returns each kernel's max
+    |diff|."""
+    from repro_torch.core.tableaus import DOPRI5, HEUN_EULER
+    from repro_torch.kernels import rk_stage
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    worst = dict.fromkeys(ANALYSIS_KERNELS, 0.0)
+
+    def gap(name, a, b):
+        d = float((a.float() - b.float()).abs().max())
+        worst[name] = max(worst[name], d)
+        return d
+
+    def stage_rows(tab):
+        return ([(i, tab.a[i]) for i in range(1, tab.stages)]
+                + [(tab.stages, tab.b)])
+
+    z = torch.randn(dim, generator=gen, device="cuda")
+    k = torch.randn(7, dim, generator=gen, device="cuda")
+    h = torch.full((), 0.0375, device="cuda")
+    for tab in (HEUN_EULER, DOPRI5):
+        for i, a in stage_rows(tab):
+            kk = k[:i].contiguous()
+            out = rk_stage.rk_stage_increment(z, kk, h, a)
+            ref = rk_stage.increment_plain(z, kk, h, a)
+            d = gap("rk_stage_increment", out, ref)
+            check(torch.equal(out, ref), f"analysis K1 {tab.name} row {i} "
+                  f"n={dim}: not bitwise the plain version ({d})")
+        kk = k[:tab.stages].contiguous()
+        for with_err in (True, False):
+            zn, err, part = rk_stage.rk_stage_combine_err(
+                z, kk, h, tab.b, tab.b_err, 1e-2, 1e-2, with_err=with_err)
+            zp, ep, sqp = rk_stage.combine_err_plain(
+                z, kk, h, tab.b, tab.b_err, 1e-2, 1e-2, with_err)
+            d = gap("rk_stage_combine_err", zn, zp)
+            check(torch.equal(zn, zp), f"analysis K2 {tab.name} n={dim}: "
+                  f"z_next not bitwise the plain version ({d})")
+            sq, sq_p = float(part.sum()), float(sqp.sum())
+            check(abs(sq - sq_p) <= NORM_RTOL * abs(sq_p),
+                  f"analysis K2 {tab.name} n={dim}: norm {sq} vs {sq_p}")
+            if with_err:
+                d = gap("rk_stage_combine_err", err, ep)
+                check(d <= ERR_RTOL * float(ep.abs().max()),
+                      f"analysis K2 {tab.name} n={dim}: err |diff| {d}")
+
+    def norms_close(part, sq_plain, what):
+        sq = part.sum(dim=-1)
+        bad = (sq - sq_plain).abs() > ROW_NORM_RTOL * sq_plain.abs()
+        check(not bool(bad.any()), f"analysis {what}: per-row norms "
+              f"{sq.tolist()} vs plain {sq_plain.tolist()}")
+
+    rt = torch.logspace(-2, -4, rows, device="cuda")
+    at = 0.1 * rt
+    for n in (dim, dim + 2):
+        z = torch.randn(rows, n, generator=gen, device="cuda")
+        k = torch.randn(7, rows, n, generator=gen, device="cuda")
+        h = torch.linspace(0.01, 0.08, rows, device="cuda")
+        for tab in (HEUN_EULER, DOPRI5):
+            for i, a in stage_rows(tab):
+                kk = k[:i].contiguous()
+                out = rk_stage.rk_stage_increment_batched(z, kk, h, a)
+                ref = rk_stage.increment_batched_plain(z, kk, h, a)
+                d = gap("rk_stage_increment_batched", out, ref)
+                check(torch.equal(out, ref), f"analysis K3 {tab.name} row "
+                      f"{i} ({rows}, {n}): not bitwise the plain version "
+                      f"({d})")
+            kk = k[:tab.stages].contiguous()
+            args = (z, kk, h, tab.b, tab.b_err)
+            for name, fn, tols in (
+                    ("rk_stage_combine_err_batched",
+                     rk_stage.rk_stage_combine_err_batched, (1e-2, 1e-2)),
+                    ("rk_stage_combine_err_batched_rowtol",
+                     rk_stage.rk_stage_combine_err_batched_rowtol,
+                     (rt, at))):
+                zn, part = fn(*args, *tols)
+                zp, sqp = rk_stage.combine_err_batched_plain(*args, *tols)
+                d = gap(name, zn, zp)
+                what = f"{name} {tab.name} ({rows}, {n})"
+                check(torch.equal(zn, zp),
+                      f"analysis {what}: z_next not bitwise ({d})")
+                norms_close(part, sqp, what)
+    torch.cuda.synchronize()
+    return worst
+
+
+def _analysis_inputs(cfg, seed: int):
+    """Seeded nonzero (z0, w) of the config's shapes: z0 standard normal,
+    the decay rates w uniform in [hi / 10, hi], hi = 1 (0.1 for MALI,
+    whose second-order steps at the default 1e-6 tolerance fit the 64-step
+    buffer only for slow decay)."""
+    import numpy as np
+    z0, w, _ = cfg.example_args("cpu")
+    rng = np.random.default_rng(seed)
+    hi = 0.1 if cfg.grad_method == "mali" else 1.0
+    return (rng.standard_normal(tuple(z0.shape)).astype(np.float32),
+            rng.uniform(hi / 10, hi, tuple(w.shape)).astype(np.float32))
+
+
+def _analysis_routes(torch, cfg, seed: int) -> dict:
+    """A ``-pallas`` config on seeded nonzero inputs on the card through
+    the kernels and through the plain route (``use_pallas=False``): steps,
+    trials and status equal and every status OK, ys bitwise, dL/dz0 and
+    dL/dw within PALLAS_GRAD_RTOL (the method_costs bound). These runs are
+    comparisons, outside every counted run."""
+    import dataclasses
+    inputs = _analysis_inputs(cfg, seed)
+    kern = cfg.run("cuda", inputs=inputs)
+    plain = dataclasses.replace(cfg, use_pallas=False).run("cuda",
+                                                           inputs=inputs)
+    counts = [[getattr(r.stats, f).reshape(-1).tolist()
+               for f in ("n_steps", "n_trials", "status")]
+              for r in (kern, plain)]
+    check(counts[0] == counts[1], f"analysis {cfg.name} routes: (steps, "
+          f"trials, status) {counts[0]} against plain {counts[1]}")
+    check(not any(counts[0][2]), f"analysis {cfg.name}: status "
+          f"{counts[0][2]} on nonzero inputs")
+    check(torch.equal(kern.ys, plain.ys), f"analysis {cfg.name}: ys not "
+          "bitwise the plain route's")
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(kern.grads, plain.grads)]
+    check(all(r <= PALLAS_GRAD_RTOL for r in rels),
+          f"analysis {cfg.name}: gradients (z0, w) {rels} from the plain "
+          f"route's, beyond {PALLAS_GRAD_RTOL}")
+    return {"n_steps": counts[0][0], "ys_bitwise": True, "grad_rel": rels,
+            "grads_bitwise": all(torch.equal(a, b) for a, b in
+                                 zip(kern.grads, plain.grads))}
+
+
+def phase_analysis(torch, seed: int):
+    """Slice I4 on the card: every configuration of the analyzer's matrix
+    (``repro_torch.analysis``, the reference's 37) run on CUDA tensors
+    through the front door under a ``Recorder``, the ``-pallas`` ones on
+    K1/K2 (solo) and K3/K4/K5 (batched, sharded, row-tolerance), with no
+    finding of the four passes; each against a CPU run of the same config
+    in the same process: the host reads of every loop (before its first
+    iteration and per iteration) and outside loops, the collectives (one
+    NCCL rank for the card, gloo for the CPU, one default group with both
+    backends) and the residual bytes equal; each config's K1-K5 launches
+    equal to the kernel entries its run recorded. K1-K5 against their
+    plain versions at these shapes (``_analysis_kernel_checks``), and each
+    ``-pallas`` config through both routes on nonzero inputs
+    (``_analysis_routes``). Then the quickstart on the card and on the
+    CPU: each method's relative error against the analytic gradient at
+    most ANALYSIS_QS_FACTOR x the CPU's. Returns the card runs' kernel
+    launches and each kernel's max |diff| from its plain version."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import MATRIX
+    from repro_torch.analysis.rules import analyze_run, profile, runs
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import free_port
+
+    t_phase = time.perf_counter()
+    card = _smi_name_limit()
+    torch.cuda.set_device(0)
+    worst = _analysis_kernel_checks(torch, seed, MATRIX[0].dim,
+                                    MATRIX[0].batch)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method="tcp://"
+                            f"127.0.0.1:{free_port()}", rank=0, world_size=1)
+    launches, configs, findings, routes = {}, {}, [], {}
+    try:
+        ops.reset_launches()               # the first config's run starts
+        for cfg, run in runs(MATRIX, "cuda"):
+            # this config's card run ended as the loop handed it over
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            cpu = cfg.run("cpu")
+            found = analyze_run(run) + analyze_run(cpu)
+            findings += [f.render() for f in found]
+            p_card, p_cpu = profile(run), profile(cpu)
+            check(p_card == p_cpu, f"analysis {cfg.name}: the card's run "
+                  f"{p_card} differs from the CPU's {p_cpu}")
+            check(got == run.recorder.kernels,
+                  f"analysis {cfg.name}: launches {got} against the kernel "
+                  f"entries {run.recorder.kernels}")
+            check(bool(got) == cfg.use_pallas,
+                  f"analysis {cfg.name}: launches {got}")
+            if cfg.use_pallas:
+                routes[cfg.name] = _analysis_routes(torch, cfg, seed)
+            loops = {}
+            for kind, _, entry, reads in p_card["loops"]:
+                n, e, m = loops.get(kind, (0, 0, 0))
+                loops[kind] = (n + len(reads), max(e, entry),
+                               max(m, max(reads, default=0)))
+            configs[cfg.name] = {
+                "ms": 1e3 * run.seconds,
+                "residual_bytes": p_card["residual_bytes"],
+                "budget": cfg.residual_budget_bytes(),
+                "loops": {k: {"iterations": n, "entry_reads": e,
+                              "max_reads": m}
+                          for k, (n, e, m) in loops.items()},
+                "reads_outside": len(p_card["reads_outside"]),
+                "collectives": len(p_card["collectives"]),
+                "launches": got}
+            ops.reset_launches()           # the next config's run starts
+    finally:
+        dist.destroy_process_group()
+    check(not findings, f"analysis: findings {findings}")
+    for k in ANALYSIS_KERNELS:
+        check(launches.get(k, 0) > 0, f"analysis: {k} never launched")
+    matrix_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    qs_card = quickstart.run("cuda")
+    qs_card_s = time.perf_counter() - t0
+    qs_cpu = quickstart.run("cpu")
+    qs = {}
+    for method, g in qs_card["grads"].items():
+        ref = qs_cpu["grads"][method]
+        qs[method] = {"card_rel_err": g["rel_err"], "cpu_rel_err":
+                      ref["rel_err"], "card_steps": g["n_steps"],
+                      "cpu_steps": ref["n_steps"], "card_grad": g["grad"],
+                      "cpu_grad": ref["grad"]}
+        check(g["rel_err"] <= ANALYSIS_QS_FACTOR * ref["rel_err"],
+              f"quickstart {method}: rel err {g['rel_err']} on the card "
+              f"against {ref['rel_err']} on the CPU")
+    check(qs_card["node_block"]["finite"]
+          and qs_card["node_block"]["out"] == qs_card["node_block"]["in"],
+          f"quickstart NODE block {qs_card['node_block']}")
+    emit({"phase": "analysis", "ok": True, "card": card,
+          "configs": configs, "findings": 0, "launches": launches,
+          "kernel_max_abs_err": worst, "err_rtol": ERR_RTOL,
+          "norm_rtol": NORM_RTOL, "row_norm_rtol": ROW_NORM_RTOL,
+          "routes": routes, "grad_rtol": PALLAS_GRAD_RTOL,
+          "matrix_seconds": matrix_s, "quickstart": qs,
+          "quickstart_card_seconds": qs_card_s,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, worst
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4792,6 +5059,8 @@ def main(argv=None) -> int:
             torch, args.seed, moe_calls["A"]["peak_mem_GB"])
         phase = "cost"
         cost_launches = phase_cost(torch)
+        phase = "analysis"
+        analysis_launches, worst_a = phase_analysis(torch, args.seed)
     except Exception as exc:
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
@@ -4809,7 +5078,7 @@ def main(argv=None) -> int:
     # row; K1-K4 also at the adjoint's augmented shapes)
     worst.update(worst_b)
     for k, v in (list(worst_m.items()) + list(worst_d.items())
-                 + list(worst_s.items())):
+                 + list(worst_s.items()) + list(worst_a.items())):
         worst[k] = max(worst[k], v)
     batch_launch = {
         "rk_stage_increment_batched":
@@ -4820,20 +5089,24 @@ def main(argv=None) -> int:
         + dense_launches["rk_stage_increment_batched"]
         + mali_launches["rk_stage_increment_batched"]
         + sharded_launches["rk_stage_increment_batched"]
-        + cost_launches.get("rk_stage_increment_batched", 0),
+        + cost_launches.get("rk_stage_increment_batched", 0)
+        + analysis_launches["rk_stage_increment_batched"],
         "rk_stage_combine_err_batched":
         batched_launches["rk_stage_combine_err_batched"]
         + methods_launches["rk_stage_combine_err_batched"]
         + dense_launches["rk_stage_combine_err_batched"]
         + sharded_launches["rk_stage_combine_err_batched"]
-        + cost_launches.get("rk_stage_combine_err_batched", 0),
+        + cost_launches.get("rk_stage_combine_err_batched", 0)
+        + analysis_launches["rk_stage_combine_err_batched"],
         "rk_stage_combine_err_batched_rowtol":
         serve_launches["rk_stage_combine_err_batched_rowtol"]
-        + bench_serve_launches["rk_stage_combine_err_batched_rowtol"],
+        + bench_serve_launches["rk_stage_combine_err_batched_rowtol"]
+        + analysis_launches["rk_stage_combine_err_batched_rowtol"],
     }
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
                    + dense_launches[k] + mali_launches.get(k, 0)
-                   + lm_train_launches[k] for k in K1_K2},
+                   + lm_train_launches[k] + analysis_launches[k]
+                   for k in K1_K2},
                 **batch_launch, "rk_stage_combine": k6_launches}
     entries = [
         ("rk_stage_increment", "src/repro/kernels/rk_stage.py:209",

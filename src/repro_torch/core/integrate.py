@@ -449,10 +449,10 @@ def adaptive_while_solve(
     final_idx = torch.full((), n_eval - 1, dtype=torch.int32, device=dev)
 
     # host read 1 of 2 per trial: the loop condition
-    cost_hooks.loop_enter()     # a data-dependent trial loop
+    cost_hooks.loop_enter("trial")      # a data-dependent trial loop
     while (i < max_steps and trials < max_total_trials
            and bool((eval_idx[0] < n_eval) & ~failed)):
-        cost_hooks.trial()
+        cost_hooks.trial(carry=(t, z, h))
         # the natural grid lands on the last eval time only
         t_target = ts[n_eval - 1] if natural else \
             ts.index_select(0, eval_idx).reshape(())
@@ -694,9 +694,9 @@ def batched_adaptive_while_solve(
     live = live_mask()
     # the one host read per trial: any row still live (the while_loop's
     # cond)
-    cost_hooks.loop_enter()     # a data-dependent trial loop
+    cost_hooks.loop_enter("trial-batched")  # a data-dependent trial loop
     while live.any():
-        cost_hooks.trial()
+        cost_hooks.trial(carry=(t, z, h))
         # the natural grid lands on the last eval time only
         t_target = ts[n_eval - 1].expand(B) if interpolate_ts else \
             ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]       # (B,)
@@ -853,11 +853,14 @@ def fixed_grid_solve(
     t_grid, h_grid = make_fixed_grid(ts, steps_per_interval)
     z = z0
     ys = [z0]
+    cost_hooks.loop_enter("fixed-grid", dynamic=False)
     for j in range(t_grid.shape[0]):
+        cost_hooks.trial(carry=(z,))
         z = rk_step(tab, f, t_grid[j], z, h_grid[j], args,
                     use_pallas=use_pallas).z_next
         if (j + 1) % steps_per_interval == 0:
             ys.append(z)
+    cost_hooks.loop_exit()
     ys = gstack(ys)
     stats = fixed_stats(tab, t_grid.shape[0], fixed_status(ys))
     return (ys if unravel is None else unravel(ys)), stats
@@ -952,10 +955,10 @@ def mali_adaptive_solve(
     karr = torch.arange(n_eval, device=dev)
 
     # host read 1 of 2 per trial: the loop condition
-    cost_hooks.loop_enter()     # a data-dependent trial loop
+    cost_hooks.loop_enter("mali-trial")  # a data-dependent trial loop
     while (i < max_steps and trials < max_total_trials
            and bool((eval_idx[0] < n_eval) & ~failed)):
-        cost_hooks.trial()
+        cost_hooks.trial(carry=(t, zq, vq, h))
         t_target = ts.index_select(0, eval_idx).reshape(())
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = torch.clamp(h, h_min, t_target - t)
@@ -1073,9 +1076,9 @@ def batched_mali_adaptive_solve(
 
     live = live_mask()
     # the one host read per trial: any row still live
-    cost_hooks.loop_enter()     # a data-dependent trial loop
+    cost_hooks.loop_enter("mali-trial-batched")  # a data-dependent trial loop
     while live.any():
-        cost_hooks.trial()
+        cost_hooks.trial(carry=(t, zq, vq, h))
         t_target = ts_rows[rows, eval_idx.clamp(max=n_eval - 1)]   # (B,)
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
         h_use = torch.where(live, torch.clamp(h, h_min, t_target - t),

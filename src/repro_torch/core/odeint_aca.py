@@ -46,6 +46,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels import cost_hooks
+
 from .controller import ControllerConfig
 from .groups import gget, gleaves, gmap, gset, gstack, gzeros, ungroup
 from .integrate import (
@@ -222,8 +224,11 @@ class _Sweep:
 def _aca_backward_sweep(sw: _Sweep):
     """Reverse sweep over the full checkpoint buffer: every accepted step
     replayed from its stored start state."""
+    cost_hooks.loop_enter("aca-sweep", dynamic=False)
     for i in range(sw.ckpts.n - 1, -1, -1):
+        cost_hooks.trial(carry=(sw.lam,))
         sw.replay(i, gget(sw.ckpts.z, i))
+    cost_hooks.loop_exit()
     return sw.result()
 
 
@@ -259,7 +264,9 @@ def _aca_backward_sweep_segmented(sw: _Sweep):
     n = ck.n
     zbuf = gmap(lambda x: torch.empty((seg_len,) + tuple(x.shape[1:]),
                                       dtype=x.dtype, device=x.device), ck.z)
+    cost_hooks.loop_enter("aca-segments", dynamic=False)
     for s in range(-(-n // seg_len) - 1, -1, -1):
+        cost_hooks.trial(carry=(sw.lam,))
         i0, i1 = s * seg_len, min(s * seg_len + seg_len, n)
         z, k0 = gget(ck.z, s), gget(ck.k0, s)
         gset(zbuf, 0, z)
@@ -269,6 +276,7 @@ def _aca_backward_sweep_segmented(sw: _Sweep):
             gset(zbuf, i + 1 - i0, z)
         for i in range(i1 - 1, i0 - 1, -1):
             sw.replay(i, gget(zbuf, i - i0))
+    cost_hooks.loop_exit()
     return sw.result()
 
 
@@ -343,10 +351,14 @@ def _aca_backward_sweep_batched(sw: _Sweep):
     rows = torch.arange(n.shape[0], device=n.device)
     n_max = n.max()
     # the backward's one host read: the replay length max_b n_b
-    for j in range(int(n_max)):
+    n_steps = int(n_max)
+    cost_hooks.loop_enter("aca-sweep-batched", dynamic=False)
+    for j in range(n_steps):
+        cost_hooks.trial(carry=(sw.lam,))
         i = n - 1 - j                        # (B,), negative when done
         i_c = i.clamp(min=0).long()
         sw.replay(i_c, gget(sw.ckpts.z, (rows, i_c)), live=i >= 0)
+    cost_hooks.loop_exit()
     return sw.result()
 
 
@@ -372,7 +384,9 @@ def _aca_backward_sweep_segmented_batched(sw: _Sweep):
     rows = torch.arange(B, device=dev)
     n_max = max(n_host)
     zbuf = gzeros((B, seg_len), ck.z, keep=2)
+    cost_hooks.loop_enter("aca-segments-batched", dynamic=False)
     for j in range(-(-n_max // seg_len)):
+        cost_hooks.trial(carry=(sw.lam,))
         g_hi = [nb - j * seg_len for nb in n_host]      # window end (excl.)
         g_lo = [max(g - seg_len, 0) for g in g_hi]      # window start
         snap = [min(lo // seg_len, n_snap - 1) for lo in g_lo]
@@ -407,6 +421,7 @@ def _aca_backward_sweep_segmented_batched(sw: _Sweep):
             i_c = i.clamp(min=0).long()
             slot = (i - g_lo_t).clamp(0, seg_len - 1)
             sw.replay(i_c, gget(zbuf, (rows, slot)), live=i >= 0)
+    cost_hooks.loop_exit()
     return sw.result()
 
 
@@ -454,12 +469,15 @@ def _fixed_checkpoint_solve(tab: Tableau, f: Callable, z0,
                                         dtype=x.dtype, device=x.device), z0)
     ys = [z0]
     z = z0
+    cost_hooks.loop_enter("fixed-grid", dynamic=False)
     for j in range(n_steps):
+        cost_hooks.trial(carry=(z,))
         gset(ckpt_z, j, z)
         z = rk_step(tab, f, t_grid[j], z, h_grid[j], args,
                     use_pallas=use_pallas).z_next
         if (j + 1) % steps_per_interval == 0:
             ys.append(z)
+    cost_hooks.loop_exit()
     ys = gstack(ys)
     # step j's endpoint lands on ts[(j + 1) / steps] at an interval's end
     j1 = torch.arange(1, n_steps + 1, device=ts.device)

@@ -32,6 +32,8 @@ import torch
 from torch.func import vjp
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels import cost_hooks
+
 from .controller import ControllerConfig
 from .groups import gget, gleaves, gmap, ungroup
 from .integrate import (
@@ -117,11 +119,14 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
            tuple(torch.zeros(rows + tuple(x.shape), dtype=x.dtype,
                              device=x.device) for x in theta))
     # per-row eval times ((B, T) ts) give per-row (B, 2) segments
+    cost_hooks.loop_enter("adjoint-reverse", dynamic=False)
     for k in range(ts.shape[-1] - 2, -1, -1):
+        cost_hooks.trial(carry=aug)
         s_seg = torch.stack([-ts[..., k + 1], -ts[..., k]], dim=-1)
         ys_seg, _ = prob.solve(g, aug, s_seg, theta, forward=False)
         z_k, lam, gargs = pytree.tree_map(lambda y: y[-1], ys_seg)
         aug = (z_k, gmap(lambda la, g: la + g, lam, gget(g_ys, k)), gargs)
+    cost_hooks.loop_exit()
     _, lam, gargs = aug
     if batched:
         # args are shared by the rows: their cotangents add up

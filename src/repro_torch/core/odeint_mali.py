@@ -35,6 +35,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels import cost_hooks
+
 from .controller import ControllerConfig
 from .groups import gget, gleaves, gmap, ungroup
 from .integrate import (
@@ -208,11 +210,17 @@ def mali_backward_sweep(sw: MaliSweep):
     iterations (the backward's one host read)."""
     if sw.batched:
         n_max = sw.grid.n.max()
-        for j in range(int(n_max)):
+        n_steps = int(n_max)
+        cost_hooks.loop_enter("mali-sweep-batched", dynamic=False)
+        for j in range(n_steps):
+            cost_hooks.trial(carry=(sw.lam_z, sw.lam_v))
             sw.step_batched(j)
     else:
+        cost_hooks.loop_enter("mali-sweep", dynamic=False)
         for i in range(sw.grid.n - 1, -1, -1):
+            cost_hooks.trial(carry=(sw.lam_z, sw.lam_v))
             sw.step(i)
+    cost_hooks.loop_exit()
     return sw.close()
 
 

@@ -40,6 +40,8 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from repro_torch.kernels import cost_hooks
+
 from .controller import ControllerConfig, initial_stepsize, propose_stepsize
 from .groups import gdetach, gget, gleaves, gmap, gstack, gunbind
 from .integrate import (
@@ -149,7 +151,9 @@ def odeint_naive(
     uflow = False
     natural = interpolate_ts
     # one host read per trial: the trial's decisions
+    cost_hooks.loop_enter("naive-trial", dynamic=False)
     while eval_idx < n_eval and not failed and trials < budget:
+        cost_hooks.trial(carry=(t, z, h))
         # the natural grid lands on the last eval time only
         t_target = ts[n_eval - 1] if natural else ts[eval_idx]
         h_min = 16.0 * tiny * torch.maximum(torch.abs(t), one)
@@ -196,6 +200,7 @@ def odeint_naive(
         failed = failed or fail_now
         uflow = uflow or uflow_now
         h = h_next
+    cost_hooks.loop_exit()
 
     # un-reached slots: a frozen solve repeats its last state off the tape
     fill = gdetach(z) if failed else gmap(torch.zeros_like, z0)
@@ -302,7 +307,9 @@ def odeint_naive_batched(
 
     live = running()
     # one host read per trial: the running rows' four decisions
+    cost_hooks.loop_enter("naive-trial-batched", dynamic=False)
     while live:
+        cost_hooks.trial()
         sel = torch.tensor(live, device=dev)
         z = gstack([z_rows[b] for b in live])
         t = torch.stack([t_rows[b] for b in live])
@@ -359,6 +366,7 @@ def odeint_naive_batched(
             failed[b] = failed[b] or fails[j]
             uflow[b] = uflow[b] or uflows[j]
         live = running()
+    cost_hooks.loop_exit()
 
     zero = gmap(lambda x: torch.zeros_like(x[0]), z0)
     ys_out = gstack([

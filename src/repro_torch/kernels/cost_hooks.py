@@ -1,18 +1,27 @@
 """Where the hand kernels and the solver's trial loops meet a cost counter.
 
-A counter (``launch/op_cost.OpCost``) pushes itself here while it runs;
-the kernel wrappers ask ``active()`` and hand their call to its
-``kernel(name, work, run, inputs)``, and ``core/integrate.py``'s
-data-dependent trial loops report ``loop_enter`` / ``trial`` /
-``loop_exit``. So nothing below ``launch`` imports ``launch``: this
-module needs only the standard library. With no counter running, each
-hook is one read of a list and nothing else.
+A counter (``launch/op_cost.OpCost``, ``analysis/graph_walk.Recorder``)
+pushes itself here while it runs; a kernel wrapper that finds a counter
+``active()`` hands its call to ``run_kernel(name, work, run, inputs)``,
+which fans it out to every running counter, and the solver's loops
+report ``loop_enter`` / ``trial`` / ``loop_exit``. So nothing below
+``launch`` imports ``launch`` or ``analysis``: this module needs only the
+standard library. With no counter running, each hook is one read of a
+list and nothing else.
+
+Every loop of the solver reports: ``core/integrate.py``'s trial loops
+(``dynamic=True``, the data-dependent loops ``OpCost.dynamic_whiles``
+counts), and with ``dynamic=False`` the naive method's trial loops, the
+fixed grids, the adjoint's reverse segments and the ACA and MALI backward
+sweeps (loops the analysis sees and ``OpCost`` ignores). ``kind`` names
+the loop for the analysis; ``carry`` hands it the loop's carried tensors
+at the start of an iteration.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 _stack: List[Any] = []       # running counters, innermost last
 _paused = 0                  # > 0 inside a kernel entry or propagation
@@ -55,22 +64,58 @@ def active() -> Optional[Any]:
     return _stack[-1]
 
 
-def loop_enter() -> None:
-    """A data-dependent trial loop starts (``core/integrate.py``)."""
-    if _stack and not _paused:
-        for c in _stack:
-            c._loop_enter()
+def run_kernel(name: str, work: Any, run: Callable[[], Any],
+               inputs=()) -> Any:
+    """One hand-kernel call under the running counters: each records the
+    entry (``_kernel_entry(name, work)``), ``run()`` computes the result
+    with every counter paused, and each sees its outputs
+    (``_kernel_exit(out, inputs)``)."""
+    counters = running()
+    for c in counters:
+        c._kernel_entry(name, work)
+    with paused():
+        out = run()
+    for c in counters:
+        c._kernel_exit(out, inputs)
+    return out
 
 
-def trial() -> None:
-    """A trial of the loop last entered starts."""
+def collective_kind(name: str) -> Optional[str]:
+    """The collective class of an aten/c10d op name, or None (waits and
+    barriers move nothing)."""
+    if "wait" in name or "barrier" in name:
+        return None
+    if "reduce_scatter" in name:
+        return "reduce-scatter"
+    if "all_reduce" in name or "allreduce" in name:
+        return "all-reduce"
+    if "all_gather" in name or "allgather" in name:
+        return "all-gather"
+    if "all_to_all" in name or "alltoall" in name:
+        return "all-to-all"
+    if name.startswith(("broadcast", "send", "recv", "permute")):
+        return "collective-permute"
+    return None
+
+
+def loop_enter(kind: str = "trial", dynamic: bool = True) -> None:
+    """A loop of ``kind`` starts; ``dynamic`` for ``core/integrate.py``'s
+    data-dependent trial loops."""
     if _stack and not _paused:
         for c in _stack:
-            c._trial()
+            c._loop_enter(kind, dynamic)
+
+
+def trial(carry: Any = None) -> None:
+    """An iteration of the loop last entered starts (``carry``: its
+    carried tensors, or None)."""
+    if _stack and not _paused:
+        for c in _stack:
+            c._trial(carry)
 
 
 def loop_exit() -> None:
-    """The loop last entered ends (closes a first trial still open)."""
+    """The loop last entered ends."""
     if _stack and not _paused:
         for c in _stack:
             c._loop_exit()

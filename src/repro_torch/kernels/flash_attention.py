@@ -153,9 +153,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0; got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("flash_attention", work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("flash_attention", work(
             b, h, hkv, s, dh, window, q.element_size()),
             lambda: flash_attention(q, k, v, window=window, scale=scale))
     if build.shapes_only(q):

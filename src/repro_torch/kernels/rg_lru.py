@@ -99,10 +99,9 @@ def rg_lru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"rg_lru: log_a and b must lie on one device; got "
             f"{log_a.device} and {b.device}")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rg_lru", work(log_a.numel()),
-                           lambda: rg_lru(log_a, b))
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rg_lru", work(log_a.numel()),
+                                     lambda: rg_lru(log_a, b))
     if build.shapes_only(log_a):
         return torch.empty_like(log_a.contiguous())
     if log_a.device.type == "cpu":

@@ -417,9 +417,8 @@ def rk_stage_increment(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     are read)."""
     _check_inputs("rk_stage_increment", z, k, h)
     a = tuple(float(w) for w in tuple(a)[: k.shape[0]])
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rk_stage_increment", increment_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rk_stage_increment", increment_work(
             1, z.shape[0], used_stages(a), z.element_size()),
             lambda: rk_stage_increment(z, k, h, a))
     if build.shapes_only(z):
@@ -458,9 +457,8 @@ def rk_stage_combine_err(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         raise ValueError(
             f"rk_stage_combine_err: {k.shape[0]} stages but {len(b)} b and "
             f"{len(e)} e weights")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rk_stage_combine_err", combine_err_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rk_stage_combine_err", combine_err_work(
             z.shape[0], used_stages(b, e), z.element_size(), with_err),
             lambda: rk_stage_combine_err(z, k, h, b, e, rtol, atol,
                                          with_err=with_err))
@@ -508,9 +506,8 @@ def rk_stage_combine(z: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
         raise ValueError(
             f"rk_stage_combine: {k.shape[0]} stages but {len(b)} b and "
             f"{len(e)} e weights")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rk_stage_combine", combine_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rk_stage_combine", combine_work(
             z.shape[0], used_stages(b, e), z.element_size()),
             lambda: rk_stage_combine(z, k, h, b, e))
     if build.shapes_only(z):
@@ -577,9 +574,8 @@ def rk_stage_increment_batched(z: torch.Tensor, k: torch.Tensor,
     are read). A row with h_b = 0 returns z_b."""
     _check_batched("rk_stage_increment_batched", z, k, h)
     a = tuple(float(w) for w in tuple(a)[: k.shape[0]])
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rk_stage_increment_batched", increment_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rk_stage_increment_batched", increment_work(
             *z.shape, used_stages(a), z.element_size()),
             lambda: rk_stage_increment_batched(z, k, h, a))
     if build.shapes_only(z):
@@ -619,9 +615,8 @@ def _combine_err_batched(what: str, z, k, h, b, e, rtol, atol, row_tol):
                 raise ValueError(
                     f"{what}: {name} must be a ({z.shape[0]},) tensor on "
                     f"{z.device}")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel(what, combine_err_batched_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel(what, combine_err_batched_work(
             *z.shape, used_stages(b, e), z.element_size(), row_tol),
             lambda: _combine_err_batched(what, z, k, h, b, e, rtol, atol,
                                          row_tol))

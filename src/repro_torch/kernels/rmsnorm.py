@@ -142,9 +142,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"rmsnorm: kernel must be one of {KERNELS}; got "
                          f"{kernel!r}")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("rmsnorm", work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("rmsnorm", work(
             x.numel() // max(d, 1), d, x.element_size(), w.element_size()),
             lambda: rmsnorm(x, w, eps, kernel=kernel))
     if build.shapes_only(x):

@@ -334,9 +334,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     values; in f32 one kernel."""
     plain_tensors("ssd_scan", x, dt, a, b_mat, c_mat, h0)
     _check(x, dt, a, b_mat, c_mat, chunk, h0)
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("ssd_scan", work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("ssd_scan", work(
             *x.shape, *b_mat.shape[2:], chunk, x.element_size(),
             h0 is not None),
             lambda: ssd_scan(x, dt, a, b_mat, c_mat, chunk, h0=h0))
@@ -393,9 +392,8 @@ def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Kernel 1: (cs (B,S,H) f32, states (B,nc,H,P,N) f32), as
     ``chunk_states``; bf16 on the card."""
     _check(x, dt, a, b_mat, b_mat, chunk, None)
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("ssd_chunk_state", chunk_state_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("ssd_chunk_state", chunk_state_work(
             *x.shape, *b_mat.shape[2:], chunk, x.element_size()),
             lambda: ssd_chunk_state(x, dt, a, b_mat, chunk))
     if build.shapes_only(x):
@@ -439,10 +437,9 @@ def ssd_state_pass(states: torch.Tensor, cs: torch.Tensor, chunk: int,
     if any(t is not None and t.dtype != torch.float32
            for t in (states, cs, h0)):
         raise ValueError("ssd_state_pass: states, cs and h0 must be float32")
-    cost = cost_hooks.active()
-    if cost is not None:
+    if cost_hooks.active() is not None:
         b_, nc_, h_, p_, n_ = states.shape
-        return cost.kernel("ssd_state_pass", state_pass_work(
+        return cost_hooks.run_kernel("ssd_state_pass", state_pass_work(
             b_, nc_, h_, p_, n_), lambda: ssd_state_pass(states, cs, chunk,
                                                          h0=h0),
             inputs=(states,))
@@ -489,9 +486,8 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
             f"ssd_chunk_scan: expects cs {(bsz, s, h)} and h_prev "
             f"{(bsz, s // chunk, h, p, n)} float32; got {tuple(cs.shape)} "
             f"{cs.dtype}, {tuple(h_prev.shape)} {h_prev.dtype}")
-    cost = cost_hooks.active()
-    if cost is not None:
-        return cost.kernel("ssd_chunk_scan", chunk_scan_work(
+    if cost_hooks.active() is not None:
+        return cost_hooks.run_kernel("ssd_chunk_scan", chunk_scan_work(
             bsz, s, h, p, b_mat.shape[2], n, chunk, x.element_size()),
             lambda: ssd_chunk_scan(x, dt, cs, b_mat, c_mat, h_prev, chunk))
     if build.shapes_only(x):

@@ -39,7 +39,7 @@ counted. A counter over a sharded call therefore holds one rank's work.
 **Hand kernels.** K1-K10 are ctypes calls no dispatch mode can see. Each
 wrapper asks ``kernels/cost_hooks.active()`` first (the registry this
 counter pushes itself onto while it runs) and, under a counter, hands
-the call to ``OpCost.kernel`` with its ``work(...)``: one entry with
+the call to ``cost_hooks.run_kernel`` with its ``work(...)``: one entry with
 that FLOP and byte count, whichever route runs (kernel, plain version on the CPU, or
 the plain version on fake tensors, which launches nothing); the plain
 version's own ops are not counted. With no counter running, ``active()``
@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import sys
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -95,22 +95,6 @@ _FREE = {"empty", "empty_strided", "empty_like", "new_empty",
          "new_empty_strided", "detach", "alias", "lift_fresh", "device",
          "wait_tensor", "_local_scalar_dense", "set_", "resize_",
          "record_stream"}
-
-
-def _collective_kind(name: str) -> Optional[str]:
-    if "wait" in name or "barrier" in name:
-        return None
-    if "reduce_scatter" in name:
-        return "reduce-scatter"
-    if "all_reduce" in name or "allreduce" in name:
-        return "all-reduce"
-    if "all_gather" in name or "allgather" in name:
-        return "all-gather"
-    if "all_to_all" in name or "alltoall" in name:
-        return "all-to-all"
-    if name.startswith(("broadcast", "send", "recv", "permute")):
-        return "collective-permute"
-    return None
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -211,6 +195,7 @@ class OpCost(torch.utils._python_dispatch.TorchDispatchMode):
         self._body_start = (0.0, 0.0)     # (flops, bytes_min) at its start
         self._patch = None
         self._coll_records: List[Tuple[str, int, int]] = []
+        self._loops: List[bool] = []      # open loops: dynamic or not
 
     # ---------------------------------------------------------- totals
     @property
@@ -233,7 +218,8 @@ class OpCost(torch.utils._python_dispatch.TorchDispatchMode):
 
     # ------------------------------------------------------ context
     def __enter__(self):
-        if not any(c._patch for c in cost_hooks.running()):
+        if not any(getattr(c, "_patch", None)
+                   for c in cost_hooks.running()):
             self._patch = _propagation_patch()
             self._patch[0]()
         cost_hooks.push(self)
@@ -292,35 +278,34 @@ class OpCost(torch.utils._python_dispatch.TorchDispatchMode):
     def _release(self, n: int) -> None:
         self.live_bytes -= n
 
-    def kernel(self, name: str, work: Tuple[Dict[str, float], float],
-               run: Callable[[], Any], inputs=()) -> Any:
-        """One hand-kernel entry of ``work`` = (FLOPs by dtype, bytes);
-        ``run()`` computes the result with no counter active. Its outputs'
-        storages count as held, but for those of ``inputs`` (updated in
-        place)."""
+    def _kernel_entry(self, name: str,
+                      work: Tuple[Dict[str, float], float]) -> None:
         flops, nbytes = work
-        counters = cost_hooks.running()
-        for c in counters:
-            c._add(f"kernel:{name}", flops, nbytes, nbytes)
-            k = c.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
-                                            "bytes": 0.0})
-            k["calls"] += 1
-            k["flops"] += sum(flops.values())
-            k["bytes"] += nbytes
-        with cost_hooks.paused():
-            out = run()
-        for c in counters:
-            c._hold(_tensors(out), inputs)
-        return out
+        self._add(f"kernel:{name}", flops, nbytes, nbytes)
+        k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
+                                           "bytes": 0.0})
+        k["calls"] += 1
+        k["flops"] += sum(flops.values())
+        k["bytes"] += nbytes
 
-    def _loop_enter(self) -> None:
+    def _kernel_exit(self, out: Any, inputs) -> None:
+        self._hold(_tensors(out), inputs)
+
+    def _loop_enter(self, kind: str = "trial", dynamic: bool = True) -> None:
+        # only the data-dependent trial loops count; the other loops the
+        # hooks report (fixed grids, sweeps) are ignored, whatever they hold
+        self._loops.append(dynamic)
+        if not dynamic:
+            return
         self.dynamic_whiles += 1
         if self._body is None:
             self._body = "armed"
         elif self._body == "open":
             self._close_body()
 
-    def _trial(self) -> None:
+    def _trial(self, carry: Any = None) -> None:
+        if self._loops and not self._loops[-1]:
+            return
         if self._body == "armed":
             self._body = "open"
             self._body_start = (self.flops, self.bytes_min)
@@ -328,6 +313,8 @@ class OpCost(torch.utils._python_dispatch.TorchDispatchMode):
             self._close_body()
 
     def _loop_exit(self) -> None:
+        if self._loops and not self._loops.pop():
+            return
         if self._body == "open":
             self._close_body()
 
@@ -349,7 +336,7 @@ class OpCost(torch.utils._python_dispatch.TorchDispatchMode):
         outs = _tensors(out)
         self._hold(outs, ins)
         scope = _scope()
-        kind = _collective_kind(name) if func.namespace.startswith(
+        kind = cost_hooks.collective_kind(name) if func.namespace.startswith(
             ("c10d", "_c10d")) else None
         if kind is not None:
             res = sum(_nbytes(t) for t in outs)

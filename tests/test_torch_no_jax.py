@@ -78,3 +78,10 @@ def test_the_port_has_modules():
     assert port / "distributed" / "regions.py" in FILES
     assert port / "launch" / "mesh.py" in FILES
     assert port / "benchmarks" / "sharded_solve.py" in FILES
+    # the solver analysis, the checkers and the quickstart
+    for name in ("__init__", "__main__", "findings", "entry_points",
+                 "graph_walk", "rules", "ast_lint"):
+        assert port / "analysis" / f"{name}.py" in FILES
+    for name in ("solver_lint", "check_docs", "check_bench_schema"):
+        assert port / "tools" / f"{name}.py" in FILES
+    assert port / "examples" / "quickstart.py" in FILES
