@@ -301,9 +301,23 @@ printing one JSON line (``"phase": ...``):
                       8 x 128, against the step without a mesh: loss,
                       every gradient and the updated parameters bitwise,
                       the moments DTensors with their parameters'
-                      placements (this part runs no kernel). Every line
-                      carries the card's name and power limit.
-11i. ``cost`` — slice I3. The NODE dry run
+                      placements (this part runs no kernel); (d) one
+                      forward and backward of node18_cifar at full width
+                      in NODE mode (NODE_TRAIN: K1/K2 on every block's
+                      solve, each rank's batch block on the whole batch's
+                      grid), 8 x 128, f32, against the mesh-less one: loss,
+                      every gradient and each block's steps, trials,
+                      evaluations and status bitwise, K1/K2 launches equal,
+                      ms and peak GB of both. Every line carries the
+                      card's name and power limit.
+11i. ``remat`` — slice I5. node18_cifar at full width, 8 x 128, f32,
+                      one forward and backward with ``RunConfig(remat=
+                      "block")`` against ``"none"``, NODE off and
+                      NODE_TRAIN on: loss, every gradient and each
+                      block's stats bitwise (one entry a block), ms and
+                      peak GB above the weights of both; K1/K2 launches
+                      of both (the recompute's add to block's).
+11j. ``cost`` — slice I3. The NODE dry run
                       (``launch/node_dryrun.py``: train with the adjoint
                       and serve with ACA, batch 64, dim 32, f32) on a
                       one-rank NCCL group through K3/K4, counted by
@@ -319,10 +333,14 @@ printing one JSON line (``"phase": ...``):
                       held, and its temp bytes
                       within 10% of the peak above them, the roofline
                       terms and the share bound / measured beside the card's
-                      name and power limit); ``python -m
+                      name and power limit); one ``--remat block`` train
+                      step of node18_cifar at full width (8 x 128, AdamW,
+                      clipping) on a one-rank "fake"-backend mesh, counted
+                      on the card and dry-run (``build_cell``): FLOPs by
+                      dtype equal; ``python -m
                       repro_torch.launch.dryrun --arch deepseek_moe_16b
                       --shape decode_32k`` in a subprocess (one ``[ok]``).
-11j. ``analysis`` — slice I4. The analyzer's 37 configurations
+11k. ``analysis`` — slice I4. The analyzer's 37 configurations
                       (``repro_torch.analysis``: dim 96, batch 8, two eval
                       times, 64 steps, zero inputs) run on the card
                       through ``odeint``, forward and backward under its
@@ -366,10 +384,11 @@ K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
 train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
 none of K1-K5, each method's sharded steps for K3/K4, sharded_lm's first
-mesh call of each model for K7/K8 and K7/K9, each whole call's counted
-mesh prefill for K7/K8 and K7/K9, each NODE dry run for K3/K4, each
-card run of the analysis phase for K1-K5) runs with every launch count
-set to 0 just before it and read just after.
+mesh call of each model for K7/K8 and K7/K9, sharded_lm's NODE step on
+each route for K1/K2, each of remat's counted steps for K1/K2, each
+whole call's counted mesh prefill for K7/K8 and K7/K9, each NODE dry run
+for K3/K4, each card run of the analysis phase for K1-K5) runs with
+every launch count set to 0 just before it and read just after.
 
 Any failure raises and the script exits non-zero without the last line.
 Without a card, or without the port's sources beside it, it exits 2.
@@ -4467,6 +4486,98 @@ def _sharded_train(torch, seed: int, mesh, card: str):
     return row
 
 
+def _node_stats_rows(stats) -> list:
+    """Each block's (steps, trials, evaluations, status)."""
+    return [[int(s.n_steps), int(s.n_trials), int(s.nfe), int(s.status)]
+            for _, _, s in stats]
+
+
+def _timed_grads(torch, model, params, batch) -> dict:
+    """One counted forward and backward of ``model``'s loss (a main path:
+    every launch count set to 0 just before, read just after): loss,
+    gradients, NODE stats, launches, ms, and the peak allocated above
+    what was held before it, in GB."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import _grads_of
+
+    model.node_stats = []
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                    # the main path starts here
+    t0 = time.perf_counter()
+    loss, _, grads = _grads_of(model, params, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    return {"loss": loss, "grads": _leaf_list(grads), "ms": ms,
+            "stats": _node_stats_rows(model.node_stats),
+            "launches": launches,
+            "peak_GB": (torch.cuda.max_memory_allocated() - held) / 1e9}
+
+
+def _add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _sharded_node_train(torch, seed: int, mesh, card: str):
+    """node18_cifar at full width in NODE mode (NODE_TRAIN: HeunEuler
+    1e-2, segmented ACA, K1/K2 on every block), f32, 8 x 128, on the
+    one-rank mesh against the mesh-less step from the same weights and
+    batch: loss, every gradient and each block's steps bitwise, K1/K2
+    launches equal. Returns the row and both routes' launches."""
+    from repro_torch.configs import node18_cifar
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.regions import whole
+    from repro_torch.models.common import place_params
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.loop import _grads_of
+
+    cfg = node18_cifar.CONFIG
+    rcfg = RunConfig(compute_dtype=torch.float32,
+                     node=node18_cifar.NODE_TRAIN)
+    plain = build_model(cfg, rcfg)
+    sharded = build_model(cfg, rcfg.with_(mesh=mesh))
+    params = plain.init(seed=seed, device="cuda")
+    dparams = place_params(params, sharded.defs, rcfg.rules, mesh)
+    bsz, seq = SHARDED_LM_TRAIN
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=bsz,
+                          device="cuda").batch(0)
+    for m, p in ((plain, params), (sharded, dparams)):
+        _grads_of(m, p, batch)              # warm-up
+    pl = _timed_grads(torch, plain, params, batch)
+    ms = _timed_grads(torch, sharded, dparams, batch)
+    grads_bitwise = all(torch.equal(a, whole(b))
+                        for a, b in zip(pl["grads"], ms["grads"]))
+    row = {"card": card, "config": cfg.name, "batch": list(SHARDED_LM_TRAIN),
+           "node": "NODE_TRAIN", "loss": float(ms["loss"]),
+           "unsharded_loss": float(pl["loss"]),
+           "loss_bitwise": bool(torch.equal(ms["loss"], pl["loss"])),
+           "grads_bitwise": grads_bitwise,
+           "block_stats": ms["stats"],
+           "stats_equal": ms["stats"] == pl["stats"],
+           "launches": ms["launches"], "unsharded_launches": pl["launches"],
+           "step_ms": ms["ms"], "peak_GB": ms["peak_GB"],
+           "unsharded": {"step_ms": pl["ms"], "peak_GB": pl["peak_GB"]},
+           "step": "forward and backward"}
+    emit({"phase": "sharded_lm_node_train", **row})
+    verdict = {k: row[k] for k in ("loss", "unsharded_loss", "loss_bitwise",
+                                   "grads_bitwise", "stats_equal")}
+    check(row["loss_bitwise"] and grads_bitwise and row["stats_equal"],
+          f"sharded_lm NODE train: not bitwise the mesh-less step: "
+          f"{verdict}")
+    check(ms["launches"] == pl["launches"]
+          and all(ms["launches"].get(k, 0) > 0 for k in K1_K2),
+          f"sharded_lm NODE train: K1/K2 launches {ms['launches']} on the "
+          f"mesh, {pl['launches']} without")
+    total = {}
+    _add_launches(total, pl["launches"])
+    _add_launches(total, ms["launches"])
+    return row, total
+
+
 def phase_sharded_lm(torch, seed: int, moe_peak_GB: float):
     """Slice I2 on a one-rank NCCL mesh (see the module docstring, 11h).
     Returns the mesh routes' K7/K8/K9 launches."""
@@ -4501,16 +4612,82 @@ def phase_sharded_lm(torch, seed: int, moe_peak_GB: float):
                                    "ssd_scan": layers,
                                    **{k: layers for k in K9_PARTS}})
         train_row = _sharded_train(torch, seed, mesh, card)
-        launches = {k: moe_l.get(k, 0) + m2_l.get(k, 0)
-                    for k in set(moe_l) | set(m2_l)}
+        node_row, node_l = _sharded_node_train(torch, seed, mesh, card)
+        launches = {}
+        for got in (moe_l, m2_l, node_l):
+            _add_launches(launches, got)
         emit({"phase": "sharded_lm", "ok": True, "ranks": 1,
               "backend": dist.get_backend(), "mesh": {"data": 1, "model": 1},
               "card": card, "launches": launches,
               "deepseek_moe_16b": moe_row, "mamba2_2_7b": m2_row,
-              "node18_train": train_row,
+              "node18_train": train_row, "node18_node_train": node_row,
               "seconds": time.perf_counter() - t_phase})
     finally:
         dist.destroy_process_group()
+    return launches
+
+
+# ------------------------------------------------------------------ remat
+
+
+def phase_remat(torch, seed: int):
+    """Slice I5's ``RunConfig.remat``: node18_cifar at full width, f32,
+    8 x 128, one forward and backward with ``remat="block"`` against
+    ``"none"`` from the same weights and batch, NODE off and NODE_TRAIN
+    on (K1/K2): loss and every gradient bitwise, each block's stats
+    equal and recorded once, peak GB and ms of both; the recompute's
+    K1/K2 launches counted (more under block). Returns the launches."""
+    from repro_torch.configs import node18_cifar
+    from repro_torch.core.node_block import NodeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.loop import _grads_of
+
+    t_phase = time.perf_counter()
+    card = _smi_name_limit()
+    cfg = node18_cifar.CONFIG
+    bsz, seq = SHARDED_LM_TRAIN
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=bsz,
+                          device="cuda").batch(0)
+    rows, launches = {}, {}
+    for label, ncfg in (("node_off", NodeConfig()),
+                        ("node_train", node18_cifar.NODE_TRAIN)):
+        models = {remat: build_model(cfg, RunConfig(
+            compute_dtype=torch.float32, node=ncfg, remat=remat))
+            for remat in ("none", "block")}
+        params = models["none"].init(seed=seed, device="cuda")
+        _grads_of(models["none"], params, batch)    # warm-up
+        runs = {remat: _timed_grads(torch, m, params, batch)
+                for remat, m in models.items()}
+        none, block = runs["none"], runs["block"]
+        row = {"loss": float(block["loss"]),
+               "loss_bitwise": bool(torch.equal(none["loss"],
+                                                block["loss"])),
+               "grads_bitwise": all(torch.equal(a, b) for a, b in
+                                    zip(none["grads"], block["grads"])),
+               "stats_equal": none["stats"] == block["stats"],
+               "blocks_recorded": len(block["stats"]),
+               **{f"{k}_{remat}": runs[remat][k] for remat in runs
+                  for k in ("ms", "peak_GB", "launches")}}
+        rows[label] = row
+        for got in runs.values():
+            _add_launches(launches, got["launches"])
+        check(row["loss_bitwise"] and row["grads_bitwise"]
+              and row["stats_equal"],
+              f"remat {label}: block is not bitwise none: {row}")
+        if label == "node_train":
+            check(row["blocks_recorded"] == cfg.n_layers,
+                  f"remat: {row['blocks_recorded']} NODE stats for "
+                  f"{cfg.n_layers} blocks")
+            check(all(block["launches"].get(k, 0)
+                      > none["launches"].get(k, 0) > 0 for k in K1_K2),
+                  f"remat: the recompute's K1/K2 launches "
+                  f"{block['launches']} against {none['launches']}")
+    emit({"phase": "remat", "ok": True, "card": card, "config": cfg.name,
+          "batch": list(SHARDED_LM_TRAIN), "step": "forward and backward",
+          **rows, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -4720,6 +4897,7 @@ def phase_cost(torch):
                   "launches (two runs)")
     finally:
         dist.destroy_process_group()
+    remat_row = _remat_cost(torch, 0)
     # the dry-run CLI as a user runs it: a full-size cell on pod16x16,
     # fake tensors, no card
     env = dict(os.environ)
@@ -4740,9 +4918,79 @@ def phase_cost(torch):
           f"whole calls measured: {sorted(WHOLE_CALLS)}")
     emit({"phase": "cost", "ok": True, "card": card, "node_cells": cells,
           "whole_calls": WHOLE_CALLS, "launches": launches,
+          "remat_train_step": remat_row,
           "dryrun_cli": {"line": ok_lines[0], "seconds": cli_s},
           "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+def _remat_cost(torch, seed: int, device: str = "cuda") -> dict:
+    """One ``--remat block`` train step of node18_cifar at full width
+    (SHARDED_LM_TRAIN, the dry run's train RunConfig: bf16 compute, f32
+    parameters, AdamW, clipping) on a one-rank "fake"-backend mesh,
+    counted twice: on the card's tensors under ``OpCost``, and as the dry
+    run (``launch/dryrun.py::build_cell``, fake tensors). Their FLOPs by
+    dtype must be equal; the rest of the counts are reported."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import node18_cifar
+    from repro_torch.distributed.sharding import placements_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.optim.grad_utils import CompressionState
+    from repro_torch.train.loop import TrainLoopConfig, build_train_step
+    from repro_torch.train.state import TrainState
+
+    cfg = node18_cifar.CONFIG
+    bsz, seq = SHARDED_LM_TRAIN
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"), device)
+    try:
+        cell = dryrun.build_cell("node18_cifar", "train", mesh, config=cfg,
+                                 plan=(seq, bsz, "train"), remat="block",
+                                 device=device)
+        fake, _, trace_s = dryrun.count_cell(cell)
+        rcfg = RunConfig(mesh=mesh, compute_dtype=torch.bfloat16,
+                         param_dtype=torch.float32, max_seq=seq,
+                         remat="block")
+        model = build_model(cfg, rcfg)
+        params = model.init(seed=seed, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen,
+                             device=device, dtype=torch.int32)
+        pl = placements_for(("batch", "seq"), rcfg.rules, mesh, toks.shape)
+        batch = {k: DTensor.from_local(v, mesh, pl, run_check=False)
+                 for k, v in (("tokens", toks),
+                              ("labels", toks.roll(-1, 1)),
+                              ("mask", torch.ones(bsz, seq, device=device)))}
+        opt = adamw(cosine_warmup(3e-4, 100, 10000), weight_decay=0.1)
+        step = build_train_step(model, opt, TrainLoopConfig(
+            microbatches=1, clip_norm=1.0, compression="none"))
+        state = TrainState(
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            params=params, opt_state=opt.init(params))
+        with torch.enable_grad(), OpCost() as real:
+            out = step(state, batch, CompressionState(error=()))
+        loss = float(out[2]["loss"])
+    finally:
+        dist.destroy_process_group()
+    want, got = _count_keys(real), _count_keys(fake)
+    row = {"config": cfg.name, "batch": list(SHARDED_LM_TRAIN),
+           "remat": cell.remat, "loss": loss,
+           "card_flops_by_dtype": want["flops_by_dtype"],
+           "dry_run_flops_by_dtype": got["flops_by_dtype"],
+           "counts_equal": want == got,
+           "card_bytes": want["bytes"], "dry_run_bytes": got["bytes"],
+           "dry_run_temp_bytes": fake.peak_bytes, "trace_s": trace_s}
+    check(row["remat"] == "block" and math.isfinite(loss),
+          f"remat cost: {row}")
+    check(want["flops_by_dtype"] == got["flops_by_dtype"],
+          f"remat cost: the dry run counts FLOPs {got['flops_by_dtype']}, "
+          f"the card's step {want['flops_by_dtype']}")
+    return row
 
 
 ANALYSIS_QS_FACTOR = 10.0       # quickstart: card rel err <= 10x the CPU's
@@ -5057,6 +5305,8 @@ def main(argv=None) -> int:
         phase = "sharded_lm"
         sharded_lm_launches = phase_sharded_lm(
             torch, args.seed, moe_calls["A"]["peak_mem_GB"])
+        phase = "remat"
+        remat_launches = phase_remat(torch, args.seed)
         phase = "cost"
         cost_launches = phase_cost(torch)
         phase = "analysis"
@@ -5106,6 +5356,7 @@ def main(argv=None) -> int:
     launches = {**{k: launches[k] + methods_launches[k] + paper_launches[k]
                    + dense_launches[k] + mali_launches.get(k, 0)
                    + lm_train_launches[k] + analysis_launches[k]
+                   + sharded_lm_launches.get(k, 0) + remat_launches[k]
                    for k in K1_K2},
                 **batch_launch, "rk_stage_combine": k6_launches}
     entries = [

@@ -215,6 +215,8 @@ def odeint(
     on_failure: str = "status",
     mesh: Optional[Any] = None,
     shard_rules: Optional[Any] = None,
+    group: Optional[Any] = None,
+    _direction: Optional[int] = None,
 ) -> Tuple[Any, SolveStats]:
     """Solve dz/dt = f(t, z, *args) through ``ts``; see the module
     docstring.
@@ -234,6 +236,16 @@ def odeint(
     solver), ``interpolate_ts`` (adaptive solvers) and ``mesh`` /
     ``shard_rules`` (with ``batch_axis``, a 1D ``ts`` and scalar
     tolerances) as in the module docstring.
+
+    ``group`` (a ``distributed.regions.SolveGroup``; no ``batch_axis``)
+    declares ``z0`` this rank's block of a state split over the group's
+    ranks, each rank calling ``odeint`` on its block with the same ``ts``
+    and ``args``: every reduction the solver makes (error norms, the
+    initial stepsize, the non-finite guard, the MALI lattice's scale, a
+    fixed grid's status) is the whole state's, so every rank takes the
+    same trials and returns the same stats (a NODE block on
+    ``RunConfig.mesh``). ``_direction`` is ``odeint_final``'s: the sign of
+    its float endpoints, in place of reading ``ts``.
     """
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
@@ -291,6 +303,11 @@ def odeint(
             f"h0 overrides the adaptive initial-stepsize heuristic; "
             f"fixed-grid solver {tab.name!r} has no stepsize controller "
             "— use steps_per_interval to refine its grid instead")
+    if group is not None and (batch_axis is not None or mesh is not None):
+        raise ValueError(
+            "group declares z0 one rank's block of a split state, solved "
+            "on the whole state's grid; a batch_axis solve keeps whole rows "
+            "on a rank (and mesh splits them itself): drop group")
     if mesh is not None:
         if batch_axis is None:
             raise ValueError(
@@ -328,7 +345,7 @@ def odeint(
             "queue 1, 'per-row ts with interpolate_ts'): pass the union of "
             "the rows' times as one 1-D ts (data.merged_time_grid) and "
             "gather each row's outputs, as the reference's route does")
-    if _ts_direction(ts) < 0:
+    if (_ts_direction(ts) if _direction is None else _direction) < 0:
         # reverse time: solve the time-negated problem over ascending -ts
         f, ts = _negate_time(f), -ts
 
@@ -345,15 +362,23 @@ def odeint(
             interpolate_ts=interpolate_ts, mesh=mesh,
             shard_rules=shard_rules)
     elif not mali and not tab.adaptive:
+        # the adjoint takes the group for its field's products
+        kw = {} if group is None or grad_method != "adjoint" else \
+            {"group": group}
         ys, stats = _FIXED[grad_method](
             f, z0, ts, args, solver=tab,
-            steps_per_interval=steps_per_interval, use_pallas=use_pallas)
+            steps_per_interval=steps_per_interval, use_pallas=use_pallas,
+            **kw)
+        if group is not None:
+            # a fixed grid's status is the whole state's
+            stats = stats._replace(status=group.max(stats.status))
     else:
+        kw = {} if group is None else {"group": group}
         ys, stats = _ADAPTIVE[grad_method](
             f, z0, ts, args, rtol=rtol, atol=atol, cfg=cfg, h0=h0,
             use_pallas=use_pallas,
             **_method_kw(grad_method, tab, trial_budget, checkpoint_segments,
-                         interpolate_ts))
+                         interpolate_ts), **kw)
     return _apply_on_failure(ys, stats, on_failure)
 
 
@@ -551,9 +576,13 @@ def odeint_final(
 ) -> Tuple[Any, SolveStats]:
     """Integrate [t0, t1] and return only z(t1) (the NODE block's use);
     ``t0 > t1`` runs the solve in reverse time. Takes every ``odeint``
-    keyword."""
+    keyword. With a ``group`` the direction comes from the floats: the
+    block's ``ts`` may be a fake tensor (a dry run), which no host read
+    can take."""
     leaves, _ = state_leaves(z0)
     ts = torch.tensor([t0, t1], dtype=torch.float32, device=leaves[0].device)
+    if kw.get("group") is not None and t0 != t1:
+        kw["_direction"] = 1 if t1 > t0 else -1
     ys, stats = odeint(f, z0, ts, args, **kw)
     return pytree.tree_map(lambda y: y[-1], ys), stats
 

@@ -73,33 +73,36 @@ def sqrt0(x: torch.Tensor) -> torch.Tensor:
                        torch.sqrt(torch.where(zero, torch.ones_like(x), x)))
 
 
-def _rms(x) -> torch.Tensor:
+def _rms(x, group=None) -> torch.Tensor:
     """The RMS of a state (one tensor, or its dtype groups), each group's
-    squares summed in f32 and the sums added up over the groups."""
+    squares summed in f32 and the sums added up over the groups; over
+    the whole split state with ``group`` (a ``SolveGroup``)."""
     total, n = None, 0
-    for g in gleaves(x):
+    for i, g in enumerate(gleaves(x)):
         xf = g.float()
-        part = torch.sum(xf * xf)
+        part = torch.sum(xf * xf) if group is None else group.sum_sq(i, xf)
         total = part if total is None else total + part
         n += g.numel()
+    if group is not None:
+        total, n = group.sum(total), group.numel(n)
     return sqrt0(total / torch.full((), n, dtype=torch.float32,
                                     device=total.device))
 
 
 def initial_stepsize(f: Callable, t0: torch.Tensor, z0,
                      args: Tuple, order: int, rtol: float,
-                     atol: float) -> torch.Tensor:
+                     atol: float, group=None) -> torch.Tensor:
     """Hairer I.4 'starting step size' heuristic (two evaluations of f).
 
     No Python branch reads a tensor value, so the batched solve and the
     serving engine ``torch.func.vmap`` it over rows and per-row
     tolerances (``rtol``/``atol`` then arrive as 0-d tensors). Over dtype
     groups the norms run over every group, as the reference's over every
-    leaf."""
+    leaf. With ``group`` the norms are the whole split state's."""
     scale = gmap(lambda z: atol + rtol * torch.abs(z), z0)
     f0 = f(t0, z0, *args)
-    d0 = _rms(gmap(torch.div, z0, scale))
-    d1 = _rms(gmap(torch.div, f0, scale))
+    d0 = _rms(gmap(torch.div, z0, scale), group)
+    d1 = _rms(gmap(torch.div, f0, scale), group)
     # each unselected branch divides by a value kept away from 0, so its
     # gradient cannot turn into NaN (the naive method differentiates h0)
     small = (d0 < 1e-5) | (d1 < 1e-5)
@@ -112,7 +115,8 @@ def initial_stepsize(f: Callable, t0: torch.Tensor, z0,
 
     z1 = gmap(euler, z0, f0)
     f1 = f(t0 + h0, z1, *args)
-    d2 = _rms(gmap(lambda a, b, s: (a - b) / s, f1, f0, scale)) / h0
+    d2 = _rms(gmap(lambda a, b, s: (a - b) / s, f1, f0, scale),
+              group) / h0
     dmax = torch.maximum(d1, d2)
     # Hairer I.4 step (f): h1 = (0.01 / max(d1, d2))^(1/(p+1))
     flat = dmax <= 1e-15

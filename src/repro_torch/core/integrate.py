@@ -288,14 +288,14 @@ def trial_decision(cfg: ControllerConfig, order: int, t, h_use, h_min,
     return accept, fail, uflow, t_new, hit, h_next
 
 
-def nonfinite_any(*states) -> torch.Tensor:
+def nonfinite_any(*states, group=None) -> torch.Tensor:
     """0-d bool: any of ``states`` (tensors or dtype groups) holds a NaN or
-    Inf."""
+    Inf; on any rank of ``group`` (a ``SolveGroup``) where given."""
     out = None
     for x in (g for z in states for g in gleaves(z)):
         flag = torch.any(~torch.isfinite(x))
         out = flag if out is None else out | flag
-    return out
+    return out if group is None else group.any(out)
 
 
 def nonfinite_rows(*states) -> torch.Tensor:
@@ -369,6 +369,7 @@ def adaptive_while_solve(
     checkpoint_segments: Optional[int] = None,
     interpolate_ts: bool = False,
     store_coeffs: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[Checkpoints], SolveStats]:
     """Integrate dz/dt = f(t, z, *args) through increasing times ``ts``.
 
@@ -390,6 +391,11 @@ def adaptive_while_solve(
     implies it) keeps every step's interpolant; see the module docstring.
     The natural grid's bookkeeping stays on the device: the trial loop
     reads the host as often as in the landing mode.
+
+    ``group`` (a ``distributed.regions.SolveGroup``): ``z0`` is this
+    rank's block of a state split over the group's ranks; the error norm,
+    the initial stepsize and the non-finite guard are the whole state's,
+    so every rank takes the same trials (one all-reduce a trial).
     """
     if not tab.adaptive:
         raise ValueError("adaptive_while_solve requires an embedded "
@@ -406,7 +412,8 @@ def adaptive_while_solve(
 
     hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals
     if h0 is None:
-        h0 = initial_stepsize(f, ts[0], z0, args, tab.order, rtol, atol)
+        h0 = initial_stepsize(f, ts[0], z0, args, tab.order, rtol, atol,
+                              group)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).reshape(())
 
     ys = gzeros((n_eval,), z0)
@@ -434,7 +441,8 @@ def adaptive_while_solve(
     nfe = 1 + hinit_evals
     false = torch.zeros((), dtype=torch.bool, device=dev)
     # a non-finite initial state / derivative / h0 fails before stepping
-    failed = nonfinite_any(z0, k0, h) if guard_nonfinite else false
+    failed = nonfinite_any(z0, k0, h, group=group) if guard_nonfinite \
+        else false
     uflow = false
 
     t, z = ts[0], z0
@@ -461,12 +469,12 @@ def adaptive_while_solve(
         h_use = torch.clamp(h, h_min, t_target - t)
         res = rk_step(tab, f, t, z, h_use, args, k0=k0,
                       use_pallas=use_pallas, err_scale=(rtol, atol),
-                      dense=natural)
+                      dense=natural, group=group)
         nfe += tab.stages - 1
 
         # fused path: the scaled norm came out of the combine kernel
         ratio = res.err_ratio if res.err_ratio is not None else \
-            error_ratio(res.err, z, res.z_next, rtol, atol)
+            error_ratio(res.err, z, res.z_next, rtol, atol, group)
         accept, fail, uflow_now, t_new, hit, h_next = trial_decision(
             cfg, tab.order, t, h_use, h_min, t_target, ratio, prev_ratio,
             tiny, one, big_ratio, false, guard_nonfinite)
@@ -900,6 +908,7 @@ def mali_adaptive_solve(
     cfg: ControllerConfig,
     h0: Optional[torch.Tensor] = None,
     guard_nonfinite: bool = True,
+    group=None,
 ) -> Tuple[torch.Tensor, MaliGrid, SolveStats]:
     """Adaptive asynchronous-leapfrog solve through increasing ``ts``.
 
@@ -917,6 +926,9 @@ def mali_adaptive_solve(
     from the raw field evaluation, does, and is the guard. A trial whose
     ratio is not finite is rejected, and one that stays so at ``h_min``
     freezes the solve with ``SolveStatus.NONFINITE_STATE``.
+
+    ``group``: as in ``adaptive_while_solve`` (the lattice's scale too is
+    the whole state's).
     """
     dev = gleaves(z0)[0].device
     n_eval = ts.shape[0]
@@ -925,12 +937,13 @@ def mali_adaptive_solve(
     max_total_trials = max_steps * cfg.max_trials
 
     v0 = f(ts[0], z0, *args)
-    scale_exp = alf_lattice_exponent(z0, v0)
+    scale_exp = alf_lattice_exponent(z0, v0, group)
     zq, vq = lattice_encode(z0, scale_exp), lattice_encode(v0, scale_exp)
 
     hinit_evals = 2 if h0 is None else 0  # hinit costs 2 f-evals
     if h0 is None:
-        h0 = initial_stepsize(f, ts[0], z0, args, ALF_ORDER, rtol, atol)
+        h0 = initial_stepsize(f, ts[0], z0, args, ALF_ORDER, rtol, atol,
+                              group)
     h = torch.as_tensor(h0, dtype=tdt, device=dev).reshape(())
 
     ys = gzeros((n_eval,), z0)
@@ -940,7 +953,8 @@ def mali_adaptive_solve(
     grid_oi = torch.full((max_steps,), -1, dtype=torch.int32, device=dev)
 
     false = torch.zeros((), dtype=torch.bool, device=dev)
-    failed = nonfinite_any(z0, v0, h) if guard_nonfinite else false
+    failed = nonfinite_any(z0, v0, h, group=group) if guard_nonfinite \
+        else false
     uflow = false
     nfe = 1 + hinit_evals                   # + the v0 evaluation
     t = ts[0]
@@ -964,7 +978,7 @@ def mali_adaptive_solve(
         h_use = torch.clamp(h, h_min, t_target - t)
         res = alf_step(f, t, h_use, zq, vq, scale_exp, z0, args)
         nfe += 1                            # one midpoint evaluation
-        ratio = error_ratio(res.err, z, res.z_next, rtol, atol)
+        ratio = error_ratio(res.err, z, res.z_next, rtol, atol, group)
         accept, fail, uflow_now, t_new, hit, h_next = trial_decision(
             cfg, ALF_ORDER, t, h_use, h_min, t_target, ratio, prev_ratio,
             tiny, one, big_ratio, false, guard_nonfinite)

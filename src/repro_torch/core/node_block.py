@@ -76,8 +76,12 @@ def node_block_solve(
     params: Dict[str, torch.Tensor],
     z0: Any,
     cfg: NodeConfig,
+    group: Optional[Any] = None,
 ) -> Tuple[Any, SolveStats]:
-    """``node_block_apply`` that also returns the solve's ``SolveStats``."""
+    """``node_block_apply`` that also returns the solve's ``SolveStats``.
+    ``group`` (a ``distributed.regions.SolveGroup``) declares ``z0`` this
+    rank's block of a state split over ranks (``odeint``'s ``group``): a
+    NODE block on ``RunConfig.mesh``."""
     if cfg.regime not in ("adaptive", "fixed"):
         raise ValueError(
             f"NodeConfig.regime must be 'adaptive' or 'fixed'; got "
@@ -99,6 +103,8 @@ def node_block_solve(
                   checkpoint_segments=cfg.checkpoint_segments,
                   on_failure=cfg.on_failure, mesh=cfg.mesh,
                   shard_rules=cfg.shard_rules)
+    if group is not None:
+        common["group"] = group
     if cfg.regime == "fixed":
         return odeint_final(f, z0, cfg.t0, cfg.t1, (params,),
                             solver=_fixed_solver_for(cfg.solver),

@@ -80,8 +80,11 @@ class _Problem:
 
     def __init__(self, tab, f, rtol, atol, cfg, h0, use_pallas, args_spec,
                  steps_per_interval: Optional[int] = None,
-                 checkpoint_segments=None, interpolate_ts: bool = False):
+                 checkpoint_segments=None, interpolate_ts: bool = False,
+                 group=None):
         self.tab, self.f = tab, f
+        # a SolveGroup where the state is this rank's block of a split one
+        self.group = group
         self.rtol, self.atol, self.cfg, self.h0 = rtol, atol, cfg, h0
         self.use_pallas = use_pallas
         self.args_spec = args_spec
@@ -110,9 +113,12 @@ class _Problem:
         return ungroup(list(tensors[:self.n_z])), tensors[self.n_z:]
 
     def engine_kw(self) -> dict:
-        return dict(h0=self.h0, use_pallas=self.use_pallas,
-                    checkpoint_segments=self.n_seg,
-                    interpolate_ts=self.interpolate_ts)
+        kw = dict(h0=self.h0, use_pallas=self.use_pallas,
+                  checkpoint_segments=self.n_seg,
+                  interpolate_ts=self.interpolate_ts)
+        if self.group is not None:
+            kw["group"] = self.group
+        return kw
 
 
 def _diff_args(prob: _Problem, arg_leaves: List, needs: List[bool]):
@@ -548,6 +554,7 @@ def odeint_aca(
     use_pallas: bool = False,
     checkpoint_segments=None,
     interpolate_ts: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, SolveStats]:
     """Solve dz/dt = f(t, z, *args) with ACA gradients.
 
@@ -568,7 +575,9 @@ def odeint_aca(
     reads interior eval times off each accepted step's interpolant; the
     backward replays each interval and its interpolant, so the gradient is
     still that of the computed (interpolated) solution. ``ys[0]`` and
-    ``ys[-1]`` stay exact solver states.
+    ``ys[-1]`` stay exact solver states. ``group`` (a
+    ``distributed.regions.SolveGroup``): ``z0`` is this rank's block of a
+    split state, solved on the whole state's grid.
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -580,7 +589,7 @@ def odeint_aca(
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(solver, f, rtol, atol, cfg, h0, use_pallas, spec,
                     checkpoint_segments=checkpoint_segments,
-                    interpolate_ts=interpolate_ts)
+                    interpolate_ts=interpolate_ts, group=group)
     ys = _AcaSolve.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)

@@ -22,6 +22,14 @@ trajectory by the truncation error of Theorem 3.2: the systematic
 gradient error that ACA removes. ḡ covers every floating tensor leaf of
 ``args`` whether or not it takes a gradient, as the reference's does, so
 the reverse solve's error norm (and grid) is the reference's.
+
+With a ``SolveGroup`` (``z0`` this rank's block of a state split over
+ranks, the field issuing collectives of its own) each evaluation's
+vector-Jacobian product runs on the autograd tape (``torch.autograd.
+grad``: the field's DTensors do not run under ``torch.func``), the
+parameters' cotangents come back whole-summed from the field, and the
+reverse norm weighs every element of (z̄, λ, ḡ) by its share, so the
+reverse grid is the whole state's on every rank.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from .integrate import (
     mask_failed_cotangents,
 )
 from .odeint_aca import _Problem as _AcaProblem
-from .stepper import maybe_flatten, maybe_flatten_batched
+from .stepper import flatten_problem, maybe_flatten, maybe_flatten_batched
 from .tableaus import Tableau
 
 
@@ -66,31 +74,75 @@ class _Problem(_AcaProblem):
             return fixed_grid_solve(self.tab, f, z0, ts, args,
                                     self.steps_per_interval,
                                     use_pallas=self.use_pallas)
-        up, unravel = self.use_pallas, None
+        up, unravel, group = self.use_pallas, None, self.group
         if not forward:
             flatten = maybe_flatten_batched if self.batched else \
                 maybe_flatten
+            if group is not None:
+                group = _reverse_group(group, z0)
             f, z0, unravel, up = flatten(f, z0, up)
         engine = batched_adaptive_while_solve if self.batched else \
             adaptive_while_solve
+        kw = {} if group is None else {"group": group}
         ys, _, stats = engine(self.tab, f, z0, ts, args, self.rtol,
                               self.atol, self.cfg,
                               h0=self.h0 if forward else None,
                               use_pallas=up, checkpoint=False,
-                              interpolate_ts=forward and self.interpolate_ts)
+                              interpolate_ts=forward and self.interpolate_ts,
+                              **kw)
         return (ys if unravel is None else unravel(ys)), stats
 
 
-def _aug_dynamics(f: Callable, args_of: Callable):
+def _reverse_group(group, aug):
+    """The reverse solve's group: over every mesh dim, each element of
+    the augmented state (z̄, λ, ḡ) weighted by its share (``SolveGroup.
+    args_layout``), counted once."""
+    z, lam, theta = aug
+    share = group.state_share()
+    layout = group.args_layout
+    weights = (gmap(lambda x: torch.full_like(x, share), z),
+               gmap(lambda x: torch.full_like(x, share), lam),
+               tuple(torch.full_like(x, s) for x, (s, _) in
+                     zip(theta, layout)))
+    n_z = sum(x.numel() for x in gleaves(z))
+    n_global = 2 * group.numel(n_z) + sum(n for _, n in layout)
+    flat = flatten_problem(lambda *a: None, weights)[1]
+    return group.weighted([w.float() for w in gleaves(flat)], n_global)
+
+
+def _tape_vjp(fn: Callable, z, *theta):
+    """``torch.func.vjp`` on the autograd tape: (fn(z, *θ), the pullback
+    of a cotangent of its output), for a field ``torch.func`` cannot
+    trace."""
+    zs = gmap(lambda x: x.detach().requires_grad_(), z)
+    ths = tuple(x.detach().requires_grad_() for x in theta)
+    with torch.enable_grad():
+        out = fn(zs, *ths)
+
+    def pullback(cot):
+        ins = gleaves(zs) + list(ths)
+        grads = torch.autograd.grad(gleaves(out), ins, gleaves(cot),
+                                    allow_unused=True)
+        grads = [torch.zeros_like(x) if gr is None else gr
+                 for x, gr in zip(ins, grads)]
+        n = len(gleaves(zs))
+        return (ungroup(grads[:n]), *grads[n:])
+
+    return gmap(torch.Tensor.detach, out), pullback
+
+
+def _aug_dynamics(f: Callable, args_of: Callable, on_tape: bool = False):
     """The reverse-time augmented field over s = -t: (z̄, λ, ḡ) ->
     (-f, (∂f/∂z)ᵀλ, (∂f/∂θ)ᵀλ), θ the floating args leaves. Per sample
-    under the batched engine's vmap, so ḡ is per row there."""
+    under the batched engine's vmap, so ḡ is per row there.
+    ``on_tape`` takes each product by ``_tape_vjp``."""
+    pull = _tape_vjp if on_tape else vjp
 
     def g(s, aug, *theta):
         z, lam, _ = aug
         t = -s
-        fz, pullback = vjp(lambda zz, *th: f(t, zz, *args_of(th)), z,
-                           *theta)
+        fz, pullback = pull(lambda zz, *th: f(t, zz, *args_of(th)), z,
+                            *theta)
         cots = pullback(lam)
         return (gmap(torch.neg, fz), cots[0], tuple(cots[1:]))
 
@@ -113,7 +165,7 @@ def _adjoint_backward(prob: _Problem, ys, ts, g_ys, arg_leaves: List,
             leaves[i] = x
         return prob.args(leaves)
 
-    g = _aug_dynamics(prob.f, args_of)
+    g = _aug_dynamics(prob.f, args_of, on_tape=prob.group is not None)
     rows = (gleaves(ys)[0].shape[1],) if batched else ()
     aug = (gget(ys, -1), gget(g_ys, -1),
            tuple(torch.zeros(rows + tuple(x.shape), dtype=x.dtype,
@@ -163,11 +215,11 @@ class _AdjointSolve(torch.autograd.Function):
 
 def _run(f, z0, ts, args, unravel, tab, rtol=None, atol=None, cfg=None,
          h0=None, use_pallas=False, steps_per_interval=None, batched=False,
-         interpolate_ts=False):
+         interpolate_ts=False, group=None):
     leaves, spec = pytree.tree_flatten(as_tuple(args))
     prob = _Problem(tab, f, rtol, atol, cfg, h0, use_pallas, spec,
                     steps_per_interval=steps_per_interval, batched=batched,
-                    interpolate_ts=interpolate_ts)
+                    interpolate_ts=interpolate_ts, group=group)
     ys = _AdjointSolve.apply(prob, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
@@ -194,6 +246,7 @@ def odeint_adjoint(
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
     interpolate_ts: bool = False,
+    group=None,
 ):
     """Adjoint-method odeint: O(N_f) memory, reverse-time numerical error.
     Returns (ys, stats) of the forward solve.
@@ -205,13 +258,15 @@ def odeint_adjoint(
     state, both through K1/K2. ``interpolate_ts`` puts the forward solve
     on its natural grid; the backward is unchanged (the reverse solve
     injects each output's cotangent at its ``ts[k]`` as before).
+    ``group`` (a ``distributed.regions.SolveGroup``): ``z0`` is this
+    rank's block of a split state (see the module docstring).
     """
     if cfg is None:
         cfg = ControllerConfig()
     _adaptive_only(solver)
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
     return _run(f, z0, ts, args, unravel, solver, rtol, atol, cfg, h0,
-                use_pallas, interpolate_ts=interpolate_ts)
+                use_pallas, interpolate_ts=interpolate_ts, group=group)
 
 
 def odeint_adjoint_batched(
@@ -257,10 +312,13 @@ def odeint_adjoint_fixed(
     solver: Tableau,
     steps_per_interval: int = 8,
     use_pallas: bool = False,
+    group=None,
 ):
     """Fixed-grid adjoint (the ANODE-family baseline): the augmented system
     re-integrated in reverse on the same uniform grid, O(N_f) memory; the
-    reverse z̄ still drifts from the forward one. Returns (ys, stats)."""
+    reverse z̄ still drifts from the forward one. Returns (ys, stats).
+    ``group``: as in ``odeint_adjoint`` (a fixed grid reduces nothing;
+    the field's products go on the tape)."""
     f, z0, unravel, use_pallas = maybe_flatten(f, z0, use_pallas)
     return _run(f, z0, ts, args, unravel, solver, use_pallas=use_pallas,
-                steps_per_interval=steps_per_interval)
+                steps_per_interval=steps_per_interval, group=group)

@@ -248,8 +248,10 @@ class _MaliSolve(torch.autograd.Function):
         z0, arg_leaves = prob.split(tensors)
         engine = batched_mali_adaptive_solve if batched else \
             mali_adaptive_solve
+        kw = {} if batched else {"group": prob.group}
         ys, grid, stats = engine(prob.f, z0, ts, prob.args(arg_leaves),
-                                 prob.rtol, prob.atol, prob.cfg, h0=prob.h0)
+                                 prob.rtol, prob.atol, prob.cfg, h0=prob.h0,
+                                 **kw)
         prob.stats = stats
         ctx.prob, ctx.batched, ctx.ts = prob, batched, ts
         _save_grid(ctx, grid, z0)
@@ -272,13 +274,15 @@ class _MaliSolve(torch.autograd.Function):
         return (None, None, None, *gleaves(dz0), *dargs)
 
 
-def _solve(f, z0, ts, args, rtol, atol, cfg, h0, use_pallas, batched):
+def _solve(f, z0, ts, args, rtol, atol, cfg, h0, use_pallas, batched,
+           group=None):
     if cfg is None:
         cfg = ControllerConfig()
     flatten = maybe_flatten_batched if batched else maybe_flatten
     f, z0, unravel, use_pallas = flatten(f, z0, use_pallas)
     leaves, spec = pytree.tree_flatten(as_tuple(args))
-    prob = _Problem(None, f, rtol, atol, cfg, h0, use_pallas, spec)
+    prob = _Problem(None, f, rtol, atol, cfg, h0, use_pallas, spec,
+                    group=group)
     ys = _MaliSolve.apply(prob, batched, ts, *prob.inputs(z0, leaves))
     if unravel is not None:
         ys = unravel(ys)
@@ -296,6 +300,7 @@ def odeint_mali(
     cfg: Optional[ControllerConfig] = None,
     h0: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
+    group=None,
 ) -> Tuple[Any, SolveStats]:
     """Solve dz/dt = f(t, z, *args) with MALI gradients (no state buffer,
     the exact reverse reconstruction).
@@ -306,10 +311,12 @@ def odeint_mali(
     integrator is the second-order ALF pair stepper (``odeint``'s
     ``solver="alf"``). ``use_pallas`` ravels the state once per solve and
     runs the backward's half-drifts through kernel K1; the forward's
-    lattice updates are integer tensor arithmetic either way.
+    lattice updates are integer tensor arithmetic either way. ``group``
+    (a ``distributed.regions.SolveGroup``): ``z0`` is this rank's block of
+    a split state, solved on the whole state's grid and lattice.
     """
     return _solve(f, z0, ts, args, rtol, atol, cfg, h0, use_pallas,
-                  batched=False)
+                  batched=False, group=group)
 
 
 def odeint_mali_batched(

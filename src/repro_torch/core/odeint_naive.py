@@ -107,6 +107,7 @@ def odeint_naive(
     use_pallas: bool = False,
     h0: Optional[torch.Tensor] = None,
     interpolate_ts: bool = False,
+    group=None,
 ):
     """Differentiable adaptive solve (naive method); returns (ys, stats).
 
@@ -121,6 +122,10 @@ def odeint_naive(
     at its last accepted state (``SolveStatus.NONFINITE_STATE``), the
     un-reached outputs repeat it off the tape. The failing trial stays on
     the tape, so gradients after a fault need not be finite.
+
+    ``group`` (a ``distributed.regions.SolveGroup``): ``z0`` is this
+    rank's block of a split state; the norms and the guard are the whole
+    state's (differentiable sums), so every rank takes the same trials.
     """
     if cfg is None:
         cfg = ControllerConfig()
@@ -138,7 +143,8 @@ def odeint_naive(
     one = torch.ones((), dtype=tdt, device=dev)
 
     if h0 is None:
-        h = initial_stepsize(f, ts[0], z0, targs, solver.order, rtol, atol)
+        h = initial_stepsize(f, ts[0], z0, targs, solver.order, rtol, atol,
+                             group)
     else:
         h = torch.as_tensor(h0, device=dev)
     h = h.to(tdt).reshape(())
@@ -147,7 +153,7 @@ def odeint_naive(
     prev_ratio = torch.ones((), dtype=torch.float32, device=dev)
     ys: List[Optional[torch.Tensor]] = [z0] + [None] * (n_eval - 1)
     eval_idx, n_acc, trials = 1, 0, 0
-    failed = bool(nonfinite_any(gdetach(z0), h.detach()))
+    failed = bool(nonfinite_any(gdetach(z0), h.detach(), group=group))
     uflow = False
     natural = interpolate_ts
     # one host read per trial: the trial's decisions
@@ -160,12 +166,13 @@ def odeint_naive(
         h_use = _trial_step(h, h_min, t, t_target)
         # no first-stage reuse: the whole trial goes on the tape
         res = rk_step(solver, f, t, z, h_use, targs, use_pallas=use_pallas,
-                      err_scale=(rtol, atol), dense=natural)
+                      err_scale=(rtol, atol), dense=natural, group=group)
         ratio = res.err_ratio if res.err_ratio is not None else \
-            error_ratio(res.err, z, res.z_next, rtol, atol)
+            error_ratio(res.err, z, res.z_next, rtol, atol, group)
         railed = h_use <= h_min * (1 + 1e-3)
         # detection reads detached values: no edges added to the tape
-        bad = nonfinite_any(gdetach(res.z_next), ratio.detach())
+        bad = nonfinite_any(gdetach(res.z_next), ratio.detach(),
+                            group=group)
         accept = ((ratio <= 1.0) | railed) & ~bad
         t_new = t + h_use
         hit = accept & _hit(t_new, t_target, tiny, one)

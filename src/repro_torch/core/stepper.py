@@ -242,7 +242,7 @@ def maybe_flatten(f: VecField, z0: Any, use_pallas: bool):
 def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
                   args: Tuple, k0: Optional[torch.Tensor],
                   err_scale: Optional[Tuple[float, float]],
-                  dense: bool = False) -> StepResult:
+                  dense: bool = False, group=None) -> StepResult:
     """Fused-kernel ψ over a flat (N,) state (see module docstring)."""
     k0v = k0 if k0 is not None else f(t, z, *args)
     stages = [k0v]
@@ -271,10 +271,19 @@ def _rk_step_flat(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
         rtol, atol = err_scale
         # with_err=False: the accept/reject loop reads only z_next and the
         # fused norm, so the (N,) err buffer is never written
+        weighted = group is not None and group.weights is not None
         z_next, err, sq_sum = ops.rk_stage_combine_err(
             z, rows(tab.stages), h, tab.b, tab.b_err, rtol, atol,
-            with_err=False)
-        ratio = sqrt0(sq_sum / torch.full_like(sq_sum, z.numel()))
+            with_err=weighted)
+        if weighted:
+            # a weighted group's norm weighs each element: from the err
+            ratio = error_ratio(err, z, z_next, rtol, atol, group)
+            err = None
+        elif group is not None:
+            ratio = sqrt0(group.sum(sq_sum) / torch.full_like(
+                sq_sum, group.numel(z.numel())))
+        else:
+            ratio = sqrt0(sq_sum / torch.full_like(sq_sum, z.numel()))
     else:
         # no consumer for err here (the ACA replay reads only z_next): the
         # solution combine is K1 with the b row, without the err store
@@ -293,7 +302,7 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
             args: Tuple = (), k0: Optional[torch.Tensor] = None, *,
             use_pallas: bool = False,
             err_scale: Optional[Tuple[float, float]] = None,
-            dense: bool = False) -> StepResult:
+            dense: bool = False, group=None) -> StepResult:
     """One explicit RK step of ``tab`` from (t, z) with stepsize h.
 
     ``k0`` optionally supplies the first stage derivative (FSAL). Returns
@@ -306,9 +315,12 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
     ``dense=True`` also returns ``interp_fit``'s inputs: ``k_first`` and,
     for tableaus with ``b_mid``, ``z_mid`` (one more K1 launch on the
     fused path). z_next is bitwise the same with and without ``dense``.
+    ``group`` (a ``distributed.regions.SolveGroup``, the state split over
+    ranks) makes the fused norm global.
     """
     if use_pallas and _is_flat(z):
-        return _rk_step_flat(tab, f, t, z, h, args, k0, err_scale, dense)
+        return _rk_step_flat(tab, f, t, z, h, args, k0, err_scale, dense,
+                             group)
     ks = []
     for i in range(tab.stages):
         if i == 0:
@@ -331,20 +343,26 @@ def rk_step(tab: Tableau, f: VecField, t, z: torch.Tensor, h,
                       k_first=ks[0] if dense else None, z_mid=z_mid)
 
 
-def error_ratio(err, z0, z1, rtol: float, atol: float) -> torch.Tensor:
+def error_ratio(err, z0, z1, rtol: float, atol: float,
+                group=None) -> torch.Tensor:
     """RMS norm of err scaled by atol + rtol*max(|z0|,|z1|) (Hairer I.4).
 
     Returns a 0-d f32 tensor; an accepted step has ratio <= 1. Over dtype
     groups each group's scaled error is formed in its dtype, cast to f32
-    and squared, and the f32 sums add up over the groups.
+    and squared, and the f32 sums add up over the groups. With ``group``
+    (a ``SolveGroup``: the state split over ranks) the sum and the count
+    are the whole state's.
     """
     total, n = None, 0
-    for e, a, b in zip(gleaves(err), gleaves(z0), gleaves(z1)):
+    for i, (e, a, b) in enumerate(zip(gleaves(err), gleaves(z0),
+                                      gleaves(z1))):
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).float()
-        part = torch.sum(r * r)
+        part = torch.sum(r * r) if group is None else group.sum_sq(i, r)
         total = part if total is None else total + part
         n += r.numel()
+    if group is not None:
+        total, n = group.sum(total), group.numel(n)
     return sqrt0(total / torch.full_like(total, n))
 
 
@@ -656,17 +674,20 @@ def _ceil_log2(x: torch.Tensor) -> torch.Tensor:
     return (e - (m == 0.5).to(e.dtype)).to(torch.float32)
 
 
-def alf_lattice_exponent(z0: Any, v0: Any) -> torch.Tensor:
+def alf_lattice_exponent(z0: Any, v0: Any, group=None) -> torch.Tensor:
     """The per-solve lattice scale exponent ⌈log₂ max(|z0|, |v0|, 1)⌉: one
     0-d f32 tensor shared by every leaf (the quantum is δ_leaf =
     2^(scale_exp − frac(dtype))). The int32 lattice spans ±128× the
     initial scale at one f32 ulp of it; states far beyond wrap
-    (deterministically; the error test rejects such steps first)."""
+    (deterministically; the error test rejects such steps first). With
+    ``group`` the max is the whole split state's."""
     leaves = pytree.tree_leaves(z0) + pytree.tree_leaves(v0)
     mx = torch.ones((), dtype=torch.float32, device=leaves[0].device)
     for leaf in leaves:
         if leaf.numel():
             mx = torch.maximum(mx, torch.abs(leaf.float()).max())
+    if group is not None:
+        mx = group.max(mx)
     return _ceil_log2(mx)
 
 

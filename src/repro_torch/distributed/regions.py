@@ -187,3 +187,96 @@ def block_offset(region: Region, placements: Sequence[Any], dim: int,
             block = block * region.size(n) + region.coord(n)
     return block * local_size
 
+
+
+class SolveGroup:
+    """The ranks over which one solve's state is split into blocks: a NODE
+    block's residual stream on a mesh, each rank holding its batch block
+    (``Region.enter``) and solving it on plain tensors. Every global
+    reduction the solver makes goes through the group, so every rank
+    takes the grid the whole state would take, trial for trial:
+
+    * ``sum(t)`` — ``t`` summed over ``dims`` (the error norm's and the
+      RMS norms' f32 partials); with autograd where ``t`` carries it
+      (the naive method differentiates the norms): each rank's part gets
+      the sum of every rank's gradient;
+    * ``any(flag)`` / ``max(t)`` — a 0-d flag or value over ``dims``
+      (the non-finite guard, the MALI lattice's scale, a status code);
+    * ``numel(n)`` — the global count behind a local count ``n``.
+
+    ``args_layout`` names, for each floating leaf of the solve's
+    ``args`` (the block's parameters, local blocks), its share and its
+    global size: the share is 1 over the number of ranks that hold the
+    same block (1 where the leaf is split over every mesh dim). The
+    adjoint's reverse state carries the parameters' cotangent ḡ beside
+    the split state; ``weighted`` gives its group: over every mesh dim,
+    with ``weights`` (one f32 tensor per dtype group of the raveled
+    state: each element's share) and ``n_global`` the count of distinct
+    elements. Each collective counts in ``counts``. On a one-rank group
+    every reduction returns its input's value, so a one-rank solve is the
+    mesh-less one's bit for bit."""
+
+    def __init__(self, mesh: Any, dims: Sequence[str], weights=None,
+                 n_global: int = 0, args_layout=None):
+        self.mesh = mesh
+        self.dims = tuple(dims)
+        self.weights = weights
+        self.n_global = n_global
+        self.args_layout = args_layout
+        sizes = mesh_shape(mesh)
+        self.shards = 1
+        for d in self.dims:
+            self.shards *= sizes[d]
+
+    def _groups(self):
+        return [self.mesh.get_group(d) for d in self.dims]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        if t.requires_grad:
+            from torch.distributed.nn.functional import all_reduce
+
+            for g in self._groups():
+                t = all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+                counts["all_reduce_sum"] += 1
+            return t
+        t = t.detach().clone()
+        for g in self._groups():
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+            counts["all_reduce_sum"] += 1
+        return t
+
+    @torch.no_grad()
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t = t.detach().clone()
+        for g in self._groups():
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+            counts["all_reduce_max"] += 1
+        return t
+
+    def any(self, flag: torch.Tensor) -> torch.Tensor:
+        return self.max(flag.to(torch.int32)) > 0
+
+    def numel(self, n: int) -> int:
+        return self.n_global if self.weights is not None \
+            else n * self.shards
+
+    def sum_sq(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The local sum of squares of dtype group ``i``'s f32 ``x``,
+        weighted where the group carries weights."""
+        if self.weights is None:
+            return torch.sum(x * x)
+        return torch.sum(x * x * self.weights[i])
+
+    def state_share(self) -> float:
+        """The share of an element of the split state in a sum over every
+        mesh dim: the state is whole over the dims it is not split on."""
+        return self.shards / self.mesh.size()
+
+    def weighted(self, weights, n_global: int) -> "SolveGroup":
+        """The group over every mesh dim with per-element ``weights``."""
+        return SolveGroup(self.mesh, tuple(mesh_shape(self.mesh)), weights,
+                          n_global)

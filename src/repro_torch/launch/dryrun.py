@@ -13,6 +13,8 @@ needed::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_72b \\
         --shape train_4k [--multi-pod]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all \
+        --shape train_4k --node | --remat none
 
 Each cell writes ``results/dryrun_torch/<mesh>/<arch>__<shape>.json``
 with the memory analysis (``argument_bytes``: the rank's local state,
@@ -21,14 +23,19 @@ bytes the step allocates, outputs included; ``generated_code_bytes``:
 null, there is no compiled program), ``trace_s`` and the roofline terms
 (``launch/roofline.py``).
 
-The port has no ``remat`` (``RunConfig`` leaves it out: an eager stack
-keeps no compiled graph to rematerialize), so a train cell's temp bytes
-hold every activation the backward saves, without recompute; and it
-runs no NODE stack on a mesh. ``--remat block`` and ``--node`` (with
-its ``--node-steps``) raise ``NotImplementedError`` rather than report
-another program. The cells count the plain route; ``build_cell(...,
-use_pallas=True)`` builds the serving kernels' route, which the card
-check counts against a real run.
+``--remat`` (default ``block``, as the reference's) sets a train cell's
+``RunConfig.remat``: under ``block`` each layer group's activations are
+recomputed in the backward (``torch.utils.checkpoint``), so the cell
+counts one more forward of the groups and holds fewer temp bytes; other
+kinds run ``none``. ``--node`` runs the stack's blocks as NODE blocks in
+train cells, the reference's fixed rk2 ACA grid of ``--node-steps``
+steps (default 2): each rank solves its batch block of the residual
+stream (``models/transformer.py``); the report's ``node_mode`` and
+``remat`` carry the settings, and a ``--node`` cell saves under
+``__node`` unless ``--tag`` names it. The cells count the plain route;
+``build_cell(..., use_pallas=True)`` builds the kernels' route (K7-K10
+in serving, K1/K2 in NODE blocks), which the card check counts against
+a real run.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, shape_plan
+from repro_torch.core.node_block import NodeConfig
 from repro_torch.distributed.sharding import (DEFAULT_TRAIN_RULES,
                                               mesh_shape, placements_for)
 from repro_torch.launch import roofline as rl
@@ -59,13 +67,15 @@ RESULTS_DIR = os.path.normpath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..",
     "results", "dryrun_torch"))
 
-REMAT_MISSING = (
-    "--remat block: the port has no remat (RunConfig leaves out scan_layers "
-    "and remat; ROADMAP queue 1 item 6, 'remat'), so a train cell runs "
-    "without recompute; pass --remat none")
-NODE_MISSING = (
-    "--node: a NODE stack on a mesh is not ported (ROADMAP queue 1 item 5: "
-    "NODE blocks under RunConfig.mesh, models/lm.py::Model._run)")
+
+
+def node_config(node: bool, node_steps: int = 2) -> NodeConfig:
+    """The reference's NODE cells: a fixed rk2 ACA grid of ``node_steps``
+    steps a block (``NodeConfig()`` without ``node``)."""
+    if not node:
+        return NodeConfig()
+    return NodeConfig(enabled=True, regime="fixed", grad_method="aca",
+                      solver="rk2", steps_per_interval=node_steps)
 
 
 def fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
@@ -187,22 +197,21 @@ class Cell:
     cfg: Any
     plan: Tuple[int, int, str]
     fake_mode: Any
+    remat: str = "none"
 
 
 def build_cell(arch: str, shape: str, mesh, *, node: bool = False,
-               rules=None, remat: str = "none", microbatches: int = 1,
-               config=None,
+               rules=None, remat: str = "block", microbatches: int = 1,
+               node_steps: int = 2, config=None,
                plan: Optional[Tuple[int, int, str]] = None,
                use_pallas: bool = False, device="cpu",
                max_seq: Optional[int] = None) -> Optional[Cell]:
     """The cell's step and its fake arguments, or None when the shape
-    skips the arch. ``config`` and ``plan`` (seq, global batch, kind)
-    override the registry's (the tests' smoke cells), ``max_seq`` the KV
-    capacity (default: the cell's sequence length)."""
-    if remat != "none":
-        raise NotImplementedError(REMAT_MISSING)
-    if node:
-        raise NotImplementedError(NODE_MISSING)
+    skips the arch. ``remat`` applies to train cells only and ``node``
+    (with ``node_steps``, ``node_config``) to their blocks. ``config`` and
+    ``plan`` (seq, global batch, kind) override the registry's (the
+    tests' smoke cells), ``max_seq`` the KV capacity (default: the cell's
+    sequence length)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.optim import adamw, cosine_warmup
@@ -221,7 +230,9 @@ def build_cell(arch: str, shape: str, mesh, *, node: bool = False,
                      param_dtype=torch.float32 if kind == "train"
                      else torch.bfloat16,
                      max_seq=seq if max_seq is None else max_seq,
-                     use_pallas=use_pallas)
+                     use_pallas=use_pallas,
+                     remat=remat if kind == "train" else "none",
+                     node=node_config(node, node_steps))
     model = build_model(cfg, rcfg)
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     dev = torch.device(device)
@@ -245,7 +256,7 @@ def build_cell(arch: str, shape: str, mesh, *, node: bool = False,
                                  dev)
             fn, args = model.decode_step, (params, batch, caches, seq - 1)
     return Cell(fn=fn, args=args, cfg=cfg, plan=(seq, gb, kind),
-                fake_mode=fake)
+                fake_mode=fake, remat=rcfg.remat)
 
 
 def count_cell(cell: Cell) -> Tuple[OpCost, Any, float]:
@@ -259,23 +270,20 @@ def count_cell(cell: Cell) -> Tuple[OpCost, Any, float]:
 
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
-             node: bool = False, rules=None, remat: str = "none",
-             microbatches: int = 1, save: bool = True, tag: str = "",
-             mesh=None, config=None, plan=None,
+             node: bool = False, rules=None, remat: str = "block",
+             microbatches: int = 1, node_steps: int = 2, save: bool = True,
+             tag: str = "", mesh=None, config=None, plan=None,
              device="cpu") -> Optional[Dict[str, Any]]:
     """Count one cell on ``mesh`` (default: the production mesh on a fake
     group) and return (and save) its report."""
-    if remat != "none":
-        raise NotImplementedError(REMAT_MISSING)
-    if node:
-        raise NotImplementedError(NODE_MISSING)
     if mesh is None:
         mesh = production_mesh(multi_pod, torch.device(device).type)
     elif isinstance(mesh, str) and mesh == "none":   # mesh-less
         mesh = None
     n_dev = 1 if mesh is None else mesh.size()
-    cell = build_cell(arch, shape, mesh, rules=rules,
-                      microbatches=microbatches, config=config, plan=plan,
+    cell = build_cell(arch, shape, mesh, node=node, rules=rules,
+                      remat=remat, microbatches=microbatches,
+                      node_steps=node_steps, config=config, plan=plan,
                       device=device)
     if cell is None:
         return {"arch": arch, "shape": shape, "skipped": True,
@@ -287,7 +295,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "arch": arch, "shape": shape, "kind": kind,
         "mesh": mesh_name(mesh),
         "node_mode": node,
-        "remat": "none",
+        "remat": cell.remat,
         "seq": seq, "global_batch": gb,
         "n_devices": n_dev,
         "trace_s": round(trace_s, 2),
@@ -305,7 +313,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     if save:
         d = os.path.join(RESULTS_DIR, result["mesh"])
         os.makedirs(d, exist_ok=True)
-        suffix = f"__{tag}" if tag else ""
+        suffix = f"__{tag}" if tag else ("__node" if node else "")
         with open(os.path.join(d, f"{arch}__{shape}{suffix}.json"),
                   "w") as f:
             json.dump(result, f, indent=1)
@@ -319,15 +327,11 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--node", action="store_true",
-                    help="continuous-depth (NODE/ACA) train mode: not "
-                         "ported on a mesh, raises")
-    ap.add_argument("--remat", default="none", choices=["none", "block"],
-                    help="block: not ported, raises")
+                    help="continuous-depth (NODE/ACA) train mode")
+    ap.add_argument("--remat", default="block", choices=["none", "block"])
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--node-steps", type=int, default=None,
-                    help="steps of a NODE block (--node): not ported, "
-                         "raises")
+    ap.add_argument("--node-steps", type=int, default=2)
     ap.add_argument("--override", action="append", default=[],
                     help="logical=axis sharding-rule override, e.g. "
                          "res_seq=model or embed=none (repeatable)")
@@ -346,22 +350,21 @@ def main(argv=None):
             if arch == "node18_cifar":
                 continue        # covered by the dedicated --node rows
             for shape in SHAPES:
-                cells.append((arch, shape))
+                # --shape with --all sweeps the archs at that shape
+                if args.shape in (None, shape):
+                    cells.append((arch, shape))
     else:
         if not (args.arch and args.shape):
             raise ValueError("dryrun: pass --arch and --shape, or --all")
         cells.append((args.arch, args.shape))
-    if args.remat != "none":
-        raise NotImplementedError(REMAT_MISSING)
-    if args.node or args.node_steps is not None:
-        raise NotImplementedError(NODE_MISSING)
-
     mesh = production_mesh(args.multi_pod)
     n_fail = 0
     for arch, shape in cells:
         try:
-            r = run_cell(arch, shape, mesh=mesh, rules=rules,
-                         microbatches=args.microbatches, tag=args.tag)
+            r = run_cell(arch, shape, mesh=mesh, node=args.node,
+                         remat=args.remat, rules=rules,
+                         microbatches=args.microbatches,
+                         node_steps=args.node_steps, tag=args.tag)
             if r.get("skipped"):
                 print(f"[skip] {arch} × {shape}: {r['reason']}")
                 continue

@@ -8,17 +8,19 @@ same-family config in f32; without it the full config is built in bf16
 compute. ``--node`` turns every block into an ODE block (fixed grid, two
 rk2 steps, ``--grad-method``); frontend archs (vlm, audio) are fed
 ``frontend_batch_synthetic`` batches, the others ``TokenPipeline``'s.
-Checkpoints go to ``--ckpt-dir`` (atomic, auto-resumed).
+Checkpoints go to ``--ckpt-dir`` (atomic, auto-resumed); the loss is
+logged every 10 steps, and at the end of a shorter run.
 
 ``--mesh`` trains on the reference's elastic mesh: run under torchrun,
 one process a rank (``init_distributed``: NCCL on cards, gloo with
 ``--device cpu``), a ``(pod, data, model=1)`` mesh over the live world
 (``make_elastic_mesh(model_parallel=1)``), parameters, optimizer moments
 and activations placed on it by the logical-axis rules; every rank draws
-the same global batch and keeps its rows::
+the same global batch and keeps its rows. With ``--node`` each rank
+solves its rows' NODE blocks on the whole batch's grid::
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train \
-        --arch node18_cifar --smoke --mesh --device cpu
+        --arch node18_cifar --smoke --mesh --node --device cpu
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def main(argv=None) -> None:
     lcfg = TrainLoopConfig(microbatches=args.microbatches,
                            compression=args.compression,
                            ckpt_dir=args.ckpt_dir, ckpt_every=100,
-                           log_every=10)
+                           log_every=min(10, args.steps))
     state = make_train_state(model, opt, seed=0, device=dev)
     loop = TrainLoop(model, opt, lcfg, state)
     loop.run(batch_fn, args.steps,

@@ -4,7 +4,7 @@
 architecture in ``repro_torch.configs``). ``RunConfig`` keeps what the
 ported paths read, the reference's sharding knobs included: ``mesh`` (a
 torch ``DeviceMesh``), ``rules`` (its logical-axis rules),
-``decode_seq_shard`` and ``zero1``.
+``decode_seq_shard`` and ``zero1``, and the activation policy ``remat``.
 """
 
 from __future__ import annotations
@@ -84,6 +84,9 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
+REMAT_POLICIES = ("none", "block")
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """How a model runs.
@@ -109,11 +112,17 @@ class RunConfig:
     over ``model`` (flash-decode) when ``decode_seq_shard``. The optimizer
     moments always carry their parameters' placements (ZeRO); ``zero1`` is
     kept as the reference declares it, and, as there, nothing reads it.
-    A NODE stack (``node.enabled``) on a mesh raises.
+    A NODE stack (``node.enabled``) on a mesh solves each block per rank
+    on its batch block (``models/transformer.py``).
 
-    The reference's ``scan_layers`` and ``remat`` have no meaning in an
-    eager stack (the port loops over the layer groups in Python and keeps
-    no compiled graph), so they are left out.
+    ``remat`` is the reference's activation policy: ``"none"``, or
+    ``"block"``, under which a train step recomputes each layer group's
+    activations in the backward (``torch.utils.checkpoint`` around the
+    group's body, NODE blocks included), where the reference's default
+    ``scan_layers=True`` checkpoints its scan body; with one group, and
+    for the tail, nothing is recomputed, as there. ``scan_layers`` is left
+    out: an eager stack loops over the groups in Python and has nothing to
+    scan.
     """
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -125,6 +134,13 @@ class RunConfig:
     rules: AxisRules = DEFAULT_TRAIN_RULES
     decode_seq_shard: bool = True         # flash-decode over the mesh
     zero1: bool = True                    # read nowhere, as in the reference
+    remat: str = "none"                   # none | block (activation ckpt)
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(
+                f"RunConfig.remat must be one of {REMAT_POLICIES}; got "
+                f"{self.remat!r}")
 
     def with_(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -230,12 +230,6 @@ class Model:
     def _run(self, params: Tree, batch: Dict[str, torch.Tensor], mode: str,
              caches: Optional[Tree], positions: Optional[torch.Tensor],
              last_only: bool):
-        if mode == "train" and self.rcfg.node.enabled \
-                and self.rcfg.mesh is not None:
-            raise NotImplementedError(
-                "a NODE stack (RunConfig.node.enabled) on RunConfig.mesh is "
-                "not ported yet (ROADMAP: NODE blocks under RunConfig.mesh); "
-                "a NODE block's own batch mesh is NodeConfig.mesh")
         x = _embed(params, batch, self.cfg, self.rcfg)
         y, new_caches, aux = stack_apply(
             params["stack"], x, self.cfg, self.rcfg, mode=mode,

@@ -22,6 +22,24 @@ reach the stacked leaves through them). ``rcfg.use_pallas`` turns on the
 fused solver path of every NODE block (K1/K2; K3/K4 under
 ``batch_axis=0``). Prefill and decode stay discrete, as in the reference.
 
+On ``rcfg.mesh`` a NODE block runs in a per-rank region
+(``_node_block_on_mesh``): each rank solves its batch block of the
+residual stream on plain tensors, so K1-K4 launch on it. With
+``batch_axis=None`` (lockstep, one grid for the whole batch) the field
+wraps the block back into a DTensor and runs the block on the sharded
+parameters, and every reduction of the solver is summed over the batch
+ranks (``distributed.regions.SolveGroup``): every rank takes the whole
+batch's trials, so the field's collectives (FSDP gathers, tensor-parallel
+reductions, the MoE dispatch) match on every rank. With ``batch_axis=0``
+each row is whole on one rank: the field runs the mesh-less block on the
+parameters gathered whole once a block (the per-sample field runs under
+``torch.func.vmap``, which DTensors do not), and issues no collective.
+
+``rcfg.remat == "block"`` runs each layer group's body of a train step
+under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, NODE blocks included, as the reference's
+``jax.checkpoint`` over its scanned groups; the tail never is.
+
 ``TransformerBlock`` is the node18 block as a module (``block_apply`` of
 kind ``attn`` over parameters named by the reference's keys, ``norm1.w``,
 ``mixer.wq``, …, ``ffn.w_out``, so that ``convert.params_from_jax`` loads
@@ -38,10 +56,14 @@ import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.integrate import SolveStats
 from repro_torch.core.node_block import NodeConfig, node_block_solve
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import BatchShard
+from repro_torch.distributed.regions import Region, SolveGroup, mesh_context
+from repro_torch.distributed.sharding import mesh_shape
 
 from .attention import attention_apply, attn_defs
 from .common import (ParamDef, Tree, apply_norm, map_defs, norm_defs,
@@ -157,6 +179,8 @@ def _node_block(p: Tree, x: torch.Tensor, cfg: ModelConfig,
     ncfg = rcfg.node
     if rcfg.use_pallas and not ncfg.use_pallas:
         ncfg = dataclasses.replace(ncfg, use_pallas=True)
+    if rcfg.mesh is not None:
+        return _node_block_on_mesh(p, x, cfg, rcfg, kind, positions, ncfg)
     if ncfg.batch_axis is None:
         def fn(pp, z, t):
             return block_apply(pp, z, cfg, rcfg, kind,
@@ -171,6 +195,73 @@ def _node_block(p: Tree, x: torch.Tensor, cfg: ModelConfig,
             f"NODE blocks batch over the stack's batch axis 0; got "
             f"batch_axis={ncfg.batch_axis}")
     return node_block_solve(fn, p, x, ncfg)
+
+
+def _share(placements, sizes) -> float:
+    """1 over the number of ranks that hold the same block of a tensor
+    placed by ``placements``."""
+    rep = 1
+    for p, n in zip(placements, sizes):
+        if not p.is_shard():
+            rep *= n
+    return 1.0 / rep
+
+
+def _node_block_on_mesh(p: Tree, x, cfg: ModelConfig, rcfg: RunConfig,
+                        kind: str, positions: Optional[torch.Tensor],
+                        ncfg: NodeConfig) -> Tuple[torch.Tensor, SolveStats]:
+    """``_node_block`` on ``rcfg.mesh`` (see the module docstring): ``x``
+    a DTensor, its batch split over the data dims; returns z(1) with
+    ``x``'s placements and the stats, the same on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = rcfg.mesh
+    x_pl = tuple(x.placements)
+    r = Region.over(mesh, x_pl)
+    z0 = r.enter(x, x_pl)
+    leaves, spec = pytree.tree_flatten(p)
+    split = [n for n, q in zip(r.names, x_pl) if q.is_shard()]
+    if ncfg.batch_axis is None:
+        # the FSDP gather of the block's weights over the batch dims, once
+        # a solve (every evaluation reads them); tensor-parallel splits stay
+        pls = [tuple(Replicate() if n in split else q
+                     for n, q in zip(r.names, v.placements))
+               for v in leaves]
+        leaves = [v.redistribute(mesh, pl) for v, pl in zip(leaves, pls)]
+        sizes = list(mesh_shape(mesh).values())
+        group = SolveGroup(mesh, split, args_layout=[
+            (_share(pl, sizes), v.numel()) for v, pl in zip(leaves, pls)])
+
+        def fn(pp, z, t):
+            with mesh_context(mesh):
+                pd = pytree.tree_unflatten(
+                    [DTensor.from_local(v, mesh, pl, run_check=False)
+                     for v, pl in zip(pytree.tree_leaves(pp), pls)], spec)
+                zd = r.leave(z, x_pl)
+                y = block_apply(pd, zd, cfg, rcfg, kind,
+                                positions=positions)[0] - zd
+                return y.redistribute(mesh, x_pl).to_local()
+
+        local = pytree.tree_unflatten([v.to_local() for v in leaves], spec)
+        z1, stats = node_block_solve(fn, local, z0, ncfg, group=group)
+    elif ncfg.batch_axis in (0, -x.dim()):
+        whole = tuple(Replicate() for _ in r.names)
+        pw = pytree.tree_unflatten([r.enter(v, whole) for v in leaves], spec)
+        plain = rcfg.with_(mesh=None)
+
+        def fn(pp, z, t):
+            return block_apply(pp, z.unsqueeze(0), cfg, plain, kind,
+                               positions=positions)[0][0] - z
+
+        z1, stats = node_block_solve(fn, pw, z0, ncfg)
+        # every rank reports every row's stats, in the batch's order
+        shard = BatchShard(mesh, split, x.shape[0])
+        stats = SolveStats(*shard.gather_rows(list(stats), 0))
+    else:
+        raise ValueError(
+            f"NODE blocks batch over the stack's batch axis 0; got "
+            f"batch_axis={ncfg.batch_axis}")
+    return r.leave(z1, x_pl), stats
 
 
 # ----------------------------------------------------------------------------
@@ -246,22 +337,33 @@ def stack_apply(params: Tree, x: torch.Tensor, cfg: ModelConfig,
 
     In NODE mode (train mode, ``rcfg.node.enabled``) every block is an ODE
     block, its aux loss zero as in the reference; ``node_stats``, when a
-    list, receives (key, group index or None, SolveStats) per block."""
+    list, receives (key, group index or None, SolveStats) per block, once
+    (a ``remat`` recompute records nothing).
+
+    ``rcfg.remat == "block"`` in a train step with autograd on (and more
+    than one group, as the reference's scan): each group's body runs under
+    ``torch.utils.checkpoint``."""
     node = rcfg.node.enabled and mode == "train"
     unit, n_groups, tail = stack_plan(cfg)
     aux_total = torch.zeros((), device=x.device)
     fresh: Dict[str, List[Tree]] = {}
 
-    def one(p, x, key, i, kind, c):
+    def one(p, x, key, i, kind, c, record=True):
         if node:
             z, stats = _node_block(p, x, cfg, rcfg, kind, positions)
-            if node_stats is not None:
+            if node_stats is not None and record:
                 node_stats.append((key, i, stats))
             return z, None, torch.zeros((), device=x.device)
         return block_apply(p, x, cfg, rcfg, kind, mode=mode,
                            positions=positions, cache=c)
 
+    remat = (rcfg.remat == "block" and mode == "train" and n_groups > 1
+             and torch.is_grad_enabled())
     for i in range(n_groups):
+        if remat:
+            x, aux = _remat_group(one, unit, params, x, i, rcfg)
+            aux_total = aux_total + aux
+            continue
         for j, kind in enumerate(unit):
             key = f"u{j}_{kind}"
             c = _index(caches[key], i) if caches is not None else None
@@ -280,6 +382,33 @@ def stack_apply(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     if mode == "decode":
         return x, caches, aux_total
     return x, (new_caches if mode == "prefill" else None), aux_total
+
+
+def _remat_group(one, unit, params: Tree, x, i: int, rcfg: RunConfig):
+    """Group ``i`` of a train step under ``torch.utils.checkpoint``
+    (non-reentrant): (its output, its aux loss). The group's parameter
+    views are taken inside, so the recompute re-slices them; only the
+    first pass records NODE stats. The recompute runs the body to its
+    end (no early stop at the last saved tensor), so a step costs one
+    more forward of the groups, as the dry run counts it."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    first = [True]
+
+    def body(x):
+        with mesh_context(rcfg.mesh):
+            aux_g = torch.zeros((), device=x.device)
+            for j, kind in enumerate(unit):
+                key = f"u{j}_{kind}"
+                x, _, aux = one(_index(params[key], i), x, key, i, kind,
+                                None, record=first[0])
+                aux_g = aux_g + aux
+            first[0] = False
+            return x, aux_g
+
+    with set_checkpoint_early_stop(False):
+        return checkpoint(body, x, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 # ----------------------------------------------------------------------------

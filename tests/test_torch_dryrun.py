@@ -2,9 +2,14 @@
 
 * ``main`` without ``--arch``/``--shape`` or ``--all`` raises the
   reference's ValueError (``tests/test_sharding_and_cost.py`` has no such
-  test; the reference's message is kept word for word); ``--node`` (and
-  its ``--node-steps``) and ``--remat block`` raise
-  ``NotImplementedError``s naming what is missing.
+  test; the reference's message is kept word for word).
+* ``--node`` and ``--remat block`` (refused until the port ran NODE
+  blocks on a mesh and had ``remat``) build their cells, and the report
+  carries them (``node_mode``, ``remat``); ``--node-steps`` sets the
+  NODE grid. One full-size cell: node18_cifar × train_4k ``--node`` on
+  pod16x16 through ``main`` (about 25 s on a CPU). Each family's
+  ``--node`` and ``--remat block`` cells: ``test_torch_dryrun_node_remat
+  .py``.
 * Every arch's smoke config, each step kind (train, prefill, decode),
   on a fake (data=2, model=4) mesh (``torch_dryrun_cells.py``; the
   (pod=2, data=2, model=2) cells in ``test_torch_dryrun_pods.py``):
@@ -12,7 +17,8 @@
   to the bytes a rank holds by the partition specs.
 * Mesh-less smoke prefill and train cells: the matmul-class FLOPs the
   port counts sit within 5% of the reference's ``analyze_hlo`` FLOPs of
-  the same cell, jitted (remat "none"; the reference counts dots only).
+  the same cell, jitted (remat "none" on both sides; the reference
+  counts dots only).
   The port's prefill runs the LM head on the last position alone
   (``models/lm.py::Model.prefill``), the reference's on every position
   before it slices: that product, 2·B·(S-1)·D·V, is taken off the
@@ -24,6 +30,7 @@
 """
 
 import dataclasses
+import json
 import math
 
 import jax
@@ -55,26 +62,49 @@ def test_dryrun_requires_arch_and_shape():
         dryrun.main([])
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--node"], "NODE stack on a mesh is not ported"),
-    (["--remat", "block"], "the port has no remat")])
-def test_unported_options_raise(flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        dryrun.main(["--arch", "deepseek_moe_16b", "--shape", "decode_32k"]
-                    + flag)
-    with pytest.raises(NotImplementedError, match=match):
-        dryrun.build_cell("deepseek_moe_16b", "decode_32k", None,
-                          node=flag == ["--node"],
-                          remat="block" if "block" in flag else "none")
+@pytest.mark.parametrize("flag", [["--node"], ["--remat", "block"]])
+def test_unported_options_raise(flag, meshes):
+    """The two options the port once refused now build their cells (a
+    smoke train cell of deepseek_moe_16b on the fake (2, 4) mesh), and
+    the report says which; other kinds run without remat."""
+    node = flag == ["--node"]
+    remat = "block" if "block" in flag else "none"
+    r = dryrun.run_cell("deepseek_moe_16b", "train", mesh=meshes("2x4"),
+                        config=get_smoke_config("deepseek_moe_16b"),
+                        plan=PLANS["train"], node=node, remat=remat,
+                        node_steps=1, save=False)
+    assert r["node_mode"] is node and r["remat"] == remat
+    assert r["roofline"]["flops_per_device"] > 0
+    cell = dryrun.build_cell("deepseek_moe_16b", "decode_32k", None,
+                             node=node, remat=remat,
+                             config=get_smoke_config("deepseek_moe_16b"),
+                             plan=PLANS["decode"])
+    assert cell.remat == "none"
 
 
-def test_node_steps_flag_raises():
-    """``--node-steps`` sets a NODE block's steps, so it raises with
-    ``--node``'s message rather than being ignored."""
-    with pytest.raises(NotImplementedError,
-                       match="NODE stack on a mesh is not ported"):
-        dryrun.main(["--arch", "deepseek_moe_16b", "--shape", "decode_32k",
-                     "--node-steps", "4"])
+def test_node_steps_flag_raises(tmp_path, monkeypatch):
+    """``--node`` with ``--node-steps`` through ``main``: the full-size
+    node18_cifar × train_4k cell on pod16x16 (``--remat`` at its default,
+    ``block``), saved under ``__node``, its terms finite; the steps reach
+    the cell's NodeConfig."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    try:
+        dryrun.main(["--arch", "node18_cifar", "--shape", "train_4k",
+                     "--node", "--node-steps", "1"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(tmp_path / "pod16x16" / "node18_cifar__train_4k__node.json") \
+            as fh:
+        r = json.load(fh)
+    assert r["node_mode"] is True and r["remat"] == "block"
+    assert r["mesh"] == "pod16x16" and r["n_devices"] == 256
+    roof = r["roofline"]
+    assert all(math.isfinite(roof[k]) and roof[k] > 0
+               for k in ("t_compute", "t_memory", "t_collective"))
+    ncfg = dryrun.node_config(True, 1)
+    assert (ncfg.regime, ncfg.grad_method, ncfg.solver,
+            ncfg.steps_per_interval) == ("fixed", "aca", "rk2", 1)
 
 
 @pytest.mark.parametrize("kind", sorted(PLANS))
@@ -93,7 +123,7 @@ def test_heads_that_do_not_divide_the_model_dim(kind, meshes):
     cfg = dataclasses.replace(get_smoke_config("qwen1_5_32b"), n_heads=6,
                               n_kv_heads=6, head_dim=16)
     r = dryrun.run_cell("qwen1_5_32b", kind, mesh=meshes("2x4"), config=cfg,
-                        plan=PLANS[kind], save=False)
+                        plan=PLANS[kind], remat="none", save=False)
     assert r["roofline"]["flops_per_device"] > 0
 
 
@@ -128,7 +158,7 @@ def _reference_flops(arch, kind, seq, gb):
 def test_meshless_flops_match_reference(arch, kind):
     seq, gb, _ = PLANS[kind]
     r = dryrun.run_cell(arch, kind, mesh="none", config=get_smoke_config(
-        arch), plan=PLANS[kind], save=False)
+        arch), plan=PLANS[kind], remat="none", save=False)
     got = r["roofline"]["flops_per_device"]
     want = _reference_flops(arch, kind, seq, gb)
     assert abs(got - want) / want < 0.05, (got, want)

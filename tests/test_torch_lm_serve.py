@@ -418,9 +418,9 @@ def test_configs_match_the_reference_and_count_its_parameters():
 
 def test_later_slices_raise_named_errors():
     """Every arch of the registry builds now (the MoE block, the embeds
-    frontends and NODE mode in the stack are ported, and the sharded LM
-    of slice I2); what still raises names its item: a NODE stack on
-    ``RunConfig.mesh`` (ROADMAP, after I4)."""
+    frontends and NODE mode in the stack are ported, the sharded LM of
+    slice I2, and a NODE stack on ``RunConfig.mesh``); what still raises
+    names what is wrong: an unknown arch, an unknown ``remat`` policy."""
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     assert get_config("qwen2_72b").family == "dense"
@@ -433,12 +433,8 @@ def test_later_slices_raise_named_errors():
                       top_k=2, d_expert=16)
     assert "moe" in build_model(moe).defs["stack"]["u0_moe_attn"]
     from repro_torch.core.node_block import NodeConfig
-    m = build_model(moe, RunConfig(mesh=object(), node=NodeConfig(
-        enabled=True)))
-    with pytest.raises(NotImplementedError, match="RunConfig.mesh"):
-        m.loss_fn(build_model(moe).init(device="cpu"),
-                  {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                   "labels": torch.zeros((1, 4), dtype=torch.long)})
+    with pytest.raises(ValueError, match="remat must be one of"):
+        RunConfig(remat="layer", node=NodeConfig(enabled=True))
     cfg = get_smoke_config("recurrentgemma_9b")
     m = build_model(cfg, RunConfig(node=NodeConfig(
         enabled=True, regime="fixed", steps_per_interval=1)))

@@ -13,6 +13,17 @@ meanwhile computes here the port's unsharded results and the
 reference's. On the CPU the kernel route (``use_pallas=True``) takes the
 kernels' plain versions.
 
+NODE blocks on the mesh (node18's smoke width at one layer in NODE
+mode, the reference's weights; ``torch_sharded_lm_ranks.node_cases``): the loss and
+gradients at the same bounds against the mesh-less port, each block's
+steps, trials, evaluations and status equal to the mesh-less run's and
+the same on every rank; the mesh-less port against the reference at
+``tests/test_torch_node_lm.py``'s bounds (loss 1e-5 relative, every
+gradient leaf within 1e-4 of the reference's largest entry). The
+lockstep case's two batch halves, solved alone, take different grids;
+on the mesh every rank takes the whole batch's, with the same number of
+field evaluations and collectives.
+
 Tolerances: the sharded loss within 5e-4 of the unsharded one and the
 gradients within rtol 2e-2 / atol 2e-4, flash-decode logits within 2e-4
 (the reference test's bounds); the port's unsharded loss within 1e-5
@@ -35,10 +46,14 @@ import torch
 from torch.utils import _pytree as pytree
 
 from conftest import tiny_batch
+from repro.configs import get_smoke_config as jget_smoke
+from repro.configs import node18_cifar as jn18
+from repro.core import NodeConfig as JNodeConfig
 from repro.models import ModelConfig as JModelConfig
 from repro.models import RunConfig as JRunConfig
 from repro.models import build_model as jbuild_model
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+from repro_torch.configs import node18_cifar as tn18
 from repro_torch.convert import tree_from_jax
 from repro_torch.models import moe as tmoe
 from repro_torch.models.config import ModelConfig, RunConfig
@@ -53,7 +68,9 @@ from repro_torch.train.loop import _grads_of
 
 from torch_sharded_lm_ranks import (B, CLIP, DECODE_STEPS, MAX_SEQ, S,
                                     TOPK_FRAC, WORLD, configs, decode_cases,
-                                    flat, nest)
+                                    flat, lockstep_inputs, nest, node_cases,
+                                    node_model, node_stats_array,
+                                    port_node_cases)
 
 ROOT = Path(__file__).resolve().parent.parent
 NAMES = [c.name for c in configs(ModelConfig)]
@@ -61,6 +78,9 @@ LOSS_ATOL = 5e-4
 GRAD_RTOL, GRAD_ATOL = 2e-2, 2e-4
 DECODE_TOL = 2e-4
 REF_TOL = 1e-5
+NODE_GRAD_TOL = 1e-4        # tests/test_torch_node_lm.py's GRAD_TOL
+NODE_REF = list(node_cases(JNodeConfig, jn18))
+NODE_PORT = list(port_node_cases())
 
 
 def _np(tree):
@@ -81,6 +101,7 @@ class Results:
         self.ref_loss, self.ref_decode = {}, {}
         self.loss, self.grads, self.ids = {}, {}, []
         self.decode, self.train = {}, {}
+        self.node, self.node_ref, self.halves = {}, {}, {}
 
     def rank(self, r: int = 0):
         return self.ranks[r]
@@ -111,12 +132,61 @@ def _inputs(in_dir: Path, res: Results):
             lambda t: torch.rand(t.shape, generator=gen), st.opt_state.nu)))
     save_checkpoint(str(in_dir / "ckpt_plain"), 5, st)
     res.plain_ckpt = st
+    jm = jbuild_model(node_model(jget_smoke("node18_cifar")),
+                      JRunConfig(compute_dtype=jnp.float32))
+    p = _np(jm.init(jax.random.PRNGKey(0)))
+    np.savez(in_dir / "params_node18.npz", **flat(p))
+    refs["node18"] = (None, p)
     return batch, toks, refs
+
+
+def _node_reference(batch, p, res: Results):
+    """The reference's loss and gradients of each NODE case."""
+    for name, ncfg in node_cases(JNodeConfig, jn18).items():
+        jm = jbuild_model(node_model(jget_smoke("node18_cifar")),
+                          JRunConfig(compute_dtype=jnp.float32, node=ncfg))
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            jm.loss_fn, has_aux=True))(p, batch)
+        res.node_ref[name] = (float(loss), flat(_np(grads)))
+
+
+def _node_unsharded(batch, p, res: Results):
+    """The mesh-less port's NODE cases; the lockstep case's batch halves
+    solved alone too."""
+    flat_b = {k: np.asarray(v) for k, v in batch.items()}
+    inputs = {False: (flat(p), flat_b),
+              True: lockstep_inputs(flat(p), flat_b, tn18.SMOKE.vocab)}
+
+    def run(ncfg, fp, b):
+        m = build_model(node_model(tn18.SMOKE), RunConfig(
+            compute_dtype=torch.float32, node=ncfg))
+        m.node_stats = []
+        loss, _, grads = _grads_of(m, tree_from_jax(nest(fp), "cpu"),
+                                   {k: torch.from_numpy(np.array(v))
+                                    for k, v in b.items()})
+        return (float(loss), {k: v.numpy() for k, v in flat(grads).items()},
+                node_stats_array(m.node_stats))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # tiny ops, beside the 8 ranks: one thread
+    try:
+        for name, ncfg in port_node_cases().items():
+            fp, b = inputs[name == "lockstep"]
+            res.node[name] = run(ncfg, fp, b)
+            if name == "lockstep":
+                half = B // 2
+                for part, rows in (("lower", slice(0, half)),
+                                   ("upper", slice(half, B))):
+                    res.halves[part] = run(
+                        ncfg, fp, {k: v[rows] for k, v in b.items()})[2]
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _reference(batch, toks, refs, res: Results):
     for name, (jm, p) in refs.items():
-        res.ref_loss[name] = float(jax.jit(jm.loss_fn)(p, batch)[0])
+        if jm is not None:
+            res.ref_loss[name] = float(jax.jit(jm.loss_fn)(p, batch)[0])
     jm, p = refs["dense"]
     lg, c = jm.prefill(p, {"tokens": toks[:, :S]})
     res.ref_decode["prefill"] = np.asarray(lg)
@@ -196,6 +266,8 @@ def ranks(tmp_path_factory):
     try:
         _reference(batch, toks, refs, res)
         _unsharded(batch, toks, refs, res)
+        _node_reference(batch, refs["node18"][1], res)
+        _node_unsharded(batch, refs["node18"][1], res)
         stdout, stderr = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
@@ -360,3 +432,58 @@ def test_grad_utils_reduce_whole_tensors(ranks):
         np.testing.assert_array_equal(got[f"grads/int8/{k}"], v.numpy())
     for k, v in flat(topk_sparsify(g, TOPK_FRAC)[0]).items():
         np.testing.assert_array_equal(got[f"grads/topk/{k}"], v.numpy())
+
+
+# ------------------------------------------------- NODE blocks on the mesh
+
+
+def _node_grad_err(got: dict, want: dict) -> float:
+    """Max over leaves of max |got - want| / max |want|."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        worst = max(worst, float(np.abs(got[k] - w).max()) / scale)
+    return worst
+
+
+@pytest.mark.parametrize("name", NODE_PORT)
+def test_node_blocks_on_mesh_match_meshless(ranks, name):
+    """Each NODE case on the (data=2, model=4) mesh: the loss and the
+    gradients at the sharded bounds, and every block's steps, trials,
+    evaluations and status the mesh-less run's, on every rank."""
+    loss, grads, stats = ranks.node[name]
+    for f in ranks.ranks:
+        assert abs(float(f[f"node/{name}/loss"]) - loss) < LOSS_ATOL
+        np.testing.assert_array_equal(f[f"node/{name}/stats"], stats)
+    got = ranks.rank(0)
+    for k, want in grads.items():
+        np.testing.assert_allclose(got[f"node/{name}/grad/{k}"], want,
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=k)
+    assert len(stats) == node_model(tn18.SMOKE).n_layers
+
+
+@pytest.mark.parametrize("name", NODE_REF)
+def test_node_meshless_matches_reference(ranks, name):
+    loss, grads, _ = ranks.node[name]
+    want_loss, want_grads = ranks.node_ref[name]
+    assert abs(loss - want_loss) <= REF_TOL * abs(want_loss)
+    assert _node_grad_err(grads, want_grads) <= NODE_GRAD_TOL
+
+
+def test_node_ranks_stay_in_lockstep(ranks):
+    """The lockstep case: the batch's halves, one a data rank, solved
+    alone take different grids; on the mesh every rank takes the whole
+    batch's grid, evaluates the field as often, forward and backward, and
+    issues as many collectives."""
+    lower, upper = ranks.halves["lower"], ranks.halves["upper"]
+    assert not np.array_equal(lower[:, 1], upper[:, 1])
+    whole = ranks.node["lockstep"][2]
+    first = ranks.rank(0)
+    for f in ranks.ranks:
+        np.testing.assert_array_equal(f["node/lockstep/stats"], whole)
+        assert int(f["node/lockstep/evals"]) == \
+            int(first["node/lockstep/evals"])
+        np.testing.assert_array_equal(f["node/lockstep/collectives"],
+                                      first["node/lockstep/collectives"])
+    assert int(first["node/lockstep/evals"]) > int(whole[:, 2].sum())

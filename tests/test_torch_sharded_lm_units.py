@@ -19,6 +19,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils import _pytree as pytree
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.configs import get_smoke_config as jget_smoke
@@ -196,15 +197,38 @@ def test_kernel_wrappers_refuse_dtensors(fake_mesh):
 
 
 def test_node_stack_on_mesh_raises(fake_mesh):
+    """A NODE stack on ``RunConfig.mesh`` (refused until the NODE blocks
+    ran per rank): on a one-rank mesh, adaptive and with ``remat``, the
+    loss, every block's stats and the gradients are the mesh-less
+    step's, bit for bit (every reduction over one rank is its input)."""
+    from repro_torch.train.loop import _grads_of
+
     mesh = fake_mesh({"data": 1, "model": 1})
     cfg = get_smoke_config("node18_cifar")
-    rcfg = RunConfig(compute_dtype=torch.float32, mesh=mesh,
-                     node=NodeConfig(enabled=True))
-    m = build_model(cfg, rcfg)
-    params = m.init(device="cpu")
-    toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="RunConfig.mesh"):
-        m.loss_fn(params, {"tokens": toks, "labels": toks})
+    toks = torch.randint(0, cfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # tiny ops: one thread is fastest
+    try:
+        for m_ in (None, mesh):
+            m = build_model(cfg, RunConfig(
+                compute_dtype=torch.float32, mesh=m_, remat="block",
+                node=NodeConfig(enabled=True, use_pallas=True)))
+            m.node_stats = []
+            loss, _, grads = _grads_of(m, m.init(seed=0, device="cpu"),
+                                       batch)
+            out.append((loss, [g.full_tensor() if m_ is not None else g
+                               for g in pytree.tree_leaves(grads)],
+                        [tuple(int(v) for v in s)
+                         for _, _, s in m.node_stats]))
+    finally:
+        torch.set_num_threads(threads)
+    (l0, g0, s0), (l1, g1, s1) = out
+    assert float(l1) == float(l0) and s1 == s0
+    assert len(s1) == cfg.n_layers and all(s[1] >= 1 for s in s1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
 def _train(mesh: bool):
@@ -227,4 +251,3 @@ def test_launch_train_on_a_mesh_matches_no_mesh():
     assert "mesh={'pod': 1, 'data': 1, 'model': 1}" in on
     losses = [re.findall(r"step +\d+ loss (\S+)", out) for out in (on, off)]
     assert len(losses[0]) == 1 and losses[0] == losses[1], losses
-

@@ -2,9 +2,10 @@
 ``test_torch_dryrun.py`` (data=2, model=4) and ``test_torch_dryrun_pods.py``
 (pod=2, data=2, model=2): each arch's smoke config, each step kind, run by
 ``launch/dryrun.py::run_cell`` on a "fake" process group of 8 ranks in
-this process; finite roofline terms; ``argument_bytes`` against the bytes
-a rank holds by the partition specs (``Model.specs`` /
-``train_state_specs`` and the mesh sizes alone)."""
+this process, train cells with remat "none"; finite
+roofline terms; ``argument_bytes`` against the bytes a rank holds by the
+partition specs (``Model.specs`` / ``train_state_specs`` and the mesh
+sizes alone)."""
 
 import math
 
@@ -30,8 +31,10 @@ def mesh_fixture():
     made = {}
 
     def get(name):
-        # one fake group a mesh shape; rebuilt when the shape changes
-        if made.get("name") != name:
+        # one fake group a mesh shape; rebuilt when the shape changes or
+        # a full-size cell replaced the group
+        if made.get("name") != name or not dist.is_initialized() \
+                or dist.get_world_size() != math.prod(MESHES[name][0]):
             made["mesh"] = dryrun.fake_mesh(*MESHES[name])
             made["name"] = name
         return made["mesh"]
@@ -86,7 +89,7 @@ def check_smoke_cell(arch, kind, mesh_name, mesh):
     the argument bytes the specs imply."""
     cfg = get_smoke_config(arch)
     r = dryrun.run_cell(arch, kind, mesh=mesh, config=cfg,
-                        plan=PLANS[kind], save=False)
+                        plan=PLANS[kind], remat="none", save=False)
     roof = r["roofline"]
     for k in ("flops_per_device", "bytes_per_device",
               "coll_bytes_per_device", "t_compute", "t_memory",

@@ -23,7 +23,15 @@ mesh-less checkpoint ``ckpt_plain``):
   step 2 in ``OUT_DIR/ckpt_mesh``), the moments' placements, and the
   mesh-less checkpoint restored on the mesh;
 * ``grads/``: clipping and int8 / top-k compression of the sharded
-  gradients, gathered whole.
+  gradients, gathered whole;
+* ``node/<case>/``: node18's smoke config (one layer) in NODE mode
+  (``node_cases``:
+  the four regime × method cases of ``test_node_mode_trains``,
+  ``NODE_TRAIN``, ``NODE_TRAIN_MALI``; a ``batch_axis=0`` case and the
+  ``lockstep`` case, whose batch rows differ strongly between the data
+  ranks): the loss, the gradients gathered whole, each block's
+  (steps, trials, evaluations, status), and (lockstep) the rank's count
+  of field evaluations, forward and backward, and of its collectives.
 
 Rank r writes ``OUT_DIR/rank{r}.npz`` (or ``rank{r}.err``). Imports
 neither JAX nor the reference.
@@ -50,6 +58,74 @@ CLIP = 0.5
 # decode routes: RunConfig fields on top of the mesh
 ROUTES = {"seq_shard": {}, "no_seq_shard": {"decode_seq_shard": False},
           "pallas": {"use_pallas": True}}
+# the lockstep case: the upper half of the batch (the second data rank's
+# rows) reads embedding rows scaled by LOCKSTEP_SCALE, so that the two
+# halves alone take different grids (at the NodeConfig defaults, one
+# block: 13 trials against 7; the whole batch 12)
+LOCKSTEP_SCALE = 50.0
+LOCKSTEP_KW = dict(enabled=True)
+# the NODE cases run node18's smoke width at one of its three layers
+NODE_LAYERS = 1
+
+
+def node_model(smoke):
+    """node18's smoke config (the port's or the reference's) cut to
+    NODE_LAYERS layers."""
+    return smoke.scaled(n_layers=NODE_LAYERS)
+
+
+def node_cases(node_config, module) -> dict:
+    """The NODE configs of the node18 case by name, built with
+    ``node_config`` (the port's or the reference's NodeConfig) and
+    ``module`` (its ``configs.node18_cifar``): the reference test's four
+    regime × method cases (``test_node_mode_trains``), ``NODE_TRAIN``
+    (fused path, segmented ACA) and ``NODE_TRAIN_MALI``."""
+    kw = dict(enabled=True, steps_per_interval=2, max_steps=16)
+    return {"fixed_aca": node_config(regime="fixed", grad_method="aca",
+                                     **kw),
+            "adaptive_aca": node_config(regime="adaptive",
+                                        grad_method="aca", **kw),
+            "fixed_adjoint": node_config(regime="fixed",
+                                         grad_method="adjoint", **kw),
+            "fixed_naive": node_config(regime="fixed", grad_method="naive",
+                                       **kw),
+            "node_train": module.NODE_TRAIN,
+            "node_train_mali": module.NODE_TRAIN_MALI}
+
+
+def port_node_cases() -> dict:
+    """``node_cases`` on the port, with the port's own two: per-row grids
+    (``batch_axis=0``, fused path) and the lockstep case."""
+    from repro_torch.configs import node18_cifar
+    from repro_torch.core.node_block import NodeConfig
+
+    cases = node_cases(NodeConfig, node18_cifar)
+    cases["batched"] = NodeConfig(enabled=True, batch_axis=0,
+                                  use_pallas=True)
+    cases["lockstep"] = NodeConfig(**LOCKSTEP_KW)
+    return cases
+
+
+def lockstep_inputs(params: dict, batch: dict, vocab: int):
+    """(params, batch) of the lockstep case from flat numpy ones: the
+    batch's lower rows draw tokens below vocab / 2, its upper rows above,
+    and the embedding rows above are scaled by LOCKSTEP_SCALE."""
+    half = vocab // 2
+    toks = batch["tokens"].copy() % half
+    toks[toks.shape[0] // 2:] += half
+    p = dict(params)
+    emb = p["embed"].copy()
+    emb[half:] *= LOCKSTEP_SCALE
+    p["embed"] = emb
+    return p, dict(batch, tokens=toks, labels=np.roll(toks, -1, axis=1))
+
+
+def node_stats_array(stats) -> np.ndarray:
+    """(blocks, 4): each block's steps, trials, evaluations and status
+    (batched solves: each row's, (blocks, 4, B))."""
+    return np.array([[s.n_steps.numpy(), s.n_trials.numpy(),
+                      s.nfe.numpy(), s.status.numpy()]
+                     for _, _, s in stats])
 
 
 def configs(cls):
@@ -332,6 +408,50 @@ def _case_train(mesh, in_dir, out_dir, res):
             pytree.tree_leaves(restored.params), p_leaves)))
 
 
+def _case_node(mesh, in_dir, res):
+    from repro_torch.configs import node18_cifar
+    from repro_torch.convert import tree_from_jax
+    from repro_torch.distributed import regions
+    from repro_torch.models import transformer
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+
+    cfg = node_model(node18_cifar.SMOKE)
+    flat_p = dict(np.load(os.path.join(in_dir, "params_node18.npz")))
+    batch = dict(np.load(os.path.join(in_dir, "batch.npz")))
+    inputs = {False: (flat_p, batch),
+              True: lockstep_inputs(flat_p, batch, cfg.vocab)}
+    block_apply = transformer.block_apply
+    for name, ncfg in port_node_cases().items():
+        fp, b = inputs[name == "lockstep"]
+        m = build_model(cfg, RunConfig(compute_dtype=torch.float32,
+                                       mesh=mesh, node=ncfg))
+        m.node_stats = []
+        params = tree_from_jax(nest(fp), "cpu", mesh=mesh, defs=m.defs)
+        evals = [0]
+
+        def counted(*a, **k):
+            evals[0] += 1
+            return block_apply(*a, **k)
+
+        transformer.block_apply = counted
+        regions.reset_counts()
+        try:
+            loss, grads = _loss_and_grads(
+                m, params, {k: torch.from_numpy(v) for k, v in b.items()})
+        finally:
+            transformer.block_apply = block_apply
+        key = f"node/{name}"
+        res[f"{key}/loss"] = np.float64(loss)
+        for k, g in flat(grads).items():
+            res[f"{key}/grad/{k}"] = _whole(g)
+        res[f"{key}/stats"] = node_stats_array(m.node_stats)
+        res[f"{key}/evals"] = np.int64(evals[0])
+        res[f"{key}/collectives"] = np.array(
+            [v for _, v in sorted(regions.counts.items())])
+
+
+
 def worker(rank: int, world: int, port: int, in_dir: str,
            out_dir: str) -> None:
     torch.set_num_threads(1)
@@ -346,6 +466,7 @@ def worker(rank: int, world: int, port: int, in_dir: str,
                      lambda: _case_decode(mesh, in_dir, res),
                      lambda: _case_init(mesh, res),
                      lambda: _case_train(mesh, in_dir, out_dir, res),
+                     lambda: _case_node(mesh, in_dir, res),
                      lambda: _case_pod(in_dir, res)):
             t0 = time.perf_counter()
             case()
