@@ -222,6 +222,35 @@ printing one JSON line (``"phase": ...``):
                       1.36 B parameters, bf16) on the audio frontend's
                       embeds: a 2 x 1024-frame prefill (K8 once per layer)
                       and 16 decode frames, against the plain route.
+11b2. ``serve_dense_lms`` — the six dense and MoE configs no other phase
+                      serves, each at its published widths on a 4-layer
+                      cut (``DENSE_LAYERS``), bf16, ``use_pallas=True``,
+                      built, drawn, served and freed one at a time:
+                      qwen1_5_32b (40 heads = kv heads, QKV bias),
+                      qwen2_72b (64 / 8, QKV bias), command_r_35b (64 / 8)
+                      and command_r_plus_104b (96 / 8; LayerNorm, the
+                      parallel block, tied embeddings over a 256,000
+                      vocab), llava_next_34b (56 / 8, the VLM stub's
+                      embeds) and qwen3_moe_235b_a22b (64 / 4, 128
+                      experts top 8, no shared expert), head dim 128.
+                      Calls A (4 x 4096 + 32) and B (2 x 1000 + 16)
+                      through ``ServeEngine.generate`` (llava: the same
+                      loop on ``Model.prefill``/``decode_step`` with the
+                      given embeds, the argmax its token): launches
+                      checked exactly (K7 2 per layer + 1 per prefill and
+                      per decode step, 0 for the Command-Rs' LayerNorm; K8
+                      once per layer per prefill), prefill ms, decode ms
+                      per token, peak memory, seconds a config; the plain
+                      route on the same weights (the last prefill
+                      position's logits within the config's
+                      ``DENSE_LOGIT_BF16_RTOL``, qwen3-moe's routing
+                      flips); a 2-layer f32 cut on call B, both routes
+                      within 1e-3; K8 causal at the config's head layout
+                      and call A's length against its plain version,
+                      timed beside SDPA's causal call and the bound; K7
+                      at the RMSNorm configs' prefill rows (16384,
+                      d_model) against its plain version (one bf16 ulp),
+                      timed beside ``F.rms_norm`` and the bound.
 11c. ``train_node_lm`` — ``examples/train_node_lm.py --adaptive`` at full
                       width: ``node18_cifar.CONFIG`` (18 layers, d_model
                       768, vocab 32,768) in f32 with ``NODE_TRAIN`` (every
@@ -365,9 +394,12 @@ printing one JSON line (``"phase": ...``):
                       analytic gradient at most 10x the CPU's.
 12. the ``kernels`` summary line (K1-K10, and K9's three kernels; each
    with the launch floor, K1 and K3 with their half-drift times, K7 with
-   its decode times and the launches of
+   its decode times, its times at serve_dense_lms's prefill rows and the
+   launches of
    each of its two kernels over the LM paths, K8 with its window-0 time
-   and SDPA's causal time and its causal times at head dims 128 and 64, K10 with its time at call B's shape, K3 and
+   and SDPA's causal time and its causal times at head dims 128 and 64
+   and at the six serve_dense_lms head layouts, K10 with its time at call
+   B's shape, K3 and
    K5 with their times at the batched block's aligned rows, K5 also on
    one serving row, K4 at the serving row), the card's name and power
    limit,
@@ -381,6 +413,7 @@ solve_health_mali's NODE_TRAIN_MALI steps for K1/K3,
 paper_benchmarks' runs for K1/K2, each
 serve_recurrentgemma call for K7/K8/K10, each serve_mamba2 call for
 K7/K9, each serve_moe call and the musicgen prefill and decode for K7/K8,
+each serve_dense_lms call for K7/K8,
 train_node_lm's six steps for K1/K2, serve_node_bench's quick benchmark
 and each of its node18 serving runs for K3/K5, mixed_dtype's steps for
 none of K1-K5, each method's sharded steps for K3/K4, sharded_lm's first
@@ -3361,32 +3394,37 @@ def _flips(a, b) -> int:
     return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
 
 
-def _k8_case(torch, gen, b, h, s, dh):
-    """K8 against its plain version at (b, h, s, dh), as many kv heads,
-    causal, bf16; times beside SDPA's causal call and the bound."""
+def _k8_case(torch, gen, b, h, s, dh, hkv=None):
+    """K8 against its plain version at (b, h, s, dh) with ``hkv`` kv heads
+    (default h), causal, bf16; times beside SDPA's causal call (on k and
+    v expanded to h heads beforehand, untimed) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    q, k, v = (torch.randn(b, h, s, dh, generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(3))
+    hkv = h if hkv is None else hkv
+    q, k, v = (torch.randn(b, n, s, dh, generator=gen, device="cuda").to(
+        torch.bfloat16) for n in (h, hkv, hkv))
     out = ops.flash_attention(q, k, v, window=0)
     ref = fa.flash_attention_plain(q, k, v, window=0)
     torch.cuda.synchronize()
     err = _rel(out, ref)
     diff = float((out.float() - ref.float()).abs().max())
     check(bool(torch.isfinite(out).all()) and err <= ATT_BF16_RTOL,
-          f"K8 {(b, h, s, dh)} causal bf16: {err} beyond {ATT_BF16_RTOL}")
-    t = {"shape": [b, h, s, dh], "kv_heads": h, "window": 0,
+          f"K8 {(b, h, s, dh)} kv {hkv} causal bf16: {err} beyond "
+          f"{ATT_BF16_RTOL}")
+    t = {"shape": [b, h, s, dh], "kv_heads": hkv, "window": 0,
          "dtype": "bfloat16", "err": err, "max_abs_err": diff,
          "ms": time_ms(torch, lambda: ops.flash_attention(q, k, v, window=0),
                        iters=10, warmup=2),
          "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
-             q, k, v, window=0), iters=5, warmup=1),
-         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-             q, k, v, is_causal=True), iters=10, warmup=2),
-         }
-    return _bound(t, fa.work(b, h, h, s, dh, 0, 2))
+             q, k, v, window=0), iters=5, warmup=1)}
+    ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    t["library_ms"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=True),
+        iters=10, warmup=2)
+    return _bound(t, fa.work(b, h, hkv, s, dh, 0, 2))
 
 
 def phase_serve_moe(torch, seed: int):
@@ -3621,6 +3659,305 @@ def phase_serve_moe(torch, seed: int):
                       "rtol": LOGIT_F32_RTOL},
           "musicgen": music, "launches": main_launches})
     return main_launches, calls, k8
+
+
+# ------------------------------------- dense and MoE LMs on layer cuts
+
+DENSE_ARCHS = ("qwen1_5_32b", "qwen2_72b", "command_r_35b",
+               "command_r_plus_104b", "llava_next_34b",
+               "qwen3_moe_235b_a22b")
+DENSE_LAYERS = 4                # the bf16 cut: published widths, 4 layers
+DENSE_F32_LAYERS = 2            # the f32 cut, on call B
+DENSE_CALLS = {"A": (4, 4096, 32), "B": (2, 1000, 16)}  # prompts, length, new
+# the plain route's prefill takes the dense configs' prompts this many at
+# a time (each row is its own function there): its f32 (rows, H, S, S)
+# scores at call A are 6.4 GB a row at command-r-plus's 96 heads, and all
+# four rows beside its weights ran out of the H100's 80 GB. The MoE's
+# capacity couples its rows: it takes each call whole
+DENSE_PLAIN_ROWS = 2
+# bf16 kernel route against the plain route: the last prefill position's
+# logits, max |difference| over max |logit|, per config: three times the
+# larger of the gaps of calls A and B (seed 0, H100), rounded up to two
+# digits, as MOE_LOGIT_BF16_RTOL was derived. Measured (A, B): qwen1.5
+# 6.88e-3, 7.28e-3; qwen2 6.85e-3, 7.46e-3; llava 8.06e-3, 6.17e-3;
+# qwen3-moe 4.78e-3, 4.48e-3 (2.3% and 2.3% of the router's choices
+# flipped, from layer 0 on). The Command-Rs' LayerNorm has no kernel, so
+# K8 alone moves their logits: 3.79e-4, 1.89e-4 and 2.53e-4, 2.56e-4
+DENSE_LOGIT_BF16_RTOL = {
+    "qwen1_5_32b": 2.2e-2,
+    "qwen2_72b": 2.3e-2,
+    "command_r_35b": 1.2e-3,
+    "command_r_plus_104b": 7.7e-4,
+    "llava_next_34b": 2.5e-2,
+    "qwen3_moe_235b_a22b": 1.5e-2,
+}
+
+
+def _k7_case(torch, gen, rows, d):
+    """K7 (the kernel its rule picks) against its plain version at (rows,
+    d), bf16, to one bf16 ulp; times beside ``F.rms_norm`` and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
+    from repro_torch.models.common import rmsnorm as rmsnorm_plain
+    x = (3.0 * torch.randn(rows, d, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    w = torch.randn(d, generator=gen, device="cuda").to(torch.bfloat16)
+    out = ops.rmsnorm(x, w)
+    ref = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    err = _bf16_ulps(torch, out, ref)
+    check(err <= RMS_BF16_ULPS, f"K7 ({rows}, {d}) bf16: {err} ulps")
+    t = {"shape": [rows, d], "dtype": "bfloat16",
+         "kernel": k7.kernel_for(d, 2, True), "err_ulps": err,
+         "max_abs_err": float((out.float() - ref.float()).abs().max()),
+         "ms": time_ms(torch, lambda: ops.rmsnorm(x, w)),
+         "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, w)),
+         "library_ms": time_ms(torch, lambda: F.rms_norm(x, (d,), w,
+                                                          1e-6))}
+    return _bound(t, k7.work(rows, d, 2, 2))
+
+
+def _serve_dense(torch, seed: int, arch: str):
+    """One config of ``phase_serve_dense_lms``: returns (main-path
+    launches, calls, K8's case at call A's shape, K7's at call A's
+    prefill rows or None)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k7
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import RunConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_start = time.perf_counter()
+    published = importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+    cfg = dataclasses.replace(published, n_layers=DENSE_LAYERS)
+    layers, moe = cfg.n_layers, cfg.family == "moe"
+    key = "tokens" if cfg.frontend == "none" else "embeds"
+    bound = DENSE_LOGIT_BF16_RTOL[arch]
+    max_seq = max(s + n for _, s, n in DENSE_CALLS.values()) + 8
+    run16 = RunConfig(compute_dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, use_pallas=True,
+                      max_seq=max_seq)
+    model = build_model(cfg, run16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "params_GB": torch.cuda.memory_allocated() / 1e9}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    # token ids, or for llava's VLM stub N(0, 0.02^2) embeddings of every
+    # position the call feeds (the prompt and each decode step's)
+    inputs = {name: torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+              if key == "tokens" else (0.02 * torch.randn(
+                  b, s + new, cfg.d_model, generator=gen,
+                  device="cuda")).to(torch.bfloat16)
+              for name, (b, s, new) in DENSE_CALLS.items()}
+
+    def generate(x, s, new):
+        """Greedy: (the new tokens (B, new), decode steps) after a
+        prefill of x's first s positions. Token archs go through
+        ``ServeEngine.generate``; llava's stub has no embedding table to
+        feed a sampled token back, so it runs the engine's loop on
+        ``Model.prefill`` / ``decode_step`` with the given embeds, each
+        step's token the argmax of its logits."""
+        if key == "tokens":
+            engine = ServeEngine(model, params,
+                                 ServeConfig(max_new_tokens=new))
+            out = engine.generate(x[:, :s])["tokens"]
+            check(tuple(out.shape) == (x.shape[0], s + new)
+                  and torch.equal(out[:, :s], x[:, :s]),
+                  f"{arch}: generate's output {tuple(out.shape)} malformed")
+            return out[:, s:], engine.last_decode_steps
+        with torch.no_grad():
+            lg, caches = model.prefill(params, {key: x[:, :s]})
+            toks = [torch.argmax(lg, dim=-1)]
+            for j in range(new - 1):
+                lg, caches = model.decode_step(
+                    params, {key: x[:, s + j:s + j + 1]}, caches, s + j)
+                toks.append(torch.argmax(lg, dim=-1))
+        return torch.stack(toks, dim=1).to(torch.int32), new - 1
+
+    # warm-up (cuBLAS handles, the kernels' first launch): not counted
+    generate(inputs["B"], min(64, DENSE_CALLS["B"][1]), 2)
+    torch.cuda.synchronize()
+
+    fails, calls = [], {}
+    launches = {k: 0 for k in MOE_KERNELS}
+    for name, (b, s, new) in DENSE_CALLS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # the main path starts here
+        t0 = time.perf_counter()
+        out, steps = generate(inputs[name], s, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()       # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # K7: 2 norms a layer + the final one, in the prefill and in each
+        # decode step (Command-R's LayerNorm has no kernel); K8: once a
+        # layer in the prefill (decode stays plain)
+        want = {"rmsnorm": (2 * layers + 1) * (1 + steps)
+                if cfg.norm == "rmsnorm" else 0, "flash_attention": layers}
+        got = {k: counts[k] for k in MOE_KERNELS}
+        others = {k: v for k, v in counts.items()
+                  if k not in MOE_KERNELS and v}
+        k7_kernels = dict(k7.variant_launches)
+        for k in MOE_KERNELS:
+            launches[k] += got[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.prefill(params, {key: inputs[name][:, :s]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        calls[name] = {
+            "prompts": b, "prompt_len": s, "new_tokens": new,
+            "decode_steps": steps, "launches": got, "want": want,
+            "rmsnorm_kernels": k7_kernels,
+            "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
+            "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
+            "tokens_in_vocab": bool(((out >= 0) & (out < cfg.vocab)).all())}
+        if moe:
+            calls[name]["capacity"] = moe_mod._capacity(b * s, cfg)
+        if got != want or others:
+            fails.append(f"call {name}: launches {got} (others {others}) "
+                         f"!= {want}")
+        if sum(k7_kernels.values()) != got["rmsnorm"]:
+            fails.append(f"call {name}: K7's kernels {k7_kernels} != "
+                         f"{got['rmsnorm']}")
+        if steps != new - 1 or tuple(out.shape) != (b, new) \
+                or not calls[name]["tokens_in_vocab"]:
+            fails.append(f"call {name}: {steps} decode steps, tokens "
+                         f"{tuple(out.shape)} malformed")
+    del out
+
+    # the plain route (use_pallas=False) on the same weights: the last
+    # prefill position's logits and, for the MoE, the router's choices
+    plain = build_model(cfg, dataclasses.replace(run16, use_pallas=False))
+    routes = {}
+    for name, (b, s, new) in DENSE_CALLS.items():
+        batch = {key: inputs[name][:, :s]}
+        with torch.no_grad(), _RouteLog(moe_mod) as rk:
+            lk = model.prefill(params, batch)[0]
+        with torch.no_grad(), _RouteLog(moe_mod) as rp:
+            lp = plain.prefill(params, batch)[0] if moe else torch.cat([
+                plain.prefill(params, {key: inputs[name][
+                    i:i + DENSE_PLAIN_ROWS, :s]})[0]
+                for i in range(0, b, DENSE_PLAIN_ROWS)])
+        err = _rel(lk, lp)
+        routes[name] = {"prefill_logit_rel": err,
+                        "max_logit": float(lp.float().abs().max()),
+                        "argmax_equal": int((lk.argmax(-1)
+                                             == lp.argmax(-1)).sum()),
+                        "rows": b}
+        if moe:
+            flips = [_flips([x], [y]) for x, y in zip(rk.ids, rp.ids)]
+            routes[name].update(
+                routing_flips=sum(flips), routing_flips_by_layer=flips,
+                routing_choices=layers * b * s,
+                routing_flip_share=sum(flips) / (layers * b * s))
+        routes[name]["share_of_bound"] = err / bound
+        if not bool(torch.isfinite(lk.float()).all()):
+            fails.append(f"call {name}: prefill logits not finite")
+        if not err <= bound:
+            fails.append(f"call {name}: prefill logits kernels vs plain "
+                         f"{err} > {bound}")
+        del lk, lp
+    n_params = model.n_params()
+    del plain, params, model
+    torch.cuda.empty_cache()
+
+    # f32 at full widths on a 2-layer cut, call B: the two routes to 1e-3
+    # of max |logit| (at call A the plain route's f32 (B, H, S, S) scores
+    # alone take 17-26 GB a tensor)
+    cut = dataclasses.replace(cfg, n_layers=DENSE_F32_LAYERS)
+    run32 = dataclasses.replace(run16, compute_dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = build_model(cut, run32)
+    p32 = m32.init(seed=seed, device="cuda")
+    b, s, _ = DENSE_CALLS["B"]
+    batch = {key: inputs["B"][:, :s]}
+    ops.reset_launches()
+    with torch.no_grad(), _RouteLog(moe_mod) as rk:
+        lk = m32.prefill(p32, batch)[0]
+    n_att = ops.launch_counts()["flash_attention"]
+    with torch.no_grad(), _RouteLog(moe_mod) as rp:
+        lp = build_model(cut, dataclasses.replace(
+            run32, use_pallas=False)).prefill(p32, batch)[0]
+    f32 = {"n_layers": DENSE_F32_LAYERS, "call": "B",
+           "logit_rel": _rel(lk, lp), "rtol": LOGIT_F32_RTOL,
+           "flash_attention_launches": n_att}
+    if moe:
+        f32["routing_flips"] = _flips(rk.ids, rp.ids)
+        f32["routing_flip_share"] = f32["routing_flips"] / (
+            DENSE_F32_LAYERS * b * s)
+    if n_att != DENSE_F32_LAYERS:
+        fails.append(f"f32 cut: {n_att} K8 launches")
+    if not f32["logit_rel"] <= LOGIT_F32_RTOL:
+        fails.append(f"f32 cut: kernels vs plain {f32['logit_rel']} > "
+                     f"{LOGIT_F32_RTOL}")
+    del p32, m32, lk, lp
+    torch.cuda.empty_cache()
+
+    # K8 alone at this config's head layout and call A's length
+    b, s, _ = DENSE_CALLS["A"]
+    k8 = _k8_case(torch, gen, b, cfg.n_heads, s, cfg.resolved_head_dim,
+                  cfg.n_kv_heads)
+    # and K7 at its prefill rows and width
+    k7_case = _k7_case(torch, gen, b * s, cfg.d_model) \
+        if cfg.norm == "rmsnorm" else None
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_dense_lm", "model": arch, "ok": not fails,
+          "config": {"name": cfg.name, "n_layers": layers,
+                     "published_n_layers": published.n_layers,
+                     "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                     "n_kv_heads": cfg.n_kv_heads,
+                     "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                     "vocab": cfg.vocab, "norm": cfg.norm,
+                     "qkv_bias": cfg.qkv_bias,
+                     "parallel_block": cfg.parallel_block,
+                     "tie_embeddings": cfg.tie_embeddings,
+                     "frontend": cfg.frontend, "n_experts": cfg.n_experts,
+                     "top_k": cfg.top_k, "d_expert": cfg.d_expert,
+                     "capacity_factor": cfg.capacity_factor,
+                     "n_params": n_params, "dtype": "bfloat16",
+                     "max_seq": max_seq},
+          "init": init, "calls": calls, "kernels_vs_plain": routes,
+          "logit_bf16_rtol": bound, "f32_cut": f32, "flash_attention": k8,
+          "rmsnorm": k7_case, "launches": launches, "seconds": time.perf_counter() - t_start,
+          "fails": fails})
+    check(not fails, f"{arch}: " + "; ".join(fails))
+    return launches, calls, k8, k7_case
+
+
+def phase_serve_dense_lms(torch, seed: int):
+    """The six configs of DENSE_ARCHS one after another (the module
+    docstring's 11b2); returns (main-path launches, calls, K8's cases,
+    K7's cases) by config."""
+    t0 = time.perf_counter()
+    launches, calls, k8, k7_cases = {k: 0 for k in MOE_KERNELS}, {}, {}, {}
+    for arch in DENSE_ARCHS:
+        got, arch_calls, k8[arch], k7_case = _serve_dense(torch, seed, arch)
+        if k7_case is not None:
+            k7_cases[arch] = k7_case
+        for k in MOE_KERNELS:
+            launches[k] += got[k]
+        calls.update({f"{arch}/{name}": c for name, c in arch_calls.items()})
+    emit({"phase": "serve_dense_lms", "ok": True, "archs": list(DENSE_ARCHS),
+          "n_layers": DENSE_LAYERS, "f32_n_layers": DENSE_F32_LAYERS,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches, calls, k8, k7_cases
 
 
 # ------------------------------------------ LM training with NODE blocks
@@ -5292,6 +5629,9 @@ def main(argv=None) -> int:
         ssm_launches, ssm_calls = phase_serve_mamba2(torch, args.seed)
         phase = "serve_moe"
         moe_launches, moe_calls, k8_moe = phase_serve_moe(torch, args.seed)
+        phase = "serve_dense_lms"
+        dense_lm_launches, dense_lm_calls, k8_dense, k7_dense = \
+            phase_serve_dense_lms(torch, args.seed)
         phase = "train_node_lm"
         lm_train_launches, _ = phase_train_node_lm(torch, args.seed)
         phase = "serve_node_bench"
@@ -5380,13 +5720,18 @@ def main(argv=None) -> int:
     worst.update(worst_lm)
     worst.update(worst_ssm)
     worst["flash_attention"] = max(
-        worst["flash_attention"], *(t["max_abs_err"] for t in k8_moe.values()))
-    # K7 runs on the three LM serving paths and the sharded LM's, K8 on
-    # two of them and the sharded MoE, K9 on Mamba-2's two: launches add up
+        worst["flash_attention"],
+        *(t["max_abs_err"] for t in (*k8_moe.values(), *k8_dense.values())))
+    worst["rmsnorm"] = max(worst["rmsnorm"],
+                           *(t["max_abs_err"] for t in k7_dense.values()))
+    # K7 runs on the four LM serving paths and the sharded LM's, K8 on
+    # three of them and the sharded MoE, K9 on Mamba-2's two: launches add
+    # up
     launches.update(lm_launches)
     launches["rmsnorm"] += ssm_launches["rmsnorm"] + moe_launches["rmsnorm"] \
-        + sharded_lm_launches["rmsnorm"]
+        + dense_lm_launches["rmsnorm"] + sharded_lm_launches["rmsnorm"]
     launches["flash_attention"] += moe_launches["flash_attention"] \
+        + dense_lm_launches["flash_attention"] \
         + sharded_lm_launches["flash_attention"]
     for k in ("ssd_scan",) + K9_PARTS:
         launches[k] = ssm_launches[k] + sharded_lm_launches[k]
@@ -5396,7 +5741,7 @@ def main(argv=None) -> int:
             launches[k] += n
     k7_variants = {}
     for c in (*lm_calls.values(), *ssm_calls.values(),
-              *moe_calls.values()):
+              *moe_calls.values(), *dense_lm_calls.values()):
         for k, n in c["rmsnorm_kernels"].items():
             k7_variants[k] = k7_variants.get(k, 0) + n
     entries += [
@@ -5457,15 +5802,23 @@ def main(argv=None) -> int:
             "kernel_launches": k7_variants,
             "decode_ms": {str(timings_lm[k]["shape"][1]): timings_lm[k]["ms"]
                           for k in ("rmsnorm_decode", "rmsnorm_decode_2560",
-                                    "rmsnorm_decode_5120")}},
+                                    "rmsnorm_decode_5120")},
+            # at the prefill rows of each RMSNorm config of serve_dense_lms
+            **{f"{key}_{f}": t[f] for key, t in k7_dense.items()
+               for f in ("shape", "ms", "plain_ms", "bound_ms",
+                         "library_ms", "max_abs_err")}},
         "flash_attention": {
             "causal_ms": timings_lm["flash_attention_causal"]["ms"],
             "causal_library_ms":
             timings_lm["flash_attention_causal"]["library_ms"],
-            # causal at deepseek_moe_16b's and musicgen_medium's prefill
-            **{f"{key}_{f}": t[f] for key, t in k8_moe.items()
+            # causal at deepseek_moe_16b's and musicgen_medium's prefill,
+            # and at the head layout of each serve_dense_lms config
+            **{f"{key}_{f}": t[f]
+               for key, t in (*k8_moe.items(), *k8_dense.items())
                for f in ("shape", "ms", "plain_ms", "bound_ms",
-                         "library_ms", "max_abs_err")}},
+                         "library_ms", "max_abs_err")},
+            **{f"{key}_kv_heads": t["kv_heads"]
+               for key, t in k8_dense.items()}},
     }
     emit({"kernels": [
         {"name": name, "route": "cuda",

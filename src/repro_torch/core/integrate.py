@@ -259,18 +259,11 @@ def trial_decision(cfg: ControllerConfig, order: int, t, h_use, h_min,
     underflow; ``hit`` an accepted step landing on ``t_target``.
     """
     railed = h_use <= h_min * (1 + 1e-3)
+    accept = (ratio <= 1.0) | railed
     if guard_nonfinite:
-        # one read guards the whole trial: a NaN/Inf anywhere in the
-        # stage sums poisons the embedded error, and an Inf state makes
-        # the scaled norm Inf/Inf = NaN. The ratio is a norm, >= 0 or NaN,
-        # so ``ratio < inf`` is False exactly where it is not finite: one
-        # tensor op where ``torch.isfinite`` dispatches four
-        ok = ratio < math.inf
-        accept = ((ratio <= 1.0) | railed) & ok
-        bad = ~ok
+        accept, bad = nonfinite_guard(ratio, accept)
     else:
         bad = no_fault
-        accept = (ratio <= 1.0) | railed
     fail = bad & railed
     if live is not None:
         accept = live & accept
@@ -286,6 +279,18 @@ def trial_decision(cfg: ControllerConfig, order: int, t, h_use, h_min,
     h_next = propose_stepsize(cfg, h_use, ratio_c, prev_ratio,
                               order).to(t_new.dtype)
     return accept, fail, uflow, t_new, hit, h_next
+
+
+def nonfinite_guard(ratio, accept):
+    """The non-finite guard's work in a trial's decision, all of it:
+    (``accept`` and a finite ``ratio``, ``bad`` where it is not finite).
+    One read guards the whole trial: a NaN/Inf anywhere in the stage sums
+    poisons the embedded error, and an Inf state makes the scaled norm
+    Inf/Inf = NaN. The ratio is a norm, >= 0 or NaN, so ``ratio < inf``
+    is False exactly where it is not finite: one tensor op where
+    ``torch.isfinite`` dispatches four."""
+    ok = ratio < math.inf
+    return accept & ok, ~ok
 
 
 def nonfinite_any(*states, group=None) -> torch.Tensor:

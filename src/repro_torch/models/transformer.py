@@ -433,10 +433,12 @@ class TransformerBlock(nn.Module):
         if cfg.family != "dense" or cfg.norm != "rmsnorm" \
                 or cfg.parallel_block:
             raise ValueError(
-                f"only the dense pre-norm RMSNorm attention block is ported "
-                f"as a module (got family={cfg.family!r}, norm={cfg.norm!r}, "
-                f"parallel_block={cfg.parallel_block}); the other kinds "
-                "come with slice G (ROADMAP queue 1)")
+                f"TransformerBlock is node18's block only: dense, pre-norm, "
+                f"RMSNorm, sequential (got family={cfg.family!r}, "
+                f"norm={cfg.norm!r}, parallel_block={cfg.parallel_block}); "
+                "it takes no MoE, hybrid or SSM family, no LayerNorm and no "
+                "parallel block. Those blocks run through block_apply "
+                "(build_model(cfg, rcfg))")
         dev = resolve_device(device)
         self.cfg, self.rcfg = cfg, rcfg
         rng = np.random.default_rng(seed)

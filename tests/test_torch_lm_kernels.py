@@ -161,6 +161,21 @@ def test_flash_attention_causal(hkv, dtype):
     assert _rel(out, pallas) <= tol
 
 
+# the (heads, kv heads) of the dense and MoE configs served on the card at
+# head dim 128: qwen1.5 (40, 40), llava (56, 8), qwen2 and command-r (64,
+# 8), command-r-plus (96, 8), qwen3-moe (64, 4); group ratios 1, 7, 8, 12
+# and 16, here with 2 kv heads each
+@pytest.mark.parametrize("groups", [1, 7, 8, 12, 16])
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_flash_attention_causal_group_ratios(groups, dtype):
+    q, k, v = _qkv(1, 2 * groups, 2, 40, 128, seed=4 + groups)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    out = ops.flash_attention(qt, kt, vt)
+    assert out.dtype == qt.dtype and tuple(out.shape) == q.shape
+    want = jref.flash_attention_ref(qj, kj, vj)
+    assert _rel(out, want) <= (1e-5 if dtype == np.float32 else 2e-2)
+
+
 @pytest.mark.parametrize("window", [64, 128])
 def test_flash_attention_windowed(window):
     q, k, v = _qkv(1, 2, 1, 256, 32, seed=1)

@@ -1,18 +1,23 @@
-"""LM serving of the port (the hybrid RecurrentGemma and the Mamba-2
-families) against the reference, mirroring
+"""LM serving of the port against the reference, mirroring
 ``tests/test_models_consistency.py``.
 
-Four configs, f32 compute: ``hybrid-window`` (the reference test's, window
+Ten configs, f32 compute: ``hybrid-window`` (the reference test's, window
 8), ``recurrentgemma_9b.SMOKE`` (window 16), ``ssm`` (the reference test's
-Mamba-2 config, chunk 8) and ``mamba2_2_7b.SMOKE`` (chunk 16). The
-reference's ``init`` draws the weights; ``convert.tree_from_jax`` carries
-them over. For the hybrids, prompt lengths cover S below the window, S = 2
-x window (the sliding-window route) and S not a multiple of the window
-(the banded fallback); each then decodes ``NEW`` tokens, past the window,
-so the ring buffer wraps. For Mamba-2 they cover S below the chunk, S = 2
-x chunk and S off a multiple (prefill pads to the chunk with dt = 0); the
-decode steps then carry the conv and SSM states. The reference runs
-jitted (the same functions).
+Mamba-2 config, chunk 8), ``mamba2_2_7b.SMOKE`` (chunk 16), and the SMOKE
+configs of the six dense and MoE archs that chip_smoke's
+``serve_dense_lms`` serves on the card at full width: qwen1.5 (QKV bias,
+MHA), qwen2 (QKV bias, GQA), command-r and command-r-plus (LayerNorm, the
+parallel block, tied embeddings), llava-next (the VLM stub: ``embeds`` in
+place of tokens) and qwen3-moe (top-2 of 8 experts, no shared expert,
+capacity factor 1.25). The reference's ``init`` draws the weights;
+``convert.tree_from_jax`` carries them over. For the hybrids, prompt
+lengths cover S below the window, S = 2 x window (the sliding-window
+route) and S not a multiple of the window (the banded fallback); each
+then decodes ``NEW`` tokens, past the window, so the ring buffer wraps.
+For Mamba-2 they cover S below the chunk, S = 2 x chunk and S off a
+multiple (prefill pads to the chunk with dt = 0); the decode steps then
+carry the conv and SSM states. The six dense and MoE configs take one
+prompt length each. The reference runs jitted (the same functions).
 
 Tolerances, as max |difference| / max |reference|:
 
@@ -26,7 +31,17 @@ Tolerances, as max |difference| / max |reference|:
   doubling scan compute the plain route's functions in another order;
 * greedy ``generate``: tokens equal to the reference's at every step
   whose top-2 logit margin (reference) exceeds 1e-5 x max |logit|; after
-  the first step below that margin the two may rightly diverge.
+  the first step below that margin the two may rightly diverge. llava's
+  stub has no embedding table, so neither engine can feed a sampled token
+  back: its greedy tokens are the argmax of the prefill's and each decode
+  step's logits along the given embeds, equal where the margin exceeds
+  the same bound.
+
+qwen3-moe is left out of the check against the port's own forward: its
+capacity C = ceil(T k / E 1.25) depends on the call's T, so a forward, a
+prefill and a one-token decode drop different tokens (the reference's
+semantics; ``tests/test_torch_lm_consistency.py`` holds that check for
+an MoE at capacity factor E / k, where none is dropped).
 """
 
 import dataclasses
@@ -37,7 +52,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import command_r_35b as jcr
+from repro.configs import command_r_plus_104b as jcrp
+from repro.configs import llava_next_34b as jllava
 from repro.configs import mamba2_2_7b as jm2
+from repro.configs import qwen1_5_32b as jq15
+from repro.configs import qwen2_72b as jq2
+from repro.configs import qwen3_moe_235b_a22b as jq3
 from repro.configs import recurrentgemma_9b as jrg
 from repro.models import ModelConfig as JModelConfig
 from repro.models import RunConfig as JRunConfig
@@ -68,13 +89,26 @@ CONFIGS = {
         name="t", family="ssm", n_layers=3, d_model=64, vocab=128,
         ssm_state=16, ssm_head_dim=16, ssm_chunk=8),
     "mamba2-smoke": dataclasses.asdict(jm2.SMOKE),
+    "qwen1.5-smoke": dataclasses.asdict(jq15.SMOKE),
+    "qwen2-smoke": dataclasses.asdict(jq2.SMOKE),
+    "command-r-smoke": dataclasses.asdict(jcr.SMOKE),
+    "command-r-plus-smoke": dataclasses.asdict(jcrp.SMOKE),
+    "llava-next-smoke": dataclasses.asdict(jllava.SMOKE),
+    "qwen3-moe-smoke": dataclasses.asdict(jq3.SMOKE),
 }
 # hybrids: below the window, 2 x window (sliding route), not a multiple
-# (banded); Mamba-2: below the chunk, 2 x chunk, not a multiple (padded)
+# (banded); Mamba-2: below the chunk, 2 x chunk, not a multiple (padded);
+# the dense and MoE configs: one length each
 LENGTHS = {"hybrid-window": (5, 16, 12),
            "recurrentgemma-smoke": (10, 32, 24),
-           "ssm": (5, 16, 12), "mamba2-smoke": (10, 32, 24)}
+           "ssm": (5, 16, 12), "mamba2-smoke": (10, 32, 24),
+           "qwen1.5-smoke": (12,), "qwen2-smoke": (10,),
+           "command-r-smoke": (9,), "command-r-plus-smoke": (11,),
+           "llava-next-smoke": (13,), "qwen3-moe-smoke": (12,)}
 CASES = [(name, s) for name in CONFIGS for s in LENGTHS[name]]
+# the port's prefill -> decode against its own forward (module docstring)
+OWN_CASES = [(name, s) for name, s in CASES
+             if CONFIGS[name]["family"] != "moe"]
 
 
 def _rel(a, b) -> float:
@@ -104,8 +138,16 @@ def _tree_rel(port, ref, path=""):
 _REF = {}
 
 
+def _key(name) -> str:
+    """The batch key of a config's inputs: ``embeds`` for the
+    frontend-stub archs, else ``tokens``."""
+    return "tokens" if CONFIGS[name].get("frontend", "none") == "none" \
+        else "embeds"
+
+
 def _reference(name, s):
-    """The reference's model, weights, tokens and outputs for one case
+    """The reference's model, weights, inputs (``toks``: token ids, or
+    N(0, 0.02^2) embeddings for a frontend stub) and outputs for one case
     (computed once per module)."""
     if (name, s) in _REF:
         return _REF[(name, s)]
@@ -113,22 +155,26 @@ def _reference(name, s):
     m = jbuild_model(cfg, JRunConfig(compute_dtype=jnp.float32,
                                      max_seq=s + NEW + 4))
     params = m.init(jax.random.PRNGKey(1))
-    toks = np.random.default_rng(s).integers(
-        0, cfg.vocab, (2, s + NEW)).astype(np.int32)
-    full, _, _ = jax.jit(lambda p, b: m.forward(p, b, mode="train"))(
-        params, {"tokens": jnp.asarray(toks)})
-    last, caches = jax.jit(m.prefill)(params,
-                                      {"tokens": jnp.asarray(toks[:, :s])})
+    key = _key(name)
+    rng = np.random.default_rng(s)
+    if key == "tokens":
+        toks = rng.integers(0, cfg.vocab, (2, s + NEW)).astype(np.int32)
+    else:
+        toks = (0.02 * rng.standard_normal(
+            (2, s + NEW, cfg.d_model))).astype(np.float32)
+    full, _, aux = jax.jit(lambda p, b: m.forward(p, b, mode="train"))(
+        params, {key: jnp.asarray(toks)})
+    last, caches = jax.jit(m.prefill)(params, {key: jnp.asarray(toks[:, :s])})
     pre_caches = jax.tree.map(np.asarray, caches)
     decode = jax.jit(m.decode_step)
     steps = []
     for j in range(NEW):
-        lg, caches = decode(params, {"tokens": jnp.asarray(
+        lg, caches = decode(params, {key: jnp.asarray(
             toks[:, s + j:s + j + 1])}, caches, jnp.asarray(s + j, jnp.int32))
         steps.append(np.asarray(lg))
-    out = dict(cfg=cfg, model=m, params=params, toks=toks,
+    out = dict(cfg=cfg, model=m, params=params, toks=toks, key=key,
                np_params=jax.tree.map(np.asarray, params),
-               full=np.asarray(full), last=np.asarray(last),
+               full=np.asarray(full), aux=float(aux), last=np.asarray(last),
                caches=pre_caches, steps=steps)
     _REF[(name, s)] = out
     return out
@@ -142,14 +188,15 @@ def _port(name, s, **run):
 
 
 def _prefill_decode(model, params, toks, s):
+    key = "tokens" if model.cfg.frontend == "none" else "embeds"
     with torch.no_grad():
         last, caches = model.prefill(params,
-                                     {"tokens": torch.from_numpy(toks[:, :s])})
+                                     {key: torch.from_numpy(toks[:, :s])})
         pre = jax.tree.map(lambda t: t.clone(), caches)
         steps = []
         for j in range(NEW):
             lg, caches = model.decode_step(
-                params, {"tokens": torch.from_numpy(toks[:, s + j:s + j + 1])},
+                params, {key: torch.from_numpy(toks[:, s + j:s + j + 1])},
                 caches, s + j)
             steps.append(lg)
     return last, pre, steps
@@ -161,8 +208,10 @@ def test_forward_matches_reference(name, s):
     model, params = _port(name, s)
     with torch.no_grad():
         logits, caches, aux = model.forward(
-            params, {"tokens": torch.from_numpy(ref["toks"])}, mode="train")
-    assert caches is None and float(aux) == 0.0
+            params, {ref["key"]: torch.from_numpy(ref["toks"])}, mode="train")
+    # the MoE's load-balance loss; 0 exactly for the others
+    assert caches is None
+    assert abs(float(aux) - ref["aux"]) <= TOL * abs(ref["aux"])
     assert _rel(logits, ref["full"]) <= TOL
 
 
@@ -177,13 +226,13 @@ def test_prefill_and_decode_match_reference(name, s):
         assert _rel(steps[j], ref["steps"][j]) <= TOL, f"decode step {j}"
 
 
-@pytest.mark.parametrize("name,s", CASES)
+@pytest.mark.parametrize("name,s", OWN_CASES)
 def test_prefill_decode_matches_own_forward(name, s):
     ref = _reference(name, s)
     model, params = _port(name, s)
     with torch.no_grad():
         full, _, _ = model.forward(
-            params, {"tokens": torch.from_numpy(ref["toks"])}, mode="train")
+            params, {ref["key"]: torch.from_numpy(ref["toks"])}, mode="train")
     last, _, steps = _prefill_decode(model, params, ref["toks"], s)
     assert _rel(last, full[:, s - 1]) <= OWN_TOL
     for j in range(NEW):
@@ -210,7 +259,11 @@ def test_use_pallas_plain_versions_match_plain_route(name, s):
 
 @pytest.mark.parametrize("name,s", [("hybrid-window", 12),
                                     ("recurrentgemma-smoke", 24),
-                                    ("ssm", 12), ("mamba2-smoke", 24)])
+                                    ("ssm", 12), ("mamba2-smoke", 24)]
+                         + [(name, LENGTHS[name][0]) for name in (
+                             "qwen1.5-smoke", "qwen2-smoke",
+                             "command-r-smoke", "command-r-plus-smoke",
+                             "qwen3-moe-smoke")])
 def test_generate_greedy_matches_reference(name, s):
     ref = _reference(name, s)
     jeng = JServeEngine(ref["model"], ref["params"],
@@ -241,6 +294,27 @@ def test_generate_greedy_matches_reference(name, s):
     assert decided > 0, f"no greedy step above the margin: {margins}"
     np.testing.assert_array_equal(got[:, s:s + decided].numpy(),
                                   want[:, s:s + decided])
+
+
+def test_embeds_greedy_tokens_match_reference():
+    """llava's greedy tokens (module docstring): the argmax of the
+    prefill's logits and of the first NEW - 1 decode steps', NEW tokens,
+    equal to the reference's wherever its top-2 margin exceeds TOL x max
+    |logit| (each step is fed the given embeds, so a close step does not
+    carry into the next)."""
+    name = "llava-next-smoke"
+    s = LENGTHS[name][0]
+    ref = _reference(name, s)
+    model, params = _port(name, s)
+    last, _, steps = _prefill_decode(model, params, ref["toks"], s)
+    got = torch.stack([last] + steps[:NEW - 1], dim=1).numpy()
+    want = np.stack([ref["last"]] + ref["steps"][:NEW - 1], axis=1)
+    assert got.shape == want.shape == (2, NEW, ref["cfg"].vocab)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > TOL * np.abs(want).max()
+    assert decided.mean() > 0.5, decided
+    np.testing.assert_array_equal(got.argmax(-1)[decided],
+                                  want.argmax(-1)[decided])
 
 
 def test_loss_and_cache_defs_match_reference():
@@ -467,3 +541,22 @@ def test_attention_routes_match_reference():
     want = jatt.decode_attention(jq[:, :1], jk, jv, jnp.asarray(valid),
                                  groups=1)
     assert _rel(got, want) <= TOL
+
+
+def test_serve_dense_lms_rehearses_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's ``serve_dense_lms`` at SMOKE width on the CPU
+    (``tests/torch_dense_rehearsal.py``): all six configs run through the
+    phase's code, and only its launch checks fail (CPU tensors take the
+    plain versions and launch nothing): 3 a config."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).with_name("torch_dense_rehearsal.py")
+    spec = importlib.util.spec_from_file_location("torch_dense_rehearsal",
+                                                  path)
+    rehearsal = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rehearsal)
+    logged = rehearsal.rehearse(monkeypatch.setattr)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if '"phase": "serve_dense_lm"' in ln]
+    assert len(lines) == 6
+    assert len(logged) == 18 and all("launches" in w for w in logged)

@@ -169,7 +169,7 @@ def test_fixed_regime_and_unported_kinds_raise(cases):
     with pytest.raises(ValueError, match="fixed"):
         node_block_apply(lambda p, z, t: -z, {}, torch.ones(2),
                          NodeConfig(grad_method="mali", regime="fixed"))
-    with pytest.raises(ValueError, match="slice G"):
+    with pytest.raises(ValueError, match="takes no MoE"):
         TransformerBlock(dataclasses.replace(tcfg.SMOKE, family="moe"),
                          TRun(), device="cpu")
     # NODE_TRAIN as published (segmented ACA, "auto") runs: gradients

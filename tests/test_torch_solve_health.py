@@ -394,10 +394,12 @@ def test_failure_overhead_bench_quick(monkeypatch):
     guarded and the bare solve take equal trials, the guard's work lies in
     ``trial_decision`` and the initial check (``guard_ops`` gates the op
     counts: a guarded solve's extra ops are n_trials × the decision's + the
-    check's, and a stray check fails it), and the overhead is the guard's parts' time over the bare
-    solve's. The 5% gate is then held on given numbers: 4% passes, 6%
-    raises ``GateFailed``, and a bare solve under the reference's 1 ms
-    noise floor skips. On the card chip_smoke applies the gate to the
+    check's, the decision's extra ops ``nonfinite_guard``'s, and a stray
+    check fails it), and the overhead is the guard's parts' time over the
+    bare solve's, the guard's time a trial being ``nonfinite_guard``'s
+    timed alone (positive however loaded the host). The 5% gate is then
+    held on given numbers: 4% passes, 6% raises ``GateFailed``, and a bare
+    solve under the reference's 1 ms noise floor skips. On the card chip_smoke applies the gate to the
     quick mode's measured numbers."""
     from repro_torch.benchmarks import failure_overhead
     from repro_torch.benchmarks.common import GateFailed
@@ -407,6 +409,7 @@ def test_failure_overhead_bench_quick(monkeypatch):
     assert m["reps"] == 2
     ops = m["ops"]
     assert ops["decision_extra"] > 0 and ops["initial"] > 0
+    assert ops["guard"] == ops["decision_extra"]
     assert ops["solve_extra"] == (ops["n_trials"] * ops["decision_extra"]
                                   + ops["initial"])
     assert m["decision_extra_us"] > 0 and m["initial_check_us"] > 0
