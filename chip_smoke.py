@@ -140,7 +140,10 @@ printing one JSON line (``"phase": ...``):
                       (16384, 4096) and (16383, 4096), f32 and bf16, and
                       the decode shape (4, 4096); K8 at q (4, 16, 4096,
                       256), one kv head, window 2048 and 0, f32 and bf16,
-                      and at S = 1000; K10 at (4, 4096, 4096) and (2,
+                      and at S = 1000 (the wgmma kernel, as K8's rule
+                      picks for bf16 at head dims 64-256); K8's mma.sync
+                      kernel (head dims 16 and 32) at (2, 4, S, dh) with 2
+                      kv heads, S 1000 and 77; K10 at (4, 4096, 4096) and (2,
                       1000, 4096), and at (4, 4096, 4096) again with weak
                       decay (log a uniform in [-1.3e-2, -1.25e-4], the
                       state carried over the whole sequence) within a
@@ -154,7 +157,10 @@ printing one JSON line (``"phase": ...``):
                       D) of D = 4096, 2560 and 5120, through the kernel
                       its rule picks and through each of its two kernels
                       (one-pass, two-pass); K8 also at window 0 beside
-                      SDPA's causal call (``is_causal=True``).
+                      SDPA's causal call (``is_causal=True``), and its
+                      mma.sync kernel causal at (4, 16, 4096, 32). Every
+                      bf16 serving call below checks that all its K8
+                      launches took the wgmma kernel.
 9. ``serve_recurrentgemma`` — ``ServeEngine.generate`` over
                       ``build_model(recurrentgemma_9b.CONFIG with
                       n_layers=5)``: full width (d_model 4096, 16 heads, 1
@@ -516,6 +522,16 @@ RMS_BF16_ULPS = 1.0
 # (f32); the kernel rounds p to bf16 for the tensor cores (bf16)
 ATT_F32_RTOL = 2e-5
 ATT_BF16_RTOL = 1e-2
+# and in bf16 per tile of 16 rows (a warp's rows in both bf16 kernels),
+# max over tiles of ||out - plain|| / ||plain||: the max above sits on the
+# first rows, which see few keys and reach ~3, so a fault confined to the
+# long rows (values ~0.03) hides under it. The bf16 roundings of p and of
+# both outputs put a sound kernel at 2.8e-3 a tile at the main-path shapes
+# on an H100, and up to 5e-3 at head dim 16 in a CPU emulation of those
+# roundings; a single row's norm would swing more there.
+# tests/torch_k7_k8_ablations.py plants faults that this gate sees and
+# the one above does not
+ATT_BF16_ROWS_RTOL = 1e-2
 # K10 against the doubling scan: products in another order
 LRU_RTOL = 1e-5
 # K10 with weak decay, Griffin's trained range a^8 in [0.9, 0.999] at r = 1
@@ -2561,6 +2577,18 @@ def _rel(a, b) -> float:
                  / b.float().abs().max().clamp_min(1e-30))
 
 
+def _rows_rel(torch, a, b, rows: int = 16) -> float:
+    """(..., S, d) tensors cut along S into tiles of ``rows`` rows (the
+    last one short): max over tiles of ||a - b|| / ||b||."""
+    def sq(x):
+        x = torch.nn.functional.pad(x.flatten(0, -3), (0, 0, 0, -x.shape[-2]
+                                                      % rows))
+        return x.unflatten(1, (-1, rows)).square().sum((-1, -2))
+
+    a, b = a.float(), b.float()
+    return float((sq(a - b) / sq(b).clamp_min(1e-30)).sqrt().max())
+
+
 def _bf16_ulps(torch, a, b) -> float:
     """max |a - b| in units of b's bf16 ulp (8 significant bits)."""
     a, b = a.float(), b.float()
@@ -2634,13 +2662,48 @@ def phase_kernels_lm(torch, seed: int):
             worst["flash_attention"] = max(worst["flash_attention"], diff)
             err = _rel(out, ref)
             tol = ATT_F32_RTOL if dtype == torch.float32 else ATT_BF16_RTOL
+            rows_err = _rows_rel(torch, out, ref)
+            rows_tol = math.inf if dtype == torch.float32 \
+                else ATT_BF16_ROWS_RTOL
             cases.append({"kernel": "flash_attention",
                           "shape": [b, 16, s, 256], "kv_heads": 1,
                           "window": window, "dtype": str(dtype)[6:],
-                          "err": err, "max_abs_err": diff})
-            check(bool(torch.isfinite(out).all()) and err <= tol,
+                          "err": err, "rows_err": rows_err,
+                          "max_abs_err": diff})
+            check(bool(torch.isfinite(out).all()) and err <= tol
+                  and rows_err <= rows_tol,
                   f"K8 {(b, 16, s, 256)} window {window} {dtype}: {err} "
-                  f"beyond {tol}")
+                  f"beyond {tol} or {rows_err} a 16-row tile beyond "
+                  f"{rows_tol}")
+            del q, k, v, out, ref
+    # K8's second bf16 kernel (mma.sync, head dims 16 and 32: the SMOKE
+    # configs'), by the wrapper's rule, at lengths and windows that are no
+    # multiple of its 64 x 64 tiles; GQA with 2 kv heads
+    for dh in (16, 32):
+        for s, window in ((1000, 0), (1000, 100), (77, 7)):
+            q = rnd(2, 4, s, dh).to(torch.bfloat16)
+            k = rnd(2, 2, s, dh).to(torch.bfloat16)
+            v = rnd(2, 2, s, dh).to(torch.bfloat16)
+            ran = fa.variant_launches["mma_sync"]
+            out = ops.flash_attention(q, k, v, window=window)
+            ref = fa.flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            diff = float((out.float() - ref.float()).abs().max())
+            worst["flash_attention"] = max(worst["flash_attention"], diff)
+            err = _rel(out, ref)
+            rows_err = _rows_rel(torch, out, ref)
+            cases.append({"kernel": "flash_attention", "k8_kernel": "mma_sync",
+                          "shape": [2, 4, s, dh], "kv_heads": 2,
+                          "window": window, "dtype": "bfloat16",
+                          "err": err, "rows_err": rows_err,
+                          "max_abs_err": diff})
+            check(fa.variant_launches["mma_sync"] == ran + 1
+                  and bool(torch.isfinite(out).all())
+                  and err <= ATT_BF16_RTOL
+                  and rows_err <= ATT_BF16_ROWS_RTOL,
+                  f"K8 mma_sync {(2, 4, s, dh)} window {window}: {err} "
+                  f"beyond {ATT_BF16_RTOL}, {rows_err} a 16-row tile beyond "
+                  f"{ATT_BF16_ROWS_RTOL} or not launched")
             del q, k, v, out, ref
     for b, s in ((4, 4096), (2, 1000)):
         log_a = -F.softplus(rnd(b, s, 4096))
@@ -2683,6 +2746,7 @@ def phase_kernels_lm(torch, seed: int):
                          "rmsnorm_bf16_ulps": RMS_BF16_ULPS,
                          "attention_f32_rtol": ATT_F32_RTOL,
                          "attention_bf16_rtol": ATT_BF16_RTOL,
+                         "attention_bf16_rows_rtol": ATT_BF16_ROWS_RTOL,
                          "rg_lru_rtol": LRU_RTOL,
                          "rg_lru_weak_rtol": lru_weak_rtol(4096)}})
 
@@ -2742,6 +2806,22 @@ def phase_kernels_lm(torch, seed: int):
             q, ke, ve, is_causal=True), iters=10, warmup=2),
         "work": fa.work(b, 16, 1, s, 256, 0, 2)}
     del q, k, v, ke, ve
+    # the mma.sync kernel (head dim 32, off the main paths) causal at the
+    # same length
+    q = rnd(b, 16, s, 32).to(torch.bfloat16)
+    k = rnd(b, 16, s, 32).to(torch.bfloat16)
+    v = rnd(b, 16, s, 32).to(torch.bfloat16)
+    timings["flash_attention_mma_sync"] = {
+        "shape": [b, 16, s, 32], "kv_heads": 16, "window": 0,
+        "dtype": "bfloat16", "kernel": fa.kernel_for(32, 2),
+        "ms": time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=0), iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=0), iters=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10, warmup=2),
+        "work": fa.work(b, 16, 16, s, 32, 0, 2)}
+    del q, k, v
     # K10 at call A's and call B's prefill shapes
     for key, shape in (("rg_lru", (4, 4096, 4096)),
                        ("rg_lru_call_b", (2, 1000, 4096))):
@@ -2792,6 +2872,7 @@ def phase_serve_recurrentgemma(torch, seed: int):
     import dataclasses
 
     from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models.config import RunConfig
@@ -2836,6 +2917,9 @@ def phase_serve_recurrentgemma(torch, seed: int):
         k7_kernels = dict(k7.variant_launches)
         check(sum(k7_kernels.values()) == got["rmsnorm"],
               f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
+        k8_kernels = dict(fa.variant_launches)
+        check(k8_kernels == _k8_wgmma(got["flash_attention"]),
+              f"call {name}: K8's kernels {k8_kernels}")
         check(steps == new - 1, f"call {name}: {steps} decode steps")
         for k in LM_KERNELS:
             main_launches[k] += got[k]
@@ -2849,6 +2933,7 @@ def phase_serve_recurrentgemma(torch, seed: int):
             "prompts": b, "prompt_len": s, "new_tokens": new,
             "decode_steps": steps, "launches": got,
             "rmsnorm_kernels": k7_kernels,
+            "flash_attention_kernels": k8_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -3394,6 +3479,12 @@ def _flips(a, b) -> int:
     return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
 
 
+def _k8_wgmma(n: int) -> dict:
+    """K8's launches by kernel when all n took the wgmma kernel, as every
+    bf16 main path does (head dims 64, 128 and 256)."""
+    return {"wgmma": n, "mma_sync": 0, "f32": 0}
+
+
 def _k8_case(torch, gen, b, h, s, dh, hkv=None):
     """K8 against its plain version at (b, h, s, dh) with ``hkv`` kv heads
     (default h), causal, bf16; times beside SDPA's causal call (on k and
@@ -3409,12 +3500,16 @@ def _k8_case(torch, gen, b, h, s, dh, hkv=None):
     ref = fa.flash_attention_plain(q, k, v, window=0)
     torch.cuda.synchronize()
     err = _rel(out, ref)
+    rows_err = _rows_rel(torch, out, ref)
     diff = float((out.float() - ref.float()).abs().max())
-    check(bool(torch.isfinite(out).all()) and err <= ATT_BF16_RTOL,
+    check(bool(torch.isfinite(out).all()) and err <= ATT_BF16_RTOL
+          and rows_err <= ATT_BF16_ROWS_RTOL,
           f"K8 {(b, h, s, dh)} kv {hkv} causal bf16: {err} beyond "
-          f"{ATT_BF16_RTOL}")
+          f"{ATT_BF16_RTOL} or {rows_err} a 16-row tile beyond "
+          f"{ATT_BF16_ROWS_RTOL}")
     t = {"shape": [b, h, s, dh], "kv_heads": hkv, "window": 0,
-         "dtype": "bfloat16", "err": err, "max_abs_err": diff,
+         "dtype": "bfloat16", "kernel": fa.kernel_for(dh, 2), "err": err,
+         "rows_err": rows_err, "max_abs_err": diff,
          "ms": time_ms(torch, lambda: ops.flash_attention(q, k, v, window=0),
                        iters=10, warmup=2),
          "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
@@ -3431,6 +3526,7 @@ def phase_serve_moe(torch, seed: int):
     import dataclasses
 
     from repro_torch.configs import deepseek_moe_16b, musicgen_medium
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models import moe as moe_mod
@@ -3488,6 +3584,9 @@ def phase_serve_moe(torch, seed: int):
         k7_kernels = dict(k7.variant_launches)
         check(sum(k7_kernels.values()) == got["rmsnorm"],
               f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
+        k8_kernels = dict(fa.variant_launches)
+        check(k8_kernels == _k8_wgmma(got["flash_attention"]),
+              f"call {name}: K8's kernels {k8_kernels}")
         check(steps == new - 1, f"call {name}: {steps} decode steps")
         for k in MOE_KERNELS:
             main_launches[k] += got[k]
@@ -3502,6 +3601,7 @@ def phase_serve_moe(torch, seed: int):
             "decode_capacity": moe_mod._capacity(b, cfg),
             "decode_steps": steps, "launches": got,
             "rmsnorm_kernels": k7_kernels,
+            "flash_attention_kernels": k8_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -3622,16 +3722,19 @@ def phase_serve_moe(torch, seed: int):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         mcounts = ops.launch_counts()      # the main path ends here
+        mk8 = dict(fa.variant_launches)
         mpeak = torch.cuda.max_memory_allocated() / 1e9
         lp, _ = build_model(mcfg, dataclasses.replace(
             mrun, use_pallas=False)).prefill(mp, {"embeds": emb[:, :ms]})
     mgot = {k: mcounts[k] for k in MOE_KERNELS}
     check(mgot == {"rmsnorm": 0, "flash_attention": mcfg.n_layers},
           f"musicgen: launches {mgot}")
+    check(mk8 == _k8_wgmma(mcfg.n_layers), f"musicgen: K8's kernels {mk8}")
     check(all(bool(torch.isfinite(x.float()).all())
               for x in [last] + frames), "musicgen: logits not finite")
     music = {"n_params": mm.n_params(), "prompts": mb, "frames": ms,
              "decode_frames": mnew, "launches": mgot,
+             "flash_attention_kernels": mk8,
              "prefill_ms": 1e3 * (t1 - t0),
              "decode_ms_per_frame": 1e3 * (t2 - t1) / mnew,
              "peak_mem_GB": mpeak,
@@ -3727,6 +3830,7 @@ def _serve_dense(torch, seed: int, arch: str):
     import dataclasses
     import importlib
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as k7
     from repro_torch.models import moe as moe_mod
@@ -3812,6 +3916,7 @@ def _serve_dense(torch, seed: int, arch: str):
         others = {k: v for k, v in counts.items()
                   if k not in MOE_KERNELS and v}
         k7_kernels = dict(k7.variant_launches)
+        k8_kernels = dict(fa.variant_launches)
         for k in MOE_KERNELS:
             launches[k] += got[k]
         torch.cuda.synchronize()
@@ -3824,6 +3929,7 @@ def _serve_dense(torch, seed: int, arch: str):
             "prompts": b, "prompt_len": s, "new_tokens": new,
             "decode_steps": steps, "launches": got, "want": want,
             "rmsnorm_kernels": k7_kernels,
+            "flash_attention_kernels": k8_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -3836,6 +3942,8 @@ def _serve_dense(torch, seed: int, arch: str):
         if sum(k7_kernels.values()) != got["rmsnorm"]:
             fails.append(f"call {name}: K7's kernels {k7_kernels} != "
                          f"{got['rmsnorm']}")
+        if k8_kernels != _k8_wgmma(got["flash_attention"]):
+            fails.append(f"call {name}: K8's kernels {k8_kernels}")
         if steps != new - 1 or tuple(out.shape) != (b, new) \
                 or not calls[name]["tokens_in_vocab"]:
             fails.append(f"call {name}: {steps} decode steps, tokens "
@@ -5744,6 +5852,13 @@ def main(argv=None) -> int:
               *moe_calls.values(), *dense_lm_calls.values()):
         for k, n in c["rmsnorm_kernels"].items():
             k7_variants[k] = k7_variants.get(k, 0) + n
+    # K8's launches by kernel over the serving calls (RecurrentGemma,
+    # DeepSeek-MoE, the six dense cuts; serve_moe checks MusicGen's alike)
+    k8_variants = {}
+    for c in (*lm_calls.values(), *moe_calls.values(),
+              *dense_lm_calls.values()):
+        for k, n in c["flash_attention_kernels"].items():
+            k8_variants[k] = k8_variants.get(k, 0) + n
     entries += [
         ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
          timings_lm["rmsnorm"]),
@@ -5808,6 +5923,21 @@ def main(argv=None) -> int:
                for f in ("shape", "ms", "plain_ms", "bound_ms",
                          "library_ms", "max_abs_err")}},
         "flash_attention": {
+            "design": "bf16 at head dims 64, 128, 256: flash_fwd_wgmma, "
+                      "wgmma for S = Q K^T (SS) and O += P V (P from "
+                      "registers, V MN-major), TMA loads of Q and a "
+                      "2-stage K/V ring with full and split K/V empty "
+                      "mbarriers, one producer warpgroup and two 64-row "
+                      "consumer warpgroups (setmaxnreg 24/240) in ping-pong, "
+                      "the softmax beside the next products",
+            "kernel_rule": {"wgmma": [64, 128, 256], "mma_sync": [16, 32],
+                            "f32": "float32, every head dim"},
+            "kernel_launches": k8_variants,
+            "second_kernel": {
+                "name": "flash_fwd_mma_sync", "head_dims": [16, 32],
+                **{f: timings_lm["flash_attention_mma_sync"][f]
+                   for f in ("shape", "ms", "plain_ms", "bound_ms",
+                             "library_ms")}},
             "causal_ms": timings_lm["flash_attention_causal"]["ms"],
             "causal_library_ms":
             timings_lm["flash_attention_causal"]["library_ms"],

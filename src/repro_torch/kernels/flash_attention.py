@@ -5,24 +5,31 @@ plain version.
 ``repro/kernels/flash_attention.py::flash_attention_pallas``: q (B, H, S,
 dh), k and v (B, Hkv, S, dh) with H a multiple of Hkv, query i attending
 key j iff j <= i and (window == 0 or j > i - window), output (B, H, S, dh)
-in q's dtype. The CUDA source is ``csrc/flash_attention.cu`` (bf16 on the
-tensor cores, f32 with plain FMAs); it takes any S, and head dims 16, 32,
-64, 128 and 256. ``kv_tiles`` is the bf16 kernel's rule for the kv tiles a
-query tile visits and the interior ones among them, which it runs
-without a mask.
+in q's dtype. The CUDA source is ``csrc/flash_attention.cu``; it takes
+any S, and head dims 16, 32, 64, 128 and 256. ``kernel_for`` picks one of
+its three kernels: in bf16 ``wgmma`` (TMA loads into a ring guarded by
+mbarriers, both products on wgmma) at head dims 64, 128 and 256, the
+main paths', and ``mma_sync`` (mma.sync, 64 x 64 tiles) at 16 and
+32; ``f32`` (plain FMAs) for float32. ``tiles`` gives a bf16 kernel's
+query and kv tiles by head dim, read from the source's constants, and
+``kv_tiles`` its rule for the kv tiles a query tile visits and the
+interior ones among them, which it runs without a mask.
 
 ``flash_attention_plain`` is the reference oracle's arithmetic
 (``flash_attention_ref``: ``full_attention`` over expanded KV) with the
 scores, the softmax and the products in f32. For a tensor on the CPU the
 wrapper takes it; for a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, and ``variant_launches`` the launches
+of each of the three kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,14 +40,55 @@ from .rmsnorm import forward_only, plain_tensors
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BQ, BK = 64, 64         # the bf16 kernel's query and kv tiles
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = ("wgmma", "mma_sync", "f32")
+WGMMA_HEAD_DIMS = (64, 128, 256)
+_DTYPES = (torch.float32, torch.bfloat16)
+# kernel codes of flash_attention_forward
+_KERNEL_CODE = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 
 launches = {"flash_attention": 0}
+variant_launches = {k: 0 for k in KERNELS}
 
 
 def reset_launches() -> None:
     launches["flash_attention"] = 0
+    for k in KERNELS:
+        variant_launches[k] = 0
+
+
+def kernel_for(dh: int, itemsize: int) -> str:
+    """K8's kernel for head dim dh and elements of itemsize bytes: "f32"
+    for float32; in bf16 "wgmma" at head dims 64, 128 and 256 (every main
+    path's), "mma_sync" at 16 and 32 (SMOKE configs and tests), where a
+    64-row warpgroup tile and 128-byte swizzled rows do not fit."""
+    if itemsize == 4:
+        return "f32"
+    return "wgmma" if dh in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+@functools.lru_cache(maxsize=None)
+def source_config() -> Dict[str, object]:
+    """The bf16 kernels' tile constants as ``csrc/flash_attention.cu``
+    defines them: the wgmma kernel's consumer warpgroups (``FA_NWG``),
+    ring stages (``FA_STAGES``) and kv tile by head dim (its ``FA_CFG``
+    lines), and the mma_sync kernel's warps (``FA_WARPS``) and kv tile
+    (``FA_BK``)."""
+    text = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    define = {name: int(value) for name, value in re.findall(
+        r"^#define (FA_\w+) (\d+)$", text, re.M)}
+    return {"nwg": define["FA_NWG"], "stages": define["FA_STAGES"],
+            "bk": {int(dh): int(bk) for dh, bk in re.findall(
+                r"^FA_CFG\((\d+), (\d+)\)$", text, re.M)},
+            "warps": define["FA_WARPS"], "mma_sync_bk": define["FA_BK"]}
+
+
+def tiles(dh: int) -> Tuple[int, int]:
+    """The bf16 kernel's (query tile, kv tile) at head dim dh: 64 rows a
+    consumer warpgroup (wgmma) or 16 a warp (mma_sync)."""
+    cfg = source_config()
+    if kernel_for(dh, 2) == "wgmma":
+        return 64 * cfg["nwg"], cfg["bk"][dh]
+    return 16 * cfg["warps"], cfg["mma_sync_bk"]
 
 
 def band_mask(s: int, window: int, device=None) -> torch.Tensor:
@@ -72,14 +120,16 @@ def work(b: int, h: int, hkv: int, s: int, dh: int, window: int,
             itemsize * (2 * b * h * s * dh + 2 * b * hkv * s * dh))
 
 
-def kv_tiles(q0: int, s: int, window: int, bq: int = BQ,
-             bk: int = BK) -> Tuple[int, int, int, int]:
+def kv_tiles(q0: int, s: int, window: int, bq: int,
+             bk: int) -> Tuple[int, int, int, int]:
     """The kv tiles of ``bk`` keys that the query tile of rows [q0,
     min(q0 + bq, s) - 1] visits, (lo, hi), inclusive, and the interior
-    ones among them, (ilo, ihi) (none when ilo > ihi), as the bf16 kernel
-    computes them (``csrc/flash_attention.cu``, ``fa_tiles``): every key
-    of an interior tile is live for every row of the query tile, so the
-    kernel skips its mask; a tile outside (lo, hi) holds no live key."""
+    ones among them, (ilo, ihi) (none when ilo > ihi), as the bf16 kernels
+    compute them (``csrc/flash_attention.cu``, ``fa_tiles``; ``tiles``
+    gives (bq, bk) by head dim, and the wgmma kernel applies the rule per
+    64-row warpgroup too): every key of an interior tile is live for every
+    row of the query tile, so the kernel skips its mask; a tile outside
+    (lo, hi) holds no live key."""
     q_last = min(q0 + bq, s) - 1
     hi = q_last // bk
     lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 \
@@ -112,7 +162,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]  # ..., scale, kernel, stream
         lib.flash_attention_forward.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -141,7 +191,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention: k/v {tuple(k.shape)} do not match q "
             f"{tuple(q.shape)} (batch, length and head dim equal; H a "
             "multiple of Hkv)")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+    if q.dtype not in _DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention: q, k, v must share one dtype among "
@@ -176,15 +226,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if any(t.data_ptr() % 16 for t in (qc, kc, vc, out)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    chosen = kernel_for(dh, q.element_size())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_forward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b,
-            h, hkv, s, dh, int(window), float(scale), _DTYPE_CODE[q.dtype],
+            h, hkv, s, dh, int(window), float(scale), _KERNEL_CODE[chosen],
             stream)
     if code != 0:
         raise RuntimeError(
-            f"flash_attention launch failed: CUDA error {code} "
-            f"({lib.flash_attention_error_string(code).decode()})")
+            f"flash_attention launch failed ({chosen} kernel): CUDA error "
+            f"{code} ({lib.flash_attention_error_string(code).decode()})")
     launches["flash_attention"] += 1
+    variant_launches[chosen] += 1
     return out

@@ -47,7 +47,9 @@ max |plain|: K7 RMSNorm f32 within 2e-6 (the sum of squares in another
 order, rsqrtf) and bf16 within one bf16 ulp of each value; K8 attention
 f32 within 2e-5 (FMA sums in another order) and bf16 within 1e-2 (the
 kernel rounds p to bf16 for the tensor cores), also for lengths and
-windows that are no multiple of its tiles and every head dim; K7's one-
+windows that are no multiple of its tiles and every head dim, each
+through the kernel K8's rule picks (wgmma at head dims 64-256, mma.sync
+at 16 and 32); K7's one-
 and two-pass kernels each at the decode rows and serving widths, at the
 one-pass kernel's widest row and one vector beyond, and with an
 unaligned weight, each launch counted under its kernel; K10 within 1e-5 (the
@@ -660,6 +662,19 @@ def _rel(a, b):
                  / b.float().abs().max().clamp_min(1e-30))
 
 
+def _rows_rel(a, b, rows=16):
+    # max over tiles of 16 rows (a warp's rows in both bf16 kernels) of
+    # ||a - b|| / ||b||: K8's rows that see many keys are ~100x smaller
+    # than its first ones, which set max |b| in _rel
+    def sq(x):
+        x = torch.nn.functional.pad(x.flatten(0, -3),
+                                    (0, 0, 0, -x.shape[-2] % rows))
+        return x.unflatten(1, (-1, rows)).square().sum((-1, -2))
+
+    a, b = a.float(), b.float()
+    return float((sq(a - b) / sq(b).clamp_min(1e-30)).sqrt().max())
+
+
 def _bf16_ulps(a, b):
     a, b = a.float(), b.float()
     _, e = torch.frexp(b.abs())
@@ -752,24 +767,32 @@ def test_rmsnorm_with_a_misaligned_weight(card, dtype):
         k7.rmsnorm(x, w, kernel="one_pass")
 
 
-@pytest.mark.parametrize("s", [1, 63, 65, 200, 777])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 777, 127, 129, 1000])
 @pytest.mark.parametrize("window", [0, 1, 7, 63, 100, 1000])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
 def test_flash_attention_bf16_tile_classes(card, s, window, dh):
-    # lengths and windows that are no multiple of the 64-key tile, windows
-    # shorter than one tile and longer than S, every head dim, GQA with 2
-    # kv heads: interior, diagonal, window-edge and past-S tiles
+    # lengths and windows that are no multiple of the kernels' tiles (64 x
+    # 64 for mma.sync; for wgmma 128 query rows, two warpgroups of 64, and
+    # 128 or 64 keys: 127, 129 and 1000 straddle them), windows shorter
+    # than one tile and longer than S, every head dim, GQA with 2 kv
+    # heads: interior, diagonal, window-edge and past-S tiles, and a
+    # second warpgroup with no rows; each through the kernel K8's rule
+    # picks
     g = torch.Generator(device="cpu").manual_seed(s * 7 + window + dh)
     q = torch.randn(2, 4, s, dh, generator=g).to(torch.bfloat16).to(card)
     k = torch.randn(2, 2, s, dh, generator=g).to(torch.bfloat16).to(card)
     v = torch.randn(2, 2, s, dh, generator=g).to(torch.bfloat16).to(card)
     before = ops.launch_counts()["flash_attention"]
+    kernel = fa.kernel_for(dh, 2)
+    ran = fa.variant_launches[kernel]
     out = ops.flash_attention(q, k, v, window=window)
     want = fa.flash_attention_plain(q, k, v, window=window)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
+    assert fa.variant_launches[kernel] == ran + 1
     assert bool(torch.isfinite(out).all())
     assert _rel(out, want) <= 1e-2
+    assert _rows_rel(out, want) <= 1e-2
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh", [(2, 4, 1, 128, 256),
@@ -792,6 +815,8 @@ def test_flash_attention_kernel_matches_its_plain_version(card, b, h, hkv,
     assert ops.launch_counts()["flash_attention"] == before + 1
     assert out.dtype == dtype and bool(torch.isfinite(out).all())
     assert _rel(out, want) <= (2e-5 if dtype == torch.float32 else 1e-2)
+    if dtype == torch.bfloat16:
+        assert _rows_rel(out, want) <= 1e-2
 
 
 # the tile edges: S = 7, 65, T + 1 and 1000 (T = lru.SEGMENTS *

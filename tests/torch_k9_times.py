@@ -21,7 +21,9 @@ B, then B, A, per pair of rounds). Each time is the mean of 10 launches
   (``rmsnorm.KERNELS``), each is also timed alone, and the no-op kernel
   (``rmsnorm.noop``) gives the launch floor.
 * ``k8``: flash attention in bf16 at recurrentgemma_9b's prefill, q (4,
-  16, 4096, 256), one kv head, window 2048 and 0 (causal).
+  16, 4096, 256), one kv head, window 2048 and 0 (causal); causal at
+  qwen2_72b's and command_r_35b's layout, q (4, 64, 4096, 128) with 8 kv
+  heads, and at musicgen_medium's call, q (2, 24, 1024, 64).
 * ``k10``: the RG-LRU scan in f32 at recurrentgemma_9b's prefill shapes
   (4, 4096, 4096) and (2, 1000, 4096) (calls A and B), log_a = -softplus
   of a normal draw, as ``chip_smoke.py`` draws it.
@@ -101,7 +103,10 @@ def time_tree(ops, k9, x, dt, a, bm, cm) -> dict:
 
 
 K7_SHAPES = ((4, 4096), (4, 2560), (4, 5120), (16384, 4096))
-K8_SHAPE, K8_WINDOWS = (4, 16, 4096, 256), (2048, 0)
+# (batch, heads, kv heads, length, head dim), windows
+K8_CASES = (((4, 16, 1, 4096, 256), (2048, 0)),
+            ((4, 64, 8, 4096, 128), (0,)),
+            ((2, 24, 24, 1024, 64), (0,)))
 
 
 def k7_inputs(seed: int):
@@ -125,17 +130,23 @@ def time_k7(ops, k7, data) -> dict:
 
 
 def k8_inputs(seed: int):
+    """One (q, k, v) a case of K8_CASES, bf16."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    b, h, s, dh = K8_SHAPE
-    return [torch.randn(*shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for shape in ((b, h, s, dh), (b, 1, s, dh),
-                                      (b, 1, s, dh))]
+    return [[torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, h, s, dh), (b, hkv, s, dh),
+                                      (b, hkv, s, dh))]
+            for (b, h, hkv, s, dh), _ in K8_CASES]
 
 
-def time_k8(ops, q, k, v) -> dict:
-    return {f"window_{w}_ms": time_ms(
-        lambda w=w: ops.flash_attention(q, k, v, window=w))
-        for w in K8_WINDOWS}
+def time_k8(ops, data) -> dict:
+    out = {}
+    for (q, k, v), (_, windows) in zip(data, K8_CASES):
+        key = "x".join(map(str, q.shape)) + f"_kv{k.shape[1]}"
+        for w in windows:
+            out[f"{key}_window_{w}_ms"] = time_ms(
+                lambda q=q, k=k, v=v, w=w: ops.flash_attention(
+                    q, k, v, window=w))
+    return out
 
 
 K10_SHAPES = ((4, 4096, 4096), (2, 1000, 4096))
@@ -235,8 +246,7 @@ def main(argv=None) -> int:
         what = {"shapes": [list(s) for s in K7_SHAPES]}
     elif args.kernel == "k8":
         data = k8_inputs(args.seed)
-        what = {"shape": list(K8_SHAPE), "kv_heads": 1,
-                "windows": list(K8_WINDOWS)}
+        what = {"cases": [[list(s), list(w)] for s, w in K8_CASES]}
     elif args.kernel == "k10":
         data, dtype = k10_inputs(args.seed), "float32"
         what = {"shapes": [list(s) for s in K10_SHAPES]}
@@ -257,7 +267,7 @@ def main(argv=None) -> int:
             elif args.kernel == "k7":
                 times = time_k7(ops, k7, data)
             elif args.kernel == "k8":
-                times = time_k8(ops, *data)
+                times = time_k8(ops, data)
             elif args.kernel == "k10":
                 times = time_k10(ops, data)
             elif args.kernel == "k3":
