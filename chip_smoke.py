@@ -3108,10 +3108,13 @@ def phase_kernels_ssm(torch, seed: int):
         got = {"ssd_chunk_state": ((cs, cs_p), (st, st_p))}
         hp, hl = k9.ssd_state_pass(st_p.clone(), cs_p, 256)
         got["ssd_state_pass"] = ((hp, hp_p), (hl, hl_p))
+        ran = dict(k9.variant_launches)
         y = k9.ssd_chunk_scan(x, dt, cs_p, bm, cm, hp_p, 256)
         got["ssd_chunk_scan"] = ((y, k9.chunk_outputs(
             x, dt, cs_p, bm, cm, hp_p, 256).to(x.dtype)),)
         torch.cuda.synchronize()
+        check(k9.variant_launches["wgmma"] == ran["wgmma"] + 1,
+              f"K9.3 at call A's shape weak={weak}: not on the wgmma kernel")
         for k, pairs in got.items():
             err = max(_ssd_err(torch, u, v) if u.dtype == torch.bfloat16
                       else _rel(u, v) for u, v in pairs)
@@ -3129,6 +3132,34 @@ def phase_kernels_ssm(torch, seed: int):
                 f"{SSD_F32_RTOL}")
         del x, dt, a, bm, cm, cs_p, st_p, hp_p, hl_p, cs, st, hp, hl, y, got
         torch.cuda.empty_cache()
+    # K9.3's mma.sync kernel on the shapes its rule gives it: the SMOKE
+    # config's (16, 16) at chunk 16, and (64, 128) at chunk 32
+    for b, s, h, p, n, q in ((2, 1024, 8, 16, 16, 16),
+                             (2, 1024, 80, 64, 128, 32)):
+        for weak in (False, True):
+            x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, s, h, p, 1, n,
+                                           torch.bfloat16, weak=weak)
+            cs_p, st_p = k9.chunk_states(x, dt, a, bm, q)
+            hp_p, _ = k9.state_pass(st_p, cs_p, q)
+            ran = dict(k9.variant_launches)
+            y = k9.ssd_chunk_scan(x, dt, cs_p, bm, cm, hp_p, q)
+            yp = k9.chunk_outputs(x, dt, cs_p, bm, cm, hp_p, q).to(x.dtype)
+            torch.cuda.synchronize()
+            err = _ssd_err(torch, y, yp)
+            diff = float((y.float() - yp.float()).abs().max())
+            worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], diff)
+            cases.append({"kernel": "ssd_chunk_scan", "k9_3_kernel":
+                          "mma_sync", "shape": [b, s, h, p], "state": n,
+                          "groups": 1, "chunk": q, "dtype": "bfloat16",
+                          "decay": "weak" if weak else "reference init",
+                          "err": err, "max_abs_err": diff})
+            check(k9.variant_launches["mma_sync"] == ran["mma_sync"] + 1
+                  and bool(torch.isfinite(y.float()).all())
+                  and err <= SSD_F32_RTOL,
+                  f"K9.3 mma_sync {(b, s, h, p)} state {n} chunk {q} "
+                  f"weak={weak}: {err} beyond {SSD_F32_RTOL} or not "
+                  "launched")
+            del x, dt, a, bm, cm, cs_p, st_p, hp_p, y, yp
     # K7 at the Mamba-2 widths: the gated norm (5120) and the final norm
     # (2560), call A's prefill rows and the decode rows
     for d in (5120, 2560):
@@ -3191,8 +3222,13 @@ def phase_kernels_ssm(torch, seed: int):
         # S_c in, h_prev out, the chunks' last cs, h_last
         "work": k9.state_pass_work(b, s // q, h, p, n)}
     timings["ssd_chunk_scan"] = {
+        "kernel": k9.kernel_for(p, n, q),
         "ms": time_ms(torch, lambda: k9.ssd_chunk_scan(
             x, dt, cs, bm, cm, h_prev, q), iters=10, warmup=2),
+        # each of K9.3's two kernels forced (the rule takes wgmma here)
+        **{f"{kern}_ms": time_ms(torch, lambda kern=kern: k9.ssd_chunk_scan(
+            x, dt, cs, bm, cm, h_prev, q, kernel=kern), iters=10, warmup=2)
+           for kern in k9.KERNELS},
         "plain_ms": time_ms(torch, lambda: k9.chunk_outputs(
             x, dt, cs, bm, cm, h_prev, q), iters=3, warmup=1),
         # x, dt, cs, B, C, h_prev in; y out
@@ -3274,6 +3310,7 @@ def phase_serve_mamba2(torch, seed: int):
     from repro_torch.configs import mamba2_2_7b
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as k7
+    from repro_torch.kernels import ssd_scan as k9
     from repro_torch.models.config import RunConfig
     from repro_torch.models.lm import build_model
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -3320,6 +3357,11 @@ def phase_serve_mamba2(torch, seed: int):
         k7_kernels = dict(k7.variant_launches)
         check(sum(k7_kernels.values()) == got["rmsnorm"],
               f"call {name}: K7's kernels {k7_kernels} != {got['rmsnorm']}")
+        # every K9.3 launch of the prefill on the wgmma kernel
+        k93_kernels = dict(k9.variant_launches)
+        check(k93_kernels == {"wgmma": layers, "mma_sync": 0},
+              f"call {name}: K9.3's kernels {k93_kernels}, not "
+              f"{layers} on wgmma")
         check(steps == new - 1, f"call {name}: {steps} decode steps")
         for k in SSM_KERNELS:
             main_launches[k] += got[k]
@@ -3333,6 +3375,7 @@ def phase_serve_mamba2(torch, seed: int):
             "prompts": b, "prompt_len": s, "new_tokens": new,
             "decode_steps": steps, "launches": got,
             "rmsnorm_kernels": k7_kernels,
+            "ssd_chunk_scan_kernels": k93_kernels,
             "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * (gen_s - prefill_s) / steps,
             "tokens_per_s": b * new / gen_s, "peak_mem_GB": peak,
@@ -4761,6 +4804,7 @@ def _sharded_serve(torch, seed: int, mesh, card: str, cfg, call, max_seq,
 
     from repro_torch.distributed import regions
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as k9
     from repro_torch.models.common import place_params
     from repro_torch.models.config import RunConfig
     from repro_torch.models.lm import build_model
@@ -4795,6 +4839,7 @@ def _sharded_serve(torch, seed: int, mesh, card: str, cfg, call, max_seq,
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         counts = ops.launch_counts()       # the main path ends here
+        k93 = dict(k9.variant_launches)
         peak = torch.cuda.max_memory_allocated() / 1e9
         steps = engine.last_decode_steps
         t0 = time.perf_counter()
@@ -4803,6 +4848,7 @@ def _sharded_serve(torch, seed: int, mesh, card: str, cfg, call, max_seq,
         prefill_s = time.perf_counter() - t0
         return {"out": out, "steps": steps,
                 "launches": {k: counts[k] for k in kernels},
+                "ssd_chunk_scan_kernels": k93,
                 "others": {k: v for k, v in counts.items()
                            if k not in kernels and v},
                 "generate_ms": 1e3 * gen_s, "prefill_ms": 1e3 * prefill_s,
@@ -4853,6 +4899,13 @@ def _sharded_serve(torch, seed: int, mesh, card: str, cfg, call, max_seq,
     check(all(r["launches"] == w and not r["others"] for r in runs),
           f"sharded_lm {cfg.name}: launches "
           f"{[(r['launches'], r['others']) for r in runs]} != {w}")
+    # every K9.3 launch (one a layer on Mamba-2, none on the MoE) on the
+    # wgmma kernel
+    k93 = {"wgmma": w.get("ssd_chunk_scan", 0), "mma_sync": 0}
+    row["ssd_chunk_scan_kernels"] = runs[1]["ssd_chunk_scan_kernels"]
+    check(all(r["ssd_chunk_scan_kernels"] == k93 for r in runs),
+          f"sharded_lm {cfg.name}: K9.3's kernels "
+          f"{[r['ssd_chunk_scan_kernels'] for r in runs]} != {k93}")
     return row, runs[1]["launches"]
 
 
@@ -5859,6 +5912,11 @@ def main(argv=None) -> int:
               *dense_lm_calls.values()):
         for k, n in c["flash_attention_kernels"].items():
             k8_variants[k] = k8_variants.get(k, 0) + n
+    # K9.3's launches by kernel over Mamba-2's serving calls
+    k93_variants = {}
+    for c in ssm_calls.values():
+        for k, n in c["ssd_chunk_scan_kernels"].items():
+            k93_variants[k] = k93_variants.get(k, 0) + n
     entries += [
         ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:27",
          timings_lm["rmsnorm"]),
@@ -5893,7 +5951,25 @@ def main(argv=None) -> int:
                 t["plain_ms"], "half_drift_bound_ms": t["bound_ms"],
                 "half_drift_library_ms": t["library_ms"]}
 
+    t93 = timings_ssm["ssd_chunk_scan"]
     extras = {
+        "ssd_chunk_scan": {
+            "kernel": "ssd_chunk_scan_wgmma",
+            "design": "bf16 at (head dim, state) (64, 128), chunks of whole "
+                      "64-row blocks: ssd_chunk_scan_wgmma, one block per "
+                      "256 query rows of a (chunk, head, batch), C B^T (SS) "
+                      "and M x (M from registers as hi + lo bf16, x "
+                      "MN-major) and C h_prev^T (hi + lo) on wgmma, TMA "
+                      "loads of C and a 2-stage B/x ring with full and "
+                      "split empty mbarriers, one producer warpgroup and "
+                      "two consumer warpgroups (setmaxnreg 24/240), heavy "
+                      "query blocks paired with light",
+            "kernel_rule": {"wgmma": "(64, 128), chunk % 64 == 0",
+                            "mma_sync": "every other bf16 shape"},
+            "kernel_launches": k93_variants,
+            "wgmma_ms": t93["wgmma_ms"],
+            "second_kernel": {"name": "ssd_chunk_scan (mma.sync)",
+                              "ms": t93["mma_sync_ms"]}},
         "rk_stage_increment": {**aug("k1"), **b_mid("k1_b_mid"),
                                **half_drift("k1_half_drift")},
         "rk_stage_combine_err": aug("k2"),

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), under
 ``build/repro_torch/`` at the repository root — a directory that
 ``.gitignore`` lists. The library's file name carries a hash of its
-source and flags, so an edited source builds anew and an unchanged one
-loads the library already built. A failed build raises ``RuntimeError``
-with the compiler's output.
+source, of every header beside it (``csrc/*.cuh``, which the sources
+include) and of the flags, so an edited source or header builds anew and
+an unchanged one loads the library already built. A failed build raises
+``RuntimeError`` with the compiler's output.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     # registers, shared memory and spills per kernel, kept in the log
     "-Xptxas", "-v",
+    # the shared headers, also for a copy of a source compiled elsewhere
+    "-I", str(CSRC_DIR),
 )
 
 
@@ -76,9 +79,11 @@ def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise RuntimeError(f"no CUDA source {src}")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(nvcc: str, src: Path, out: Path):
@@ -91,12 +96,17 @@ def _start(nvcc: str, src: Path, out: Path):
     return proc, tmp, cmd
 
 
+def sources() -> List[str]:
+    """The names of the CUDA sources, ``csrc/*.cu`` (each a library; the
+    ``*.cuh`` headers are not built on their own)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def build_all(names: Iterable[str] = None) -> List[BuildInfo]:
-    """Compile every named source (default: all of ``csrc/*.cu``) that has
+    """Compile every named source (default: all of ``sources()``) that has
     no current library yet, all ``nvcc`` processes started together, and
     load each. Returns one ``BuildInfo`` per source."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu")) \
-        if names is None else list(names)
+    names = sources() if names is None else list(names)
     todo = []
     for name in names:
         src, out = _target(name)

@@ -37,28 +37,74 @@
 //     S_c over the chunks in order, in place (states[c] becomes the state
 //     before chunk c), h_last at the end; the plain version's rounding
 //     (product, then sum). Bound by bytes.
-//  3. ssd_chunk_scan, grid (nc x Q / 64, H, B), 4 warps: one block per 64
-//     query rows of a chunk (heaviest first), one 16-row query tile per
-//     warp. C's A fragments load into registers; the state before the
-//     chunk lands by cp.async and is split in place into hi and lo bf16
-//     for C h^T; B_c and x_c then stream 64 key rows at a time up to the
-//     diagonal through a two-stage cp.async ring whose second stage
+//  3. chunk outputs y, one of two kernels by the rule ssd_scan_kernel_of
+//     (kernels/ssd_scan.py::kernel_for is its twin):
+//     ssd_chunk_scan_wgmma at (P, N) = (64, 128) and chunks of whole 64-row
+//     query blocks (mamba2_2_7b's main path), the earlier ssd_chunk_scan on
+//     mma.sync everywhere else (the SMOKE config's (16, 16), chunks of 16
+//     or 32 rows).
+//   ssd_chunk_scan_wgmma, grid (H, nc x ceil(Q / 256), B): one block per
+//     256 query rows of a (chunk, head, batch), so at Q = 256 one block a
+//     chunk: C's rows, the state's split and the key tiles are loaded and
+//     made once per chunk (the mma.sync kernel does each four times, one block
+//     per 64 rows). One producer warpgroup, of which one thread issues
+//     every TMA load (C once; B_c and x_c key tile by key tile, 64 keys,
+//     through a 2-stage ring with full and empty mbarriers for B and for x
+//     apart); two consumer warpgroups (setmaxnreg 24 / 240) own the four
+//     64-row query blocks, the heaviest paired with the lightest (rows
+//     0-63 with 192-255, 64-127 with 128-191: 5 key tiles each). A
+//     warpgroup walks the key tiles once for both its blocks: S = C B_c^T
+//     on wgmma (m64n64k16, C and B_c K-major from shared memory, no split:
+//     both are bf16), the decay in registers (on the diagonal tile the mask
+//     before the exp, as exp of the upper triangle's positive differences
+//     could overflow and inf * 0 is NaN; off it e^{cs_i - cs_j} dt_j =
+//     e^{cs_i - cs_j1} (e^{cs_j1 - cs_j} dt_j), j1 the tile's last key, both
+//     factors at most 1: two exps per row and tile), then y += M x_c on
+//     wgmma with M from registers (the accumulator layout is the A
+//     layout) as hi + lo bf16 and x_c the B operand MN-major, straight from
+//     its TMA tile. S of one step is issued with M x of the step before and
+//     the decay runs beside the latter; B's stage frees when S is done, x's
+//     when M x is. The consumers read the f32 state themselves and split it
+//     once into hi and lo bf16 tiles in the 128-byte swizzle for C h^T
+//     (m64n64k16, issued with the first S; y's rows then scaled by
+//     e^{cs_i}), which saves a 32 KB f32 staging tile. y leaves by TMA from
+//     its query block's C tile. Shared memory 148 KB at Q = 256 (C 64 KB,
+//     state 32 KB, ring 48 KB, cs, dt, wk 3 KB): one block an SM, 384
+//     threads, 168 registers, no spill. Bound: bytes (x, y and h_prev 168
+//     MB each at call A; B and C read by all 80 heads of a chunk from L2);
+//     its tensor-core work with the hi and lo terms is 29.4 MFLOP a chunk,
+//     0.152 ms at call A at 989 TFLOP/s against the 0.156 ms bytes bound.
+//   What holds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke and
+//     tests/torch_k9_ablations.py, PERF.md section 6): 0.52 ms at call A
+//     against the mma.sync kernel's 0.77. Without any wgmma (the loads,
+//     the split, the decay and the store alone) it takes 0.25 ms: each
+//     chunk moves 192 KB into its SM, 128 KB of it B_c and C, which every
+//     head reads again from L2; the products add 0.27 ms on top, as a
+//     block's loads up to its first S (C, the state, the first key tile)
+//     overlap no work of its own. Without the lo terms it is 11% faster,
+//     without C h^T 8%, without the overlap 2-3% slower; three or four
+//     ring stages, 32- or 128-key tiles and one consumer warpgroup are
+//     slower (the last two spill). A persistent form (one block an SM, C
+//     double-buffered, the next chunk loaded under this one's products)
+//     spilled at 240 registers a consumer thread and was slower. Sharing
+//     C B^T and its loads across a group's heads is the next step.
+//   ssd_chunk_scan (mma.sync), grid (nc x Q / (16 W), H, B), W warps: one
+//     block per 16 W query rows of a chunk (heaviest first), one 16-row
+//     query tile per warp. C's A fragments load into registers; the state
+//     before the chunk lands by cp.async and is split in place into hi and
+//     lo bf16 for C h^T; B_c and x_c then stream 16 W key rows at a time up
+//     to the diagonal through a two-stage cp.async ring whose second stage
 //     overlays the state, for (C B^T) and its product with x, their
-//     fragments by ldmatrix. On the diagonal tile the mask comes before
-//     the exp (exp of the upper triangle's positive differences could
-//     overflow, and inf * 0 is NaN); off it e^{cs_i - cs_j} dt_j is
-//     e^{cs_i - cs_j1} (e^{cs_j1 - cs_j} dt_j), j1 the tile's last key,
-//     both factors at most 1: two exps per row and tile, not sixteen.
-//     64,512 bytes at Q = 256, P = 64, N = 128 and 162 registers, so
-//     three blocks share an SM.
+//     fragments by ldmatrix; 16-key tiles, the same mask and decay. 64,512
+//     bytes at Q = 256, P = 64, N = 128 and 162 registers, so three blocks
+//     share an SM.
 //  Operands that are f32 (the state, (C B^T) L dt, dt e^{cs_Q - cs_j} x)
-//  enter the tensor cores (m16n8k16, bf16 in, f32 accumulate) as two bf16
-//  terms, hi = bf16(v) and lo = bf16(v - hi), two mma each: about 16
-//  significant bits, so the only bf16-sized rounding of the bf16 path is
-//  the store of y. x, B and C are read in place from their (B, S, H, P)
-//  and (B, S, G, N) layouts with 16-byte copies (no transposed or
-//  head-repeated copies). TMA, wgmma and sharing C B^T across the heads
-//  of a group are later work.
+//  enter the tensor cores (bf16 in, f32 accumulate) as two bf16 terms, hi =
+//  bf16(v) and lo = bf16(v - hi), two products each: about 16 significant
+//  bits, so the only bf16-sized rounding of the bf16 path is the store of
+//  y. x, B and C are read in place from their (B, S, H, P) and (B, S, G, N)
+//  layouts (no transposed or head-repeated copies). Sharing C B^T across
+//  the heads of a group, K9.1 on wgmma and the f32 scratch are later work.
 // f32 (ssd_scan_f32) keeps f32 end to end with plain FMAs (the tensor
 // cores would round to TF32): one block per (head, batch) walks the chunks
 // in order; 16-row query tiles and 16-key tiles, 16 threads per row; the x
@@ -66,9 +112,12 @@
 //
 // Both need Q % 16 == 0 and S % Q == 0 (the model pads S with dt = 0).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"  // TMA, mbarrier, wgmma helpers; tensor-map encoder
 
 #define SSD_THREADS 256
 #define SSD_WARPS 8
@@ -651,6 +700,536 @@ __global__ void __launch_bounds__(32 * W)
   }
 }
 
+// ------------------------------------------ bf16, wgmma + TMA (K9.3 main)
+
+// The kernel rule and the tiles of ssd_chunk_scan_wgmma, which
+// kernels/ssd_scan.py::source_config reads: head dim SSD_WG_P and state
+// SSD_WG_N at chunks of whole 64-row query blocks; a block takes up to
+// SSD_WG_ROWS query rows of one (chunk, head, batch), SSD_WG_NWG consumer
+// warpgroups own its 64-row query blocks by ssd_wg_of, and B_c and x_c
+// stream SSD_WG_BK keys a stage through a ring of SSD_WG_STAGES stages.
+#define SSD_WG_P 64
+#define SSD_WG_N 128
+#define SSD_WG_ROWS 256
+#define SSD_WG_NWG 2
+#define SSD_WG_BK 64
+#define SSD_WG_STAGES 2
+
+// The key tiles of bk keys that the 64 query rows [q0, q0 + 64) of a chunk
+// visit are [0, hi]; those up to ihi are interior (every key at or before
+// every row: no mask), the rest (the diagonal ones) are masked.
+// kernels/ssd_scan.py::chunk_tiles is the same rule.
+__host__ __device__ __forceinline__ void ssd_tiles(int q0, int bk, int& hi,
+                                                   int& ihi) {
+  hi = (q0 + 63) / bk;
+  ihi = (q0 + 1) / bk - 1;
+}
+
+// The consumer warpgroup of query block r of a block's nb: the heaviest
+// paired with the lightest (at nb = 4 rows 0-63 and 192-255 to one,
+// 64-127 and 128-191 to the other, so each visits 5 key tiles of 64); at
+// nb = 2 one block each; one consumer warpgroup takes all.
+// kernels/ssd_scan.py::warpgroup_of is the same rule.
+__host__ __device__ __forceinline__ int ssd_wg_of(int r, int nb, int nwg) {
+  if (nwg == 1) return 0;
+  if (nb == 2) return r;
+  return (r < nb - 1 - r ? r : nb - 1 - r) % 2;
+}
+
+// bytes of dynamic shared memory of ssd_chunk_scan_wgmma at chunk Q: 1024
+// to align, C of the block's query rows (Q or SSD_WG_ROWS of them), the
+// state's hi and lo tiles, the B_c and x_c ring, the barriers, and cs, dt
+// and the key decays wk (Q f32 each)
+static inline int ssd_wg_smem(int Q) {
+  const int rows = Q < SSD_WG_ROWS ? Q : SSD_WG_ROWS;
+  return 1024 + rows * SSD_WG_N * 2 + 2 * SSD_WG_P * SSD_WG_N * 2 +
+         SSD_WG_STAGES * SSD_WG_BK * (SSD_WG_N + SSD_WG_P) * 2 +
+         8 * (1 + 4 * SSD_WG_STAGES) + 3 * Q * 4;
+}
+
+// y += M x_c for one key tile: M (64 x BK, f32 in registers) as hi and lo
+// bf16 A fragments, x_c (BK keys x 64 columns) the B operand MN-major,
+// k-step kk 2048 bytes on (issued, not waited for)
+template <int BK>
+__device__ __forceinline__ void ssd_issue_mx(float (&y)[8][4],
+                                             const uint32_t (&mh)[BK / 16][4],
+                                             const uint32_t (&ml)[BK / 16][4],
+                                             uint32_t xa) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dx = fa_desc(xa + kk * 2048, BK * 128, 1024);
+    fa_wgmma_rs(y, mh[kk], dx);
+    fa_wgmma_rs(y, ml[kk], dx);
+  }
+}
+
+// D (64 x NB) (+)= C_q E^T over the state's 128 columns: C_q (64 rows) and
+// E (NB rows: B_c's keys, or the state's P rows) K-major in shared memory,
+// two 64-column chunks each, C's 8192 bytes apart and E's NB * 128
+// (issued, not waited for)
+template <int NB>
+__device__ __forceinline__ void ssd_issue_cbt(float (&d)[NB / 8][4],
+                                              uint32_t ca, uint32_t ea,
+                                              int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < SSD_WG_N / 16; ++kk)
+    fa_wgmma_ss(d, fa_desc(ca + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024),
+                fa_desc(ea + (kk / 4) * NB * 128 + (kk % 4) * 32, 16, 1024),
+                accumulate || kk > 0);
+}
+
+// What a consumer warpgroup's steps read: the tiles' shared-memory
+// addresses and barriers, cs, dt and wk, and its NS slots: slot k takes
+// query block rb[k] (rows q_first + 64 rb[k] ..), key tiles [0, hi[k]],
+// interior up to ihi[k], and holds cs of its rows i0 = q0 + 16 warp + g
+// and i0 + 8; slots lightest first, so the last one visits every tile
+template <int NS>
+struct SsdCtx {
+  static constexpr int kSlots = NS;
+  uint32_t sc, sh, sb, sx, bar_c, bar_b, bar_x, bar_eb, bar_ex;
+  const float *css, *dts, *wk;
+  int q_first, warp, g, t;
+  int rb[NS], hi[NS], ihi[NS];
+  float csr[NS][2];
+};
+
+__device__ __forceinline__ int ssd_stage(int j) { return j % SSD_WG_STAGES; }
+__device__ __forceinline__ uint32_t ssd_parity(int j) {
+  return static_cast<uint32_t>((j / SSD_WG_STAGES) & 1);
+}
+
+// One step of a consumer warpgroup: slot K on key tile j. S = C_q B_j^T
+// is issued, then the pending product: M x of the step before (slot PK on
+// tile pj) or, at the first step (PK < 0), C h_prev^T (hi + lo) of every
+// slot, after `first` has laid out what every step reads (the state's
+// tiles, cs, dt, wk). The decay of S runs beside the pending product. B's
+// stage frees once the tile's last slot's S is done, x's once its last M x
+// is; after the first step y's rows are scaled by e^{cs_i}. The slots are
+// template arguments, so every wgmma names its accumulator (a register
+// chosen at run time makes ptxas serialize them).
+template <int BK, int NS, int K, int PK, class First>
+__device__ __forceinline__ void ssd_step(const SsdCtx<NS>& cx, int j, int pj,
+                                         float (&y)[NS][8][4],
+                                         float (&s)[BK / 8][4],
+                                         uint32_t (&mh)[BK / 16][4],
+                                         uint32_t (&ml)[BK / 16][4],
+                                         First& first) {
+  constexpr uint32_t C_BYTES = 64 * SSD_WG_N * 2;
+  constexpr uint32_t H_BYTES = SSD_WG_P * SSD_WG_N * 2;
+  constexpr uint32_t B_BYTES = BK * SSD_WG_N * 2, X_BYTES = BK * SSD_WG_P * 2;
+  if constexpr (PK < 0) fa_bar_wait(cx.bar_c, 0);
+  fa_bar_wait(cx.bar_b + 8 * ssd_stage(j), ssd_parity(j));
+  fa_wgmma_fence();
+  ssd_issue_cbt<BK>(s, cx.sc + cx.rb[K] * C_BYTES,
+                    cx.sb + ssd_stage(j) * B_BYTES, 0);
+  fa_wgmma_commit();
+  if constexpr (PK < 0) {
+    first();
+    fa_wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      ssd_issue_cbt<SSD_WG_P>(y[q], cx.sc + cx.rb[q] * C_BYTES, cx.sh, 0);
+      ssd_issue_cbt<SSD_WG_P>(y[q], cx.sc + cx.rb[q] * C_BYTES,
+                              cx.sh + H_BYTES, 1);
+    }
+  } else {
+    fa_bar_wait(cx.bar_x + 8 * ssd_stage(pj), ssd_parity(pj));
+    fa_wgmma_fence();
+    ssd_issue_mx<BK>(y[PK], mh, ml, cx.sx + ssd_stage(pj) * X_BYTES);
+  }
+  fa_wgmma_commit();
+  fa_wgmma_wait<1>();  // S is done; the pending product runs on
+  fa_fence_regs(s);
+  if constexpr (K == NS - 1) fa_bar_arrive(cx.bar_eb + 8 * ssd_stage(j));
+
+  // the decay of S into M
+  const int key0 = j * BK;
+  if (j <= cx.ihi[K]) {
+    const float cl = cx.css[key0 + BK - 1];
+    const float r0 = expf(cx.csr[K][0] - cl), r1 = expf(cx.csr[K][1] - cl);
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const float2 w = *reinterpret_cast<const float2*>(cx.wk + key0 +
+                                                         nt * 8 + 2 * cx.t);
+      s[nt][0] = s[nt][0] * r0 * w.x;
+      s[nt][1] = s[nt][1] * r0 * w.y;
+      s[nt][2] = s[nt][2] * r1 * w.x;
+      s[nt][3] = s[nt][3] * r1 * w.y;
+    }
+  } else {  // a masked tile: the mask before the exp
+    const int i0 = cx.q_first + 64 * cx.rb[K] + 16 * cx.warp + cx.g;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = key0 + nt * 8 + 2 * cx.t + (e & 1);
+        s[nt][e] = jj <= i0 + 8 * (e >> 1)
+                       ? s[nt][e] * expf(cx.csr[K][e >> 1] - cx.css[jj]) *
+                             cx.dts[jj]
+                       : 0.f;
+      }
+  }
+
+  fa_wgmma_wait<0>();
+  if constexpr (PK < 0) {  // C h_prev^T is done: y's rows times e^{cs_i}
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      fa_fence_regs(y[q]);
+      const float e0 = expf(cx.csr[q][0]), e1 = expf(cx.csr[q][1]);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        y[q][d][0] *= e0;
+        y[q][d][1] *= e0;
+        y[q][d][2] *= e1;
+        y[q][d][3] *= e1;
+      }
+    }
+  } else {
+    fa_fence_regs(y[PK]);
+    if constexpr (PK == NS - 1)
+      fa_bar_arrive(cx.bar_ex + 8 * ssd_stage(pj));
+  }
+  // M as hi + lo bf16 A fragments of k-steps kk (keys 16 kk.. of the
+  // tile): the accumulator's layout is the A operand's
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    ssd_split(s[2 * kk][0], s[2 * kk][1], mh[kk][0], ml[kk][0]);
+    ssd_split(s[2 * kk][2], s[2 * kk][3], mh[kk][1], ml[kk][1]);
+    ssd_split(s[2 * kk + 1][0], s[2 * kk + 1][1], mh[kk][2], ml[kk][2]);
+    ssd_split(s[2 * kk + 1][2], s[2 * kk + 1][3], mh[kk][3], ml[kk][3]);
+  }
+}
+
+// the steps of slots P0 + 1 .. NS - 1 on tile j, each after the one before
+template <int BK, int NS, int P0, class First>
+__device__ __forceinline__ void ssd_tile_rest(const SsdCtx<NS>& cx, int j,
+                                              float (&y)[NS][8][4],
+                                              float (&s)[BK / 8][4],
+                                              uint32_t (&mh)[BK / 16][4],
+                                              uint32_t (&ml)[BK / 16][4],
+                                              First& first) {
+  if constexpr (P0 + 1 < NS) {
+    ssd_step<BK, NS, P0 + 1, P0>(cx, j, j, y, s, mh, ml, first);
+    ssd_tile_rest<BK, NS, P0 + 1>(cx, j, y, s, mh, ml, first);
+  }
+}
+
+// the key tiles that slots P0 .. NS - 1 visit and slot P0 - 1 does not
+// (P0 = 0: from tile 0), in order, then the next phase's
+template <int BK, int NS, int P0, class First>
+__device__ __forceinline__ void ssd_phase(const SsdCtx<NS>& cx,
+                                          float (&y)[NS][8][4],
+                                          float (&s)[BK / 8][4],
+                                          uint32_t (&mh)[BK / 16][4],
+                                          uint32_t (&ml)[BK / 16][4],
+                                          First& first) {
+  int j = 0;
+  if constexpr (P0 == 0) {
+    ssd_step<BK, NS, 0, -1>(cx, 0, -1, y, s, mh, ml, first);
+    ssd_tile_rest<BK, NS, 0>(cx, 0, y, s, mh, ml, first);
+    j = 1;
+  } else {
+    j = cx.hi[P0 - 1] + 1;
+  }
+  for (; j <= cx.hi[P0]; ++j) {
+    ssd_step<BK, NS, P0, NS - 1>(cx, j, j - 1, y, s, mh, ml, first);
+    ssd_tile_rest<BK, NS, P0>(cx, j, y, s, mh, ml, first);
+  }
+  if constexpr (P0 + 1 < NS) ssd_phase<BK, NS, P0 + 1>(cx, y, s, mh, ml, first);
+}
+
+// A consumer warpgroup with NS slots: every step, the last M x (the last
+// slot's, on its last tile), then y as bf16 into each query block's own C
+// tile (no longer read) in the layout TMA's 128-byte swizzle gives it
+// (16-byte unit u of row r at u ^ (r % 8)), stored by one thread by TMA.
+// Returns the last tile it visited.
+template <int BK, int NS, class First>
+__device__ __forceinline__ int ssd_consume(const SsdCtx<NS>& cx, int cw,
+                                           int wt,
+                                           int h, long long row0,
+                                           const CUtensorMap* ty,
+                                           First& first) {
+  constexpr uint32_t C_BYTES = 64 * SSD_WG_N * 2;
+  constexpr uint32_t X_BYTES = BK * SSD_WG_P * 2;
+  float y[NS][8][4];
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[k][d][e] = 0.f;
+  float s[BK / 8][4];
+#pragma unroll
+  for (int d = 0; d < BK / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[d][e] = 0.f;
+  uint32_t mh[BK / 16][4], ml[BK / 16][4];
+  ssd_phase<BK, NS, 0>(cx, y, s, mh, ml, first);
+  const int last = cx.hi[NS - 1];
+  fa_bar_wait(cx.bar_x + 8 * ssd_stage(last), ssd_parity(last));
+  fa_wgmma_fence();
+  ssd_issue_mx<BK>(y[NS - 1], mh, ml, cx.sx + ssd_stage(last) * X_BYTES);
+  fa_wgmma_commit();
+  fa_wgmma_wait<0>();
+  fa_fence_regs(y[NS - 1]);
+  fa_bar_arrive(cx.bar_ex + 8 * ssd_stage(last));
+
+  const int r0 = 16 * cx.warp + cx.g;  // r0 % 8 == g, as for r0 + 8
+#pragma unroll
+  for (int q = 0; q < NS; ++q) {
+    const uint32_t yq = cx.sc + cx.rb[q] * C_BYTES;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const uint32_t at = yq + ((d ^ cx.g) << 4) + 4 * cx.t;
+      const uint32_t v0 = ssd_pack_f32(y[q][d][0], y[q][d][1]);
+      const uint32_t v1 = ssd_pack_f32(y[q][d][2], y[q][d][3]);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + r0 * 128), "r"(v0)
+                   : "memory");
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + (r0 + 8) * 128),
+                   "r"(v1)
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+  if (wt == 0) {
+#pragma unroll
+    for (int q = 0; q < NS; ++q)
+      fa_tma_store(ty, cx.sc + cx.rb[q] * C_BYTES, 0, h,
+                   (int)(row0 + cx.q_first + 64 * cx.rb[q]));
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  return last;
+}
+
+// Kernel 3 on Hopper, grid (H, nc x ceil(Q / SSD_WG_ROWS), B): one block per
+// SSD_WG_ROWS query rows of a (chunk, head, batch), a chunk's row groups
+// heaviest first, the heads of one chunk together (at G = 1 they read one
+// B_c and C, from L2).
+//   y_i = sum_{j <= i} (C_i . B_j) e^{cs_i - cs_j} dt_j x_j
+//       + e^{cs_i} (C_i . h_prev)
+// One producer thread loads C of the block's rows, then B_c and x_c key
+// tile by key tile through the ring (TMA; full and empty mbarriers for B
+// and for x apart). The consumers read h_prev (f32) themselves and split
+// it once into hi and lo bf16 tiles in the 128-byte swizzle, while the
+// first S runs. A consumer warpgroup holds y of its (up to two) 64-row
+// query blocks in registers and walks the key tiles in order, each tile
+// once for all its blocks that visit it (ssd_phase, ssd_step): S = C_q
+// B_j^T (wgmma, both from shared memory), the decay in registers (the mask
+// before the exp on a masked tile; off it the two factors e^{cs_i - cs_j1}
+// and wk_j = e^{cs_j1 - cs_j} dt_j, both at most 1), M split into hi and
+// lo bf16 A fragments, y += M x_j (wgmma, A from registers). y goes out by
+// TMA from its query block's own C tile.
+template <int BK, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+    ssd_chunk_scan_wgmma(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tb,
+                         const __grid_constant__ CUtensorMap tc,
+                         const __grid_constant__ CUtensorMap ty,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ cs_in,
+                         const float* __restrict__ hprev, int S, int H, int G,
+                         int Q) {
+  constexpr int P = SSD_WG_P, N = SSD_WG_N, STAGES = SSD_WG_STAGES;
+  constexpr int QBLK = SSD_WG_ROWS / 64;         // query blocks of a block
+  constexpr int SLOTS = (QBLK + NWG - 1) / NWG;  // ... of a warpgroup
+  constexpr int NT = NWG * 128;                  // consumer threads
+  constexpr uint32_t C_BYTES = 64 * N * 2;       // one query block's C
+  constexpr uint32_t H_BYTES = P * N * 2;        // one bf16 state tile
+  constexpr uint32_t B_BYTES = BK * N * 2, X_BYTES = BK * P * 2;
+  static_assert(P == 64 && N == 128, "one 64-column chunk of x, two of B");
+  static_assert(SLOTS >= 1 && SLOTS <= 4, "one to four slots a warpgroup");
+  extern __shared__ __align__(1024) unsigned char ssd_wsmem[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
+  unsigned char* base =
+      ssd_wsmem + ((1024u - (fa_saddr(ssd_wsmem) & 1023u)) & 1023u);
+  const uint32_t sc = fa_saddr(base);
+  const int ngrp = (Q + SSD_WG_ROWS - 1) / SSD_WG_ROWS;
+  const int nb_max = Q < SSD_WG_ROWS ? Q / 64 : QBLK;
+  const uint32_t sh = sc + nb_max * C_BYTES;  // the state's hi, then lo
+  const uint32_t sb = sh + 2 * H_BYTES, sx = sb + STAGES * B_BYTES;
+  const uint32_t bar_c = sx + STAGES * X_BYTES;
+  const uint32_t bar_b = bar_c + 8, bar_x = bar_b + 8 * STAGES,
+                 bar_eb = bar_x + 8 * STAGES, bar_ex = bar_eb + 8 * STAGES;
+  float* css = reinterpret_cast<float*>(base + (bar_ex + 8 * STAGES - sc));
+  float* dts = css + Q;
+  float* wk = dts + Q;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int grp_row = ngrp - 1 - (int)(blockIdx.y % ngrp);  // heaviest first
+  const int c = blockIdx.y / ngrp;
+  const int grp = h / (H / G);
+  const int nb = min(QBLK, Q / 64 - grp_row * QBLK);
+  const int q_first = grp_row * SSD_WG_ROWS;  // the block's first row
+  const int kend = q_first + 64 * nb;          // keys [0, kend)
+  const int jmax = (kend - 1) / BK;            // the block's last key tile
+  const long long row0 = (long long)b * S + (long long)c * Q;
+
+  if (threadIdx.x == 0) {
+    fa_bar_init(bar_c, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      fa_bar_init(bar_b + 8 * st, 1);
+      fa_bar_init(bar_x + 8 * st, 1);
+      fa_bar_init(bar_eb + 8 * st, NWG * 128);
+      fa_bar_init(bar_ex + 8 * st, NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform for the compiler (a wgmma on a path it
+  // takes for divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      fa_bar_expect(bar_c, nb * C_BYTES);
+      for (int r = 0; r < nb; ++r)
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+          fa_tma_load(sc + r * C_BYTES + ch * 8192, &tc, bar_c, ch * 64, grp,
+                      (int)(row0 + q_first + 64 * r));
+      for (int j = 0; j <= jmax; ++j) {
+        const int st = j % STAGES;
+        const uint32_t free_parity = ((j / STAGES) & 1) ^ 1;
+        fa_bar_wait(bar_eb + 8 * st, free_parity);
+        fa_bar_expect(bar_b + 8 * st, B_BYTES);
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+          fa_tma_load(sb + st * B_BYTES + ch * BK * 128, &tb, bar_b + 8 * st,
+                      ch * 64, grp, (int)(row0 + j * BK));
+        fa_bar_wait(bar_ex + 8 * st, free_parity);
+        fa_bar_expect(bar_x + 8 * st, X_BYTES);
+        fa_tma_load(sx + st * X_BYTES, &tx, bar_x + 8 * st, 0, h,
+                    (int)(row0 + j * BK));
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int ct = threadIdx.x - 128;  // 0 .. NT - 1
+  const int wt = threadIdx.x % 128;
+
+  // loads issued now, used once the first S is on its way: the state
+  // before the chunk (f32), and cs, dt and cs of the tile's last key of
+  // the thread's first key
+  const float4* hp4 = reinterpret_cast<const float4*>(
+      hprev + (((long long)b * (S / Q) + c) * H + h) * P * N);
+  constexpr int HV = P * N / 4 / NT;  // float4 a thread
+  float4 hv[HV];
+#pragma unroll
+  for (int k = 0; k < HV; ++k) hv[k] = hp4[ct + NT * k];
+  const float* csg = cs_in + row0 * H + h;
+  const float* dtg = dt + row0 * H + h;
+  auto key_loads = [&](int i, float& ci, float& di, float& c1) {
+    ci = csg[(long long)i * H];
+    di = dtg[(long long)i * H];
+    c1 = csg[(long long)min(i | (BK - 1), kend - 1) * H];
+  };
+  float ci0 = 0.f, di0 = 0.f, c10 = 0.f;
+  if (ct < kend) key_loads(ct, ci0, di0, c10);
+  // what every step reads, laid out by all consumer threads: cs, dt and
+  // wk_j = e^{cs_j1 - cs_j} dt_j (j1 the last key of j's tile) of the keys
+  // [0, kend); the state split into hi and lo bf16 tiles (P rows of N, two
+  // 64-column chunks 8192 bytes apart, 128-byte swizzle: 16-byte unit u of
+  // row p at u ^ (p % 8))
+  auto first = [&]() {
+    if (ct < kend) {
+      css[ct] = ci0;
+      dts[ct] = di0;
+      wk[ct] = expf(c10 - ci0) * di0;
+    }
+    for (int i = ct + NT; i < kend; i += NT) {
+      float ci, di, c1;
+      key_loads(i, ci, di, c1);
+      css[i] = ci;
+      dts[i] = di;
+      wk[i] = expf(c1 - ci) * di;
+    }
+#pragma unroll
+    for (int k = 0; k < HV; ++k) {
+      const int e = 4 * (ct + NT * k);
+      const int p = e / N, n = e % N;
+      uint32_t h0, l0, h1, l1;
+      ssd_split(hv[k].x, hv[k].y, h0, l0);
+      ssd_split(hv[k].z, hv[k].w, h1, l1);
+      const uint32_t off = (n / 64) * 8192 + p * 128 +
+                           ((((n % 64) / 8) ^ (p & 7)) << 4) + (n % 8) * 2;
+      *reinterpret_cast<uint2*>(base + (sh - sc) + off) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(base + (sh - sc) + H_BYTES + off) =
+          make_uint2(l0, l1);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+  };
+
+  // this warpgroup's query blocks, lightest first
+  int nslot = 0, rb[SLOTS] = {};
+  for (int r = 0; r < nb; ++r)
+    if (ssd_wg_of(r, nb, NWG) == cw) {
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k)
+        if (k == nslot) rb[k] = r;
+      ++nslot;
+    }
+  const int warp = wt >> 5, lane = wt & 31;
+  auto run = [&](auto ctx) -> int {
+    ctx.sc = sc;
+    ctx.sh = sh;
+    ctx.sb = sb;
+    ctx.sx = sx;
+    ctx.bar_c = bar_c;
+    ctx.bar_b = bar_b;
+    ctx.bar_x = bar_x;
+    ctx.bar_eb = bar_eb;
+    ctx.bar_ex = bar_ex;
+    ctx.css = css;
+    ctx.dts = dts;
+    ctx.wk = wk;
+    ctx.q_first = q_first;
+    ctx.warp = warp;
+    ctx.g = lane >> 2;
+    ctx.t = lane & 3;
+    constexpr int ns = decltype(ctx)::kSlots;
+#pragma unroll
+    for (int k = 0; k < ns; ++k) {
+      ctx.rb[k] = rb[k];
+      ssd_tiles(q_first + 64 * rb[k], BK, ctx.hi[k], ctx.ihi[k]);
+      const int i0 = q_first + 64 * rb[k] + 16 * warp + ctx.g;
+      ctx.csr[k][0] = csg[(long long)i0 * H];
+      ctx.csr[k][1] = csg[(long long)(i0 + 8) * H];
+    }
+    return ssd_consume<BK, ns>(ctx, cw, wt, h, row0, &ty, first);
+  };
+  int last = -1;
+  if (nslot == SLOTS) {
+    last = run(SsdCtx<SLOTS>());
+  } else if (nslot == 1) {
+    last = run(SsdCtx<1>());
+  } else if (nslot == 0) {
+    first();
+  } else {
+    if constexpr (SLOTS > 2) {
+      if (nslot == 2) last = run(SsdCtx<2>());
+      if constexpr (SLOTS > 3)
+        if (nslot == 3) last = run(SsdCtx<3>());
+    }
+  }
+  // the block's tiles past this warpgroup's last: released unread
+  for (int j = last + 1; j <= jmax; ++j) {
+    fa_bar_wait(bar_b + 8 * ssd_stage(j), ssd_parity(j));
+    fa_bar_wait(bar_x + 8 * ssd_stage(j), ssd_parity(j));
+    fa_bar_arrive(bar_eb + 8 * ssd_stage(j));
+    fa_bar_arrive(bar_ex + 8 * ssd_stage(j));
+  }
+  if (nslot > 0 && wt == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ----------------------------------------------------------- f32, FMA
 
 #define SF_T 16      // query rows and keys per tile
@@ -860,10 +1439,81 @@ static cudaError_t ssd_launch_scan(const void* x, const void* dt,
   }
 }
 
+// (P, H or G, rows) bf16, row stride of P elements, as a 3-D tensor map
+// of boxes of 64 columns (128 bytes) x 1 x box_rows rows, 128-byte swizzle
+static cudaError_t ssd_map(CUtensorMap* map, const void* ptr, int cols,
+                           int planes, long long rows, int box_rows) {
+  const FaEncodeTiled encode = fa_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)planes,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)cols * (cuuint64_t)planes * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ssd_chunk_scan_wgmma on the tensor maps of x and y (P, H, B S), B and C
+// (N, G, B S)
+static cudaError_t ssd_launch_scan_wgmma(const void* x, const void* dt,
+                                         const void* cs, const void* bm,
+                                         const void* cm, const void* hp,
+                                         void* y, int B, int S, int H, int G,
+                                         int Q, cudaStream_t stream) {
+  constexpr int BK = SSD_WG_BK, NWG = SSD_WG_NWG;
+  const int ngrp = (Q + SSD_WG_ROWS - 1) / SSD_WG_ROWS;
+  if (Q % 64 != 0 || Q % BK != 0 || (long long)(S / Q) * ngrp > 65535)
+    return cudaErrorInvalidValue;
+  const long long rows = (long long)B * S;
+  CUtensorMap tx, tb, tc, ty;
+  cudaError_t err;
+  if ((err = ssd_map(&tx, x, SSD_WG_P, H, rows, BK)) != cudaSuccess ||
+      (err = ssd_map(&tb, bm, SSD_WG_N, G, rows, BK)) != cudaSuccess ||
+      (err = ssd_map(&tc, cm, SSD_WG_N, G, rows, 64)) != cudaSuccess ||
+      (err = ssd_map(&ty, y, SSD_WG_P, H, rows, 64)) != cudaSuccess)
+    return err;
+  const int smem = ssd_wg_smem(Q);
+  err = cudaFuncSetAttribute(ssd_chunk_scan_wgmma<BK, NWG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_scan_wgmma<BK, NWG>
+      <<<dim3(H, (S / Q) * ngrp, B), (NWG + 1) * 128, smem, stream>>>(
+          tx, tb, tc, ty, static_cast<const float*>(dt),
+          static_cast<const float*>(cs), static_cast<const float*>(hp), S, H,
+          G, Q);
+  return cudaGetLastError();
+}
+
 // the (head dim, state) pairs built: mamba2_2_7b's (64, 128) and its SMOKE
 // config's (16, 16)
 static int ssd_bf16_supported(int P, int N) {
   return (P == 16 && N == 16) || (P == 64 && N == 128);
+}
+
+// The kernel rule of K9.3 (kernels/ssd_scan.py::kernel_for is its twin):
+// 2, ssd_chunk_scan_wgmma, at (SSD_WG_P, SSD_WG_N) and chunks of whole
+// 64-row query blocks; 1, the mma.sync ssd_chunk_scan, at every other
+// bf16 shape; -1 where neither builds
+static int ssd_scan_kernel_of(int P, int N, int Q) {
+  if (!ssd_bf16_supported(P, N) || Q <= 0 || Q % 16 != 0) return -1;
+  return P == SSD_WG_P && N == SSD_WG_N && Q % 64 == 0 ? 2 : 1;
+}
+
+// dynamic shared memory of K9.3's kernel `kernel` (1 or 2) at (P, N, Q)
+static int ssd_chunk_scan_smem(int P, int N, int Q, int kernel) {
+  if (kernel == 2)
+    return P == SSD_WG_P && N == SSD_WG_N && Q > 0 && Q % 64 == 0
+               ? ssd_wg_smem(Q)
+               : -1;
+  return kernel == 1 && ssd_bf16_supported(P, N) ? ssd_scan_smem(P, N, Q)
+                                                 : -1;
 }
 
 // the shapes every launch takes: a chunk of whole 16-row tiles dividing S,
@@ -887,7 +1537,8 @@ int ssd_scan_smem_bytes(int P, int N, int Q, int dtype) {
   if (Q <= 0 || Q % 16 != 0 || P <= 0 || N <= 0) return -1;
   if (dtype == 1) {
     if (!ssd_bf16_supported(P, N)) return -1;
-    const int s1 = ssd_state_smem(P, N, Q), s3 = ssd_scan_smem(P, N, Q);
+    const int s1 = ssd_state_smem(P, N, Q),
+              s3 = ssd_chunk_scan_smem(P, N, Q, ssd_scan_kernel_of(P, N, Q));
     return s1 > s3 ? s1 : s3;
   }
   if (dtype == 0) {
@@ -928,20 +1579,41 @@ int ssd_state_pass_forward(void* st, const void* cs, const void* h0,
                               static_cast<cudaStream_t>(stream));
 }
 
-// Kernel 3 alone (bf16): x, y (B, S, H, P), dt and cs (B, S, H) f32, bm and
-// cm (B, S, G, N), hp (B, S / Q, H, P, N) f32, the state before each chunk.
-int ssd_chunk_scan_forward(const void* x, const void* dt, const void* cs,
-                           const void* bm, const void* cm, const void* hp,
-                           void* y, int B, int S, int H, int G, int P, int N,
-                           int Q, void* stream) {
-  if (!ssd_shape_ok(B, S, H, G, Q) ||
-      ssd_scan_smem_bytes(P, N, Q, 1) > SSD_SMEM_LIMIT)
+// K9.3's kernel by the rule (1 mma.sync, 2 wgmma), -1 for a shape no bf16
+// kernel takes
+int ssd_chunk_scan_kernel(int P, int N, int Q) {
+  return ssd_scan_kernel_of(P, N, Q);
+}
+
+// Kernel 3 alone (bf16) on the kernel `kernel` (1 mma.sync, 2 wgmma; the
+// rule's or forced): x, y (B, S, H, P), dt and cs (B, S, H) f32, bm and cm
+// (B, S, G, N), hp (B, S / Q, H, P, N) f32, the state before each chunk.
+int ssd_chunk_scan_kernel_forward(const void* x, const void* dt,
+                                  const void* cs, const void* bm,
+                                  const void* cm, const void* hp, void* y,
+                                  int B, int S, int H, int G, int P, int N,
+                                  int Q, int kernel, void* stream) {
+  const int smem = ssd_chunk_scan_smem(P, N, Q, kernel);
+  if (!ssd_shape_ok(B, S, H, G, Q) || smem < 0 || smem > SSD_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s_ = static_cast<cudaStream_t>(stream);
+  if (kernel == 2)
+    return (int)ssd_launch_scan_wgmma(x, dt, cs, bm, cm, hp, y, B, S, H, G, Q,
+                                      s_);
 #define SSD_CALL3(PP, NN) \
   ssd_launch_scan<PP, NN>(x, dt, cs, bm, cm, hp, y, B, S, H, G, Q, s_)
   SSD_BF16_DISPATCH(SSD_CALL3)
 #undef SSD_CALL3
+}
+
+// Kernel 3 alone (bf16) on the rule's kernel.
+int ssd_chunk_scan_forward(const void* x, const void* dt, const void* cs,
+                           const void* bm, const void* cm, const void* hp,
+                           void* y, int B, int S, int H, int G, int P, int N,
+                           int Q, void* stream) {
+  return ssd_chunk_scan_kernel_forward(x, dt, cs, bm, cm, hp, y, B, S, H, G,
+                                       P, N, Q, ssd_scan_kernel_of(P, N, Q),
+                                       stream);
 }
 
 // The whole scan. x, y: (B, S, H, P); dt: (B, S, H) f32; a: (H,) f32; bm,

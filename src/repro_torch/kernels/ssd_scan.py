@@ -15,7 +15,14 @@ chunk-parallel: ``ssd_chunk_state`` (the chunk cumsum cs and each chunk's
 own state S_c), ``ssd_state_pass`` (the recurrence over the chunks, in
 place: S_c becomes the state before chunk c) and ``ssd_chunk_scan`` (y),
 on an f32 scratch of B·S·H + B·nc·H·P·N values. In f32 (multiples of 16)
-it runs one kernel with plain FMAs.
+it runs one kernel with plain FMAs. ``ssd_chunk_scan`` is one of two
+kernels, which ``kernel_for`` picks: ``wgmma`` (TMA loads into a ring
+guarded by mbarriers, C Bᵀ, its decayed product with x and C h_prevᵀ on
+wgmma) at (64, 128) and chunks of whole 64-row query blocks, the main
+path's; ``mma_sync`` (mma.sync, 16-row warp tiles) everywhere else.
+``source_config`` reads the wgmma kernel's constants from the source,
+``chunk_tiles`` and ``warpgroup_of`` are its rules for the key tiles a
+64-row query block visits and for the warpgroup that owns it.
 
 ``ssd_chunked`` is the plain scan in f32, and the Mamba-2 model's plain
 route (the reference oracle ``ssd_scan_ref`` is likewise the reference
@@ -24,13 +31,16 @@ model's own); it is the composition of the three kernels' plain versions
 ``ssd_scan_plain`` is it with y cast to x's dtype. For a tensor on the CPU
 each wrapper takes its plain version; for a CUDA tensor it launches its
 kernel or raises. ``launches`` counts kernel launches: ``ssd_scan`` one
-per call, and each of the three bf16 kernels (``PARTS``) one per launch.
+per call, and each of the three bf16 kernels (``PARTS``) one per launch;
+``variant_launches`` the launches of each of K9.3's two kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import re
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,11 +54,59 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 path's three kernels, each launched once per bf16 ssd_scan call
 PARTS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 launches = {"ssd_scan": 0, **{part: 0 for part in PARTS}}
+# K9.3's kernels (the third part), by the codes of ssd_chunk_scan_kernel
+KERNELS = ("wgmma", "mma_sync")
+_KERNEL_CODE = {"mma_sync": 1, "wgmma": 2}
+variant_launches = {k: 0 for k in KERNELS}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    for key in KERNELS:
+        variant_launches[key] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def source_config() -> Dict[str, int]:
+    """The wgmma kernel's constants as ``csrc/ssd_scan.cu`` defines them:
+    the (head dim, state) it takes (``p``, ``n``), the query rows of a
+    block (``rows``), its consumer warpgroups (``nwg``), the keys of a ring
+    stage (``bk``) and the ring's stages (``stages``)."""
+    text = (build.CSRC_DIR / "ssd_scan.cu").read_text()
+    define = {name.lower(): int(value) for name, value in re.findall(
+        r"^#define SSD_WG_(\w+) (\d+)$", text, re.M)}
+    return {k: define[k] for k in ("p", "n", "rows", "nwg", "bk", "stages")}
+
+
+def kernel_for(p: int, n: int, q: int) -> str:
+    """K9.3's kernel for head dim p, state n and chunk q (bf16): "wgmma"
+    at the source's (p, n) = (64, 128) with chunks of whole 64-row query
+    blocks (mamba2_2_7b's path), "mma_sync" elsewhere (its SMOKE config's
+    (16, 16), chunks of 16 or 32), as ``ssd_scan_kernel_of`` in the source."""
+    cfg = source_config()
+    if (p, n) == (cfg["p"], cfg["n"]) and q > 0 and q % 64 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def chunk_tiles(q0: int, bk: int) -> Tuple[int, int]:
+    """The key tiles of ``bk`` keys that the query rows [q0, q0 + 64) of
+    a chunk visit, [0, hi], and the last interior one, ihi (every key of
+    tiles 0..ihi at or before every row: no mask; the tiles after it, the
+    diagonal ones, are masked), as ``ssd_tiles`` in the source."""
+    return (q0 + 63) // bk, (q0 + 1) // bk - 1
+
+
+def warpgroup_of(r: int, nb: int, nwg: int) -> int:
+    """The consumer warpgroup of 64-row query block r of a block's nb, as
+    ``ssd_wg_of`` in the source: the heaviest paired with the lightest, at
+    nb = 2 one each, all to one where there is one."""
+    if nwg == 1:
+        return 0
+    if nb == 2:
+        return r
+    return min(r, nb - 1 - r) % 2
 
 
 def _segsum(cs: torch.Tensor) -> torch.Tensor:
@@ -175,13 +233,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         for name, n_ptr, n_int in (("ssd_scan_forward", 10, 8),
                                    ("ssd_chunk_state_forward", 6, 7),
                                    ("ssd_state_pass_forward", 4, 6),
-                                   ("ssd_chunk_scan_forward", 7, 7)):
+                                   ("ssd_chunk_scan_forward", 7, 7),
+                                   ("ssd_chunk_scan_kernel_forward", 7, 8)):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
             fn.restype = i32
         lib.ssd_scan_smem_bytes.argtypes = [i32] * 4
         lib.ssd_scan_smem_bytes.restype = i32
         lib.ssd_scan_smem_limit.restype = i32
+        lib.ssd_chunk_scan_kernel.argtypes = [i32] * 3
+        lib.ssd_chunk_scan_kernel.restype = i32
         lib.ssd_scan_error_string.argtypes = [i32]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -253,6 +314,18 @@ def _supported(lib, x, p, n, chunk) -> None:
     if x.shape[0] > 65535:
         raise ValueError(
             f"ssd_scan: at most 65535 sequences; got {x.shape[0]}")
+
+
+def _rule(lib, p: int, n: int, chunk: int) -> str:
+    """K9.3's kernel by ``kernel_for``, held against the source's own rule
+    (so ``variant_launches`` counts the kernel that ran)."""
+    chosen = kernel_for(p, n, chunk)
+    if lib.ssd_chunk_scan_kernel(p, n, chunk) != _KERNEL_CODE[chosen]:
+        raise RuntimeError(
+            f"ssd_scan: kernel_for gives {chosen} at (head dim, state, "
+            f"chunk) {(p, n, chunk)}, the source's rule code "
+            f"{lib.ssd_chunk_scan_kernel(p, n, chunk)}")
+    return chosen
 
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -362,6 +435,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (xc, bc, cc, y)):
         raise ValueError("ssd_scan: x, B and C must be 16-byte aligned")
     bf16 = x.dtype == torch.bfloat16
+    chosen = _rule(lib, p, n, chunk) if bf16 else None
     cs, states = _scratch(x, n, chunk) if bf16 else (None, None)
     _run(lib, "ssd_scan_forward", xc.data_ptr(), dtc.data_ptr(),
          ac.data_ptr(), bc.data_ptr(), cc.data_ptr(),
@@ -373,6 +447,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if bf16:
         for part in PARTS:
             launches[part] += 1
+        variant_launches[chosen] += 1
     return y, h_last
 
 
@@ -473,9 +548,15 @@ def ssd_state_pass(states: torch.Tensor, cs: torch.Tensor, chunk: int,
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
                    b_mat: torch.Tensor, c_mat: torch.Tensor,
-                   h_prev: torch.Tensor, chunk: int) -> torch.Tensor:
+                   h_prev: torch.Tensor, chunk: int,
+                   kernel: Optional[str] = None) -> torch.Tensor:
     """Kernel 3: y (B,S,H,P) in x's dtype, as ``chunk_outputs``; bf16 on
-    the card."""
+    the card, on the kernel ``kernel_for`` picks or on ``kernel`` (one of
+    ``KERNELS``; "wgmma" only where the rule gives it), forced for
+    timing."""
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"ssd_chunk_scan: kernel {kernel!r} not among "
+                         f"{KERNELS}")
     _check(x, dt, None, b_mat, c_mat, chunk, None)
     bsz, s, h, p = x.shape
     n = b_mat.shape[3]
@@ -489,7 +570,8 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     if cost_hooks.active() is not None:
         return cost_hooks.run_kernel("ssd_chunk_scan", chunk_scan_work(
             bsz, s, h, p, b_mat.shape[2], n, chunk, x.element_size()),
-            lambda: ssd_chunk_scan(x, dt, cs, b_mat, c_mat, h_prev, chunk))
+            lambda: ssd_chunk_scan(x, dt, cs, b_mat, c_mat, h_prev, chunk,
+                                   kernel=kernel))
     if build.shapes_only(x):
         return torch.empty_like(x.contiguous())
     if not _on_card("ssd_chunk_scan", x):
@@ -498,6 +580,13 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     _check_part("ssd_chunk_scan", x, cs, h_prev)
     lib = _lib()
     _supported(lib, x, p, n, chunk)
+    chosen = _rule(lib, p, n, chunk)
+    if kernel == "wgmma" and chosen != "wgmma":
+        raise ValueError(
+            f"ssd_chunk_scan: the wgmma kernel takes (head dim, state) "
+            f"{(source_config()['p'], source_config()['n'])} at chunks of "
+            f"whole 64-row blocks; got {(p, n)}, chunk {chunk}")
+    chosen = kernel or chosen
     xc, bc, cc = x.contiguous(), b_mat.contiguous(), c_mat.contiguous()
     hp = _aligned(h_prev.contiguous())
     y = torch.empty_like(xc)
@@ -506,9 +595,10 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (xc, bc, cc, y)):
         raise ValueError("ssd_chunk_scan: x, B and C must be 16-byte "
                          "aligned")
-    _run(lib, "ssd_chunk_scan_forward", xc.data_ptr(),
+    _run(lib, "ssd_chunk_scan_kernel_forward", xc.data_ptr(),
          dt.contiguous().data_ptr(), cs.contiguous().data_ptr(),
          bc.data_ptr(), cc.data_ptr(), hp.data_ptr(), y.data_ptr(), bsz, s,
-         h, b_mat.shape[2], p, n, chunk, x.device)
+         h, b_mat.shape[2], p, n, chunk, _KERNEL_CODE[chosen], x.device)
     launches["ssd_chunk_scan"] += 1
+    variant_launches[chosen] += 1
     return y

@@ -948,7 +948,8 @@ def _ssd_err(y, yp):
 
 
 SSD_SHAPES = [(2, 64, 4, 16, 1, 16, 16), (2, 128, 4, 16, 2, 16, 32),
-              (1, 512, 8, 64, 2, 128, 256), (2, 256, 6, 64, 2, 128, 64)]
+              (1, 512, 8, 64, 2, 128, 256), (2, 256, 6, 64, 2, 128, 64),
+              (1, 512, 4, 64, 1, 128, 256)]
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,q", SSD_SHAPES)
@@ -960,6 +961,7 @@ def test_ssd_scan_kernel_matches_its_plain_version(card, b, s, h, p, g, n, q,
     x, dt, a, bm, cm, h0t = _ssd_inputs(card, b, s, h, p, g, n, dtype,
                                         seed=s + n, h0=h0, weak=weak)
     before = ops.launch_counts()["ssd_scan"]
+    kernels = dict(k9.variant_launches)
     y, hl = ops.ssd_scan(x, dt, a, bm, cm, q, h0=h0t)
     yp, hp = k9.ssd_scan_plain(x, dt, a, bm, cm, q, h0=h0t)
     if weak:
@@ -972,6 +974,10 @@ def test_ssd_scan_kernel_matches_its_plain_version(card, b, s, h, p, g, n, q,
         assert _rel(alone, yp) > 0.5
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_scan"] == before + 1
+    # K9.3 on the kernel its rule names (bf16 only: f32 is one kernel)
+    ran = k9.kernel_for(p, n, q) if dtype == torch.bfloat16 else None
+    assert {k: k9.variant_launches[k] - kernels[k] for k in k9.KERNELS} \
+        == {k: int(k == ran) for k in k9.KERNELS}
     assert y.dtype == dtype and hl.dtype == torch.float32
     assert bool(torch.isfinite(y.float()).all())
     assert _ssd_err(y, yp) <= 1e-4
@@ -1030,12 +1036,45 @@ def test_ssd_chunk_scan_kernel_matches_its_plain_part(card, b, s, h, p, g, n,
     cs, states = k9.chunk_states(x, dt, a, bm, q)
     h_prev, _ = k9.state_pass(states, cs, q, h0=h0t)
     before = ops.launch_counts()["ssd_chunk_scan"]
+    kernels = dict(k9.variant_launches)
     y = k9.ssd_chunk_scan(x, dt, cs, bm, cm, h_prev, q)
     yp = k9.chunk_outputs(x, dt, cs, bm, cm, h_prev, q).to(x.dtype)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_chunk_scan"] == before + 1
+    ran = k9.kernel_for(p, n, q)
+    assert {k: k9.variant_launches[k] - kernels[k] for k in k9.KERNELS} \
+        == {k: int(k == ran) for k in k9.KERNELS}
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y.float()).all())
     assert _ssd_err(y, yp) <= 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,q", [(1, 512, 4, 64, 1, 128, 256),
+                                           (2, 256, 6, 64, 2, 128, 64),
+                                           (1, 1024, 2, 64, 1, 128, 512)])
+@pytest.mark.parametrize("kernel", k9.KERNELS)
+@pytest.mark.parametrize("weak", [False, True])
+def test_ssd_chunk_scan_each_kernel_forced(card, b, s, h, p, g, n, q, kernel,
+                                           weak):
+    """Each of K9.3's two kernels, forced, on shapes both take (the rule
+    gives them to wgmma; at chunk 512 the wgmma kernel covers a chunk with
+    two blocks of 256 query rows), against ``chunk_outputs``; the wgmma
+    kernel refuses a shape its rule does not give it."""
+    x, dt, a, bm, cm, h0t = _ssd_inputs(card, b, s, h, p, g, n,
+                                        torch.bfloat16, seed=s + n + 1,
+                                        h0=True, weak=weak)
+    cs, states = k9.chunk_states(x, dt, a, bm, q)
+    h_prev, _ = k9.state_pass(states, cs, q, h0=h0t)
+    kernels = dict(k9.variant_launches)
+    y = k9.ssd_chunk_scan(x, dt, cs, bm, cm, h_prev, q, kernel=kernel)
+    yp = k9.chunk_outputs(x, dt, cs, bm, cm, h_prev, q).to(x.dtype)
+    torch.cuda.synchronize()
+    assert {k: k9.variant_launches[k] - kernels[k] for k in k9.KERNELS} \
+        == {k: int(k == kernel) for k in k9.KERNELS}
+    assert bool(torch.isfinite(y.float()).all())
+    assert _ssd_err(y, yp) <= 1e-4
+    with pytest.raises(ValueError, match="wgmma kernel takes"):
+        k9.ssd_chunk_scan(x[:, :32], dt[:, :32], cs[:, :32], bm[:, :32],
+                          cm[:, :32], h_prev[:, :1], 32, kernel="wgmma")
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):

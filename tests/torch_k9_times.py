@@ -14,7 +14,8 @@ B, then B, A, per pair of rounds). Each time is the mean of 10 launches
   bf16, one group of state 128, chunk 256, at the reference init
   (``chip_smoke._ssd_inputs``). Where a tree has the three-kernel bf16
   design (``ssd_scan.PARTS``), each kernel is also timed alone on the
-  outputs of the one before it.
+  outputs of the one before it, and where it has two kernels for the
+  third (``ssd_scan.KERNELS``), each of them forced.
 * ``k7``: RMSNorm in bf16 at the decode rows (4, D) of D = 4096 (the
   RecurrentGemma width), 2560 and 5120 (the Mamba-2 widths) and at call
   A's prefill rows (16384, 4096). Where a tree has K7's two kernels
@@ -98,6 +99,10 @@ def time_tree(ops, k9, x, dt, a, bm, cm) -> dict:
         k9.ssd_state_pass(states, cs, CHUNK)
         out["ssd_chunk_scan_ms"] = time_ms(
             lambda: k9.ssd_chunk_scan(x, dt, cs, bm, cm, states, CHUNK))
+        for kern in getattr(k9, "KERNELS", ()):
+            out[f"ssd_chunk_scan_{kern}_ms"] = time_ms(
+                lambda kern=kern: k9.ssd_chunk_scan(
+                    x, dt, cs, bm, cm, states, CHUNK, kernel=kern))
         out["parts_sum_ms"] = sum(out[f"{p}_ms"] for p in k9.PARTS)
     return out
 
